@@ -6,23 +6,36 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build both hand-written kernels from ``xgboost_tpu_torch/csrc/`` with
-   ``nvcc`` for ``sm_90a``;
-2. kernel A (``fused_level``) against its plain PyTorch version at the main
-   path's shape (1M x 50 dense rows, max_bin 64, real logistic gradients,
-   the decision tables of a real grown tree) at every level d = 0..5:
-   ``pos`` equal and ``hist`` bitwise equal, and two launches identical;
+1. build all four hand-written kernels from ``xgboost_tpu_torch/csrc/``
+   with ``nvcc`` for ``sm_90a``, one process per source, in parallel;
+2. the level kernels at the main path's shape (1M x 50 dense rows, real
+   logistic gradients, the decision tables of a real grown tree), for
+   max_bin 64 (uint8 bins, the full hoist) and max_bin 256 (int16 bins, the
+   hoist plan's partial hoist): kernel C (``build_onehot``) bitwise equal to
+   its plain version; at every level d = 0..5 kernel D (``hoisted_level``)
+   and kernel A (``fused_level`` without a one-hot) bitwise equal to each
+   other and to their plain versions (``pos`` and the int64 ``hist``), and
+   two launches identical;
 3. kernel B (``predict_margin``) against its plain version on a forest of
    10 depth-6 trees and 100k rows with 5% NaNs: allclose 1e-5;
-4. the main path through the public entry points: ``train`` binary:logistic
-   with the depthwise hist grower (max_depth 6, max_bin 64, eta 0.1) for 10
-   rounds on 1M x 50 with AUC/logloss eval on 100k held-out rows, then
-   ``predict``; kernel A must launch exactly 10 x 6 times, kernel B at least
-   10 times, and the held-out AUC must reach 0.80 and rise over round 1;
-5. the same model for 3 rounds on 64k rows on the card and on the CPU (the
-   plain versions): identical trees, predictions within 1e-5;
-6. each kernel timed with CUDA events (median of >= 20 launches after
-   warm-up) beside its plain version, its bound and a PyTorch library call.
+4. the bin-64 main path through the public entry points: ``train``
+   binary:logistic with the depthwise hist grower (max_depth 6, max_bin 64,
+   eta 0.1) for 10 rounds on 1M x 50 with AUC/logloss eval on 100k held-out
+   rows, then ``predict`` and ``inplace_predict``: the full hoist, so kernel
+   C launches once, D 10 x 6 times, A never; held-out AUC >= 0.80 and
+   rising;
+5. the construct route through the entry points: the same model with
+   ``XGBTPU_HOIST_BUDGET_MB=0`` for 3 rounds: kernel A 3 x 6 times, C and D
+   never, and the trees identical to the hoisted run's first 3;
+6. the reference-default path: the same training with ``max_bin`` left at
+   its default, 256 (int16 bins, the partial hoist): C once, D 60 times, A
+   never, AUC >= 0.80 and rising, ``inplace_predict`` equal to ``predict``;
+7. 3 rounds at max_bin 256 on 64k rows on the card (the hoisted route) and
+   on the CPU (the plain construct route): identical trees, predictions
+   within 1e-5;
+8. each kernel timed with CUDA events (median of >= 20 launches after
+   warm-up) beside its plain version, its bound and a PyTorch library call
+   where one exists.
 
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
@@ -30,6 +43,7 @@ power limit; before that, one JSON line lists the kernels.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -50,14 +64,22 @@ from xgboost_tpu_torch.tree.param import SplitParams
 
 DEVICE = torch.device("cuda")
 ROWS, COLS, EVAL_ROWS, MAX_BIN, DEPTH, ROUNDS = 1_000_000, 50, 100_000, 64, 6, 10
+DEFAULT_MAX_BIN = 256
 CPU_ROWS, CPU_ROUNDS = 65_536, 3
 TIMING_REPS = 20
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor 32-bit op/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor 32-bit op/s,
+# dense int8 tensor-core op/s
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
+PEAK_INT8 = 1979e12
+METRICS = {"eval_metric": ["auc", "logloss"]}
 PARAMS = {"objective": "binary:logistic", "tree_method": "tpu_hist",
-          "max_depth": DEPTH, "max_bin": MAX_BIN, "eta": 0.1,
-          "eval_metric": ["auc", "logloss"]}
+          "max_depth": DEPTH, "max_bin": MAX_BIN, "eta": 0.1, **METRICS}
+# bench.py's reference-default run: max_bin and max_depth left at their
+# defaults (256 and 6)
+PARAMS_DEFAULT = {"objective": "binary:logistic", "eta": 0.1, **METRICS}
+HEAP_FIELDS = ("keep", "feature", "split_bin", "split_cond", "default_left",
+               "leaf_value")
 
 
 def _make_data(rows: int, cols: int, sparsity: float, seed: int = 42):
@@ -93,9 +115,33 @@ def time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, nops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
+def bound_ms(nbytes: float, nops: float, peak_ops: float = PEAK_OPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_launches() -> None:
+    for fn in (hk.fused_level, hk.hoisted_level, hk.build_onehot,
+               predict_margin):
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {"A": hk.fused_level.launches, "B": predict_margin.launches,
+            "C": hk.build_onehot.launches, "D": hk.hoisted_level.launches}
+
+
+def heap_trees(bst, count: int):
+    """The first ``count`` device-grown trees' heap arrays, on the host."""
+    return [{f: getattr(e, f).cpu().numpy() for f in HEAP_FIELDS}
+            for e in bst._gbm.model._entries[:count]]
+
+
+def same_trees(a, b, what: str) -> None:
+    check(len(a) == len(b), f"{what}: tree counts {len(a)} vs {len(b)}")
+    for t, (x, y) in enumerate(zip(a, b)):
+        for f in HEAP_FIELDS:
+            check(np.array_equal(x[f], y[f]), f"{what}: tree {t} {f}")
 
 
 def phase_build():
@@ -112,44 +158,97 @@ def phase_build():
             print(f"  ptxas[{name}]: {ln.strip()}")
 
 
-def phase_level_kernel(Xtr, ytr):
-    """Kernel A against its plain version at every level of a real tree."""
+def _mean(levels, key):
+    return sum(x[key] for x in levels) / len(levels)
+
+
+def phase_onehot_kernel(bins, B: int, Fh: int):
+    """Kernel C against its plain version: bitwise, timed."""
+    n = bins.shape[0]
+    got = hk._build_onehot_cuda(bins, B=B, Fh=Fh)
+    want = hk._build_onehot_plain(bins, B=B, Fh=Fh)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"one-hot B={B} Fh={Fh}: kernel == plain")
+    del want
+    ms = time_ms(lambda: hk.build_onehot(bins, B=B, Fh=Fh))
+    plain_ms = time_ms(lambda: hk._build_onehot_plain(bins, B=B, Fh=Fh),
+                       reps=5, warmup=1)
+    nbytes = n * Fh * bins.element_size() + got.numel()
+    bnd, by = bound_ms(nbytes, n * Fh * B)
+    print(f"kernel C (B={B}, Fh={Fh}, {n} rows, {got.numel() / 1e9:.2f} GB): "
+          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
+          f"bitwise equal")
+    return got, dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
+                     bound_by=by, max_abs_err=0.0, B=B, Fh=Fh)
+
+
+def _int_mm_ms(M: int, onehot):
+    """The library yardstick of kernel D: one ``torch._int_mm`` of an
+    [M, n_pad] int8 channel matrix by the [n_pad, Fh*B] one-hot (the
+    product only). None, with the reason printed, where it refuses."""
+    chan = torch.zeros((M, onehot.shape[1]), dtype=torch.int8, device=DEVICE)
+    try:
+        return time_ms(lambda: torch._int_mm(chan, onehot.t()))
+    except RuntimeError as e:
+        print(f"  torch._int_mm refused [{M}, {onehot.shape[1]}] x "
+              f"[{onehot.shape[1]}, {onehot.shape[0]}]: {e}")
+        return None
+
+
+def phase_level_kernels(Xtr, ytr, max_bin: int):
+    """Kernels C, D and A at every level of a real tree, for one max_bin."""
     dev = DEVICE
     d = xgbt.DMatrix(Xtr, ytr)
-    binned = d.get_binned(MAX_BIN)
+    binned = d.get_binned(max_bin)
     bins, cuts = binned.bins, binned.cut_values
     n, F = bins.shape
-    B = MAX_BIN
+    B = max_bin
+    Fh = hk.hoist_plan(hk.onehot_rows(n), F, B, dev)
+    check(Fh > 0, f"max_bin {B}: hoist plan {Fh}")
+    onehot, c_stats = phase_onehot_kernel(bins, B, Fh)
     obj = create_objective("binary:logistic")
     grad, hess = obj.get_gradient(torch.zeros(n, device=dev), d.label, None)
     gq = hk.quantize_gradients(grad, hess)
     cfg = GrowParams(max_depth=DEPTH, split=SplitParams())
     st = _init_state(cfg, gq.totals())
     pos = torch.zeros((n, 1), dtype=torch.int32, device=dev)
-    levels, max_err = [], 0.0
+    bs = bins.element_size()
+    a_levels, d_levels = [], []
     for lvl in range(DEPTH):
         K, Kp = 1 << lvl, (1 << lvl) >> 1
         kw = dict(K=K, Kp=Kp, B=B, d=lvl)
-        pk, hq = hk._fused_level_cuda(bins, pos, gq, st.ptab, **kw)
-        pk2, hq2 = hk._fused_level_cuda(bins, pos, gq, st.ptab, **kw)
-        pp, hp = hk._fused_level_plain(bins, pos, gq, st.ptab, **kw)
+        pd, hd = hk._hoisted_level_cuda(bins, onehot, pos, gq, st.ptab, **kw)
+        pd2, hd2 = hk._hoisted_level_cuda(bins, onehot, pos, gq, st.ptab, **kw)
+        pa, ha = hk._fused_level_cuda(bins, pos, gq, st.ptab, **kw)
+        pa2, ha2 = hk._fused_level_cuda(bins, pos, gq, st.ptab, **kw)
+        pdp, hdp = hk._hoisted_level_plain(bins, onehot, pos, gq, st.ptab, **kw)
+        pap, hap = hk._fused_level_plain(bins, pos, gq, st.ptab, **kw)
         torch.cuda.synchronize()
-        check(torch.equal(pk, pp), f"level {lvl}: pos kernel == plain")
-        check(torch.equal(hq, hp), f"level {lvl}: hist kernel == plain (int64)")
-        check(torch.equal(pk, pk2) and torch.equal(hq, hq2),
-              f"level {lvl}: two launches give the same bits")
+        tag = f"B={B} level {lvl}"
+        for name, (p_, h_) in (("D", (pd, hd)), ("D again", (pd2, hd2)),
+                               ("A", (pa, ha)), ("A again", (pa2, ha2)),
+                               ("D plain", (pdp, hdp))):
+            check(torch.equal(p_, pap), f"{tag}: pos {name} == plain")
+            check(torch.equal(h_, hap), f"{tag}: int64 hist {name} == plain")
+        del pd2, hd2, pa2, ha2, pdp, hdp, pap, hap
         lane = (torch.arange(2 * K, device=dev) >= K).long()[None, :, None]
-        hist = gq.dequantize(hq, lane)
-        err = float((hist - gq.dequantize(hp, lane)).abs().max())
-        check(err == 0.0, f"level {lvl}: f32 hist bitwise equal")
-        max_err = max(max_err, err)
+        hist = gq.dequantize(hd, lane)
+        check(torch.equal(hist, gq.dequantize(ha, lane)),
+              f"{tag}: f32 hist D == A")
 
-        ms = time_ms(lambda: hk.fused_level(bins, pos, gq, st.ptab, **kw))
-        plain_ms = time_ms(lambda: gq.dequantize(
-            hk._fused_level_plain(bins, pos, gq, st.ptab, **kw)[1], lane))
-        # library yardstick: one index_add_ of float g/h into the flat
-        # [F*2K*B] histogram at this level's (row, feature) cells
-        local = pk[:, 0].long() - ((1 << lvl) - 1)
+        d_ms = time_ms(lambda: hk.fused_level(bins, pos, gq, st.ptab,
+                                              onehot=onehot, **kw))
+        d_plain = time_ms(lambda: gq.dequantize(hk._hoisted_level_plain(
+            bins, onehot, pos, gq, st.ptab, **kw)[1], lane), reps=5, warmup=1)
+        a_ms = time_ms(lambda: hk.fused_level(bins, pos, gq, st.ptab, **kw))
+        a_plain = time_ms(lambda: gq.dequantize(hk._fused_level_plain(
+            bins, pos, gq, st.ptab, **kw)[1], lane), reps=5, warmup=1)
+        # library yardsticks: _int_mm of D's product (M = 8K channel rows,
+        # at least 32 for _int_mm's size rule); one index_add_ of float g/h
+        # into the flat [F*2K*B] histogram at this level's cells for A
+        M = max(32, -(-8 * K // 16) * 16)
+        d_lib = _int_mm_ms(M, onehot)
+        local = pd[:, 0].long() - ((1 << lvl) - 1)
         b = bins.long()
         keep = ((local >= 0) & (local < K))[:, None] & (b < B)
         cell = ((torch.arange(F, device=dev)[None, :] * 2 * K
@@ -158,22 +257,35 @@ def phase_level_kernel(Xtr, ytr):
         idx = torch.cat([cell, cell + K * B])
         vals = torch.cat([grad[rows], hess[rows]])
         flat = torch.zeros(F * 2 * K * B, dtype=torch.float32, device=dev)
-        lib_ms = time_ms(lambda: flat.index_add_(0, idx, vals))
-        del local, b, keep, cell, rows, idx, vals
-        nbytes = n * F + n * 4 + n * 8 + Kp * 16 + n * 4 + F * 2 * K * B * 4
-        bnd, by = bound_ms(nbytes, 2 * n * F)
-        levels.append(dict(level=lvl, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=bnd, bound_by=by))
-        print(f"kernel A level {lvl} (K={K}): {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  index_add_ {lib_ms:.4f} ms  bound "
-              f"{bnd:.4f} ms ({by})  bitwise equal")
+        a_lib = time_ms(lambda: flat.index_add_(0, idx, vals))
+        del local, b, keep, cell, rows, idx, vals, flat
+        small = n * 4 + n * 8 + Kp * 16 + n * 4 + F * 2 * K * B * 8
+        d_bytes = onehot.numel() + n * (F - Fh + 1) * bs + small
+        d_bnd, d_by = bound_ms(d_bytes, 2 * 8 * K * onehot.numel(), PEAK_INT8)
+        a_bnd, a_by = bound_ms(n * F * bs + small, 2 * n * F)
+        d_levels.append(dict(level=lvl, ms=d_ms, plain_ms=d_plain,
+                             library_ms=d_lib, bound_ms=d_bnd, bound_by=d_by))
+        a_levels.append(dict(level=lvl, ms=a_ms, plain_ms=a_plain,
+                             library_ms=a_lib, bound_ms=a_bnd, bound_by=a_by))
+        lib_s = "refused" if d_lib is None else f"{d_lib:.4f} ms"
+        print(f"{tag} (K={K}): kernel D {d_ms:.4f} ms  plain {d_plain:.4f} ms"
+              f"  _int_mm {lib_s}  bound {d_bnd:.4f} ms ({d_by}) | kernel A "
+              f"{a_ms:.4f} ms  plain {a_plain:.4f} ms  index_add_ "
+              f"{a_lib:.4f} ms  bound {a_bnd:.4f} ms ({a_by}) | bitwise equal")
         st = _level_update(st, hist, cuts, cfg, lvl)
-        pos = pk
-    mean = lambda k: sum(x[k] for x in levels) / len(levels)  # noqa: E731
-    return dict(ms=mean("ms"), plain_ms=mean("plain_ms"),
-                library_ms=mean("library_ms"), bound_ms=mean("bound_ms"),
-                bound_by=levels[0]["bound_by"], max_abs_err=max_err,
-                levels=levels)
+        pos = pd
+    del onehot
+
+    def summary(levels):
+        libs = [x["library_ms"] for x in levels]
+        return dict(ms=_mean(levels, "ms"), plain_ms=_mean(levels, "plain_ms"),
+                    library_ms=(None if None in libs
+                                else sum(libs) / len(libs)),
+                    bound_ms=_mean(levels, "bound_ms"),
+                    bound_by=levels[-1]["bound_by"], max_abs_err=0.0,
+                    levels=levels)
+
+    return c_stats, summary(a_levels), dict(summary(d_levels), B=B, Fh=Fh)
 
 
 def _random_forest(rng, T, depth, F):
@@ -218,65 +330,100 @@ def phase_walk_kernel():
                 bound_by=by, max_abs_err=err)
 
 
-def phase_main_path(Xtr, ytr, Xte, yte):
-    """train() + predict() through the public entry points."""
-    hk.fused_level.launches = 0
-    predict_margin.launches = 0
+def phase_train(name, params, Xtr, ytr, Xte, yte, rounds, want):
+    """train() with eval, predict() and inplace_predict() through the public
+    entry points; the launch counts of the run must equal ``want`` (kernel
+    B: at least ``want["B"]``)."""
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dtrain = xgbt.DMatrix(Xtr, ytr)
     dtest = xgbt.DMatrix(Xte, yte)
-    dtrain.get_binned(MAX_BIN)
+    max_bin = params.get("max_bin", DEFAULT_MAX_BIN)
+    binned = dtrain.get_binned(max_bin)
     torch.cuda.synchronize()
     t_ingest = time.perf_counter() - t0
     res = {}
     t0 = time.perf_counter()
-    bst = xgbt.train(PARAMS, dtrain, ROUNDS, evals=[(dtest, "test")],
+    bst = xgbt.train(params, dtrain, rounds, evals=[(dtest, "test")],
                      evals_result=res, verbose_eval=True)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
+    onehot = binned.fused_onehot()
+    fh = 0 if onehot is None else onehot.shape[0] // max_bin
     t0 = time.perf_counter()
     preds = bst.predict(xgbt.DMatrix(Xte))
     t_pred = time.perf_counter() - t0
-    launches = (hk.fused_level.launches, predict_margin.launches)
+    inplace = bst.inplace_predict(Xte)
+    inplace_m = bst.inplace_predict(Xte, predict_type="margin")
+    got = launches()
     auc = res["test"]["auc"]
-    print(f"main path: ingest {t_ingest:.3f} s, train {ROUNDS} rounds "
-          f"{t_train:.3f} s ({t_train / ROUNDS * 1e3:.1f} ms/round incl. "
-          f"eval), predict {t_pred:.3f} s; launches A={launches[0]} "
-          f"B={launches[1]}; auc {auc[0]:.6f} -> {auc[-1]:.6f}")
-    check(launches[0] == ROUNDS * DEPTH,
-          f"kernel A launched {launches[0]} times, want {ROUNDS * DEPTH}")
-    check(launches[1] >= ROUNDS, f"kernel B launched {launches[1]} times")
-    check(auc[-1] >= 0.80 and auc[-1] > auc[0], f"held-out AUC {auc}")
+    print(f"{name}: max_bin {max_bin} ({binned.bins.dtype}), hoisted "
+          f"{fh}/{COLS} features; ingest {t_ingest:.3f} s, train {rounds} "
+          f"rounds {t_train:.3f} s ({t_train / rounds * 1e3:.1f} ms/round "
+          f"incl. eval), predict {t_pred:.3f} s; launches {got}; auc "
+          f"{auc[0]:.6f} -> {auc[-1]:.6f}")
+    check(binned.cuts.max_bin == max_bin, f"{name}: max_bin")
+    for k, v in want.items():
+        ok = got[k] >= v if k == "B" else got[k] == v
+        check(ok, f"{name}: kernel {k} launched {got[k]} times, want {v}")
+    check(auc[-1] >= 0.80 and auc[-1] > auc[0], f"{name}: held-out AUC {auc}")
     check(preds.shape == (EVAL_ROWS,) and np.isfinite(preds).all(),
-          "predictions finite, one per row")
+          f"{name}: predictions finite, one per row")
     cached = bst.predict(dtest)  # the eval set's incrementally cached margin
     check(np.allclose(preds, cached, rtol=1e-5, atol=1e-6),
-          "fresh predict == cached eval margins")
-    return launches, dict(auc=auc, logloss=res["test"]["logloss"],
-                          train_s=t_train, ingest_s=t_ingest, predict_s=t_pred)
+          f"{name}: fresh predict == cached eval margins")
+    check(np.array_equal(inplace, preds), f"{name}: inplace_predict == predict")
+    check(np.array_equal(inplace_m, bst.predict(xgbt.DMatrix(Xte),
+                                                output_margin=True)),
+          f"{name}: inplace_predict margin == predict margin")
+    metrics = dict(max_bin=max_bin, hoisted_features=fh, auc=auc,
+                   logloss=res["test"]["logloss"], train_s=t_train,
+                   ms_per_round=t_train / rounds * 1e3, ingest_s=t_ingest,
+                   predict_s=t_pred, launches=got)
+    return bst, metrics
+
+
+def phase_construct_route(Xtr, ytr, hoisted_trees):
+    """The bin-64 model with hoisting disabled: kernel A at every level, and
+    the trees of the hoisted run."""
+    reset_launches()
+    os.environ["XGBTPU_HOIST_BUDGET_MB"] = "0"
+    try:
+        bst = xgbt.train(PARAMS, xgbt.DMatrix(Xtr, ytr), CPU_ROUNDS,
+                         verbose_eval=False)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["XGBTPU_HOIST_BUDGET_MB"]
+    got = launches()
+    print(f"construct route (XGBTPU_HOIST_BUDGET_MB=0): launches {got}")
+    want = {"A": CPU_ROUNDS * DEPTH, "C": 0, "D": 0}
+    for k, v in want.items():
+        check(got[k] == v, f"construct route: kernel {k} launched {got[k]} "
+                           f"times, want {v}")
+    same_trees(heap_trees(bst, CPU_ROUNDS), hoisted_trees,
+               "construct route vs hoisted route")
+    print(f"construct route: {CPU_ROUNDS} trees identical to the hoisted "
+          "run's")
+    return got
 
 
 def phase_card_vs_cpu(Xtr, ytr, Xte):
-    """3 rounds on the card and on the CPU: same trees, same predictions."""
+    """3 rounds at max_bin 256 on the card and on the CPU: same trees, same
+    predictions."""
     X, y = Xtr[:CPU_ROWS], ytr[:CPU_ROWS]
     out = []
     for dev in (DEVICE, torch.device("cpu")):
-        bst = xgbt.train(PARAMS, xgbt.DMatrix(X, y, device=dev), CPU_ROUNDS,
-                         verbose_eval=False)
-        heap = [{f: getattr(e, f).cpu().numpy() for f in
-                 ("keep", "feature", "split_bin", "default_left")}
-                for e in bst._gbm.model._entries]
-        out.append((heap, bst.predict(xgbt.DMatrix(Xte[:10000], device=dev))))
+        bst = xgbt.train(PARAMS_DEFAULT, xgbt.DMatrix(X, y, device=dev),
+                         CPU_ROUNDS, verbose_eval=False)
+        out.append((heap_trees(bst, CPU_ROUNDS),
+                    bst.predict(xgbt.DMatrix(Xte[:10000], device=dev))))
     (card_trees, card_pred), (cpu_trees, cpu_pred) = out
-    check(len(card_trees) == len(cpu_trees) == CPU_ROUNDS, "tree counts")
-    for t, (a, b) in enumerate(zip(card_trees, cpu_trees)):
-        for f in a:
-            check(np.array_equal(a[f], b[f]), f"tree {t} {f}: card == CPU")
+    same_trees(card_trees, cpu_trees, "card vs CPU")
     err = float(np.abs(card_pred - cpu_pred).max())
     check(err <= 1e-5, f"card vs CPU predictions max abs err {err}")
-    print(f"card vs CPU: {CPU_ROUNDS} trees identical, predictions max abs "
-          f"err {err}")
+    print(f"card vs CPU (max_bin {DEFAULT_MAX_BIN}): {CPU_ROUNDS} trees "
+          f"identical, predictions max abs err {err}")
 
 
 def main() -> int:
@@ -290,23 +437,55 @@ def main() -> int:
     phase_build()
     X, y = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
     Xtr, ytr, Xte, yte = X[:ROWS], y[:ROWS], X[ROWS:], y[ROWS:]
-    a = phase_level_kernel(Xtr, ytr)
+    c64, a64, d64 = phase_level_kernels(Xtr, ytr, MAX_BIN)
+    c256, a256, d256 = phase_level_kernels(Xtr, ytr, DEFAULT_MAX_BIN)
+    torch.cuda.empty_cache()
     b = phase_walk_kernel()
-    launches, metrics = phase_main_path(Xtr, ytr, Xte, yte)
+    check(hk.can_hoist(hk.onehot_rows(ROWS), COLS, MAX_BIN, DEVICE),
+          "max_bin 64: the full one-hot fits the budget")
+    bst64, main64 = phase_train(
+        "main path", PARAMS, Xtr, ytr, Xte, yte, ROUNDS,
+        {"A": 0, "B": ROUNDS, "C": 1, "D": ROUNDS * DEPTH})
+    hoisted_trees = heap_trees(bst64, CPU_ROUNDS)
+    del bst64
+    torch.cuda.empty_cache()  # the bin-64 one-hot (3.2 GB) goes first
+    construct = phase_construct_route(Xtr, ytr, hoisted_trees)
+    torch.cuda.empty_cache()
+    bst256, main256 = phase_train(
+        "reference-default path", PARAMS_DEFAULT, Xtr, ytr, Xte, yte, ROUNDS,
+        {"A": 0, "B": ROUNDS, "C": 1, "D": ROUNDS * DEPTH})
+    check(0 < main256["hoisted_features"] < COLS,
+          "max_bin 256 at 1M x 50: a partial hoist")
+    del bst256
+    torch.cuda.empty_cache()
     phase_card_vs_cpu(Xtr, ytr, Xte)
-    print(json.dumps({"kernel_A_levels": a.pop("levels"), "main_path": metrics}))
+    print(json.dumps({
+        "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
+                   "D_bin64": d64.pop("levels"),
+                   "D_bin256": d256.pop("levels")},
+        "kernel_A_bin256": a256, "kernel_C_bin64": c64,
+        "kernel_D_bin64": d64, "main_path_bin64": main64,
+        "construct_route_launches": construct,
+        "reference_default_bin256": main256}))
+    for k in (c256, d256):
+        k.pop("B"), k.pop("Fh")
     kernels = [
         dict(name="fused_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hist_level.cu",
-             # the construct kernel and the hoisted pair it stands in for
-             replaces="xgboost_tpu/tree/hist_kernel.py:560, "
-                      "xgboost_tpu/tree/hist_kernel.py:645, "
-                      "xgboost_tpu/tree/hist_kernel.py:378",
-             launches=launches[0], **a),
+             replaces="xgboost_tpu/tree/hist_kernel.py:560",
+             launches=construct["A"], **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
              replaces="xgboost_tpu/predictor/__init__.py:299",
-             launches=launches[1], **b),
+             launches=main256["launches"]["B"], **b),
+        dict(name="build_onehot", route="cuda",
+             source="xgboost_tpu_torch/csrc/onehot.cu",
+             replaces="xgboost_tpu/tree/hist_kernel.py:378",
+             launches=main256["launches"]["C"], **c256),
+        dict(name="hoisted_level", route="cuda",
+             source="xgboost_tpu_torch/csrc/hoisted_level.cu",
+             replaces="xgboost_tpu/tree/hist_kernel.py:645",
+             launches=main256["launches"]["D"], **d256),
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -4,9 +4,12 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 scripts/torch_round_profile.py
 
-Trains the main path of ``chip_smoke.py`` at its shape (the same ``PARAMS``,
-``ROWS`` x ``COLS`` training rows and ``EVAL_ROWS`` held-out rows from
-``bench.py``'s generator) for ``WARMUP`` rounds, times the next
+For each of ``chip_smoke.py``'s two training configurations (``PARAMS``,
+max_bin 64, and ``PARAMS_DEFAULT``, max_bin left at 256), each by the
+hoisted route (the default plan) and by the construct route
+(``XGBTPU_HOIST_BUDGET_MB=0``), at its shape
+(``ROWS`` x ``COLS`` training rows and ``EVAL_ROWS`` held-out rows from
+``bench.py``'s generator): trains ``WARMUP`` rounds, times the next
 ``TIMED_ROUNDS`` rounds (``Booster.update`` + ``eval_values``) on the host
 clock without the profiler, then profiles one more round with
 ``torch.profiler`` (CPU and CUDA activities). Prints the unprofiled and
@@ -14,8 +17,12 @@ profiled round times, the device's busy time in the profiled round (sum of
 kernel and memcpy/memset self time; one stream, so they do not overlap),
 the idle share against the median unprofiled round (the profiler inflates
 the host's time, not the device's), the number of device operations, and
-the top device operations by time. Fails if the profiler saw no device
-time.
+the top device operations by time, the top host events (torch operators
+and CUDA runtime calls) by self time, and the host time of each level-kernel
+wrapper call (``_fused_level_cuda`` for kernel A, ``_hoisted_level_cuda``
+for kernel D, no synchronisation inside) over the unprofiled rounds, one
+JSON report per configuration.
+Fails if the profiler saw no device time.
 """
 
 import json
@@ -30,7 +37,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import xgboost_tpu_torch as xgbt  # noqa: E402
-from chip_smoke import COLS, EVAL_ROWS, PARAMS, ROWS, _make_data  # noqa: E402
+from xgboost_tpu_torch.tree import hist_kernel as hk  # noqa: E402
+from chip_smoke import (COLS, EVAL_ROWS, PARAMS, PARAMS_DEFAULT,  # noqa: E402
+                        ROWS, _make_data)
 
 WARMUP = 3
 TIMED_ROUNDS = 5
@@ -44,23 +53,37 @@ def _round(bst, dtrain, evals, it):
     return vals
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 2
-    X, y = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
+def _host_timed(fn, record):
+    """``fn`` with the host time of each call appended to ``record``."""
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        record.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return timed
+
+
+def profile(name, params, X, y) -> int:
     dtrain = xgbt.DMatrix(X[:ROWS], y[:ROWS])
     dtest = xgbt.DMatrix(X[ROWS:], y[ROWS:])
     evals = [(dtest, "test")]
-    bst = xgbt.train(PARAMS, dtrain, WARMUP, evals=evals, verbose_eval=False)
+    bst = xgbt.train(params, dtrain, WARMUP, evals=evals, verbose_eval=False)
     torch.cuda.synchronize()
     it = WARMUP
     plain_ms = []
-    for _ in range(TIMED_ROUNDS):
-        t0 = time.perf_counter()
-        _round(bst, dtrain, evals, it)
-        plain_ms.append((time.perf_counter() - t0) * 1e3)
-        it += 1
+    wrapper_ms = {"_fused_level_cuda": [], "_hoisted_level_cuda": []}
+    originals = {k: getattr(hk, k) for k in wrapper_ms}
+    try:
+        for k, rec in wrapper_ms.items():
+            setattr(hk, k, _host_timed(originals[k], rec))
+        for _ in range(TIMED_ROUNDS):
+            t0 = time.perf_counter()
+            _round(bst, dtrain, evals, it)
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            it += 1
+    finally:
+        for k, fn in originals.items():
+            setattr(hk, k, fn)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -75,21 +98,51 @@ def main() -> int:
         return 1
     ops = sum(e.count for e in dev)
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     round_ms = statistics.median(plain_ms)
     report = {
-        "card": smi, "rows": ROWS, "profiled_round": it,
+        "config": name, "card": smi, "rows": ROWS, "profiled_round": it,
         "unprofiled_round_ms": plain_ms, "median_round_ms": round_ms,
         "profiled_round_ms": profiled_ms, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / round_ms,
         "device_ops": ops, "eval": vals,
+        "wrapper_host_ms": {k: {"calls": len(v),
+                                "median": statistics.median(v) if v else None,
+                                "max": max(v) if v else None}
+                            for k, v in wrapper_ms.items()},
         "top": [{"name": e.key[:90], "count": e.count,
                  "device_ms": e.self_device_time_total / 1e3}
                 for e in top[:TOP]],
+        "top_host": [{"name": e.key[:90], "count": e.count,
+                      "host_ms": e.self_cpu_time_total / 1e3}
+                     for e in host[:TOP]],
     }
     print(json.dumps(report, indent=1))
+    return 0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    X, y = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
+    for name, params in (("max_bin 64", PARAMS),
+                         ("max_bin 256 (default)", PARAMS_DEFAULT)):
+        for route, budget in (("hoisted", None), ("construct", "0")):
+            if budget is not None:
+                os.environ["XGBTPU_HOIST_BUDGET_MB"] = budget
+            try:
+                rc = profile(f"{name}, {route} route", params, X, y)
+            finally:
+                os.environ.pop("XGBTPU_HOIST_BUDGET_MB", None)
+            torch.cuda.empty_cache()  # the configuration's one-hot goes first
+            if rc:
+                return rc
     return 0
 
 

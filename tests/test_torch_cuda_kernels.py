@@ -10,7 +10,9 @@ machine with a card run them with
 machine need not have). Shapes cover what ``chip_smoke.py`` does not: a
 ragged row count, a level whose [2K, B] tile does not fit shared memory (the
 kernel's device-memory path), every missing-bin case, multi-group forests
-with tree weights and forests deeper than they are wide.
+with tree weights and forests deeper than they are wide; for kernels C and
+D (the hoisted route) ragged row counts, K = 1 and K = 128 (two and more
+slot blocks), bins 16/64/256 and a partial hoist of 4 features.
 """
 
 import numpy as np
@@ -30,9 +32,13 @@ def cuda():
     return torch.device("cuda")
 
 
+def _bin_dtype(B):
+    return np.uint8 if B + 1 <= 255 else np.int16  # quantile.storage_dtype
+
+
 def _level_case(rng, n, F, B, d, dev):
     K, Kp = 1 << d, (1 << d) >> 1
-    bins = rng.randint(0, B + 1, size=(n, F)).astype(np.uint8)
+    bins = rng.randint(0, B + 1, size=(n, F)).astype(_bin_dtype(B))
     g = rng.randn(n).astype(np.float32)
     h = rng.uniform(0.0, 1.0, size=n).astype(np.float32)
     pos = rng.randint(max((1 << max(d - 1, 0)) - 1, 0), (1 << d) - 1 + 1,
@@ -51,6 +57,7 @@ def _level_case(rng, n, F, B, d, dev):
     (1000, 7, 16, 3),       # ragged rows, small tile
     (5000, 50, 64, 5),      # the main path's width at K = 32
     (3000, 9, 254, 7),      # [2K, B] int64 tile > 227 KB: device-memory path
+    (4001, 6, 256, 5),      # int16 bins at the default max_bin
 ])
 def test_level_kernel_matches_plain_bitwise(cuda, n, F, B, d):
     rng = np.random.RandomState(n + d)
@@ -61,6 +68,46 @@ def test_level_kernel_matches_plain_bitwise(cuda, n, F, B, d):
     torch.cuda.synchronize()
     assert torch.equal(pk, pp)
     assert torch.equal(hk, hp)
+    assert torch.equal(pk2, pk) and torch.equal(hk2, hk)
+
+
+@pytest.mark.parametrize("n,F,B,Fh", [
+    (1000, 7, 16, 7),       # ragged rows, uint8, several features per tile
+    (777, 5, 64, 3),        # partial, ragged
+    (3001, 6, 256, 4),      # int16 bins, partial hoist of 4 features
+])
+def test_onehot_kernel_matches_plain_bitwise(cuda, n, F, B, Fh):
+    rng = np.random.RandomState(n + B)
+    bins = torch.as_tensor(rng.randint(0, B + 1, size=(n, F)).astype(
+        _bin_dtype(B)), device=cuda)
+    got = thk._build_onehot_cuda(bins, B=B, Fh=Fh)
+    want = thk._build_onehot_plain(bins, B=B, Fh=Fh)
+    torch.cuda.synchronize()
+    assert got.shape == (Fh * B, thk.onehot_rows(n))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,F,B,Fh,d", [
+    (1000, 7, 16, 7, 0),    # full hoist, K = 1, ragged rows
+    (1000, 7, 16, 3, 3),    # partial hoist
+    (2049, 5, 64, 5, 5),    # bin 64 full hoist at K = 32
+    (999, 6, 64, 4, 7),     # K = 128: four slot blocks, partial hoist
+    (3001, 6, 256, 4, 5),   # int16 bins, partial hoist of 4 features
+    (517, 5, 256, 5, 7),    # int16, full hoist, K = 128
+])
+def test_hoisted_kernel_matches_plain_and_level_kernel_bitwise(cuda, n, F, B,
+                                                               Fh, d):
+    rng = np.random.RandomState(n + d + B)
+    bins, pos, gq, ptab, kw = _level_case(rng, n, F, B, d, cuda)
+    onehot = thk._build_onehot_cuda(bins, B=B, Fh=Fh)
+    pk, hk = thk._hoisted_level_cuda(bins, onehot, pos, gq, ptab, **kw)
+    pk2, hk2 = thk._hoisted_level_cuda(bins, onehot, pos, gq, ptab, **kw)
+    pp, hp = thk._hoisted_level_plain(bins, onehot, pos, gq, ptab, **kw)
+    pa, ha = thk._fused_level_cuda(bins, pos, gq, ptab, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(pk, pa)
+    assert torch.equal(hk, hp)
+    assert torch.equal(hk, ha)
     assert torch.equal(pk2, pk) and torch.equal(hk2, hk)
 
 

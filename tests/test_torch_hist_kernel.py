@@ -19,7 +19,9 @@ tables, on the same numpy inputs:
 
 The same holds against the TPU's hoisted route to that contract,
 ``_build_onehot_pallas`` feeding ``_hoisted_level_pallas`` (interpret mode,
-full and partial hoist): kernel A replaces both.
+full and partial hoist): the two routes share one contract, so the
+construct route's plain version answers for both. The port's own hoisted
+route (kernels C and D) is held against them in ``test_torch_hoisted.py``.
 """
 
 import jax.numpy as jnp
@@ -103,8 +105,8 @@ def test_fused_level_matches_hoisted_pallas_interpret(monkeypatch,
                                                       count_valued, Fh):
     """The TPU's other route to the same (pos, hist) contract: the one-hot
     built by ``_build_onehot_pallas`` and streamed by
-    ``_hoisted_level_pallas`` (both real kernel bodies, interpret mode).
-    Kernel A reads the bins directly, so this one contract covers both."""
+    ``_hoisted_level_pallas`` (both real kernel bodies, interpret mode),
+    against the port's construct route, which reads the bins directly."""
     monkeypatch.setattr(jhk, "_INTERPRET", True)
     rng, bins, gh = _inputs(21 + count_valued, count_valued)
     bins32 = jnp.asarray(bins.astype(np.int32))

@@ -7,7 +7,9 @@
   raise;
 - a tensor that is not on the CPU goes to the kernel wrapper (checked with
   a stub kernel library that records its calls), never to the plain
-  version; a device with no kernel, or a failed build, raises.
+  version: kernel A with uint8 and int16 bins, kernel D when a one-hot is
+  given, kernel C for the one-hot itself; a device with no kernel, a failed
+  build, or a failed one-hot build raises, with no degrade to another route.
 """
 
 import ast
@@ -86,10 +88,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 class _StubLib:
-    """Records kernel entry-point calls; returns CUDA success."""
+    """Records kernel entry-point calls; returns CUDA success, or the code
+    in ``status`` for the entry points named there."""
 
     def __init__(self):
         self.calls = []
+        self.status = {}
 
     def __getattr__(self, name):
         if not name.startswith("xgbt_"):
@@ -97,7 +101,7 @@ class _StubLib:
 
         def fn(*args):
             self.calls.append((name, args))
-            return 0
+            return self.status.get(name, 0)
         return fn
 
 
@@ -114,30 +118,89 @@ def stub_cuda(monkeypatch):
     def no_plain(*a, **k):
         raise AssertionError("plain version reached for a device tensor")
 
-    monkeypatch.setattr(thk, "_fused_level_plain", no_plain)
+    for name in ("_fused_level_plain", "_hoisted_level_plain",
+                 "_build_onehot_plain"):
+        monkeypatch.setattr(thk, name, no_plain)
     monkeypatch.setattr(tpred, "_predict_margin_plain", no_plain)
     return lib
 
 
-def test_device_tensor_reaches_the_level_kernel(stub_cuda):
-    n, F, B, K, d = 300, 5, 16, 4, 2
+def _meta_level(n, F, Kp):
     meta = dict(device="meta")
-    bins = torch.empty((n, F), dtype=torch.uint8, **meta)
     pos = torch.empty((n, 1), dtype=torch.int32, **meta)
     gq = thk.QuantizedGradients(q=torch.empty((n, 2), dtype=torch.int32, **meta),
                                 exp=torch.empty(2, dtype=torch.int32, **meta))
-    ptab = torch.empty((2, 4), dtype=torch.float32, **meta)
+    return pos, gq, torch.empty((max(Kp, 1), 4), dtype=torch.float32, **meta)
+
+
+def test_device_tensor_reaches_the_level_kernel(stub_cuda):
+    n, F, B, K, d = 300, 5, 16, 4, 2
+    bins = torch.empty((n, F), dtype=torch.uint8, device="meta")
+    pos, gq, ptab = _meta_level(n, F, 2)
     before = thk.fused_level.launches
     new_pos, hist = thk.fused_level(bins, pos, gq, ptab, K=K, Kp=2, B=B, d=d)
     assert thk.fused_level.launches == before + 1
     (name, args), = stub_cuda.calls
     assert name == "xgbt_fused_level"
-    # (bins, n, F, B, pos, pos_out, q, ptab, Kp, prev_offset, K, offset, ...)
-    assert args[1:4] == (n, F, B) and args[8:12] == (2, 1, K, 3)
+    # (bins, bin_bytes, n, F, B, pos, pos_out, q, ptab, Kp, prev_offset, K,
+    #  offset, ...)
+    assert args[1:5] == (1, n, F, B) and args[9:13] == (2, 1, K, 3)
     assert tuple(new_pos.shape) == (n, 1) and tuple(hist.shape) == (F, 2 * K, B)
-    # the kernel reads uint8 bins only: wider storage raises, never falls back
+    # int16 bins (max_bin 256) reach the kernel with their width; wider
+    # storage raises, never falls back
+    thk.fused_level(bins.to(torch.int16), pos, gq, ptab, K=K, Kp=2, B=256,
+                    d=d)
+    name, args = stub_cuda.calls[-1]
+    assert name == "xgbt_fused_level" and args[1:5] == (2, n, F, 256)
     with pytest.raises(NotImplementedError):
-        thk.fused_level(bins.to(torch.int16), pos, gq, ptab, K=K, Kp=2, B=B, d=d)
+        thk.fused_level(bins.to(torch.int32), pos, gq, ptab, K=K, Kp=2, B=B,
+                        d=d)
+
+
+def test_device_tensor_with_onehot_reaches_the_hoisted_kernel(stub_cuda):
+    n, F, B, Fh, K, d = 300, 5, 256, 3, 4, 2
+    bins = torch.empty((n, F), dtype=torch.int16, device="meta")
+    pos, gq, ptab = _meta_level(n, F, 2)
+    c0, d0, a0 = (thk.build_onehot.launches, thk.hoisted_level.launches,
+                  thk.fused_level.launches)
+    onehot = thk.build_onehot(bins, B=B, Fh=Fh)
+    assert tuple(onehot.shape) == (Fh * B, 320) and onehot.dtype == torch.int8
+    new_pos, hist = thk.fused_level(bins, pos, gq, ptab, K=K, Kp=2, B=B, d=d,
+                                    onehot=onehot)
+    assert (thk.build_onehot.launches, thk.hoisted_level.launches,
+            thk.fused_level.launches) == (c0 + 1, d0 + 1, a0)
+    (n1, a1), (n2, a2) = stub_cuda.calls
+    # (bins, bin_bytes, n, F, Fh, B, n_pad, out, stream)
+    assert n1 == "xgbt_build_onehot" and a1[1:7] == (2, n, F, Fh, B, 320)
+    # (bins, bin_bytes, n, F, B, onehot, Fh, n_pad, pos, pos_out, q, ptab,
+    #  Kp, prev_offset, K, offset, hist, stream)
+    assert n2 == "xgbt_hoisted_level"
+    assert a2[1:5] == (2, n, F, B) and a2[6:8] == (Fh, 320)
+    assert a2[12:16] == (2, 1, K, 3)
+    assert tuple(new_pos.shape) == (n, 1) and tuple(hist.shape) == (F, 2 * K, B)
+    # a one-hot of the wrong shape raises
+    with pytest.raises(ValueError, match="one-hot"):
+        thk.fused_level(bins, pos, gq, ptab, K=K, Kp=2, B=B, d=d,
+                        onehot=onehot[:, :n])
+
+
+def test_failed_onehot_build_raises(stub_cuda, monkeypatch):
+    """A matrix whose plan hoists builds its one-hot when training first
+    asks for it (``fused_onehot``); a failed build raises there, with no
+    degrade to the construct route."""
+    from xgboost_tpu_torch.data.quantile import BinnedMatrix, HistogramCuts
+
+    monkeypatch.setenv("XGBTPU_HOIST_BUDGET_MB", "1024")
+    stub_cuda.status["xgbt_build_onehot"] = 2  # cudaErrorMemoryAllocation
+    n, F, B = 1000, 6, 64
+    binned = BinnedMatrix(
+        cuts=HistogramCuts(np.zeros((F, B), np.float32), np.zeros(F, np.float32)),
+        bins=torch.empty((n, F), dtype=torch.uint8, device="meta"),
+        cut_values=torch.empty((F, B), device="meta"))
+    with pytest.raises(RuntimeError, match="build_onehot: CUDA error 2"):
+        binned.fused_onehot()
+    names = [c[0] for c in stub_cuda.calls]
+    assert names == ["xgbt_build_onehot"]
 
 
 def test_device_tensor_reaches_the_walk_kernel(stub_cuda):

@@ -7,6 +7,10 @@ Both packages train ``binary:logistic`` with the depthwise hist grower for
 trees must have the same structure, split features and conditions; margins
 and predictions agree within 1e-5 and AUC within 1e-6. A JAX model loads
 into the port and predicts within 1e-5, and the port's JSON loads into JAX.
+The same holds at the default ``max_bin`` of 256 (int16 bins in the port,
+uint16 in the JAX package) on 4096 x 8, with AUC within 1e-5, and
+``Booster.inplace_predict`` (value and margin, ``iteration_range``,
+``base_margin``) agrees with the JAX package's within 1e-5.
 
 A node that no training row with a missing split value reaches scores both
 missing directions identically (both route the same rows), so its
@@ -31,6 +35,7 @@ torch.set_num_threads(1)
 
 PARAMS = {"objective": "binary:logistic", "max_depth": 3, "max_bin": 16,
           "eta": 0.3, "eval_metric": ["auc", "logloss"]}
+PARAMS256 = {**PARAMS, "max_bin": 256}
 
 
 def _data(seed, n, F=6):
@@ -47,23 +52,40 @@ def data():
     return _data(0, 2048), _data(1, 512)
 
 
-@pytest.fixture(scope="module")
-def trained(data):
-    (X, y), (Xv, yv) = data
+def _train_both(params, X, y, Xv, yv):
     jres, tres = {}, {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("XGBTPU_DISPATCH",
                   "tree_grow=level,sibling_sub=off,hist_acc=float")
         jax.clear_caches()
-        jb = xgb.train(PARAMS, xgb.DMatrix(X, label=y), 3,
+        jb = xgb.train(params, xgb.DMatrix(X, label=y), 3,
                        evals=[(xgb.DMatrix(Xv, label=yv), "val")],
                        evals_result=jres, verbose_eval=False)
-    tb = xgbt.train(PARAMS, xgbt.DMatrix(X, y, device="cpu"), 3,
+    tb = xgbt.train(params, xgbt.DMatrix(X, y, device="cpu"), 3,
                     evals=[(xgbt.DMatrix(Xv, yv, device="cpu"), "val")],
                     evals_result=tres, verbose_eval=False)
+    return jb, tb, jres, tres
+
+
+@pytest.fixture(scope="module")
+def trained(data):
+    (X, y), (Xv, yv) = data
+    jb, tb, jres, tres = _train_both(PARAMS, X, y, Xv, yv)
     # the heap stack of the device-grown trees, before model IO compacts them
     heap = tb._gbm.model.stacked()
     return jb, tb, jres, tres, heap
+
+
+@pytest.fixture(scope="module")
+def data256():
+    X, y = _data(2, 5120, F=8)  # one labelling rule for both sets
+    return (X[:4096], y[:4096]), (X[4096:], y[4096:])
+
+
+@pytest.fixture(scope="module")
+def trained256(data256):
+    (X, y), (Xv, yv) = data256
+    return _train_both(PARAMS256, X, y, Xv, yv)
 
 
 def _trees(model_json):
@@ -88,9 +110,7 @@ def _nodes_with_missing(tree, X):
     return seen
 
 
-def test_same_trees_margins_and_metrics(data, trained):
-    jb, tb, jres, tres, _ = trained
-    (X, _), (Xv, _) = data
+def _assert_same_model(jb, tb, jres, tres, X, Xv, auc_atol):
     jt, tt = _trees(json.loads(jb.save_raw())), _trees(tb.save_json())
     assert len(jt) == len(tt) == 3
     for a, b in zip(jt, tt):
@@ -122,10 +142,16 @@ def test_same_trees_margins_and_metrics(data, trained):
                                jb.predict(xgb.DMatrix(Xv)), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(tres["val"]["auc"], jres["val"]["auc"],
-                               rtol=0, atol=1e-6)
+                               rtol=0, atol=auc_atol)
     np.testing.assert_allclose(tres["val"]["logloss"], jres["val"]["logloss"],
                                rtol=1e-5)
     assert tres["val"]["auc"][-1] > tres["val"]["auc"][0]
+
+
+def test_same_trees_margins_and_metrics(data, trained):
+    jb, tb, jres, tres, _ = trained
+    (X, _), (Xv, _) = data
+    _assert_same_model(jb, tb, jres, tres, X, Xv, auc_atol=1e-6)
 
 
 def test_models_carry_across(data, trained):
@@ -157,3 +183,34 @@ def test_device_grown_and_loaded_forests_agree(data, trained):
     loaded = xgbt.Booster(model_file=tb.save_raw(), device="cpu")
     np.testing.assert_array_equal(
         loaded.predict(dv, output_margin=True), m_heap.numpy()[:, 0])
+
+
+def test_bin256_same_trees_margins_and_metrics(data256, trained256):
+    jb, tb, jres, tres = trained256
+    (X, _), (Xv, _) = data256
+    binned = [d._binned[256] for d in tb._cache_refs.values()
+              if 256 in d._binned]
+    assert binned and all(b.bins.dtype == torch.int16 for b in binned)
+    _assert_same_model(jb, tb, jres, tres, X, Xv, auc_atol=1e-5)
+    # the port's model loads in the JAX package and predicts the same
+    back = xgb.Booster(model_file=bytearray(tb.save_raw()))
+    np.testing.assert_allclose(back.predict(xgb.DMatrix(Xv)),
+                               tb.predict(xgbt.DMatrix(Xv, device="cpu")),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("iteration_range", [None, (1, 3), (0, 2), (2, 0)])
+@pytest.mark.parametrize("predict_type", ["value", "margin"])
+def test_inplace_predict_matches_jax(data256, trained256, iteration_range,
+                                     predict_type):
+    _, tb, _, _ = trained256
+    (_, _), (Xv, _) = data256
+    jb = xgb.Booster(model_file=bytearray(tb.save_raw()))
+    kw = dict(iteration_range=iteration_range, predict_type=predict_type)
+    np.testing.assert_allclose(tb.inplace_predict(Xv, **kw),
+                               jb.inplace_predict(Xv, **kw),
+                               rtol=1e-5, atol=1e-5)
+    base = np.random.RandomState(4).randn(Xv.shape[0]).astype(np.float32)
+    np.testing.assert_allclose(tb.inplace_predict(Xv, base_margin=base, **kw),
+                               jb.inplace_predict(Xv, base_margin=base, **kw),
+                               rtol=1e-5, atol=1e-5)

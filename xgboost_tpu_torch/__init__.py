@@ -4,9 +4,10 @@ Dense ``DMatrix`` construction and quantile binning, the depthwise
 ``tpu_hist`` grower, ``binary:logistic`` / ``reg:squarederror``, AUC /
 logloss / error / rmse evaluation, the forest-walk predictor and XGBoost-
 schema JSON model IO. Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``. The two kernels of the main path are hand-written
-CUDA (``csrc/``), built at first use; on CPU tensors their plain PyTorch
-versions run.
+passes ``device="cpu"``. The four kernels of the path (the construct and
+hoisted level histograms, the one-hot build and the forest walk) are
+hand-written CUDA (``csrc/``), built at first use; on CPU tensors their
+plain PyTorch versions run.
 """
 
 from .data.dmatrix import DMatrix

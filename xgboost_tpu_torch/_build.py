@@ -3,8 +3,8 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface and
 loaded with ``ctypes``. The libraries go to ``build/kernels/`` beside the
-package, named by a hash of the source and the flags, so a changed source
-rebuilds and an unchanged one is reused. All sources compile in parallel,
+package, named by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so a changed source rebuilds and an unchanged one is reused. All sources compile in parallel,
 one ``nvcc`` each. Nothing here runs at import time: the first kernel
 launch builds.
 
@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 
 #: library name -> source file under csrc/
-SOURCES = {"hist_level": "hist_level.cu", "predict_walk": "predict_walk.cu"}
+SOURCES = {"hist_level": "hist_level.cu", "predict_walk": "predict_walk.cu",
+           "onehot": "onehot.cu", "hoisted_level": "hoisted_level.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -42,12 +43,20 @@ KERNEL_DEVICES = ("cuda",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C signatures of the entry points (every pointer, the stream included,
 #: is a c_void_p so 64-bit addresses are never cut)
 _SIGNATURES = {
     "hist_level": {
-        "xgbt_fused_level": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _P, _P],
+        "xgbt_fused_level": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _P, _P],
+    },
+    "onehot": {
+        "xgbt_build_onehot": [_P, _I, _I, _I, _I, _I, _L, _P, _P],
+    },
+    "hoisted_level": {
+        "xgbt_hoisted_level": [_P, _I, _I, _I, _I, _P, _I, _L, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _P, _P],
     },
     "predict_walk": {
         "xgbt_predict_margin": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -73,6 +82,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -6,16 +6,11 @@
 // table, then accumulate (g, h) per (feature, node, bin) for level d into
 // hist [F, 2K, B] (g rows [0, K), h rows [K, 2K)), the missing bin excluded.
 //
-// It replaces the TPU's hoisted route to the same contract too. Where the
-// int8 one-hot of the bins fits (max_bin 64 at 1M x 50, the main path),
-// the TPU builds it once per run with _build_onehot_pallas (body
-// _build_onehot_body) and runs every level through _hoisted_level_pallas
-// (body _hoisted_kernel): the same partition, and the histogram as one
-// [4K, rows] x [rows, F*B] matmul over the one-hot. The one-hot exists only
-// to feed the MXU and does no arithmetic of its own; this kernel reads the
-// uint8 bins and forms each row's one-hot bin index in registers.
-// tests/test_torch_hist_kernel.py holds the plain version of this kernel
-// against both TPU routes (Pallas interpret mode).
+// Where the int8 one-hot of the bins fits the device-memory budget, the
+// hoisted route takes the level instead (kernel D, hoisted_level.cu, fed by
+// kernel C, onehot.cu); this kernel is the construct route, taken when the
+// hoist plan is 0 (XGBTPU_HOIST_BUDGET_MB=0, or not even a few features
+// fit). Both give the same int64 histogram bits.
 //
 // Partition and histogram are ONE kernel, as on the TPU. The grid is
 // (row chunks) x (feature tiles); every block re-routes its rows (one table
@@ -32,8 +27,8 @@
 // addition is associative, so any launch order gives the same bits, and the
 // plain PyTorch version (index_add_ over int64) gives the same bits too.
 //
-// What bounds it on this card. The bytes a level must move are the uint8
-// bins (n*F), the positions in and out (8n) and the quantised gradients
+// What bounds it on this card. The bytes a level must move are the bins
+// (n*F at uint8), the positions in and out (8n) and the quantised gradients
 // (8n): about 62 MB at 1M x 50, ~19 us at 3.35 TB/s. The real limit is the
 // 2*n*F 64-bit shared-memory atomics, plus the flush of each block's tile to
 // device memory. Design against that: a block keeps a [features-in-tile,
@@ -42,18 +37,22 @@
 // per (row, feature). Where one feature's [2K, B] tile does not fit, the
 // kernel adds straight into device memory (same integers, same bits).
 //
-// Bins are read in their uint8 storage type; missing is bin id B.
+// Bins are read in their storage type (uint8 up to max_bin 254, int16
+// above, so the default max_bin 256 runs here); missing is bin id B.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "route.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kBlocksPerSm = 4;  // target grid size, in blocks per SM
 
+template <typename T>
 struct LevelArgs {
-  const uint8_t* bins;
+  const T* bins;
   int n, F, B;
   const int32_t* pos_in;
   int32_t* pos_out;
@@ -65,23 +64,8 @@ struct LevelArgs {
   int feats_per_tile;
 };
 
-// One row through level d-1's decision: the same rule as
-// hist_kernel.py:_partition_tile / partition_apply_xla.
-__device__ __forceinline__ int route(const LevelArgs& a, long long r, int p) {
-  const int lp = p - a.prev_offset;
-  if (lp < 0 || lp >= a.Kp) return p;
-  const float* row = a.ptab + 4 * lp;
-  if (!(row[0] > 0.5f)) return p;
-  const int f = static_cast<int>(row[1]);
-  const int split_bin = static_cast<int>(row[2]);
-  const bool default_left = row[3] > 0.5f;
-  const int bv = a.bins[r * a.F + f];
-  const bool goleft = (bv >= a.B) ? default_left : (bv <= split_bin);
-  return 2 * p + (goleft ? 1 : 2);
-}
-
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads) level_kernel(LevelArgs a) {
+template <typename T, bool kShared>
+__global__ void __launch_bounds__(kThreads) level_kernel(LevelArgs<T> a) {
   extern __shared__ unsigned long long tile[];
   const int f0 = blockIdx.y * a.feats_per_tile;
   const int f1 = min(a.F, f0 + a.feats_per_tile);
@@ -97,7 +81,8 @@ __global__ void __launch_bounds__(kThreads) level_kernel(LevelArgs a) {
   const long long hoff = (long long)a.K * a.B;  // g rows -> h rows
   for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
     int p = a.pos_in[r];
-    if (a.Kp > 0) p = route(a, r, p);
+    if (a.Kp > 0)
+      p = route_row(a.bins, a.F, a.B, a.ptab, a.Kp, a.prev_offset, r, p);
     if (blockIdx.y == 0) a.pos_out[r] = p;
     const int local = p - a.offset;
     if (local < 0 || local >= a.K) continue;
@@ -106,9 +91,9 @@ __global__ void __launch_bounds__(kThreads) level_kernel(LevelArgs a) {
         static_cast<unsigned long long>(static_cast<long long>(a.qgh[2 * r]));
     const unsigned long long qh = static_cast<unsigned long long>(
         static_cast<long long>(a.qgh[2 * r + 1]));
-    const uint8_t* brow = a.bins + r * a.F;
+    const T* brow = a.bins + r * a.F;
     for (int f = f0; f < f1; ++f) {
-      const int b = brow[f];
+      const int b = static_cast<int>(brow[f]);
       if (b >= a.B) continue;  // missing: recovered by the caller
       const long long cg = ((long long)(f - f0) * 2 * a.K + local) * a.B + b;
       atomicAdd(acc + cg, qg);
@@ -125,13 +110,11 @@ __global__ void __launch_bounds__(kThreads) level_kernel(LevelArgs a) {
   }
 }
 
-}  // namespace
-
-extern "C" int xgbt_fused_level(const uint8_t* bins, int n, int F, int B,
-                                const int32_t* pos_in, int32_t* pos_out,
-                                const int32_t* qgh, const float* ptab, int Kp,
-                                int prev_offset, int K, int offset,
-                                long long* hist, void* stream) {
+template <typename T>
+int launch_level(const T* bins, int n, int F, int B, const int32_t* pos_in,
+                 int32_t* pos_out, const int32_t* qgh, const float* ptab,
+                 int Kp, int prev_offset, int K, int offset, long long* hist,
+                 cudaStream_t s) {
   int dev = 0, sms = 0, smem_optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -150,19 +133,39 @@ extern "C" int xgbt_fused_level(const uint8_t* bins, int n, int F, int B,
   rpb = ((rpb + kThreads - 1) / kThreads) * kThreads;
   if (rpb < kThreads) rpb = kThreads;
 
-  LevelArgs a{bins, n, F, B, pos_in, pos_out, qgh, ptab, Kp, prev_offset, K,
-              offset, reinterpret_cast<unsigned long long*>(hist), rpb, fpt};
+  LevelArgs<T> a{bins, n, F, B, pos_in, pos_out, qgh, ptab, Kp, prev_offset,
+                 K, offset, reinterpret_cast<unsigned long long*>(hist), rpb,
+                 fpt};
   dim3 grid((unsigned)row_blocks, (unsigned)ftiles);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (shared) {
     const size_t smem = (size_t)fpt * (size_t)feat_bytes;
     cudaError_t err = cudaFuncSetAttribute(
-        level_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        level_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
-    level_kernel<true><<<grid, kThreads, smem, s>>>(a);
+    level_kernel<T, true><<<grid, kThreads, smem, s>>>(a);
   } else {
-    level_kernel<false><<<grid, kThreads, 0, s>>>(a);
+    level_kernel<T, false><<<grid, kThreads, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bin_bytes: 1 for uint8 bins, 2 for int16 bins; anything else is refused.
+extern "C" int xgbt_fused_level(const void* bins, int bin_bytes, int n, int F,
+                                int B, const int32_t* pos_in, int32_t* pos_out,
+                                const int32_t* qgh, const float* ptab, int Kp,
+                                int prev_offset, int K, int offset,
+                                long long* hist, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bin_bytes == 1)
+    return launch_level(static_cast<const uint8_t*>(bins), n, F, B, pos_in,
+                        pos_out, qgh, ptab, Kp, prev_offset, K, offset, hist,
+                        s);
+  if (bin_bytes == 2)
+    return launch_level(static_cast<const int16_t*>(bins), n, F, B, pos_in,
+                        pos_out, qgh, ptab, Kp, prev_offset, K, offset, hist,
+                        s);
+  return (int)cudaErrorInvalidValue;
 }

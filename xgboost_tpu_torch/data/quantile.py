@@ -22,6 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..tree.hist_kernel import build_onehot, hoist_plan, onehot_rows
+
 __all__ = ["HistogramCuts", "compute_cuts", "bin_matrix", "storage_dtype",
            "BinnedMatrix"]
 
@@ -130,10 +132,33 @@ class BinnedMatrix:
     cuts: HistogramCuts
     bins: torch.Tensor
     cut_values: torch.Tensor  # [F, B] f32, on the bins' device
+    # the resident one-hot of the hoisted route and the plan it was built
+    # to (None until fused_onehot first runs)
+    _onehot: Optional[torch.Tensor] = None
+    _hoist_fh: Optional[int] = None
 
     @property
     def n_features(self) -> int:
         return int(self.bins.shape[1])
+
+    def fused_onehot(self) -> Optional[torch.Tensor]:
+        """The resident ``[Fh*B, n_pad]`` int8 one-hot of the first ``Fh``
+        features for the hoisted level route, or None when the plan is 0
+        (always on the CPU; ``tree/hist_kernel.py:hoist_plan``). Built once
+        per matrix with ``build_onehot`` (kernel C on the card) and cached:
+        the expansion is training-invariant, so every level of every tree
+        streams the same array. The plan is frozen at the first call, so the
+        resident one-hot itself never shrinks a later plan (the JAX
+        package's ``fused_onehot``, ``data/quantile.py:454``). A failed build
+        raises: there is no degrade to the construct route."""
+        if self._hoist_fh is None:
+            n, F = self.bins.shape
+            B = self.cuts.max_bin
+            fh = hoist_plan(onehot_rows(n), F, B, self.bins.device)
+            if fh:
+                self._onehot = build_onehot(self.bins, B=B, Fh=fh)
+            self._hoist_fh = fh
+        return self._onehot
 
     @classmethod
     def from_dense(cls, X: torch.Tensor, max_bin: int = 256,

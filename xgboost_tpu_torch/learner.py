@@ -193,6 +193,57 @@ class Booster:
             out = out[:, 0]
         return out
 
+    def inplace_predict(self, data, iteration_range=None,
+                        predict_type: str = "value", missing: float = np.nan,
+                        base_margin=None) -> np.ndarray:
+        """Predict from a dense array, with no DMatrix and no binning
+        (reference ``XGBoosterPredictFromDense``, c_api.cc:833; the JAX
+        package's ``Booster.inplace_predict``, ``learner.py:838``): the rows
+        go to the device and straight through ``predict_margin`` (kernel B on
+        the card), which checks the feature count. ``predict_type`` is
+        ``"value"`` or ``"margin"``; ``iteration_range`` ``(lo, hi)`` keeps
+        rounds ``[lo, hi)`` (``hi`` 0: to the last). The JAX package pads
+        rows to power-of-two buckets to bound XLA recompiles
+        (``predictor/serving.py``); eager PyTorch compiles nothing per shape,
+        so the port walks the rows as given."""
+        self._configure()
+        if predict_type not in ("value", "margin"):
+            raise ValueError(
+                f"inplace_predict supports predict_type 'value' and "
+                f"'margin', got {predict_type!r}")
+        if hasattr(data, "tocsr"):
+            raise NotImplementedError(
+                "inplace_predict on sparse input is not ported yet")
+        X = np.asarray(data, np.float32)
+        if X.ndim != 2:
+            raise ValueError(f"data must be 2-D, got shape {X.shape}")
+        if not (isinstance(missing, float) and np.isnan(missing)):
+            X = np.where(X == missing, np.nan, X).astype(np.float32)
+        n = X.shape[0]
+        K = self.n_groups
+        if base_margin is not None:
+            base = torch.as_tensor(
+                np.asarray(base_margin, np.float32).reshape(n, K),
+                device=self.device)
+        else:
+            base = torch.full((n, K), self._base_margin_val,
+                              dtype=torch.float32, device=self.device)
+        model = self._gbm.model
+        lo, hi = 0, model.num_trees // K
+        if iteration_range is not None and tuple(iteration_range) != (0, 0):
+            lo, hi = (int(v) for v in iteration_range)
+            if hi == 0:
+                hi = model.num_trees // K
+        margin = predict_margin(
+            model.stacked_slice(lo * K, hi * K),
+            torch.as_tensor(np.ascontiguousarray(X), device=self.device), base)
+        out = margin if predict_type == "margin" else self._obj.pred_transform(
+            margin[:, 0] if K == 1 else margin)
+        out = out.cpu().numpy()
+        if out.ndim == 2 and out.shape[1] == 1:
+            out = out[:, 0]
+        return out
+
     # ------------------------------------------------------------------
     # model IO (XGBoost JSON schema, doc/model.schema)
     # ------------------------------------------------------------------

@@ -7,13 +7,23 @@ row through level ``d-1``'s decision table, then accumulate (g, h) per
 ``(pos [n, 1] int32, hist [F, 2K, B] float32)`` with g in rows ``[0, K)`` and
 h in rows ``[K, 2K)``. The caller recovers missing as node total - sum.
 
-On a CUDA tensor it launches kernel A (``csrc/hist_level.cu``, replacing
-the TPU kernel ``_fused_level_pallas`` and the hoisted route to the same
-contract, ``_build_onehot_pallas`` + ``_hoisted_level_pallas``, which the
-TPU takes at ``max_bin`` 64); on a CPU tensor it runs the plain
-version below. Both accumulate the same fixed-point integers
-(``quantize_gradients``), so they agree bit for bit, and both are
-deterministic, as the TPU kernel is.
+Two routes to that contract, as on the TPU (``fused_level`` :801):
+
+- the **hoisted** route, when the caller passes the resident int8 one-hot of
+  the first ``Fh`` features (``build_onehot``, kernel C, ``csrc/onehot.cu``,
+  replacing ``_build_onehot_pallas``; sized by ``hoist_plan``): every level
+  is ``hoisted_level``, kernel D (``csrc/hoisted_level.cu``, replacing
+  ``_hoisted_level_pallas``), an int8 tensor-core product over the one-hot,
+  with features ``Fh..F-1`` built in the same launch;
+- the **construct** route otherwise: kernel A (``csrc/hist_level.cu``,
+  replacing ``_fused_level_pallas``) reads the bins directly.
+
+On a CUDA tensor each wrapper launches its kernel (and counts it in its
+``launches``); on a CPU tensor it runs the plain version beside it. All of
+them accumulate the same fixed-point integers (``quantize_gradients``), so
+every route and device gives the same int64 histogram bits, deterministic,
+as the TPU kernels are. A failed build or launch raises; nothing degrades to
+another route.
 
 ``partition_apply`` (the final routing step; XLA in the JAX package) and
 ``leaf_delta`` (a gather) are plain torch on every device.
@@ -21,17 +31,35 @@ deterministic, as the TPU kernel is.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import os
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import _build
 
 __all__ = ["QuantizedGradients", "quantize_gradients", "fused_level",
-           "partition_apply", "leaf_delta"]
+           "hoisted_level", "build_onehot", "onehot_rows", "hoist_budget_bytes",
+           "device_free_bytes", "hoist_plan", "can_hoist", "partition_apply",
+           "leaf_delta"]
 
 # |q| <= 2^_QBITS, so n <= 2^32 rows cannot overflow the int64 sums
 _QBITS = 30
+
+#: bin storage types the kernels read, by their width in bytes
+_BIN_BYTES = {torch.uint8: 1, torch.int16: 2}
+
+# the one-hot's rows are padded to the int8 MMA's K step
+_ONEHOT_ROW_STEP = 32
+
+
+def _bin_bytes(bins: torch.Tensor, what: str) -> int:
+    nb = _BIN_BYTES.get(bins.dtype)
+    if nb is None:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernels read uint8 or int16 bins "
+            f"(max_bin <= 32766); got {bins.dtype}")
+    return nb
 
 
 class QuantizedGradients(NamedTuple):
@@ -85,37 +113,42 @@ def partition_apply(bins: torch.Tensor, pos: torch.Tensor, ptab: torch.Tensor,
     return torch.where(goes, child, p)[:, None].to(torch.int32)
 
 
+def _add_cells(hist, f, local, b, rows, q, K: int, B: int) -> None:
+    """``hist`` [F*2K*B] int64 += q of ``rows`` at (feature, node, bin):
+    g into rows [0, K) of the [2K, B] slab, h into rows [K, 2K)."""
+    cell = (f * (2 * K) + local) * B + b
+    hist.index_add_(0, cell, q[rows, 0])
+    hist.index_add_(0, cell + K * B, q[rows, 1])
+
+
+def _construct_plain(hist, bins, local, q, f0: int, K: int, B: int) -> None:
+    """Add features ``f0..F-1`` of every row at a level node, read from the
+    bins, missing excluded."""
+    b = bins[:, f0:].long()
+    keep = ((local >= 0) & (local < K))[:, None] & (b < B)
+    rows, fi = torch.nonzero(keep, as_tuple=True)
+    _add_cells(hist, fi + f0, local[rows], b[rows, fi], rows, q, K, B)
+
+
 def _fused_level_plain(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B,
                        d) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version: gather partition + index_add_ over int64."""
     if Kp > 0:
         pos = partition_apply(bins, pos, ptab, Kp=Kp, B=B, d=d)
-    n, F = bins.shape
+    F = bins.shape[1]
     local = pos[:, 0].long() - ((1 << d) - 1)
-    b = bins.long()
-    keep = ((local >= 0) & (local < K))[:, None] & (b < B)  # [n, F]
-    feat = torch.arange(F, device=bins.device)[None, :]
-    cell = (feat * (2 * K) + local[:, None]) * B + b  # g cell; h is + K*B
-    cell = cell[keep]
-    rows = torch.nonzero(keep)[:, 0]
-    q = gq.q.long()
     hist = torch.zeros(F * 2 * K * B, dtype=torch.int64, device=bins.device)
-    hist.index_add_(0, cell, q[rows, 0])
-    hist.index_add_(0, cell + K * B, q[rows, 1])
+    _construct_plain(hist, bins, local, gq.q.long(), 0, K, B)
     return pos, hist.view(F, 2 * K, B)
 
 
-def _fused_level_cuda(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B,
-                      d) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel A. Checks what the kernel takes and raises otherwise."""
-    what = "fused_level"
+def _check_level_inputs(bins, pos, gq: QuantizedGradients, ptab, Kp: int,
+                        what: str) -> int:
+    """Check what the level kernels take; returns the bins' width in bytes."""
     for t in (bins, pos, gq.q, ptab):
         _build.require_kernel_device(t, what)
-    n, F = bins.shape
-    if bins.dtype != torch.uint8:
-        raise NotImplementedError(
-            f"{what}: the CUDA kernel reads uint8 bins (max_bin <= 254); "
-            f"got {bins.dtype}")
+    n = bins.shape[0]
+    bin_bytes = _bin_bytes(bins, what)
     if pos.dtype != torch.int32 or tuple(pos.shape) != (n, 1):
         raise ValueError(f"{what}: pos must be int32 [{n}, 1]")
     if gq.q.dtype != torch.int32 or tuple(gq.q.shape) != (n, 2):
@@ -123,13 +156,22 @@ def _fused_level_cuda(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B,
     if ptab.dtype != torch.float32 or ptab.dim() != 2 or ptab.shape[1] != 4 \
             or ptab.shape[0] < Kp:
         raise ValueError(f"{what}: ptab must be float32 [>= {Kp}, 4]")
+    return bin_bytes
+
+
+def _fused_level_cuda(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B,
+                      d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel A. Checks what the kernel takes and raises otherwise."""
+    what = "fused_level"
+    bin_bytes = _check_level_inputs(bins, pos, gq, ptab, Kp, what)
+    n, F = bins.shape
     bins, pos, q, ptab = (t.contiguous() for t in (bins, pos, gq.q, ptab))
     pos_out = torch.empty_like(pos)
     hist = torch.zeros((F, 2 * K, B), dtype=torch.int64, device=bins.device)
     prev_offset = (1 << (d - 1)) - 1 if d > 0 else 0
     lib = _build.library("hist_level")
     status = lib.xgbt_fused_level(
-        bins.data_ptr(), n, F, B, pos.data_ptr(), pos_out.data_ptr(),
+        bins.data_ptr(), bin_bytes, n, F, B, pos.data_ptr(), pos_out.data_ptr(),
         q.data_ptr(), ptab.data_ptr(), Kp, prev_offset, K, (1 << d) - 1,
         hist.data_ptr(), _build.stream_of(bins.device))
     _build.check_status(status, what)
@@ -137,13 +179,194 @@ def _fused_level_cuda(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B,
     return pos_out, hist
 
 
+# ---------------------------------------------------------------------------
+# The hoisted route: a resident int8 one-hot of the first Fh features, built
+# once per training matrix (kernel C), streamed by every level (kernel D).
+# ---------------------------------------------------------------------------
+
+_HOIST_BUDGET_ENV = "XGBTPU_HOIST_BUDGET_MB"
+
+# Below this many hoisted features a partial hoist is not worth the resident
+# memory: the construct tiles dominate either way (the JAX package's floor).
+_MIN_HOIST_FEATURES = 4
+
+
+def onehot_rows(n: int) -> int:
+    """Row count of the one-hot: ``n`` padded to the int8 MMA's K step."""
+    return -(-n // _ONEHOT_ROW_STEP) * _ONEHOT_ROW_STEP
+
+
+def device_free_bytes(device) -> int:
+    """Free memory on a CUDA ``device``, as the driver counts it."""
+    return int(torch.cuda.mem_get_info(device)[0])
+
+
+def hoist_budget_bytes(device) -> int:
+    """Device-memory budget for the resident one-hot: the JAX package's rule
+    (``hist_kernel.py:293``). ``XGBTPU_HOIST_BUDGET_MB`` wins when set (0
+    disables hoisting); otherwise 8 GiB clamped to 60% of the device's free
+    memory."""
+    env = os.environ.get(_HOIST_BUDGET_ENV)
+    if env is not None:
+        try:
+            return int(env) * 1024 * 1024
+        except ValueError:
+            pass
+    return min(8192 * 1024 * 1024, int(device_free_bytes(device) * 0.6))
+
+
+def hoist_plan(n_pad: int, F: int, B: int, device) -> int:
+    """How many leading features to keep resident as a one-hot: the largest
+    ``Fh <= F`` whose ``[Fh*B, n_pad]`` int8 expansion fits the budget.
+    ``Fh == F`` is the full hoist; ``0 < Fh < F`` the partial hoist (kernel D
+    builds the rest per level); 0 means the construct route (kernel A), and
+    so does a partial plan below ``_MIN_HOIST_FEATURES``. Always 0 on the CPU,
+    as the JAX plan is 0 off the TPU. The TPU's VMEM fit model and its
+    allocation probe have no counterpart: kernel D's tiles are the same at
+    every level and width."""
+    if torch.device(device).type == "cpu" or B <= 0 or n_pad <= 0:
+        return 0
+    fh = min(F, hoist_budget_bytes(device) // (n_pad * B))
+    if fh < F and fh < _MIN_HOIST_FEATURES:
+        return 0
+    return int(fh)
+
+
+def can_hoist(n_pad: int, F: int, B: int, device) -> bool:
+    """Whether the FULL one-hot can be hoisted (see ``hoist_plan``)."""
+    return hoist_plan(n_pad, F, B, device) == F
+
+
+def _build_onehot_plain(bins, *, B: int, Fh: int) -> torch.Tensor:
+    """The plain version: one comparison against ``arange(B)`` per feature,
+    in kernel C's layout."""
+    n = bins.shape[0]
+    out = torch.zeros((Fh * B, onehot_rows(n)), dtype=torch.int8,
+                      device=bins.device)
+    iota = torch.arange(B, device=bins.device)[:, None]
+    for f in range(Fh):
+        out[f * B:(f + 1) * B, :n] = bins[:, f].long()[None, :] == iota
+    return out
+
+
+def _build_onehot_cuda(bins, *, B: int, Fh: int) -> torch.Tensor:
+    """Launch kernel C. Checks what the kernel takes and raises otherwise."""
+    what = "build_onehot"
+    _build.require_kernel_device(bins, what)
+    n, F = bins.shape
+    bin_bytes = _bin_bytes(bins, what)
+    if not 1 <= Fh <= F or B < 1:
+        raise ValueError(f"{what}: need 1 <= Fh <= {F} and B >= 1")
+    bins = bins.contiguous()
+    n_pad = onehot_rows(n)
+    out = torch.empty((Fh * B, n_pad), dtype=torch.int8, device=bins.device)
+    status = _build.library("onehot").xgbt_build_onehot(
+        bins.data_ptr(), bin_bytes, n, F, Fh, B, n_pad, out.data_ptr(),
+        _build.stream_of(bins.device))
+    _build.check_status(status, what)
+    build_onehot.launches += 1
+    return out
+
+
+def build_onehot(bins: torch.Tensor, *, B: int, Fh: int) -> torch.Tensor:
+    """``[n, F]`` bins -> the int8 one-hot of the first ``Fh`` features,
+    feature-major ``[Fh*B, onehot_rows(n)]``: cell ``(f*B + b, r)`` is 1
+    exactly where ``bins[r, f] == b``; the missing bin ``B`` and the padding
+    rows are all zero. The JAX package keeps the same cells as ``[n, Fh*B]``
+    (``build_onehot``, ``hist_kernel.py:400``). Kernel C on a CUDA tensor
+    (``build_onehot.launches`` counts it), the plain version on a CPU
+    tensor."""
+    run = _build_onehot_plain if bins.device.type == "cpu" else _build_onehot_cuda
+    return run(bins, B=B, Fh=Fh)
+
+
+build_onehot.launches = 0
+
+
+def _onehot_features(onehot, n: int, F: int, B: int, what: str) -> int:
+    """Fh of a one-hot made by ``build_onehot`` for ``n`` rows of ``F``
+    features; raises on any other tensor."""
+    Fh = onehot.shape[0] // B if onehot.dim() == 2 else 0
+    if onehot.dtype != torch.int8 or not 1 <= Fh <= F \
+            or tuple(onehot.shape) != (Fh * B, onehot_rows(n)):
+        raise ValueError(f"{what}: the one-hot must be int8 [Fh*{B}, "
+                         f"{onehot_rows(n)}] with 1 <= Fh <= {F}")
+    return Fh
+
+
+def _hoisted_level_plain(bins, onehot, pos, gq: QuantizedGradients, ptab, *,
+                         K, Kp, B, d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: gather partition; the hoisted features' cells from
+    the one-hot's non-zeros, the rest from the bins; index_add_ over int64."""
+    if Kp > 0:
+        pos = partition_apply(bins, pos, ptab, Kp=Kp, B=B, d=d)
+    n, F = bins.shape
+    Fh = _onehot_features(onehot, n, F, B, "hoisted_level")
+    local = pos[:, 0].long() - ((1 << d) - 1)
+    q = gq.q.long()
+    hist = torch.zeros(F * 2 * K * B, dtype=torch.int64, device=bins.device)
+    col, rows = torch.nonzero(onehot[:, :n], as_tuple=True)
+    lr = local[rows]
+    at_level = (lr >= 0) & (lr < K)
+    col, rows, lr = col[at_level], rows[at_level], lr[at_level]
+    _add_cells(hist, col // B, lr, col % B, rows, q, K, B)
+    _construct_plain(hist, bins, local, q, Fh, K, B)
+    return pos, hist.view(F, 2 * K, B)
+
+
+def _hoisted_level_cuda(bins, onehot, pos, gq: QuantizedGradients, ptab, *,
+                        K, Kp, B, d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel D. Checks what the kernel takes and raises otherwise."""
+    what = "hoisted_level"
+    bin_bytes = _check_level_inputs(bins, pos, gq, ptab, Kp, what)
+    _build.require_kernel_device(onehot, what)
+    n, F = bins.shape
+    Fh = _onehot_features(onehot, n, F, B, what)
+    if not onehot.is_contiguous():
+        raise ValueError(f"{what}: the one-hot must be contiguous")
+    bins, pos, q, ptab = (t.contiguous() for t in (bins, pos, gq.q, ptab))
+    pos_out = torch.empty_like(pos)
+    hist = torch.zeros((F, 2 * K, B), dtype=torch.int64, device=bins.device)
+    prev_offset = (1 << (d - 1)) - 1 if d > 0 else 0
+    status = _build.library("hoisted_level").xgbt_hoisted_level(
+        bins.data_ptr(), bin_bytes, n, F, B, onehot.data_ptr(), Fh,
+        onehot.shape[1], pos.data_ptr(), pos_out.data_ptr(), q.data_ptr(),
+        ptab.data_ptr(), Kp, prev_offset, K, (1 << d) - 1, hist.data_ptr(),
+        _build.stream_of(bins.device))
+    _build.check_status(status, what)
+    hoisted_level.launches += 1
+    return pos_out, hist
+
+
+def hoisted_level(bins, onehot, pos, gq: QuantizedGradients, ptab, *, K: int,
+                  Kp: int, B: int, d: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(new pos [n, 1] int32, hist [F, 2K, B] int64)`` of one level over
+    the one-hot from ``build_onehot``: kernel D on a CUDA tensor
+    (``hoisted_level.launches`` counts it), the plain version on a CPU
+    tensor."""
+    run = (_hoisted_level_plain if bins.device.type == "cpu"
+           else _hoisted_level_cuda)
+    return run(bins, onehot, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d)
+
+
+hoisted_level.launches = 0
+
+
 def fused_level(bins, pos, gq: QuantizedGradients, ptab, *, K: int, Kp: int,
-                B: int, d: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                B: int, d: int, onehot: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(new pos [n, 1] int32, hist [F, 2K, B] float32)``, missing
-    excluded: kernel A on a CUDA tensor, the plain version on a CPU tensor.
-    ``fused_level.launches`` counts kernel A's launches."""
-    run = _fused_level_plain if bins.device.type == "cpu" else _fused_level_cuda
-    pos, hq = run(bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d)
+    excluded. With a one-hot, the hoisted route (``hoisted_level``);
+    without, the construct route: kernel A on a CUDA tensor, the plain
+    version on a CPU tensor. ``fused_level.launches`` counts kernel A's
+    launches."""
+    if onehot is not None:
+        pos, hq = hoisted_level(bins, onehot, pos, gq, ptab, K=K, Kp=Kp, B=B,
+                                d=d)
+    else:
+        run = (_fused_level_plain if bins.device.type == "cpu"
+               else _fused_level_cuda)
+        pos, hq = run(bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d)
     lane = (torch.arange(2 * K, device=hq.device) >= K).long()
     return pos, gq.dequantize(hq, lane[None, :, None])
 
