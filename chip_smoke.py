@@ -12,7 +12,9 @@ Phases (any failure raises and the script exits non-zero):
    logistic gradients, the decision tables of a real grown tree), for
    max_bin 64 (uint8 bins, the full hoist) and max_bin 256 (int16 bins, the
    hoist plan's partial hoist): kernel C (``build_onehot``) bitwise equal to
-   its plain version; at every level d = 0..5 kernel D (``hoisted_level``)
+   its plain version; at every level d = 0..5 kernel D's routing launch
+   alone (its per-row channel records and feature-major unhoisted bins)
+   bitwise equal to their plain versions, and kernel D (``hoisted_level``)
    and kernel A (``fused_level`` without a one-hot) bitwise equal to each
    other and to their plain versions (``pos`` and the int64 ``hist``), and
    two launches identical;
@@ -230,7 +232,16 @@ def phase_level_kernels(Xtr, ytr, max_bin: int):
                                ("D plain", (pdp, hdp))):
             check(torch.equal(p_, pap), f"{tag}: pos {name} == plain")
             check(torch.equal(h_, hap), f"{tag}: int64 hist {name} == plain")
-        del pd2, hd2, pa2, ha2, pdp, hdp, pap, hap
+        pr, rec, bins_t = hk._channel_records_cuda(bins, pos, gq, st.ptab,
+                                                   Fh=Fh, **kw)
+        want_rec = hk._channel_records_plain(pap, gq, K=K, d=lvl)
+        torch.cuda.synchronize()
+        check(torch.equal(pr, pap) and torch.equal(rec, want_rec),
+              f"{tag}: D's routing launch: pos and records == plain")
+        check(bins_t is None if Fh == F else
+              torch.equal(bins_t[:, :n], bins[:, Fh:].t()),
+              f"{tag}: D's routing launch: unhoisted bins feature-major")
+        del pd2, hd2, pa2, ha2, pdp, hdp, pap, hap, pr, rec, want_rec, bins_t
         lane = (torch.arange(2 * K, device=dev) >= K).long()[None, :, None]
         hist = gq.dequantize(hd, lane)
         check(torch.equal(hist, gq.dequantize(ha, lane)),

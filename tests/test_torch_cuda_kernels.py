@@ -12,7 +12,14 @@ ragged row count, a level whose [2K, B] tile does not fit shared memory (the
 kernel's device-memory path), every missing-bin case, multi-group forests
 with tree weights and forests deeper than they are wide; for kernels C and
 D (the hoisted route) ragged row counts, K = 1 and K = 128 (two and more
-slot blocks), bins 16/64/256 and a partial hoist of 4 features.
+slot blocks), bins 16/64/256 and a partial hoist of 4 features. Kernel D
+also at 1M rows, where a block runs 23 or 45 stages of 128 rows on 132 SMs
+(the last block fewer), far more than the 4 slots of its cp.async ring (the
+ring wraps), and the last stage is ragged; B = 100 (uint8) and B = 255 (int16), whose
+64-column tiles straddle feature boundaries, full and partial hoist; a
+single construct feature (Fh = F - 1); and quantised gradients at the
+quantiser's extremes (|q| up to 2^30, both signs). Its routing launch's
+channel records are held bitwise against ``_channel_records_plain``.
 """
 
 import numpy as np
@@ -87,18 +94,44 @@ def test_onehot_kernel_matches_plain_bitwise(cuda, n, F, B, Fh):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n,F,B,Fh,d", [
-    (1000, 7, 16, 7, 0),    # full hoist, K = 1, ragged rows
-    (1000, 7, 16, 3, 3),    # partial hoist
-    (2049, 5, 64, 5, 5),    # bin 64 full hoist at K = 32
-    (999, 6, 64, 4, 7),     # K = 128: four slot blocks, partial hoist
-    (3001, 6, 256, 4, 5),   # int16 bins, partial hoist of 4 features
-    (517, 5, 256, 5, 7),    # int16, full hoist, K = 128
+def _extreme_gradients(rng, n, dev):
+    """Quantised (g, h) at the quantiser's extremes: |q| within 512 of
+    2^30, both signs, and exactly +-2^30."""
+    big = 1 << 30
+    q = rng.choice([-1, 1], size=(n, 2)) * (big - rng.randint(0, 512, (n, 2)))
+    q[::7] = big
+    q[3::7] = -big
+    return thk.QuantizedGradients(
+        q=torch.as_tensor(q.astype(np.int32), device=dev),
+        exp=torch.zeros(2, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("n,F,B,Fh,d,extreme", [
+    (1000, 7, 16, 7, 0, False),      # full hoist, K = 1, ragged rows
+    (1000, 7, 16, 3, 3, False),      # partial hoist
+    (2049, 5, 64, 5, 5, False),      # bin 64 full hoist at K = 32
+    (999, 6, 64, 4, 7, False),       # K = 128: four slot blocks, partial
+    (3001, 6, 256, 4, 5, False),     # int16 bins, partial hoist of 4
+    (517, 5, 256, 5, 7, False),      # int16, full hoist, K = 128
+    # the 4-slot ring wraps: by the launcher's sizing rule on 132 SMs, 23
+    # and 45 stages of 128 rows per block (8 wrap it twice); 67 rows in the
+    # last stage
+    (1_000_003, 12, 64, 12, 0, False),
+    (1_000_003, 6, 64, 3, 7, False),  # the same, partial hoist, K = 128
+    (2500, 6, 100, 6, 4, False),     # tiles straddle features, full
+    (2500, 6, 100, 3, 4, False),     # ... partial
+    (1500, 5, 255, 5, 5, False),     # int16, straddling tiles, full
+    (1500, 5, 255, 2, 5, False),     # ... partial
+    (2000, 6, 64, 5, 3, False),      # one construct feature
+    (4099, 6, 64, 4, 5, True),       # |q| near 2^30, partial hoist
+    (1000, 5, 255, 5, 2, True),      # |q| near 2^30, int16, full hoist
 ])
 def test_hoisted_kernel_matches_plain_and_level_kernel_bitwise(cuda, n, F, B,
-                                                               Fh, d):
+                                                               Fh, d, extreme):
     rng = np.random.RandomState(n + d + B)
     bins, pos, gq, ptab, kw = _level_case(rng, n, F, B, d, cuda)
+    if extreme:
+        gq = _extreme_gradients(rng, n, cuda)
     onehot = thk._build_onehot_cuda(bins, B=B, Fh=Fh)
     pk, hk = thk._hoisted_level_cuda(bins, onehot, pos, gq, ptab, **kw)
     pk2, hk2 = thk._hoisted_level_cuda(bins, onehot, pos, gq, ptab, **kw)
@@ -109,6 +142,32 @@ def test_hoisted_kernel_matches_plain_and_level_kernel_bitwise(cuda, n, F, B,
     assert torch.equal(hk, hp)
     assert torch.equal(hk, ha)
     assert torch.equal(pk2, pk) and torch.equal(hk2, hk)
+
+
+@pytest.mark.parametrize("n,F,B,Fh,d,extreme", [
+    (1000, 7, 16, 7, 0, False),      # full hoist: no unhoisted copy
+    (3001, 6, 256, 4, 5, False),     # int16, partial hoist
+    (2000, 6, 64, 5, 3, True),       # one construct feature, |q| ~ 2^30
+])
+def test_hoisted_route_launch_records_match_plain_bitwise(cuda, n, F, B, Fh,
+                                                          d, extreme):
+    rng = np.random.RandomState(n + d + B + 1)
+    bins, pos, gq, ptab, kw = _level_case(rng, n, F, B, d, cuda)
+    if extreme:
+        gq = _extreme_gradients(rng, n, cuda)
+    pk, rec, bins_t = thk._channel_records_cuda(bins, pos, gq, ptab, Fh=Fh,
+                                                **kw)
+    pp, _ = thk._fused_level_plain(bins, pos, gq, ptab, **kw)
+    want = thk._channel_records_plain(pp, gq, K=kw["K"], d=d)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp)
+    assert torch.equal(rec, want)
+    if Fh == F:
+        assert bins_t is None
+    else:
+        assert bins_t.shape == (F - Fh, thk.onehot_rows(n))
+        assert bins_t.dtype == bins.dtype
+        assert torch.equal(bins_t[:, :n], bins[:, Fh:].t())
 
 
 @pytest.mark.parametrize("T,depth,G,n,F", [

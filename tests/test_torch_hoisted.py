@@ -17,7 +17,10 @@ versions) against the JAX package.
 - ``hoist_plan`` against the JAX plan (``use_pallas`` patched on) under the
   same ``XGBTPU_HOIST_BUDGET_MB``, at shapes the JAX VMEM model admits;
 - route independence: 3 boosting rounds on the CPU through the hoisted route
-  (full and partial) and the construct route grow identical heap trees.
+  (full and partial) and the construct route grow identical heap trees;
+- kernel D's per-row channel records (``_channel_records_plain``): the four
+  digits of each lane recombine to ``q`` exactly, at ``|q|`` up to 2^30 of
+  both signs too, and rows off the level get node -1.
 """
 
 import jax.numpy as jnp
@@ -192,3 +195,43 @@ def test_hoisted_and_construct_routes_grow_identical_trees(monkeypatch):
         for a, b in zip(heaps[fh], heaps[0]):
             for f in a:
                 np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+def _digits(words: torch.Tensor) -> torch.Tensor:
+    """int32 words of four packed bytes -> [n, 4] signed digits, lowest
+    first."""
+    w = words.long() & 0xFFFFFFFF
+    return torch.stack([(((w >> (8 * k)) & 0xFF) ^ 0x80) - 0x80
+                        for k in range(4)], dim=1)
+
+
+@pytest.mark.parametrize("d", [0, 3])
+def test_channel_records_recombine_to_q_and_mark_rows_off_level(d):
+    rng = np.random.RandomState(5 + d)
+    n, K = 4096, 1 << d
+    big = 1 << 30
+    edges = np.array([big, -big, big - 1, -(big - 1), 0, 1, -1, 127, 128,
+                      -128, -129, 255, 256, -256, (1 << 24) - 1, -(1 << 24),
+                      0x3F7F7F7F, -0x3F7F7F7F, big - 128, -(big - 129)])
+    q = rng.randint(-big, big + 1, size=(n, 2)).astype(np.int64)
+    q[:len(edges), 0] = edges
+    q[:len(edges), 1] = -edges[::-1]
+    # positions at this level, at the levels before it (leaves kept) and
+    # past it
+    pos = rng.randint(0, 2 * K + 1, size=(n, 1)).astype(np.int32)
+    gq = thk.QuantizedGradients(q=torch.from_numpy(q.astype(np.int32)),
+                                exp=torch.zeros(2, dtype=torch.int32))
+    rec = thk._channel_records_plain(torch.from_numpy(pos), gq, K=K, d=d)
+    assert rec.shape == (n, 4) and rec.dtype == torch.int32
+    local = pos[:, 0] - (K - 1)
+    want_local = np.where((local >= 0) & (local < K), local, -1)
+    np.testing.assert_array_equal(rec[:, 0].numpy(), want_local)
+    assert (rec[:, 0] == -1).any() and (rec[:, 0] >= 0).any()
+    assert (rec[:, 3] == 0).all()
+    scale = torch.tensor([1, 1 << 8, 1 << 16, 1 << 24])
+    for lane in range(2):
+        dg = _digits(rec[:, 1 + lane])
+        assert (dg[:, :3] >= -128).all() and (dg[:, :3] <= 127).all()
+        assert dg[:, 3].abs().max() <= 65
+        np.testing.assert_array_equal((dg * scale).sum(dim=1).numpy(),
+                                      q[:, lane])

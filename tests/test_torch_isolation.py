@@ -173,8 +173,8 @@ def test_device_tensor_with_onehot_reaches_the_hoisted_kernel(stub_cuda):
     # (bins, bin_bytes, n, F, Fh, B, n_pad, out, stream)
     assert n1 == "xgbt_build_onehot" and a1[1:7] == (2, n, F, Fh, B, 320)
     # (bins, bin_bytes, n, F, B, onehot, Fh, n_pad, pos, pos_out, q, ptab,
-    #  Kp, prev_offset, K, offset, hist, stream)
-    assert n2 == "xgbt_hoisted_level"
+    #  Kp, prev_offset, K, offset, hist, records, unhoisted bins, stream)
+    assert n2 == "xgbt_hoisted_level" and len(a2) == 20
     assert a2[1:5] == (2, n, F, B) and a2[6:8] == (Fh, 320)
     assert a2[12:16] == (2, 1, K, 3)
     assert tuple(new_pos.shape) == (n, 1) and tuple(hist.shape) == (F, 2 * K, B)

@@ -56,7 +56,9 @@ _SIGNATURES = {
     },
     "hoisted_level": {
         "xgbt_hoisted_level": [_P, _I, _I, _I, _I, _P, _I, _L, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _P, _P],
+                               _I, _I, _I, _I, _P, _P, _P, _P],
+        "xgbt_hoisted_route": [_P, _I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _P, _P, _P],
     },
     "predict_walk": {
         "xgbt_predict_margin": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -314,25 +314,99 @@ def _hoisted_level_plain(bins, onehot, pos, gq: QuantizedGradients, ptab, *,
     return pos, hist.view(F, 2 * K, B)
 
 
+def _channel_records_plain(pos, gq: QuantizedGradients, *, K: int,
+                           d: int) -> torch.Tensor:
+    """Kernel D's per-row channel records, ``[n, 4]`` int32, for rows at
+    positions ``pos`` (already routed to level ``d``): the row's local node
+    ``pos - (2^d - 1)``, or -1 when that is not in ``[0, K)``; then q_g and
+    q_h, each as its four balanced base-256 digits ``d_k`` (``q = sum
+    d_k 256^k``, ``d_0..d_2`` in ``[-128, 127]``), one byte each, digit 0 in
+    the lowest byte; then 0."""
+    local = pos[:, 0].long() - ((1 << d) - 1)
+    local = torch.where((local >= 0) & (local < K), local, -1)
+    words = []
+    for lane in range(2):
+        x = gq.q[:, lane].long()
+        w = torch.zeros_like(x)
+        for dg in range(4):
+            digit = ((x + 128) & 0xff) - 128 if dg < 3 else x
+            w |= (digit & 0xff) << (8 * dg)
+            x = (x - digit) >> 8
+        words.append(torch.where(w >= 1 << 31, w - (1 << 32), w))
+    return torch.stack([local, *words, torch.zeros_like(local)],
+                       dim=1).to(torch.int32)
+
+
+def _route_scratch(bins, Fh: int, n_pad: int):
+    """Kernel D's scratch: the channel records ``[n, 4]`` int32 and, for a
+    partial hoist, the unhoisted bins feature-major ``[F-Fh, n_pad]``."""
+    n, F = bins.shape
+    rec = torch.empty((n, 4), dtype=torch.int32, device=bins.device)
+    bins_t = (torch.empty((F - Fh, n_pad), dtype=bins.dtype, device=bins.device)
+              if Fh < F else None)
+    return rec, bins_t
+
+
+def _route_inputs(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B, d,
+                  Fh, n_pad, what):
+    """Kernel D's routing launch, prepared once for both of its entry
+    points: checks the inputs, makes them contiguous and allocates the
+    routed positions and the scratch (``_route_scratch``). Returns
+    ``(pos_out, rec, bins_t, held, args)``; the caller keeps the tensors
+    (``held``: the contiguous inputs) until its launch is queued. ``args``
+    holds the C arguments in three runs, ``(bins, bin_bytes, n, F, B)``,
+    ``(pos, pos_out, q, ptab, Kp, prev_offset, K, offset)`` and ``(rec,
+    bins_t)``."""
+    bin_bytes = _check_level_inputs(bins, pos, gq, ptab, Kp, what)
+    n, F = bins.shape
+    held = tuple(t.contiguous() for t in (bins, pos, gq.q, ptab))
+    bins, pos, q, ptab = held
+    pos_out = torch.empty_like(pos)
+    rec, bins_t = _route_scratch(bins, Fh, n_pad)
+    prev_offset = (1 << (d - 1)) - 1 if d > 0 else 0
+    args = ((bins.data_ptr(), bin_bytes, n, F, B),
+            (pos.data_ptr(), pos_out.data_ptr(), q.data_ptr(), ptab.data_ptr(),
+             Kp, prev_offset, K, (1 << d) - 1),
+            (rec.data_ptr(), None if bins_t is None else bins_t.data_ptr()))
+    return pos_out, rec, bins_t, held, args
+
+
+def _channel_records_cuda(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp,
+                          B, d, Fh):
+    """Kernel D's first launch alone: ``(routed pos, channel records, the
+    unhoisted bins feature-major or None)``, as ``_hoisted_level_cuda``
+    writes them before its histogram launch. Not counted in
+    ``hoisted_level.launches``."""
+    what = "hoisted_level"
+    n_pad = onehot_rows(bins.shape[0])
+    pos_out, rec, bins_t, held, (head, route, scratch) = _route_inputs(
+        bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d, Fh=Fh, n_pad=n_pad,
+        what=what)
+    status = _build.library("hoisted_level").xgbt_hoisted_route(
+        *head, Fh, n_pad, *route, *scratch, _build.stream_of(bins.device))
+    _build.check_status(status, what)
+    return pos_out, rec, bins_t
+
+
 def _hoisted_level_cuda(bins, onehot, pos, gq: QuantizedGradients, ptab, *,
                         K, Kp, B, d) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel D. Checks what the kernel takes and raises otherwise."""
+    """Launch kernel D (its routing launch, then its histogram launch).
+    Checks what the kernel takes and raises otherwise."""
     what = "hoisted_level"
-    bin_bytes = _check_level_inputs(bins, pos, gq, ptab, Kp, what)
     _build.require_kernel_device(onehot, what)
     n, F = bins.shape
     Fh = _onehot_features(onehot, n, F, B, what)
-    if not onehot.is_contiguous():
-        raise ValueError(f"{what}: the one-hot must be contiguous")
-    bins, pos, q, ptab = (t.contiguous() for t in (bins, pos, gq.q, ptab))
-    pos_out = torch.empty_like(pos)
+    if not onehot.is_contiguous() or onehot.data_ptr() % 16:
+        raise ValueError(f"{what}: the one-hot must be contiguous and "
+                         "16-byte aligned")
+    n_pad = onehot.shape[1]
+    pos_out, rec, bins_t, held, (head, route, scratch) = _route_inputs(
+        bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d, Fh=Fh, n_pad=n_pad,
+        what=what)
     hist = torch.zeros((F, 2 * K, B), dtype=torch.int64, device=bins.device)
-    prev_offset = (1 << (d - 1)) - 1 if d > 0 else 0
     status = _build.library("hoisted_level").xgbt_hoisted_level(
-        bins.data_ptr(), bin_bytes, n, F, B, onehot.data_ptr(), Fh,
-        onehot.shape[1], pos.data_ptr(), pos_out.data_ptr(), q.data_ptr(),
-        ptab.data_ptr(), Kp, prev_offset, K, (1 << d) - 1, hist.data_ptr(),
-        _build.stream_of(bins.device))
+        *head, onehot.data_ptr(), Fh, n_pad, *route, hist.data_ptr(),
+        *scratch, _build.stream_of(bins.device))
     _build.check_status(status, what)
     hoisted_level.launches += 1
     return pos_out, hist
