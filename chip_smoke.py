@@ -17,9 +17,15 @@ Phases (any failure raises and the script exits non-zero):
    bitwise equal to their plain versions, and kernel D (``hoisted_level``)
    and kernel A (``fused_level`` without a one-hot) bitwise equal to each
    other and to their plain versions (``pos`` and the int64 ``hist``), and
-   two launches identical;
-3. kernel B (``predict_margin``) against its plain version on a forest of
-   10 depth-6 trees and 100k rows with 5% NaNs: allclose 1e-5;
+   two launches identical; kernel A's routing launch alone (its per-row
+   records) bitwise equal to its plain version; at max_bin 256 also kernel
+   A at 10M x 50 (the 1M bins, q and positions repeated 10 times, through
+   each level's table of the 1M tree), where ``hoist_plan`` itself is 0:
+   the int64 histogram 10 x the 1M one at every level;
+3. kernel B (``predict_margin``) against its plain version on forests of
+   T depth-6 trees with 5% NaNs, T = 1 and 10 on 100k rows, T = 500 on
+   100k and on 1M rows (the plain version on the first 10k rows):
+   allclose 1e-5;
 4. the bin-64 main path through the public entry points: ``train``
    binary:logistic with the depthwise hist grower (max_depth 6, max_bin 64,
    eta 0.1) for 10 rounds on 1M x 50 with AUC/logloss eval on 100k held-out
@@ -35,9 +41,11 @@ Phases (any failure raises and the script exits non-zero):
 7. 3 rounds at max_bin 256 on 64k rows on the card (the hoisted route) and
    on the CPU (the plain construct route): identical trees, predictions
    within 1e-5;
-8. each kernel timed with CUDA events (median of >= 20 launches after
-   warm-up) beside its plain version, its bound and a PyTorch library call
-   where one exists.
+8. each kernel timed with CUDA events around its wrapper (``ms``, median
+   of >= 20 launches after warm-up) and by ``torch.profiler`` alone
+   (``kernel_ms``: the device time of the kernel's own launches, without
+   the wrapper's other device operations and host gaps), beside its plain
+   version, its bound and a PyTorch library call where one exists.
 
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
@@ -117,6 +125,31 @@ def time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+#: substrings of the kernel names that each wrapper launches (the device
+#: operations that ``kernel_ms`` sums)
+KERNEL_KEYS = {"A": ("level_",), "B": ("walk_kernel",), "C": ("onehot",),
+               "D": ("route_kernel", "hoisted_kernel")}
+
+
+def kernel_ms(fn, kernel: str, reps: int = TIMING_REPS):
+    """The kernel's own device time per call: ``torch.profiler``'s device
+    time of the kernels named in ``KERNEL_KEYS[kernel]`` over ``reps``
+    calls of ``fn``, without the wrapper's other device operations and host
+    gaps. None if the profiler saw none of them."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(k in e.key for k in KERNEL_KEYS[kernel]))
+    return us / reps / 1e3 if us > 0 else None
+
+
 def bound_ms(nbytes: float, nops: float, peak_ops: float = PEAK_OPS):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -173,15 +206,17 @@ def phase_onehot_kernel(bins, B: int, Fh: int):
     check(torch.equal(got, want), f"one-hot B={B} Fh={Fh}: kernel == plain")
     del want
     ms = time_ms(lambda: hk.build_onehot(bins, B=B, Fh=Fh))
+    k_ms = kernel_ms(lambda: hk.build_onehot(bins, B=B, Fh=Fh), "C")
     plain_ms = time_ms(lambda: hk._build_onehot_plain(bins, B=B, Fh=Fh),
                        reps=5, warmup=1)
     nbytes = n * Fh * bins.element_size() + got.numel()
     bnd, by = bound_ms(nbytes, n * Fh * B)
     print(f"kernel C (B={B}, Fh={Fh}, {n} rows, {got.numel() / 1e9:.2f} GB): "
-          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
-          f"bitwise equal")
-    return got, dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
-                     bound_by=by, max_abs_err=0.0, B=B, Fh=Fh)
+          f"{ms:.4f} ms (kernel alone {k_ms} ms)  plain {plain_ms:.4f} ms  "
+          f"bound {bnd:.4f} ms ({by})  bitwise equal")
+    return got, dict(ms=ms, kernel_ms=k_ms, plain_ms=plain_ms,
+                     library_ms=None, bound_ms=bnd, bound_by=by,
+                     max_abs_err=0.0, B=B, Fh=Fh)
 
 
 def _int_mm_ms(M: int, onehot):
@@ -203,6 +238,7 @@ def phase_level_kernels(Xtr, ytr, max_bin: int):
     d = xgbt.DMatrix(Xtr, ytr)
     binned = d.get_binned(max_bin)
     bins, cuts = binned.bins, binned.cut_values
+    bins_t = binned.feature_major()
     n, F = bins.shape
     B = max_bin
     Fh = hk.hoist_plan(hk.onehot_rows(n), F, B, dev)
@@ -216,12 +252,14 @@ def phase_level_kernels(Xtr, ytr, max_bin: int):
     pos = torch.zeros((n, 1), dtype=torch.int32, device=dev)
     bs = bins.element_size()
     a_levels, d_levels = [], []
+    tables = []  # (pos, ptab) of each level, for the 10M x 50 check
     for lvl in range(DEPTH):
         K, Kp = 1 << lvl, (1 << lvl) >> 1
         kw = dict(K=K, Kp=Kp, B=B, d=lvl)
         pd, hd = hk._hoisted_level_cuda(bins, onehot, pos, gq, st.ptab, **kw)
         pd2, hd2 = hk._hoisted_level_cuda(bins, onehot, pos, gq, st.ptab, **kw)
-        pa, ha = hk._fused_level_cuda(bins, pos, gq, st.ptab, **kw)
+        pa, ha = hk._fused_level_cuda(bins, pos, gq, st.ptab, bins_t=bins_t,
+                                      **kw)
         pa2, ha2 = hk._fused_level_cuda(bins, pos, gq, st.ptab, **kw)
         pdp, hdp = hk._hoisted_level_plain(bins, onehot, pos, gq, st.ptab, **kw)
         pap, hap = hk._fused_level_plain(bins, pos, gq, st.ptab, **kw)
@@ -232,26 +270,38 @@ def phase_level_kernels(Xtr, ytr, max_bin: int):
                                ("D plain", (pdp, hdp))):
             check(torch.equal(p_, pap), f"{tag}: pos {name} == plain")
             check(torch.equal(h_, hap), f"{tag}: int64 hist {name} == plain")
-        pr, rec, bins_t = hk._channel_records_cuda(bins, pos, gq, st.ptab,
-                                                   Fh=Fh, **kw)
+        pr, rec, unhoisted = hk._channel_records_cuda(bins, pos, gq, st.ptab,
+                                                      Fh=Fh, **kw)
         want_rec = hk._channel_records_plain(pap, gq, K=K, d=lvl)
         torch.cuda.synchronize()
         check(torch.equal(pr, pap) and torch.equal(rec, want_rec),
               f"{tag}: D's routing launch: pos and records == plain")
-        check(bins_t is None if Fh == F else
-              torch.equal(bins_t[:, :n], bins[:, Fh:].t()),
+        check(unhoisted is None if Fh == F else
+              torch.equal(unhoisted[:, :n], bins[:, Fh:].t()),
               f"{tag}: D's routing launch: unhoisted bins feature-major")
-        del pd2, hd2, pa2, ha2, pdp, hdp, pap, hap, pr, rec, want_rec, bins_t
+        pr, loc = hk._level_records_cuda(bins, pos, gq, st.ptab, **kw)
+        want_loc = hk._level_records_plain(pap, K=K, d=lvl)
+        torch.cuda.synchronize()
+        check(torch.equal(pr, pap) and torch.equal(loc, want_loc),
+              f"{tag}: A's routing launch: pos and records == plain")
+        del pd2, hd2, pa2, ha2, pdp, hdp, pap, hap, pr, rec, want_rec, loc
+        del want_loc, unhoisted
         lane = (torch.arange(2 * K, device=dev) >= K).long()[None, :, None]
         hist = gq.dequantize(hd, lane)
         check(torch.equal(hist, gq.dequantize(ha, lane)),
               f"{tag}: f32 hist D == A")
 
+        tables.append((pos, st.ptab.clone()))
         d_ms = time_ms(lambda: hk.fused_level(bins, pos, gq, st.ptab,
                                               onehot=onehot, **kw))
+        d_kms = kernel_ms(lambda: hk.fused_level(bins, pos, gq, st.ptab,
+                                                 onehot=onehot, **kw), "D")
         d_plain = time_ms(lambda: gq.dequantize(hk._hoisted_level_plain(
             bins, onehot, pos, gq, st.ptab, **kw)[1], lane), reps=5, warmup=1)
-        a_ms = time_ms(lambda: hk.fused_level(bins, pos, gq, st.ptab, **kw))
+        a_ms = time_ms(lambda: hk.fused_level(bins, pos, gq, st.ptab,
+                                              bins_t=bins_t, **kw))
+        a_kms = kernel_ms(lambda: hk.fused_level(bins, pos, gq, st.ptab,
+                                                 bins_t=bins_t, **kw), "A")
         a_plain = time_ms(lambda: gq.dequantize(hk._fused_level_plain(
             bins, pos, gq, st.ptab, **kw)[1], lane), reps=5, warmup=1)
         # library yardsticks: _int_mm of D's product (M = 8K channel rows,
@@ -274,29 +324,84 @@ def phase_level_kernels(Xtr, ytr, max_bin: int):
         d_bytes = onehot.numel() + n * (F - Fh + 1) * bs + small
         d_bnd, d_by = bound_ms(d_bytes, 2 * 8 * K * onehot.numel(), PEAK_INT8)
         a_bnd, a_by = bound_ms(n * F * bs + small, 2 * n * F)
-        d_levels.append(dict(level=lvl, ms=d_ms, plain_ms=d_plain,
-                             library_ms=d_lib, bound_ms=d_bnd, bound_by=d_by))
-        a_levels.append(dict(level=lvl, ms=a_ms, plain_ms=a_plain,
-                             library_ms=a_lib, bound_ms=a_bnd, bound_by=a_by))
+        d_levels.append(dict(level=lvl, ms=d_ms, kernel_ms=d_kms,
+                             plain_ms=d_plain, library_ms=d_lib,
+                             bound_ms=d_bnd, bound_by=d_by))
+        a_levels.append(dict(level=lvl, ms=a_ms, kernel_ms=a_kms,
+                             plain_ms=a_plain, library_ms=a_lib,
+                             bound_ms=a_bnd, bound_by=a_by))
         lib_s = "refused" if d_lib is None else f"{d_lib:.4f} ms"
-        print(f"{tag} (K={K}): kernel D {d_ms:.4f} ms  plain {d_plain:.4f} ms"
-              f"  _int_mm {lib_s}  bound {d_bnd:.4f} ms ({d_by}) | kernel A "
-              f"{a_ms:.4f} ms  plain {a_plain:.4f} ms  index_add_ "
+        print(f"{tag} (K={K}): kernel D {d_ms:.4f} ms (alone {d_kms} ms)  "
+              f"plain {d_plain:.4f} ms  _int_mm {lib_s}  bound {d_bnd:.4f} ms "
+              f"({d_by}) | kernel A {a_ms:.4f} ms (alone {a_kms} ms)  plain "
+              f"{a_plain:.4f} ms  index_add_ "
               f"{a_lib:.4f} ms  bound {a_bnd:.4f} ms ({a_by}) | bitwise equal")
         st = _level_update(st, hist, cuts, cfg, lvl)
         pos = pd
     del onehot
+    torch.cuda.empty_cache()
+    big = (phase_construct_10x(bins, bins_t, gq, tables, B)
+           if B == DEFAULT_MAX_BIN else None)
+    del tables
 
     def summary(levels):
         libs = [x["library_ms"] for x in levels]
-        return dict(ms=_mean(levels, "ms"), plain_ms=_mean(levels, "plain_ms"),
+        kms = [x["kernel_ms"] for x in levels]
+        return dict(ms=_mean(levels, "ms"),
+                    kernel_ms=None if None in kms else sum(kms) / len(kms),
+                    plain_ms=_mean(levels, "plain_ms"),
                     library_ms=(None if None in libs
                                 else sum(libs) / len(libs)),
                     bound_ms=_mean(levels, "bound_ms"),
                     bound_by=levels[-1]["bound_by"], max_abs_err=0.0,
                     levels=levels)
 
-    return c_stats, summary(a_levels), dict(summary(d_levels), B=B, Fh=Fh)
+    a_sum = summary(a_levels)
+    if big is not None:
+        a_sum["rows_10m"] = big
+    return c_stats, a_sum, dict(summary(d_levels), B=B, Fh=Fh)
+
+
+def phase_construct_10x(bins, bins_t, gq, tables, B: int):
+    """Kernel A where the hoist plan itself picks it: the 1M x 50 bins, q
+    and positions repeated 10 times (10M x 50), through each level's table
+    of the 1M tree. The int64 histogram must be 10 x the 1M one and the
+    positions the 1M ones repeated; no plain run at 10M."""
+    reps = 10
+    n, F = bins.shape
+    plan = hk.hoist_plan(hk.onehot_rows(reps * n), F, B, DEVICE)
+    check(plan == 0, f"10M x {F} bin {B}: hoist plan {plan}, want 0")
+    big_bins = bins.repeat(reps, 1)
+    big_bins_t = hk.feature_major(big_bins)
+    big_gq = hk.QuantizedGradients(q=gq.q.repeat(reps, 1), exp=gq.exp)
+    levels = []
+    for lvl, (pos, ptab) in enumerate(tables):
+        K, Kp = 1 << lvl, (1 << lvl) >> 1
+        kw = dict(K=K, Kp=Kp, B=B, d=lvl)
+        big_pos = pos.repeat(reps, 1)
+        p1, h1 = hk._fused_level_cuda(bins, pos, gq, ptab, bins_t=bins_t, **kw)
+        p10, h10 = hk._fused_level_cuda(big_bins, big_pos, big_gq, ptab,
+                                        bins_t=big_bins_t, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(p10, p1.repeat(reps, 1)),
+              f"10M level {lvl}: pos == the 1M pos repeated")
+        check(torch.equal(h10, h1 * reps), f"10M level {lvl}: hist == 10 x 1M")
+        del p1, h1, p10, h10
+        run = lambda: hk.fused_level(big_bins, big_pos, big_gq, ptab,  # noqa: E731
+                                     bins_t=big_bins_t, **kw)
+        ms = time_ms(run)
+        k_ms = kernel_ms(run, "A")
+        N = reps * n
+        nbytes = (N * F * bins.element_size() + N * 4 + N * 8 + Kp * 16
+                  + N * 4 + F * 2 * K * B * 8)
+        bnd, by = bound_ms(nbytes, 2 * N * F)
+        print(f"10M x {F} bin {B} level {lvl} (K={K}, hoist plan 0): kernel A"
+              f" {ms:.4f} ms (alone {k_ms} ms)  bound {bnd:.4f} ms ({by})  "
+              f"== 10 x the 1M hist")
+        levels.append(dict(level=lvl, ms=ms, kernel_ms=k_ms, bound_ms=bnd,
+                           bound_by=by))
+        del big_pos
+    return levels
 
 
 def _random_forest(rng, T, depth, F):
@@ -315,30 +420,75 @@ def _random_forest(rng, T, depth, F):
                              heap_layout=True)
 
 
+#: kernel B's shapes: (trees, rows); T = 1 is each round's eval walk, T = 10
+#: the forest this phase has always timed, T = 500 a bench.py-sized model
+WALK_SHAPES = ((1, EVAL_ROWS), (10, EVAL_ROWS), (500, EVAL_ROWS),
+               (500, ROWS))
+# the plain walk runs on at most this many rows (rows are independent)
+WALK_PLAIN_ROWS = 10_000
+
+
+def walk_x_bytes(forest, X) -> int:
+    """The bytes of X that the walk needs: 4 per distinct (row, feature)
+    that some tree's path tests (the bound counts what this data needs,
+    not all of X)."""
+    n = X.shape[0]
+    rows = torch.arange(n, device=X.device)
+    seen = torch.zeros(X.shape, dtype=torch.bool, device=X.device)
+    for t in range(forest.num_trees):
+        node = torch.zeros(n, dtype=torch.int64, device=X.device)
+        for _ in range(forest.max_depth):
+            left = forest.left[t][node]
+            internal = left >= 0
+            f = forest.feature[t][node].long()
+            seen[rows[internal], f[internal]] = True
+            v = X[rows, f]
+            goleft = torch.where(torch.isnan(v), forest.default_left[t][node],
+                                 v < forest.cond[t][node])
+            nxt = torch.where(goleft, left, forest.right[t][node]).long()
+            node = torch.where(internal, nxt, node)
+    return int(seen.sum()) * 4
+
+
 def phase_walk_kernel():
-    """Kernel B against its plain version: 10 depth-6 trees, 100k rows."""
+    """Kernel B against its plain version on forests of T depth-6 trees,
+    rows with 5% NaNs, at each of ``WALK_SHAPES``; returns the T = 10 entry
+    with every shape under ``shapes``."""
     rng = np.random.RandomState(3)
-    forest = _random_forest(rng, 10, DEPTH, COLS)
-    Xe, _ = _make_data(EVAL_ROWS, COLS, 0.05, seed=7)
-    X = torch.as_tensor(Xe, device=DEVICE)
-    base = torch.zeros((EVAL_ROWS, 1), device=DEVICE)
-    tw = torch.ones(10, device=DEVICE)
-    got = predict_margin(forest, X, base)
-    want = _predict_margin_plain(forest, X, base, tw)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-          f"walk kernel == plain (max abs err {err})")
-    ms = time_ms(lambda: predict_margin(forest, X, base))
-    plain_ms = time_ms(lambda: _predict_margin_plain(forest, X, base, tw))
-    T, N = forest.left.shape
-    nbytes = X.numel() * 4 + 2 * EVAL_ROWS * 4 + T * N * 17 + T * 8
-    bnd, by = bound_ms(nbytes, EVAL_ROWS * T * DEPTH * 2)
-    print(f"kernel B (T={T}, depth {DEPTH}, {EVAL_ROWS} rows): {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
-          f"max abs err {err}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
-                bound_by=by, max_abs_err=err)
+    shapes = []
+    for T, rows in WALK_SHAPES:
+        forest = _random_forest(rng, T, DEPTH, COLS)
+        Xe, _ = _make_data(rows, COLS, 0.05, seed=7)
+        X = torch.as_tensor(Xe, device=DEVICE)
+        base = torch.zeros((rows, 1), device=DEVICE)
+        tw = torch.ones(T, device=DEVICE)
+        m = min(rows, WALK_PLAIN_ROWS) if T > 10 else rows
+        got = predict_margin(forest, X, base)
+        want = _predict_margin_plain(forest, X[:m], base[:m], tw)
+        torch.cuda.synchronize()
+        err = float((got[:m] - want).abs().max())
+        check(torch.allclose(got[:m], want, rtol=1e-5, atol=1e-5),
+              f"walk kernel T={T} == plain (max abs err {err})")
+        check(bool(torch.isfinite(got).all()), f"walk kernel T={T}: finite")
+        run = lambda: predict_margin(forest, X, base)  # noqa: E731
+        ms = time_ms(run)
+        k_ms = kernel_ms(run, "B")
+        plain_ms = time_ms(
+            lambda: _predict_margin_plain(forest, X[:m], base[:m], tw),
+            reps=5 if T > 10 else TIMING_REPS, warmup=1)
+        N = forest.left.shape[1]
+        nbytes = walk_x_bytes(forest, X) + 2 * rows * 4 + T * N * 16 + T * 8
+        bnd, by = bound_ms(nbytes, rows * T * DEPTH * 2)
+        print(f"kernel B (T={T}, depth {DEPTH}, {rows} rows): {ms:.4f} ms "
+              f"(alone {k_ms} ms)  plain {plain_ms:.4f} ms on {m} rows  "
+              f"bound {bnd:.4f} ms ({by})  max abs err {err}")
+        shapes.append(dict(T=T, rows=rows, ms=ms, kernel_ms=k_ms,
+                           plain_ms=plain_ms, plain_rows=m, bound_ms=bnd,
+                           bound_by=by, max_abs_err=err))
+        del forest, X, base, got, want
+    main = next(x for x in shapes if x["T"] == 10)
+    return dict({k: v for k, v in main.items() if k not in ("T", "rows")},
+                library_ms=None, shapes=shapes)
 
 
 def phase_train(name, params, Xtr, ytr, Xte, yte, rounds, want):

@@ -8,8 +8,8 @@ machine with a card run them with
 
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine need not have). Shapes cover what ``chip_smoke.py`` does not: a
-ragged row count, a level whose [2K, B] tile does not fit shared memory (the
-kernel's device-memory path), every missing-bin case, multi-group forests
+ragged row count, a level whose [2K, B] tile does not fit shared memory
+(node slices), every missing-bin case, multi-group forests
 with tree weights and forests deeper than they are wide; for kernels C and
 D (the hoisted route) ragged row counts, K = 1 and K = 128 (two and more
 slot blocks), bins 16/64/256 and a partial hoist of 4 features. Kernel D
@@ -20,6 +20,19 @@ ring wraps), and the last stage is ragged; B = 100 (uint8) and B = 255 (int16), 
 single construct feature (Fh = F - 1); and quantised gradients at the
 quantiser's extremes (|q| up to 2^30, both signs). Its routing launch's
 channel records are held bitwise against ``_channel_records_plain``.
+
+Kernel A's cases since its redesign (routing once per level, feature-major
+bins, 32-bit halves in node-sliced shared tiles): every row in one bin at
+K = 1 (every add of a warp on one address); levels whose [2K, B] tile is
+cut into node slices (uneven last slice) with a ragged last row chunk;
+more than 2^16 rows, so the halves' per-block cap splits the rows, with
+every row's |q| at the quantiser's extremes in one cell; a bin count whose
+single node does not fit shared memory (the device-memory path); its
+routing launch's records against ``_level_records_plain``. Kernel B's:
+500 trees over many shared-memory chunks (X staged), tree counts that
+leave a tail of single walks, three groups with tree weights, forests
+deep enough to walk from device memory, and non-heap forests (node ids
+permuted, as JSON models number them) with leaves mid-tree.
 """
 
 import numpy as np
@@ -63,7 +76,7 @@ def _level_case(rng, n, F, B, d, dev):
     (1, 3, 16, 0),          # one row
     (1000, 7, 16, 3),       # ragged rows, small tile
     (5000, 50, 64, 5),      # the main path's width at K = 32
-    (3000, 9, 254, 7),      # [2K, B] int64 tile > 227 KB: device-memory path
+    (3000, 9, 254, 7),      # [2K, B] int64 tile > 227 KB: node slices
     (4001, 6, 256, 5),      # int16 bins at the default max_bin
 ])
 def test_level_kernel_matches_plain_bitwise(cuda, n, F, B, d):
@@ -190,6 +203,127 @@ def test_walk_kernel_matches_plain(cuda, T, depth, G, n, F):
         rng.randint(0, G, size=T), depth, G, device=cuda)
     X = rng.randn(n, F).astype(np.float32)
     X[rng.rand(n, F) < 0.1] = np.nan
+    X = torch.as_tensor(X, device=cuda)
+    base = torch.as_tensor(rng.randn(n, G).astype(np.float32), device=cuda)
+    tw = torch.as_tensor(rng.uniform(0.5, 2.0, T).astype(np.float32),
+                         device=cuda)
+    got = tpred._predict_margin_cuda(forest, X, base, tw)
+    want = tpred._predict_margin_plain(forest, X, base, tw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _fused_level_checks(bins, pos, gq, ptab, kw):
+    """Kernel A twice and its plain version: pos and int64 hist bitwise."""
+    pk, hk = thk._fused_level_cuda(bins, pos, gq, ptab, **kw)
+    pk2, hk2 = thk._fused_level_cuda(bins, pos, gq, ptab,
+                                     bins_t=thk.feature_major(bins), **kw)
+    pp, hp = thk._fused_level_plain(bins, pos, gq, ptab, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(hk, hp)
+    assert torch.equal(pk2, pk) and torch.equal(hk2, hk)
+    return hk
+
+
+@pytest.mark.parametrize("n,F,B", [(5000, 7, 64), (3001, 5, 256)])
+def test_level_kernel_one_bin_k1(cuda, n, F, B):
+    """Every row in one bin of every feature at K = 1."""
+    rng = np.random.RandomState(n)
+    bins, pos, gq, ptab, kw = _level_case(rng, n, F, B, 0, cuda)
+    bins = torch.full_like(bins, B // 2)
+    hk = _fused_level_checks(bins, pos, gq, ptab, kw)
+    assert int(hk[:, 0, B // 2].ne(0).sum()) == F
+
+
+@pytest.mark.parametrize("n,F,B,d", [
+    (70_001, 6, 256, 6),   # K = 64: slices of 22, 22, 20 nodes; ragged
+    (70_001, 4, 254, 7),   # K = 128: six slices, the last one shorter
+    (130_003, 3, 64, 6),   # uint8, K = 64, ragged
+])
+def test_level_kernel_node_slices_ragged_chunks(cuda, n, F, B, d):
+    rng = np.random.RandomState(n + d)
+    bins, pos, gq, ptab, kw = _level_case(rng, n, F, B, d, cuda)
+    _fused_level_checks(bins, pos, gq, ptab, kw)
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+def test_level_kernel_halves_exact_past_the_row_cap(cuda, sign):
+    """200k rows in one cell of every feature with |q| at the quantiser's
+    extreme, at K = 128 and B = 254 with 100 features: six node slices x
+    100 feature groups fill the grid with one row chunk each, so the
+    halves' 2^16-row cap splits the rows and their sums reach their
+    widest."""
+    n, F, B, d = 200_003, 100, 254, 7
+    K = 1 << d
+    bins = torch.full((n, F), 3, dtype=torch.uint8, device=cuda)
+    pos = torch.full((n, 1), K - 1 + 5, dtype=torch.int32, device=cuda)
+    ptab = torch.zeros((1, 4), dtype=torch.float32, device=cuda)
+    qv = (1 << 30) - 1 if sign > 0 else -(1 << 30)
+    gq = thk.QuantizedGradients(
+        q=torch.full((n, 2), qv, dtype=torch.int32, device=cuda),
+        exp=torch.zeros(2, dtype=torch.int32, device=cuda))
+    hk = _fused_level_checks(bins, pos, gq, ptab, dict(K=K, Kp=0, B=B, d=d))
+    assert int(hk[0, 5, 3]) == n * qv and int(hk[F - 1, K + 5, 3]) == n * qv
+
+
+def test_level_kernel_device_memory_path(cuda):
+    """B = 20000: one node's [2, B] int64 tile (320 KB) exceeds shared
+    memory, so the kernel adds into hist directly."""
+    rng = np.random.RandomState(11)
+    bins, pos, gq, ptab, kw = _level_case(rng, 3000, 3, 20000, 1, cuda)
+    _fused_level_checks(bins, pos, gq, ptab, kw)
+
+
+@pytest.mark.parametrize("n,F,B,d", [(1000, 7, 16, 0), (70_001, 6, 256, 5)])
+def test_level_route_launch_records_match_plain(cuda, n, F, B, d):
+    rng = np.random.RandomState(n + d + 2)
+    bins, pos, gq, ptab, kw = _level_case(rng, n, F, B, d, cuda)
+    pk, loc = thk._level_records_cuda(bins, pos, gq, ptab, **kw)
+    pp, _ = thk._fused_level_plain(bins, pos, gq, ptab, **kw)
+    want = thk._level_records_plain(pp, K=kw["K"], d=d)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(loc, want)
+
+
+def _permuted(left, right, rng):
+    """The same trees with node ids permuted (root kept at 0), as JSON
+    models number their nodes: ``(left, right, perm)``, ``perm[new] =
+    old``."""
+    T, N = left.shape
+    perm = np.concatenate([[0], 1 + rng.permutation(N - 1)])
+    inv = np.argsort(perm)
+    relabel = lambda c: np.where(c >= 0, inv[np.maximum(c, 0)], -1)  # noqa: E731
+    return relabel(left[:, perm]), relabel(right[:, perm]), perm
+
+
+@pytest.mark.parametrize("T,depth,G,n,F,heap", [
+    (500, 6, 1, 3000, 50, True),    # ~42 chunks of 12 trees, X staged
+    (37, 6, 1, 2001, 50, False),    # a tail of single walks, non-heap
+    (23, 5, 3, 1500, 20, True),     # three groups, tree weights, staged
+    (9, 4, 3, 777, 8, False),       # three groups, X read directly
+    (5, 11, 1, 500, 30, True),      # 4095 nodes: walked from device memory
+])
+def test_walk_kernel_chunks_groups_and_layouts(cuda, T, depth, G, n, F, heap):
+    rng = np.random.RandomState(T + depth + n)
+    N = (1 << (depth + 1)) - 1
+    internal = (1 << depth) - 1
+    idx = np.arange(N)
+    left = np.tile(np.where(idx < internal, 2 * idx + 1, -1), (T, 1))
+    right = np.tile(np.where(idx < internal, 2 * idx + 2, -1), (T, 1))
+    left[:, 2] = right[:, 2] = -1   # a leaf mid-tree
+    left[:, 5] = right[:, 5] = -1
+    feature = rng.randint(0, F, size=(T, N))
+    cond = rng.randn(T, N).astype(np.float32)
+    dl = rng.rand(T, N) < 0.5
+    if not heap:
+        left, right, perm = _permuted(left, right, rng)
+        feature, cond, dl = (np.take_along_axis(a, np.tile(perm, (T, 1)), 1)
+                             for a in (feature, cond, dl))
+    forest = tpred.forest_from_numpy(left, right, feature, cond, dl,
+                                     rng.randint(0, G, size=T), depth, G,
+                                     device=cuda, heap_layout=heap)
+    X = rng.randn(n, F).astype(np.float32)
+    X[rng.rand(n, F) < 0.05] = np.nan
     X = torch.as_tensor(X, device=cuda)
     base = torch.as_tensor(rng.randn(n, G).astype(np.float32), device=cuda)
     tw = torch.as_tensor(rng.uniform(0.5, 2.0, T).astype(np.float32),

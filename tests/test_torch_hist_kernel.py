@@ -178,3 +178,41 @@ def test_leaf_delta_matches_gather():
     want = np.asarray(jhk.leaf_delta(jnp.asarray(pos), jnp.asarray(lv), 128,
                                      pallas=False))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,Bm", [(np.uint8, B), (np.int16, 300)])
+def test_feature_major_copy_is_bins_transposed(dtype, Bm):
+    rng = np.random.RandomState(3)
+    bins = torch.from_numpy(rng.randint(0, Bm + 1, size=(1001, F)).astype(dtype))
+    bt = thk.feature_major(bins)
+    assert bt.dtype == bins.dtype
+    assert tuple(bt.shape) == (F, thk.onehot_rows(1001))
+    assert bt.stride(0) % 4 == 0
+    assert torch.equal(bt[:, :1001], bins.t())
+    assert not bt[:, 1001:].any()
+
+
+def test_level_records_match_jax_positions():
+    """Kernel A's per-row record (local node at level d, or -1) from the
+    port's routed positions against the positions of the JAX package's
+    ``fused_level_xla``, level by level; the q it adds are the quantised
+    gradients as given."""
+    rng, bins, gh = _inputs(5, False)
+    pos = np.zeros((N, 1), np.int32)
+    gq = thk.quantize_gradients(torch.from_numpy(gh[:, 0]),
+                                torch.from_numpy(gh[:, 1]))
+    for d in range(4):
+        K, Kp = 1 << d, (1 << d) >> 1
+        ptab = _ptab(rng, Kp)
+        t_pos, _ = thk._fused_level_plain(
+            torch.from_numpy(bins), torch.from_numpy(pos), gq,
+            torch.from_numpy(ptab), K=K, Kp=Kp, B=B, d=d)
+        j_pos, _ = jhk.fused_level_xla(
+            jnp.asarray(bins), jnp.asarray(pos), jnp.asarray(gh),
+            jnp.asarray(ptab), K=K, Kp=Kp, B=B, d=d)
+        rec = thk._level_records_plain(t_pos, K=K, d=d).numpy()
+        local = np.asarray(j_pos)[:, 0] - ((1 << d) - 1)
+        np.testing.assert_array_equal(
+            rec, np.where((local >= 0) & (local < K), local, -1))
+        assert rec.dtype == np.int32 and (rec >= 0).sum() > N // 2
+        pos = t_pos.numpy()

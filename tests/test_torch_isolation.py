@@ -220,7 +220,9 @@ def test_device_tensor_reaches_the_walk_kernel(stub_cuda):
     assert tpred.predict_margin.launches == before + 1
     (name, args), = stub_cuda.calls
     assert name == "xgbt_predict_margin"
-    assert args[1:3] == (n, F) and args[10:14] == (T, N, 2, 1)
+    # (X, n, F, node records, tree_group, tree_weight, T, N, max_depth, G,
+    #  base, out, stream)
+    assert args[1:3] == (n, F) and args[6:10] == (T, N, 2, 1)
     assert tuple(out.shape) == (n, 1)
 
 

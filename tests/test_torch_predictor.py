@@ -138,3 +138,69 @@ def test_groups_and_tree_weights():
                      [1 - 1 + 2.5, 1 + 6.0],
                      [1 + 1 + 2.5, 1 + 6.0]], np.float32)
     np.testing.assert_allclose(got, want)
+
+
+def _table_walk(nodes, X, tree_group, n_groups, max_depth):
+    """Kernel B's rule over its node records, in numpy: per step one
+    record ``(cond bits, feature | default_left << 30 | leaf << 31, left,
+    right)``; stay at a leaf; then add the leaf's value per group."""
+    cond = nodes[..., 0].view(np.float32)
+    word = nodes[..., 1]
+    out = np.zeros((X.shape[0], n_groups), np.float32)
+    rows = np.arange(X.shape[0])
+    for t in range(nodes.shape[0]):
+        node = np.zeros(X.shape[0], np.int64)
+        for _ in range(max_depth):
+            w = word[t, node]
+            v = X[rows, w & ((1 << 30) - 1)]
+            goleft = np.where(np.isnan(v), (w >> 30) & 1 == 1,
+                              v < cond[t, node])
+            nxt = np.where(goleft, nodes[t, node, 2], nodes[t, node, 3])
+            node = np.where(w < 0, node, nxt)
+        out[:, tree_group[t]] += cond[t, node]
+    return out
+
+
+def _unpack(nodes):
+    cond = nodes[..., 0].view(np.float32)
+    word = nodes[..., 1]
+    return (nodes[..., 2], nodes[..., 3], word & ((1 << 30) - 1), cond,
+            (word >> 30) & 1 == 1, word < 0)
+
+
+def test_packed_node_table_matches_forest_arrays(jax_model):
+    """The records hold each node's fields: cond bit for bit, feature (0 at
+    leaves), default_left, the leaf flag (left < 0), left and right; for
+    the heap stack of device-grown trees and for forests from JSON."""
+    bst, heap = jax_model
+    port = xgbt.Booster(model_file=bst.save_raw(), device="cpu")
+    for f in (_port_forest(heap), port._gbm.model.stacked()):
+        assert f.nodes.dtype == torch.int32
+        assert tuple(f.nodes.shape) == (*f.left.shape, 4)
+        assert torch.equal(f.unit_weights, torch.ones(f.num_trees))
+        left, right, feat, cond, dl, leaf = _unpack(f.nodes.numpy())
+        internal = f.left.numpy() >= 0
+        np.testing.assert_array_equal(left, f.left.numpy())
+        np.testing.assert_array_equal(right, f.right.numpy())
+        np.testing.assert_array_equal(leaf, ~internal)
+        np.testing.assert_array_equal(cond.view(np.int32),
+                                      f.cond.numpy().view(np.int32))
+        np.testing.assert_array_equal(feat, np.where(internal,
+                                                     f.feature.numpy(), 0))
+        np.testing.assert_array_equal(dl[internal],
+                                      f.default_left.numpy()[internal])
+
+
+def test_table_walk_matches_jax_predict_margin(jax_model):
+    """Kernel B's walk over the packed records (in numpy) against the JAX
+    package's walk, for the heap stack and for the JSON-loaded forest, on
+    rows with NaNs and values on split conditions: allclose 1e-5."""
+    bst, heap = jax_model
+    jf = stack_forest(bst._gbm.model.trees, bst._gbm.model.tree_info, 1)
+    for jforest in (heap, jf):
+        port = _port_forest(jforest)
+        X = _on_cut_inputs(jforest.cond, jforest.feature, jforest.left)
+        got = _table_walk(port.nodes.numpy(), X, port.tree_group.numpy(),
+                          port.n_groups, port.max_depth)
+        np.testing.assert_allclose(got, _jax_margin(jforest, X), rtol=1e-5,
+                                   atol=1e-5)

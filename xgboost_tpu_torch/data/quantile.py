@@ -22,7 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..tree.hist_kernel import build_onehot, hoist_plan, onehot_rows
+from ..tree.hist_kernel import (build_onehot, feature_major, hoist_plan,
+                                onehot_rows)
 
 __all__ = ["HistogramCuts", "compute_cuts", "bin_matrix", "storage_dtype",
            "BinnedMatrix"]
@@ -136,6 +137,8 @@ class BinnedMatrix:
     # to (None until fused_onehot first runs)
     _onehot: Optional[torch.Tensor] = None
     _hoist_fh: Optional[int] = None
+    # the construct route's feature-major bins (None until first asked for)
+    _bins_t: Optional[torch.Tensor] = None
 
     @property
     def n_features(self) -> int:
@@ -159,6 +162,14 @@ class BinnedMatrix:
                 self._onehot = build_onehot(self.bins, B=B, Fh=fh)
             self._hoist_fh = fh
         return self._onehot
+
+    def feature_major(self) -> torch.Tensor:
+        """The bins feature-major (``tree/hist_kernel.py:feature_major``),
+        made once per matrix and kept: kernel A reads every level's bins
+        from it. n*F bin-sized elements, 1/B of the one-hot."""
+        if self._bins_t is None:
+            self._bins_t = feature_major(self.bins)
+        return self._bins_t
 
     @classmethod
     def from_dense(cls, X: torch.Tensor, max_bin: int = 256,

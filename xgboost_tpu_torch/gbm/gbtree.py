@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..params import GBTreeParam, TrainParam
-from ..predictor import StackedForest, stack_forest
+from ..predictor import StackedForest, stack_forest, with_walk_tables
 from ..tree.grow import GrowParams
 from ..tree.grow_fused import GrownTree, grow_tree_fused
 from ..tree.model import RegTree
@@ -76,7 +76,7 @@ def _stack_device(entries: List[_PendingTree], tree_info: List[int],
     keep = field("keep", False)
     iota = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
     minus1 = torch.full_like(keep, -1, dtype=torch.int32)
-    return StackedForest(
+    return with_walk_tables(StackedForest(
         left=torch.where(keep, 2 * iota + 1, minus1),
         right=torch.where(keep, 2 * iota + 2, minus1),
         feature=field("feature", 0),
@@ -85,7 +85,7 @@ def _stack_device(entries: List[_PendingTree], tree_info: List[int],
         default_left=field("default_left", False),
         tree_group=torch.as_tensor(np.asarray(tree_info, np.int32), device=dev),
         max_depth=max(max(e.max_depth for e in entries), 1),
-        n_groups=n_groups, num_feature=num_feature, heap_layout=True)
+        n_groups=n_groups, num_feature=num_feature, heap_layout=True))
 
 
 class GBTreeModel:
@@ -190,18 +190,21 @@ class GBTree:
         """One round: one tree per output group, grown on the device; the
         margin cache gets each tree's per-row leaf values (gbtree.cc:219).
         Where the hoist plan admits it, every level streams the matrix's
-        resident one-hot (built at the first round; JAX ``gbtree.py:1421``)."""
+        resident one-hot (built at the first round; JAX ``gbtree.py:1421``);
+        otherwise kernel A reads its resident feature-major bins."""
         tp = self.train_param
         cfg = self._grow_params()
         self.model.num_feature = binned.n_features
         onehot = binned.fused_onehot()
+        bins_t = (binned.feature_major() if onehot is None
+                  and binned.bins.device.type != "cpu" else None)
         new_trees = []
         for k in range(self.n_groups):
             g = grad[:, k] if grad.dim() == 2 else grad
             h = hess[:, k] if hess.dim() == 2 else hess
             grown = grow_tree_fused(binned.bins, g, h, binned.cut_values,
                                     float(tp.eta), float(tp.gamma), cfg,
-                                    onehot=onehot)
+                                    onehot=onehot, bins_t=bins_t)
             self.model.add_device(grown, tp.eta, k, tp.max_depth)
             new_trees.append(grown)
             if margin_cache is not None:

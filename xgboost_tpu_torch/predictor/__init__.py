@@ -9,6 +9,9 @@ default child, leaves have ``left == -1`` and hold their value in ``cond``.
 ``predict_margin`` launches kernel B (``csrc/predict_walk.cu``, replacing
 the TPU kernel ``_predict_margin_pallas``) on a CUDA tensor and runs the
 plain version (``_walk_leaves`` + the per-group sum) on a CPU tensor.
+Kernel B reads the forest as one 16-byte record per node
+(``_pack_nodes``), built once when the forest is stacked, as the JAX
+package builds its walk tables once (``_build_pred_tables``).
 """
 
 from __future__ import annotations
@@ -40,10 +43,41 @@ class StackedForest(NamedTuple):
     # JAX package's field list
     has_cats: bool = False
     heap_layout: bool = False
+    # kernel B's node records (``_pack_nodes``) and unit tree weights, made
+    # once by the stacking functions (None: the wrapper makes them per call)
+    nodes: Optional[torch.Tensor] = None  # int32 [T, N, 4]
+    unit_weights: Optional[torch.Tensor] = None  # f32 [T]
 
     @property
     def num_trees(self) -> int:
         return int(self.left.shape[0])
+
+
+_LEAF_BIT, _DEFAULT_LEFT_BIT = 31, 30
+
+
+def _pack_nodes(left, right, feature, cond, default_left) -> torch.Tensor:
+    """Kernel B's node records, int32 ``[T, N, 4]``: per node the bits of
+    ``cond`` (the leaf value at a leaf), ``feature | default_left << 30 |
+    leaf << 31`` (feature 0 at a leaf), ``left``, ``right``; a leaf is a
+    node with ``left < 0``. Plain torch, on the forest's device."""
+    leaf = left < 0
+    word = (torch.where(leaf, 0, feature).long()
+            | (default_left.long() << _DEFAULT_LEFT_BIT)
+            | (leaf.long() << _LEAF_BIT))
+    word = torch.where(word >= 1 << 31, word - (1 << 32), word)
+    return torch.stack([cond.float().contiguous().view(torch.int32),
+                        word.to(torch.int32), left.to(torch.int32),
+                        right.to(torch.int32)], dim=-1).contiguous()
+
+
+def with_walk_tables(forest: "StackedForest") -> "StackedForest":
+    """``forest`` with kernel B's node records and unit tree weights."""
+    return forest._replace(
+        nodes=_pack_nodes(forest.left, forest.right, forest.feature,
+                          forest.cond, forest.default_left),
+        unit_weights=torch.ones(forest.num_trees, dtype=torch.float32,
+                                device=forest.cond.device))
 
 
 def forest_from_numpy(left, right, feature, cond, default_left, tree_group,
@@ -60,12 +94,12 @@ def forest_from_numpy(left, right, feature, cond, default_left, tree_group,
     def t(a, dt):
         return torch.tensor(np.asarray(a, dt), device=dev)
 
-    return StackedForest(
+    return with_walk_tables(StackedForest(
         left=t(left, np.int32), right=t(right, np.int32),
         feature=t(feature, np.int32), cond=t(cond, np.float32),
         default_left=t(default_left, bool),
         tree_group=t(tree_group, np.int32), max_depth=int(max_depth),
-        n_groups=int(n_groups), num_feature=nf, heap_layout=heap_layout)
+        n_groups=int(n_groups), num_feature=nf, heap_layout=heap_layout))
 
 
 def stack_forest(trees: Sequence, tree_info: Sequence[int], n_groups: int,
@@ -135,9 +169,9 @@ def _predict_margin_cuda(forest: StackedForest, X: torch.Tensor,
     if forest.has_cats:
         raise NotImplementedError(
             f"{what}: categorical forests are not ported to CUDA yet")
-    tensors = (X, base_margin, tree_weights, forest.left, forest.right,
-               forest.feature, forest.cond, forest.default_left,
-               forest.tree_group)
+    if forest.nodes is None:
+        forest = with_walk_tables(forest)
+    tensors = (X, base_margin, tree_weights, forest.nodes, forest.tree_group)
     for t in tensors:
         _build.require_kernel_device(t, what)
     if len({t.device for t in tensors}) != 1:
@@ -149,21 +183,21 @@ def _predict_margin_cuda(forest: StackedForest, X: torch.Tensor,
         raise ValueError(f"{what}: X must be float32")
     if tuple(base_margin.shape) != (n, G) or base_margin.dtype != torch.float32:
         raise ValueError(f"{what}: base_margin must be float32 [{n}, {G}]")
+    if n * F >= 1 << 31:
+        raise ValueError(f"{what}: n * F must be below 2^31")
     X = X.contiguous()
+    if X.data_ptr() % 16:  # the kernel reads X in 16-byte vectors
+        X = X.clone()
     base = base_margin.contiguous()
-    left, right, feature = (a.contiguous() for a in
-                            (forest.left, forest.right, forest.feature))
-    cond = forest.cond.contiguous()
-    dl = forest.default_left.to(torch.uint8).contiguous()
+    nodes = forest.nodes.contiguous()
     group = forest.tree_group.contiguous()
     tw = tree_weights.to(torch.float32).contiguous()
     out = torch.empty((n, G), dtype=torch.float32, device=X.device)
     lib = _build.library("predict_walk")
     status = lib.xgbt_predict_margin(
-        X.data_ptr(), n, F, left.data_ptr(), right.data_ptr(),
-        feature.data_ptr(), cond.data_ptr(), dl.data_ptr(), group.data_ptr(),
-        tw.data_ptr(), T, N, forest.max_depth, G, base.data_ptr(),
-        out.data_ptr(), _build.stream_of(X.device))
+        X.data_ptr(), n, F, nodes.data_ptr(), group.data_ptr(), tw.data_ptr(),
+        T, N, forest.max_depth, G, base.data_ptr(), out.data_ptr(),
+        _build.stream_of(X.device))
     _build.check_status(status, what)
     predict_margin.launches += 1
     return out
@@ -183,8 +217,9 @@ def predict_margin(forest: StackedForest, X: torch.Tensor,
             f"feature count mismatch: model needs >= {forest.num_feature} "
             f"features, input has {X.shape[1]}")
     if tree_weights is None:
-        tree_weights = torch.ones(forest.num_trees, dtype=torch.float32,
-                                  device=X.device)
+        tree_weights = (forest.unit_weights if forest.unit_weights is not None
+                        else torch.ones(forest.num_trees, dtype=torch.float32,
+                                        device=X.device))
     if X.device.type == "cpu":
         return _predict_margin_plain(forest, X, base_margin, tree_weights)
     return _predict_margin_cuda(forest, X, base_margin, tree_weights)

@@ -202,11 +202,13 @@ def _finalize(st: _HeapState, eta: float, gamma: float, cfg: GrowParams):
 def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
                     hess: torch.Tensor, cut_values: torch.Tensor, eta: float,
                     gamma: float, cfg: GrowParams,
-                    onehot: Optional[torch.Tensor] = None) -> GrownTree:
+                    onehot: Optional[torch.Tensor] = None,
+                    bins_t: Optional[torch.Tensor] = None) -> GrownTree:
     """Grow one depthwise tree on ``bins`` [n, F] (missing == B) with
     gradients ``grad``/``hess`` [n]; every tensor on one device. ``onehot``
     (``build_onehot`` of ``bins``) sends every level down the hoisted route;
-    the trees are the same either way."""
+    the trees are the same either way. Without one, kernel A reads
+    ``bins_t``, the bins' ``feature_major`` copy, when given."""
     B = cut_values.shape[1]
     max_depth = cfg.max_depth
     gq: QuantizedGradients = quantize_gradients(grad, hess)
@@ -215,7 +217,7 @@ def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
     for d in range(max_depth):
         K = 1 << d
         pos, histC = fused_level(bins, pos, gq, st.ptab, K=K, Kp=K >> 1, B=B,
-                                 d=d, onehot=onehot)
+                                 d=d, onehot=onehot, bins_t=bins_t)
         st = _level_update(st, histC, cut_values, cfg, d)
     # route rows through the last level's splits to their leaves
     if max_depth > 0:

@@ -16,7 +16,9 @@ Two routes to that contract, as on the TPU (``fused_level`` :801):
   ``_hoisted_level_pallas``), an int8 tensor-core product over the one-hot,
   with features ``Fh..F-1`` built in the same launch;
 - the **construct** route otherwise: kernel A (``csrc/hist_level.cu``,
-  replacing ``_fused_level_pallas``) reads the bins directly.
+  replacing ``_fused_level_pallas``) routes the rows once (writing each
+  row's local node, ``_level_records_plain``) and reads the bins from a
+  feature-major copy (``feature_major``, made once per training matrix).
 
 On a CUDA tensor each wrapper launches its kernel (and counts it in its
 ``launches``); on a CPU tensor it runs the plain version beside it. All of
@@ -39,6 +41,7 @@ import torch
 from .. import _build
 
 __all__ = ["QuantizedGradients", "quantize_gradients", "fused_level",
+           "feature_major",
            "hoisted_level", "build_onehot", "onehot_rows", "hoist_budget_bytes",
            "device_free_bytes", "hoist_plan", "can_hoist", "partition_apply",
            "leaf_delta"]
@@ -159,21 +162,86 @@ def _check_level_inputs(bins, pos, gq: QuantizedGradients, ptab, Kp: int,
     return bin_bytes
 
 
-def _fused_level_cuda(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B,
-                      d) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel A. Checks what the kernel takes and raises otherwise."""
-    what = "fused_level"
+def feature_major(bins: torch.Tensor) -> torch.Tensor:
+    """The bins feature-major, ``[F, onehot_rows(n)]`` in their storage
+    type: row ``f`` holds feature ``f`` of every row, then zeros. Kernel A
+    reads its bins from this copy (``BinnedMatrix.feature_major`` keeps it
+    once per training matrix). Plain torch, on the bins' device."""
+    n, F = bins.shape
+    out = torch.zeros((F, onehot_rows(n)), dtype=bins.dtype,
+                      device=bins.device)
+    out[:, :n] = bins.t()
+    return out
+
+
+def _level_records_plain(pos, *, K: int, d: int) -> torch.Tensor:
+    """Kernel A's per-row record of a level, ``[n]`` int32: the row's local
+    node ``pos - (2^d - 1)`` for rows at positions ``pos`` (already routed to
+    level ``d``), or -1 when that is not in ``[0, K)``."""
+    local = pos[:, 0] - ((1 << d) - 1)
+    return torch.where((local >= 0) & (local < K), local,
+                       torch.full_like(local, -1)).to(torch.int32)
+
+
+def _level_inputs(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, d,
+                  what):
+    """Kernel A's routing launch, prepared once for both of its entry
+    points: checks, contiguous inputs, the routed positions and the
+    per-row records. Returns ``(pos_out, loc, held, args)``; ``held`` keeps
+    the contiguous inputs alive until the launch is queued, ``args`` holds
+    the C arguments ``(bins, bin_bytes, n, F)``, ``(pos, pos_out, q, ptab,
+    Kp, prev_offset, K, offset)``."""
     bin_bytes = _check_level_inputs(bins, pos, gq, ptab, Kp, what)
     n, F = bins.shape
-    bins, pos, q, ptab = (t.contiguous() for t in (bins, pos, gq.q, ptab))
+    held = tuple(t.contiguous() for t in (bins, pos, gq.q, ptab))
+    bins, pos, q, ptab = held
     pos_out = torch.empty_like(pos)
-    hist = torch.zeros((F, 2 * K, B), dtype=torch.int64, device=bins.device)
+    loc = torch.empty(n, dtype=torch.int32, device=bins.device)
     prev_offset = (1 << (d - 1)) - 1 if d > 0 else 0
-    lib = _build.library("hist_level")
-    status = lib.xgbt_fused_level(
-        bins.data_ptr(), bin_bytes, n, F, B, pos.data_ptr(), pos_out.data_ptr(),
-        q.data_ptr(), ptab.data_ptr(), Kp, prev_offset, K, (1 << d) - 1,
-        hist.data_ptr(), _build.stream_of(bins.device))
+    args = ((bins.data_ptr(), bin_bytes, n, F),
+            (pos.data_ptr(), pos_out.data_ptr(), q.data_ptr(), ptab.data_ptr(),
+             Kp, prev_offset, K, (1 << d) - 1))
+    return pos_out, loc, held, args
+
+
+def _level_records_cuda(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp,
+                        B, d):
+    """Kernel A's first launch alone: ``(routed pos, per-row records)``, as
+    ``_fused_level_cuda`` writes them before its histogram launch. Not
+    counted in ``fused_level.launches``."""
+    what = "fused_level"
+    pos_out, loc, held, (head, (p, po, _, pt, *route)) = _level_inputs(
+        bins, pos, gq, ptab, K=K, Kp=Kp, d=d, what=what)
+    status = _build.library("hist_level").xgbt_level_route(
+        *head, B, p, po, pt, *route, loc.data_ptr(),
+        _build.stream_of(bins.device))
+    _build.check_status(status, what)
+    return pos_out, loc
+
+
+def _fused_level_cuda(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B,
+                      d, bins_t=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel A (its routing launch, then its histogram launch) over
+    ``bins_t``, the bins' ``feature_major`` copy (made here when None).
+    Checks what the kernel takes and raises otherwise."""
+    what = "fused_level"
+    n, F = bins.shape
+    if bins_t is None:
+        bins_t = feature_major(bins)
+    _build.require_kernel_device(bins_t, what)
+    if bins_t.dtype != bins.dtype or bins_t.dim() != 2 \
+            or bins_t.shape[0] != F or bins_t.shape[1] < n \
+            or bins_t.stride(1) != 1 or bins_t.stride(0) % 4 \
+            or bins_t.data_ptr() % 8:
+        raise ValueError(f"{what}: the feature-major bins must be [{F}, >= "
+                         f"{n}] {bins.dtype}, rows contiguous, a multiple of "
+                         "4 apart and 8-byte aligned")
+    pos_out, loc, held, (head, route) = _level_inputs(
+        bins, pos, gq, ptab, K=K, Kp=Kp, d=d, what=what)
+    hist = torch.zeros((F, 2 * K, B), dtype=torch.int64, device=bins.device)
+    status = _build.library("hist_level").xgbt_fused_level(
+        *head, B, *route, hist.data_ptr(), bins_t.data_ptr(), bins_t.stride(0),
+        loc.data_ptr(), _build.stream_of(bins.device))
     _build.check_status(status, what)
     fused_level.launches += 1
     return pos_out, hist
@@ -427,20 +495,23 @@ hoisted_level.launches = 0
 
 
 def fused_level(bins, pos, gq: QuantizedGradients, ptab, *, K: int, Kp: int,
-                B: int, d: int, onehot: Optional[torch.Tensor] = None
+                B: int, d: int, onehot: Optional[torch.Tensor] = None,
+                bins_t: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(new pos [n, 1] int32, hist [F, 2K, B] float32)``, missing
     excluded. With a one-hot, the hoisted route (``hoisted_level``);
-    without, the construct route: kernel A on a CUDA tensor, the plain
-    version on a CPU tensor. ``fused_level.launches`` counts kernel A's
-    launches."""
+    without, the construct route: kernel A on a CUDA tensor (over
+    ``bins_t``, the bins' ``feature_major`` copy, made per call when not
+    given), the plain version on a CPU tensor. ``fused_level.launches``
+    counts kernel A's launches."""
     if onehot is not None:
         pos, hq = hoisted_level(bins, onehot, pos, gq, ptab, K=K, Kp=Kp, B=B,
                                 d=d)
+    elif bins.device.type == "cpu":
+        pos, hq = _fused_level_plain(bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d)
     else:
-        run = (_fused_level_plain if bins.device.type == "cpu"
-               else _fused_level_cuda)
-        pos, hq = run(bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d)
+        pos, hq = _fused_level_cuda(bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d,
+                                    bins_t=bins_t)
     lane = (torch.arange(2 * K, device=hq.device) >= K).long()
     return pos, gq.dequantize(hq, lane[None, :, None])
 
