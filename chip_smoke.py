@@ -47,6 +47,33 @@ Phases (any failure raises and the script exits non-zero):
    the wrapper's other device operations and host gaps), beside its plain
    version, its bound and a PyTorch library call where one exists.
 
+Kernel B also walks one input of just over 2^31 elements (43M x 50, in
+row chunks), equal to the plain walk on rows at both sides of the 2^31st
+element; and the categorical walk (plain torch, on the card) is timed at
+T = 10 and 500 on 100k rows.
+
+The categorical path, on the same data with eight columns replaced by
+integer codes (``_make_cat_data``: columns 0-1 with 3 categories, the
+one-hot regime; 10-12 with 32 and 40-42 with 200, the partition regime and
+the latter outside the 33-feature hoisted prefix; 5% NaN each; the label
+adds a per-category effect), ``feature_types`` "c", max_bin 256:
+
+9. at every level d = 0..5 of a real categorical tree, with its
+   ``[Kp, 261]`` tables: kernel A's and kernel D's routing launches alone
+   and both kernels bitwise equal to their plain versions and A equal to
+   D; both timed with the wide table and with its first 4 columns;
+10. ``train`` for 10 rounds through the entry points (hoisted route): C
+    once, D 60 times, A and B never (a categorical forest takes the
+    categorical walk); one-hot and partition nodes both grown; held-out
+    AUC rising and above the same 10 rounds with every column numerical;
+    ``predict`` equal to ``inplace_predict``; the saved JSON, loaded back,
+    predicts within 1e-5;
+11. the construct route (``XGBTPU_HOIST_BUDGET_MB=0``) for 3 rounds: A 18
+    times, C and D never, trees (category sets included) identical to the
+    hoisted run's first 3;
+12. 3 rounds on the first 64k rows on the card and on the CPU: identical
+    trees, split types and category sets; predictions within 1e-5.
+
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; before that, one JSON line lists the kernels.
@@ -57,6 +84,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -64,9 +92,12 @@ import torch
 
 import xgboost_tpu_torch as xgbt
 from xgboost_tpu_torch import _build
+from xgboost_tpu_torch.gbm.gbtree import _cat_cfg
 from xgboost_tpu_torch.objective import create_objective
+from xgboost_tpu_torch.params import TrainParam
 from xgboost_tpu_torch.predictor import (_predict_margin_plain,
-                                         forest_from_numpy, predict_margin)
+                                         forest_from_numpy, predict_margin,
+                                         walk_row_chunks)
 from xgboost_tpu_torch.tree import hist_kernel as hk
 from xgboost_tpu_torch.tree.grow import GrowParams
 from xgboost_tpu_torch.tree.grow_fused import _init_state, _level_update
@@ -90,6 +121,13 @@ PARAMS = {"objective": "binary:logistic", "tree_method": "tpu_hist",
 PARAMS_DEFAULT = {"objective": "binary:logistic", "eta": 0.1, **METRICS}
 HEAP_FIELDS = ("keep", "feature", "split_bin", "split_cond", "default_left",
                "leaf_value")
+# (column, categories) of the categorical configuration: fewer than
+# max_cat_to_onehot (4) categories split one-hot, the rest by partition
+CAT_COLUMNS = ((0, 3), (1, 3), (10, 32), (11, 32), (12, 32), (40, 200),
+               (41, 200), (42, 200))
+ONEHOT_COLUMNS = (0, 1)
+# kernel B's past-the-bound walk: X holds just over this many elements
+ELEMS_2_31 = 1 << 31
 
 
 def _make_data(rows: int, cols: int, sparsity: float, seed: int = 42):
@@ -101,6 +139,32 @@ def _make_data(rows: int, cols: int, sparsity: float, seed: int = 42):
     logits = np.nan_to_num(X) @ w * 0.5
     y = (logits + rng.randn(rows).astype(np.float32) > 0).astype(np.float32)
     return X, y
+
+
+def _make_cat_data(rows: int, cols: int, seed: int = 42):
+    """``_make_data(rows, cols, 0.0, seed)``'s draws, then from the same
+    stream, for each of ``CAT_COLUMNS``: integer codes replacing the
+    column, their effect added to the logits, and 5% of the column set
+    missing. The effects are a table per column drawn from ``seed + 1``
+    (normal, scale 1.5: not monotone in the code, and the same tables at
+    any row count). Returns ``(X, y, feature_types)``."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(rows, cols).astype(np.float32)
+    w = rng.randn(cols).astype(np.float32)
+    logits = np.nan_to_num(X) @ w * 0.5
+    noise = rng.randn(rows).astype(np.float32)
+    tables = np.random.RandomState(seed + 1)
+    for c, k in CAT_COLUMNS:
+        effect = (tables.randn(k) * 1.5).astype(np.float32)
+        codes = rng.randint(0, k, rows)
+        logits += effect[codes]
+        X[:, c] = codes
+        X[rng.rand(rows) < 0.05, c] = np.nan
+    y = (logits + noise > 0).astype(np.float32)
+    types = ["q"] * cols
+    for c, _ in CAT_COLUMNS:
+        types[c] = "c"
+    return X, y, types
 
 
 def check(ok: bool, what: str) -> None:
@@ -128,7 +192,9 @@ def time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
 #: substrings of the kernel names that each wrapper launches (the device
 #: operations that ``kernel_ms`` sums)
 KERNEL_KEYS = {"A": ("level_",), "B": ("walk_kernel",), "C": ("onehot",),
-               "D": ("route_kernel", "hoisted_kernel")}
+               "D": ("route_kernel", "hoisted_kernel"),
+               "A_route": ("level_route_kernel",),
+               "D_route": ("route_kernel",)}
 
 
 def kernel_ms(fn, kernel: str, reps: int = TIMING_REPS):
@@ -167,15 +233,20 @@ def launches() -> dict:
 
 
 def heap_trees(bst, count: int):
-    """The first ``count`` device-grown trees' heap arrays, on the host."""
-    return [{f: getattr(e, f).cpu().numpy() for f in HEAP_FIELDS}
-            for e in bst._gbm.model._entries[:count]]
+    """The first ``count`` device-grown trees' heap arrays, on the host,
+    with their category sets where they were grown on categories."""
+    out = []
+    for e in bst._gbm.model._entries[:count]:
+        fields = HEAP_FIELDS + (("cat_set",) if e.cat_set is not None else ())
+        out.append({f: getattr(e, f).cpu().numpy() for f in fields})
+    return out
 
 
 def same_trees(a, b, what: str) -> None:
     check(len(a) == len(b), f"{what}: tree counts {len(a)} vs {len(b)}")
     for t, (x, y) in enumerate(zip(a, b)):
-        for f in HEAP_FIELDS:
+        check(x.keys() == y.keys(), f"{what}: tree {t} fields")
+        for f in x:
             check(np.array_equal(x[f], y[f]), f"{what}: tree {t} {f}")
 
 
@@ -491,15 +562,115 @@ def phase_walk_kernel():
                 library_ms=None, shapes=shapes)
 
 
-def phase_train(name, params, Xtr, ytr, Xte, yte, rounds, want):
+def phase_walk_past_2_31():
+    """Kernel B on 43M x 50 rows, just over 2^31 elements of X (8.6 GB):
+    the wrapper launches the kernel over row chunks of fewer than 2^31
+    elements; rows at both sides of the chunk boundary, of the 2^31st
+    element and at the end equal the plain walk's."""
+    n = ELEMS_2_31 // COLS + 1
+    forest = _random_forest(np.random.RandomState(5), 10, DEPTH, COLS)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    X = torch.randn((n, COLS), generator=gen, device=DEVICE)
+    X.view(-1)[::19] = float("nan")
+    base = torch.zeros((n, 1), device=DEVICE)
+    tw = torch.ones(10, device=DEVICE)
+    reset_launches()
+    got = predict_margin(forest, X, base)
+    launched = predict_margin.launches
+    chunks = walk_row_chunks(n, COLS)
+    check(launched == len(chunks) == 2,
+          f"past 2^31: {launched} launches over {chunks}")
+    err = 0.0
+    at_2_31 = ELEMS_2_31 // COLS
+    for lo in (0, chunks[0][1] - 3000, at_2_31 - 3000, n - 3000):
+        rows = slice(lo, min(n, lo + 6000))
+        want = _predict_margin_plain(forest, X[rows], base[rows], tw)
+        err = max(err, float((got[rows] - want).abs().max()))
+    check(err <= 1e-5, f"past 2^31: kernel == plain on the sampled rows "
+                       f"(max abs err {err})")
+    check(bool(torch.isfinite(got).all()), "past 2^31: finite")
+    ms = time_ms(lambda: predict_margin(forest, X, base), reps=5, warmup=1)
+    print(f"kernel B past 2^31 ({n} x {COLS} = {n * COLS} elements, "
+          f"{launched} launches): {ms:.4f} ms, == plain at rows around the "
+          f"chunk edge {chunks[0][1]} and element 2^31 (max abs err {err})")
+    del X, base, got
+    torch.cuda.empty_cache()
+    return dict(rows=n, launches=launched, ms=ms, max_abs_err=err)
+
+
+def _random_cat_forest(rng, T, depth):
+    """T depth-6 heap trees over ``X`` from ``_make_cat_data``: about half
+    the internal nodes split on a categorical column, each with a random
+    right-going set of that column's categories."""
+    forest = _random_forest(rng, T, depth, COLS)
+    N = forest.left.shape[1]
+    internal = forest.left.cpu().numpy() >= 0
+    is_cat = internal & (rng.rand(T, N) < 0.5)
+    cols = np.array([c for c, _ in CAT_COLUMNS])
+    counts = dict(CAT_COLUMNS)
+    feature = forest.feature.cpu().numpy()
+    feature[is_cat] = cols[rng.randint(0, len(cols), int(is_cat.sum()))]
+    W = -(-max(counts.values()) // 32)
+    sets = np.zeros((T, N, W * 32), bool)
+    for t, i in zip(*np.nonzero(is_cat)):
+        sets[t, i, :counts[feature[t, i]]] = rng.rand(counts[feature[t, i]]) < .5
+    bits = (sets.reshape(T, N, W, 32).astype(np.uint64)
+            << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+    return forest_from_numpy(
+        forest.left.cpu().numpy(), forest.right.cpu().numpy(), feature,
+        forest.cond.cpu().numpy(), forest.default_left.cpu().numpy(),
+        np.zeros(T), depth, 1, device=DEVICE, heap_layout=True,
+        split_type=is_cat, cat_bits=bits)
+
+
+def phase_cat_walk():
+    """The categorical walk (plain torch on every device; no kernel is owed
+    for it) at T = 10 and 500 on 100k rows of the categorical data: the
+    card's margins equal the CPU's on the first 10k rows within 1e-5, and
+    kernel B is never launched."""
+    rng = np.random.RandomState(9)
+    Xc, _, _ = _make_cat_data(EVAL_ROWS, COLS, seed=8)
+    X = torch.as_tensor(Xc, device=DEVICE)
+    base = torch.zeros((EVAL_ROWS, 1), device=DEVICE)
+    out = []
+    for T in (10, 500):
+        forest = _random_cat_forest(rng, T, DEPTH)
+        check(forest.has_cats, f"categorical walk T={T}: has_cats")
+        reset_launches()
+        got = predict_margin(forest, X, base)
+        check(predict_margin.launches == 0,
+              f"categorical walk T={T}: kernel B launched")
+        cpu = forest_from_numpy(
+            forest.left.cpu().numpy(), forest.right.cpu().numpy(),
+            forest.feature.cpu().numpy(), forest.cond.cpu().numpy(),
+            forest.default_left.cpu().numpy(), np.zeros(T), DEPTH, 1,
+            split_type=forest.split_type.cpu().numpy(),
+            cat_bits=forest.cat_bits.cpu().numpy())
+        m = 10_000
+        want = predict_margin(cpu, X[:m].cpu(), base[:m].cpu())
+        err = float((got[:m].cpu() - want).abs().max())
+        check(err <= 1e-5, f"categorical walk T={T}: card == CPU ({err})")
+        ms = time_ms(lambda: predict_margin(forest, X, base),
+                     reps=5 if T > 10 else TIMING_REPS, warmup=1)
+        print(f"categorical walk (plain torch, T={T}, depth {DEPTH}, "
+              f"{EVAL_ROWS} rows): {ms:.4f} ms on the card; card == CPU on "
+              f"{m} rows (max abs err {err})")
+        out.append(dict(T=T, rows=EVAL_ROWS, ms=ms, max_abs_err=err))
+        del forest, got
+    return out
+
+
+def phase_train(name, params, Xtr, ytr, Xte, yte, rounds, want,
+                feature_types=None, min_auc=0.80):
     """train() with eval, predict() and inplace_predict() through the public
     entry points; the launch counts of the run must equal ``want`` (kernel
     B: at least ``want["B"]``)."""
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dtrain = xgbt.DMatrix(Xtr, ytr)
-    dtest = xgbt.DMatrix(Xte, yte)
+    dtrain = xgbt.DMatrix(Xtr, ytr, feature_types=feature_types)
+    dtest = xgbt.DMatrix(Xte, yte, feature_types=feature_types)
     max_bin = params.get("max_bin", DEFAULT_MAX_BIN)
     binned = dtrain.get_binned(max_bin)
     torch.cuda.synchronize()
@@ -528,7 +699,8 @@ def phase_train(name, params, Xtr, ytr, Xte, yte, rounds, want):
     for k, v in want.items():
         ok = got[k] >= v if k == "B" else got[k] == v
         check(ok, f"{name}: kernel {k} launched {got[k]} times, want {v}")
-    check(auc[-1] >= 0.80 and auc[-1] > auc[0], f"{name}: held-out AUC {auc}")
+    check(auc[-1] >= min_auc and auc[-1] > auc[0],
+          f"{name}: held-out AUC {auc}")
     check(preds.shape == (EVAL_ROWS,) and np.isfinite(preds).all(),
           f"{name}: predictions finite, one per row")
     cached = bst.predict(dtest)  # the eval set's incrementally cached margin
@@ -545,46 +717,211 @@ def phase_train(name, params, Xtr, ytr, Xte, yte, rounds, want):
     return bst, metrics
 
 
-def phase_construct_route(Xtr, ytr, hoisted_trees):
-    """The bin-64 model with hoisting disabled: kernel A at every level, and
-    the trees of the hoisted run."""
+def phase_construct_route(Xtr, ytr, hoisted_trees, params=PARAMS,
+                          feature_types=None, name="construct route"):
+    """The model with hoisting disabled: kernel A at every level, and the
+    trees of the hoisted run."""
     reset_launches()
     os.environ["XGBTPU_HOIST_BUDGET_MB"] = "0"
     try:
-        bst = xgbt.train(PARAMS, xgbt.DMatrix(Xtr, ytr), CPU_ROUNDS,
-                         verbose_eval=False)
+        bst = xgbt.train(params, xgbt.DMatrix(Xtr, ytr,
+                                              feature_types=feature_types),
+                         CPU_ROUNDS, verbose_eval=False)
         torch.cuda.synchronize()
     finally:
         del os.environ["XGBTPU_HOIST_BUDGET_MB"]
     got = launches()
-    print(f"construct route (XGBTPU_HOIST_BUDGET_MB=0): launches {got}")
+    print(f"{name} (XGBTPU_HOIST_BUDGET_MB=0): launches {got}")
     want = {"A": CPU_ROUNDS * DEPTH, "C": 0, "D": 0}
     for k, v in want.items():
-        check(got[k] == v, f"construct route: kernel {k} launched {got[k]} "
-                           f"times, want {v}")
+        check(got[k] == v, f"{name}: kernel {k} launched {got[k]} times, "
+                           f"want {v}")
     same_trees(heap_trees(bst, CPU_ROUNDS), hoisted_trees,
-               "construct route vs hoisted route")
-    print(f"construct route: {CPU_ROUNDS} trees identical to the hoisted "
-          "run's")
+               f"{name} vs hoisted route")
+    print(f"{name}: {CPU_ROUNDS} trees identical to the hoisted run's")
     return got
 
 
-def phase_card_vs_cpu(Xtr, ytr, Xte):
-    """3 rounds at max_bin 256 on the card and on the CPU: same trees, same
-    predictions."""
+def _json_trees(bst):
+    trees = bst.save_json()["learner"]["gradient_booster"]["model"]["trees"]
+    keys = ("left_children", "split_indices", "split_type", "categories",
+            "categories_nodes", "categories_sizes", "default_left")
+    return [{k: t[k] for k in keys} for t in trees]
+
+
+def phase_card_vs_cpu(Xtr, ytr, Xte, feature_types=None,
+                      name="card vs CPU"):
+    """3 rounds at max_bin 256 on the card and on the CPU: same trees (and
+    category sets), same predictions."""
     X, y = Xtr[:CPU_ROWS], ytr[:CPU_ROWS]
     out = []
     for dev in (DEVICE, torch.device("cpu")):
-        bst = xgbt.train(PARAMS_DEFAULT, xgbt.DMatrix(X, y, device=dev),
-                         CPU_ROUNDS, verbose_eval=False)
+        bst = xgbt.train(PARAMS_DEFAULT, xgbt.DMatrix(
+            X, y, feature_types=feature_types, device=dev), CPU_ROUNDS,
+            verbose_eval=False)
         out.append((heap_trees(bst, CPU_ROUNDS),
-                    bst.predict(xgbt.DMatrix(Xte[:10000], device=dev))))
-    (card_trees, card_pred), (cpu_trees, cpu_pred) = out
-    same_trees(card_trees, cpu_trees, "card vs CPU")
+                    bst.predict(xgbt.DMatrix(Xte[:10000], device=dev)),
+                    _json_trees(bst)))
+    (card_trees, card_pred, card_json), (cpu_trees, cpu_pred, cpu_json) = out
+    same_trees(card_trees, cpu_trees, name)
+    check(card_json == cpu_json, f"{name}: model JSON trees")
     err = float(np.abs(card_pred - cpu_pred).max())
-    check(err <= 1e-5, f"card vs CPU predictions max abs err {err}")
-    print(f"card vs CPU (max_bin {DEFAULT_MAX_BIN}): {CPU_ROUNDS} trees "
+    check(err <= 1e-5, f"{name} predictions max abs err {err}")
+    print(f"{name} (max_bin {DEFAULT_MAX_BIN}): {CPU_ROUNDS} trees "
           f"identical, predictions max abs err {err}")
+
+
+def _cat_level_case(Xtr, ytr, types):
+    """The categorical configuration's binned matrix, one-hot, quantised
+    gradients and grower config at max_bin 256."""
+    d = xgbt.DMatrix(Xtr, ytr, feature_types=types)
+    binned = d.get_binned(DEFAULT_MAX_BIN)
+    n, F = binned.bins.shape
+    cfg, _ = _cat_cfg(GrowParams(max_depth=DEPTH, split=SplitParams()),
+                      binned, TrainParam())
+    check(set(cfg.categorical) == set(ONEHOT_COLUMNS)
+          and len(cfg.cat_partition) == len(CAT_COLUMNS) - 2,
+          f"categorical gate: one-hot {cfg.categorical}, partition "
+          f"{cfg.cat_partition}")
+    obj = create_objective("binary:logistic")
+    grad, hess = obj.get_gradient(torch.zeros(n, device=DEVICE), d.label,
+                                  None)
+    return binned, hk.quantize_gradients(grad, hess), cfg
+
+
+def phase_cat_levels(Xtr, ytr, types):
+    """Kernels A and D at every level of a real categorical tree with its
+    [Kp, 5+B] tables: routing launches alone and both kernels bitwise equal
+    to their plain versions and to each other; each timed with the wide
+    table and with its first 4 columns (the same positions and bins)."""
+    B = DEFAULT_MAX_BIN
+    binned, gq, cfg = _cat_level_case(Xtr, ytr, types)
+    bins, bins_t, cuts = binned.bins, binned.feature_major(), binned.cut_values
+    n, F = bins.shape
+    onehot = binned.fused_onehot()
+    check(onehot is not None, "categorical: the hoist plan hoists")
+    Fh = onehot.shape[0] // B
+    check(Fh <= min(c for c, k in CAT_COLUMNS if k == 200),
+          f"categorical: the 200-category columns lie outside the hoisted "
+          f"prefix of {Fh}")
+    st = _init_state(cfg, gq.totals(), B)
+    check(st.ptab.shape[1] == 5 + B, "categorical: table width 5+B")
+    pos = torch.zeros((n, 1), dtype=torch.int32, device=DEVICE)
+    levels = []
+    for lvl in range(DEPTH):
+        K, Kp = 1 << lvl, (1 << lvl) >> 1
+        kw = dict(K=K, Kp=Kp, B=B, d=lvl)
+        ptab = st.ptab
+        tag = f"categorical level {lvl}"
+        check(ptab.shape == (max(Kp, 1), 5 + B), f"{tag}: table {ptab.shape}")
+        pa, ha = hk._fused_level_cuda(bins, pos, gq, ptab, bins_t=bins_t,
+                                      **kw)
+        pd, hd = hk._hoisted_level_cuda(bins, onehot, pos, gq, ptab, **kw)
+        pap, hap = hk._fused_level_plain(bins, pos, gq, ptab, **kw)
+        pra, loc = hk._level_records_cuda(bins, pos, gq, ptab, **kw)
+        prd, rec, _ = hk._channel_records_cuda(bins, pos, gq, ptab, Fh=Fh,
+                                               **kw)
+        torch.cuda.synchronize()
+        for what, p_ in (("A", pa), ("D", pd), ("A's routing launch", pra),
+                         ("D's routing launch", prd)):
+            check(torch.equal(p_, pap), f"{tag}: pos {what} == plain")
+        check(torch.equal(ha, hap) and torch.equal(hd, hap),
+              f"{tag}: int64 hist A == D == plain")
+        check(torch.equal(loc, hk._level_records_plain(pap, K=K, d=lvl)),
+              f"{tag}: A's records == plain")
+        check(torch.equal(rec, hk._channel_records_plain(pap, gq, K=K,
+                                                         d=lvl)),
+              f"{tag}: D's records == plain")
+        n_cat = int(ptab[:Kp, 4].sum()) if Kp else 0
+        del pa, ha, pap, hap, pra, loc, prd, rec
+        narrow = ptab[:, :4].contiguous()
+        row = dict(level=lvl, categorical_nodes=n_cat)
+        for key, table in (("wide", ptab), ("narrow", narrow)):
+            a_run = lambda t=table: hk.fused_level(  # noqa: E731
+                bins, pos, gq, t, bins_t=bins_t, **kw)
+            d_run = lambda t=table: hk.fused_level(  # noqa: E731
+                bins, pos, gq, t, onehot=onehot, **kw)
+            row[key] = dict(
+                A_ms=time_ms(a_run), A_kernel_ms=kernel_ms(a_run, "A"),
+                A_route_ms=kernel_ms(a_run, "A_route"),
+                D_ms=time_ms(d_run), D_kernel_ms=kernel_ms(d_run, "D"),
+                D_route_ms=kernel_ms(d_run, "D_route"))
+        levels.append(row)
+        w, nw = row["wide"], row["narrow"]
+        print(f"{tag} (K={K}, {n_cat} of {Kp} nodes categorical, table "
+              f"{tuple(ptab.shape)}): A {w['A_ms']:.4f} ms (alone "
+              f"{w['A_kernel_ms']}, routing {w['A_route_ms']}) | width 4 "
+              f"{nw['A_ms']:.4f} ({nw['A_kernel_ms']}, {nw['A_route_ms']}); "
+              f"D {w['D_ms']:.4f} ms (alone {w['D_kernel_ms']}, routing "
+              f"{w['D_route_ms']}) | width 4 {nw['D_ms']:.4f} "
+              f"({nw['D_kernel_ms']}, {nw['D_route_ms']}) | bitwise equal")
+        lane = (torch.arange(2 * K, device=DEVICE) >= K).long()[None, :, None]
+        st = _level_update(st, gq.dequantize(hd, lane), cuts, cfg, lvl)
+        pos = pd
+    check(any(x["categorical_nodes"] for x in levels),
+          "categorical: some level routes through categorical nodes")
+    del onehot, binned
+    torch.cuda.empty_cache()
+
+    def mean(route, table, key):
+        vals = [x[table][f"{route}_{key}"] for x in levels]
+        return None if None in vals else sum(vals) / len(vals)
+
+    return {r: {t: {k: mean(r, t, k) for k in ("ms", "kernel_ms", "route_ms")}
+                for t in ("wide", "narrow")} for r in "AD"}, levels
+
+
+def phase_cat_path(Xtr, ytr, Xte, yte, types):
+    """The categorical path through the entry points, hoisted: C once, D 60
+    times, A and B never; one-hot and partition nodes; AUC above the
+    all-numerical run's; the saved JSON predicts the same."""
+    bst, metrics = phase_train(
+        "categorical path", PARAMS_DEFAULT, Xtr, ytr, Xte, yte, ROUNDS,
+        {"A": 0, "C": 1, "D": ROUNDS * DEPTH}, feature_types=types,
+        min_auc=0.75)
+    check(metrics["launches"]["B"] == 0,
+          "categorical path: kernel B never launched")
+    hoisted_trees = heap_trees(bst, CPU_ROUNDS)  # before they go to the host
+    trees = bst._gbm.model.trees
+    onehot_nodes = sum(int((t.categorical_nodes() & np.isin(
+        t.split_indices, ONEHOT_COLUMNS)).sum()) for t in trees)
+    part_nodes = sum(int((t.categorical_nodes() & ~np.isin(
+        t.split_indices, ONEHOT_COLUMNS)).sum()) for t in trees)
+    check(onehot_nodes > 0 and part_nodes > 0,
+          f"categorical path: one-hot nodes {onehot_nodes}, partition "
+          f"nodes {part_nodes}")
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "model.json")
+        bst.save_model(path)
+        loaded = xgbt.Booster(model_file=path)
+    preds = bst.predict(xgbt.DMatrix(Xte))
+    err = float(np.abs(loaded.predict(xgbt.DMatrix(Xte)) - preds).max())
+    check(err <= 1e-5, f"categorical path: saved JSON predicts within 1e-5 "
+                       f"({err})")
+    del bst, loaded
+    torch.cuda.empty_cache()
+    res = {}
+    t0 = time.perf_counter()
+    num = xgbt.train(PARAMS_DEFAULT, xgbt.DMatrix(Xtr, ytr), ROUNDS,
+                     evals=[(xgbt.DMatrix(Xte, yte), "test")],
+                     evals_result=res, verbose_eval=False)
+    torch.cuda.synchronize()
+    num_s = time.perf_counter() - t0
+    del num
+    torch.cuda.empty_cache()
+    num_auc = res["test"]["auc"]
+    check(metrics["auc"][-1] > num_auc[-1],
+          f"categorical AUC {metrics['auc'][-1]} above all-numerical "
+          f"{num_auc[-1]}")
+    print(f"categorical path: {onehot_nodes} one-hot and {part_nodes} "
+          f"partition nodes; saved JSON max abs err {err}; AUC "
+          f"{metrics['auc'][-1]:.6f} vs {num_auc[-1]:.6f} with every column "
+          f"numerical ({num_s / ROUNDS * 1e3:.1f} ms/round)")
+    metrics.update(onehot_nodes=onehot_nodes, partition_nodes=part_nodes,
+                   json_max_abs_err=err, numerical_auc=num_auc,
+                   numerical_ms_per_round=num_s / ROUNDS * 1e3)
+    return metrics, hoisted_trees
 
 
 def main() -> int:
@@ -602,6 +939,8 @@ def main() -> int:
     c256, a256, d256 = phase_level_kernels(Xtr, ytr, DEFAULT_MAX_BIN)
     torch.cuda.empty_cache()
     b = phase_walk_kernel()
+    b["past_2_31"] = phase_walk_past_2_31()
+    cat_walk = phase_cat_walk()
     check(hk.can_hoist(hk.onehot_rows(ROWS), COLS, MAX_BIN, DEVICE),
           "max_bin 64: the full one-hot fits the budget")
     bst64, main64 = phase_train(
@@ -620,6 +959,17 @@ def main() -> int:
     del bst256
     torch.cuda.empty_cache()
     phase_card_vs_cpu(Xtr, ytr, Xte)
+    del X, Xtr, Xte
+    Xc, yc, types = _make_cat_data(ROWS + EVAL_ROWS, COLS, seed=42)
+    Xctr, yctr, Xcte, ycte = Xc[:ROWS], yc[:ROWS], Xc[ROWS:], yc[ROWS:]
+    cat_lv, cat_levels = phase_cat_levels(Xctr, yctr, types)
+    cat_main, cat_trees = phase_cat_path(Xctr, yctr, Xcte, ycte, types)
+    cat_construct = phase_construct_route(
+        Xctr, yctr, cat_trees, params=PARAMS_DEFAULT, feature_types=types,
+        name="categorical construct route")
+    torch.cuda.empty_cache()
+    phase_card_vs_cpu(Xctr, yctr, Xcte, feature_types=types,
+                      name="categorical card vs CPU")
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
                    "D_bin64": d64.pop("levels"),
@@ -627,14 +977,17 @@ def main() -> int:
         "kernel_A_bin256": a256, "kernel_C_bin64": c64,
         "kernel_D_bin64": d64, "main_path_bin64": main64,
         "construct_route_launches": construct,
-        "reference_default_bin256": main256}))
+        "reference_default_bin256": main256,
+        "categorical_levels": cat_levels, "categorical_path": cat_main,
+        "categorical_construct_launches": cat_construct,
+        "categorical_walk": cat_walk}))
     for k in (c256, d256):
         k.pop("B"), k.pop("Fh")
     kernels = [
         dict(name="fused_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hist_level.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:560",
-             launches=construct["A"], **a64),
+             launches=cat_construct["A"], categorical=cat_lv["A"], **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
              replaces="xgboost_tpu/predictor/__init__.py:299",
@@ -642,11 +995,12 @@ def main() -> int:
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:378",
-             launches=main256["launches"]["C"], **c256),
+             launches=cat_main["launches"]["C"], **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:645",
-             launches=main256["launches"]["D"], **d256),
+             launches=cat_main["launches"]["D"], categorical=cat_lv["D"],
+             **d256),
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

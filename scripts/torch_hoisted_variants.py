@@ -189,7 +189,8 @@ def main() -> int:
                     st = fn(bins.data_ptr(), bins.element_size(), ROWS, COLS,
                             B, onehot.data_ptr(), Fh, n_pad, pos.data_ptr(),
                             pos_out.data_ptr(), q.data_ptr(), ptab.data_ptr(),
-                            0, 0, K, K - 1, hist.data_ptr(), rec.data_ptr(),
+                            ptab.shape[1], 0, 0, K, K - 1, hist.data_ptr(),
+                            rec.data_ptr(),
                             None if bins_t is None else bins_t.data_ptr(),
                             stream)
                     _build.check_status(st, name)

@@ -181,8 +181,8 @@ def main() -> int:
 
             def route():
                 _build.check_status(libs["shipped"].xgbt_level_route(
-                    *head, ptab.data_ptr(), 0, 0, K, K - 1, loc.data_ptr(),
-                    stream), "route")
+                    *head, ptab.data_ptr(), ptab.shape[1], 0, 0, K, K - 1,
+                    loc.data_ptr(), stream), "route")
             r_ms = time_ms(route)
             print(f"B={B} level {d}: routing launch alone {r_ms:.4f} ms")
             results.append(dict(B=B, level=d, what="route", ms=r_ms))
@@ -194,9 +194,9 @@ def main() -> int:
                 def run():
                     hist.zero_()
                     _build.check_status(lib.xgbt_fused_level(
-                        *head, q.data_ptr(), ptab.data_ptr(), 0, 0, K, K - 1,
-                        hist.data_ptr(), bins_t.data_ptr(), bins_t.stride(0),
-                        loc.data_ptr(), stream), name)
+                        *head, q.data_ptr(), ptab.data_ptr(), ptab.shape[1],
+                        0, 0, K, K - 1, hist.data_ptr(), bins_t.data_ptr(),
+                        bins_t.stride(0), loc.data_ptr(), stream), name)
                 run()
                 torch.cuda.synchronize()
                 same = None

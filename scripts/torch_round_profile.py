@@ -4,12 +4,13 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 scripts/torch_round_profile.py
 
-For each of ``chip_smoke.py``'s two training configurations (``PARAMS``,
-max_bin 64, and ``PARAMS_DEFAULT``, max_bin left at 256), each by the
+For each of ``chip_smoke.py``'s three training configurations (``PARAMS``,
+max_bin 64, and ``PARAMS_DEFAULT``, max_bin left at 256, on ``bench.py``'s
+generator; ``PARAMS_DEFAULT`` on the categorical data of
+``_make_cat_data`` with its ``feature_types``), each by the
 hoisted route (the default plan) and by the construct route
 (``XGBTPU_HOIST_BUDGET_MB=0``), at its shape
-(``ROWS`` x ``COLS`` training rows and ``EVAL_ROWS`` held-out rows from
-``bench.py``'s generator): trains ``WARMUP`` rounds, times the next
+(``ROWS`` x ``COLS`` training rows and ``EVAL_ROWS`` held-out rows): trains ``WARMUP`` rounds, times the next
 ``TIMED_ROUNDS`` rounds (``Booster.update`` + ``eval_values``) on the host
 clock without the profiler, then profiles one more round with
 ``torch.profiler`` (CPU and CUDA activities). Prints the unprofiled and
@@ -39,7 +40,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import xgboost_tpu_torch as xgbt  # noqa: E402
 from xgboost_tpu_torch.tree import hist_kernel as hk  # noqa: E402
 from chip_smoke import (COLS, EVAL_ROWS, PARAMS, PARAMS_DEFAULT,  # noqa: E402
-                        ROWS, _make_data)
+                        ROWS, _make_cat_data, _make_data)
 
 WARMUP = 3
 TIMED_ROUNDS = 5
@@ -63,9 +64,9 @@ def _host_timed(fn, record):
     return timed
 
 
-def profile(name, params, X, y) -> int:
-    dtrain = xgbt.DMatrix(X[:ROWS], y[:ROWS])
-    dtest = xgbt.DMatrix(X[ROWS:], y[ROWS:])
+def profile(name, params, X, y, types=None) -> int:
+    dtrain = xgbt.DMatrix(X[:ROWS], y[:ROWS], feature_types=types)
+    dtest = xgbt.DMatrix(X[ROWS:], y[ROWS:], feature_types=types)
     evals = [(dtest, "test")]
     bst = xgbt.train(params, dtrain, WARMUP, evals=evals, verbose_eval=False)
     torch.cuda.synchronize()
@@ -131,13 +132,16 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     X, y = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
-    for name, params in (("max_bin 64", PARAMS),
-                         ("max_bin 256 (default)", PARAMS_DEFAULT)):
+    Xc, yc, types = _make_cat_data(ROWS + EVAL_ROWS, COLS, seed=42)
+    for name, params, data in (
+            ("max_bin 64", PARAMS, (X, y)),
+            ("max_bin 256 (default)", PARAMS_DEFAULT, (X, y)),
+            ("categorical, max_bin 256", PARAMS_DEFAULT, (Xc, yc, types))):
         for route, budget in (("hoisted", None), ("construct", "0")):
             if budget is not None:
                 os.environ["XGBTPU_HOIST_BUDGET_MB"] = budget
             try:
-                rc = profile(f"{name}, {route} route", params, X, y)
+                rc = profile(f"{name}, {route} route", params, *data)
             finally:
                 os.environ.pop("XGBTPU_HOIST_BUDGET_MB", None)
             torch.cuda.empty_cache()  # the configuration's one-hot goes first

@@ -32,7 +32,16 @@ routing launch's records against ``_level_records_plain``. Kernel B's:
 500 trees over many shared-memory chunks (X staged), tree counts that
 leave a tail of single walks, three groups with tree weights, forests
 deep enough to walk from device memory, and non-heap forests (node ids
-permuted, as JSON models number them) with leaves mid-tree.
+permuted, as JSON models number them) with leaves mid-tree; and one input of
+just over 2^31 elements (43M rows x 50), which the wrapper walks in two
+row chunks, equal to the plain walk on rows at both sides of the chunk
+boundary and of the 2^31st element.
+
+Categorical decision tables, ``[Kp, 5+B]`` (``-k categorical``): kernels A
+and D and both routing launches with wide tables whose nodes mix numerical
+and categorical splits, every bin id in some set and missing bins among
+the rows, at bins 16/64/256, K up to 32, full and partial hoists, equal to
+the plain versions and to each other; a table of any other width raises.
 """
 
 import numpy as np
@@ -56,7 +65,7 @@ def _bin_dtype(B):
     return np.uint8 if B + 1 <= 255 else np.int16  # quantile.storage_dtype
 
 
-def _level_case(rng, n, F, B, d, dev):
+def _level_case(rng, n, F, B, d, dev, categorical=False):
     K, Kp = 1 << d, (1 << d) >> 1
     bins = rng.randint(0, B + 1, size=(n, F)).astype(_bin_dtype(B))
     g = rng.randn(n).astype(np.float32)
@@ -67,6 +76,11 @@ def _level_case(rng, n, F, B, d, dev):
     ptab = np.stack([(rng.rand(max(Kp, 1)) < 0.8), rng.randint(0, F, max(Kp, 1)),
                      rng.randint(0, B, max(Kp, 1)),
                      rng.rand(max(Kp, 1)) < 0.5], axis=1).astype(np.float32)
+    if categorical:  # [Kp, 5+B]: node 0 and about half the rest
+        ptab = np.concatenate([
+            ptab, (rng.rand(max(Kp, 1), 1) < 0.5),
+            rng.rand(max(Kp, 1), B) < 0.4], axis=1).astype(np.float32)
+        ptab[0, 0] = ptab[0, 4] = 1.0
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     gq = thk.quantize_gradients(t(g), t(h))
     return t(bins), t(pos), gq, t(ptab), dict(K=K, Kp=Kp, B=B, d=d)
@@ -332,3 +346,86 @@ def test_walk_kernel_chunks_groups_and_layouts(cuda, T, depth, G, n, F, heap):
     want = tpred._predict_margin_plain(forest, X, base, tw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,F,B,Fh,d", [
+    (1000, 7, 16, 7, 1),        # K = 2, full hoist, uint8
+    (5000, 50, 64, 50, 5),      # the main path's width at K = 32
+    (4001, 12, 256, 5, 5),      # int16, partial hoist, the [Kp, 261] table
+    (3001, 6, 256, 6, 3),       # int16, full hoist
+    (70_001, 6, 256, 2, 6),     # K = 64, node slices in kernel A
+])
+def test_level_kernels_categorical_table_match_plain_bitwise(cuda, n, F, B,
+                                                             Fh, d):
+    rng = np.random.RandomState(n + d + B + 3)
+    bins, pos, gq, ptab, kw = _level_case(rng, n, F, B, d, cuda,
+                                          categorical=True)
+    assert ptab.shape[1] == 5 + B
+    onehot = thk._build_onehot_cuda(bins, B=B, Fh=Fh)
+    pa, ha = thk._fused_level_cuda(bins, pos, gq, ptab, **kw)
+    pd, hd = thk._hoisted_level_cuda(bins, onehot, pos, gq, ptab, **kw)
+    pp, hp = thk._fused_level_plain(bins, pos, gq, ptab, **kw)
+    pr, loc = thk._level_records_cuda(bins, pos, gq, ptab, **kw)
+    pc, rec, _ = thk._channel_records_cuda(bins, pos, gq, ptab, Fh=Fh, **kw)
+    torch.cuda.synchronize()
+    # the categorical nodes route some rows differently from the same
+    # table read as numerical
+    pn = thk._fused_level_plain(bins, pos, gq, ptab[:, :4].contiguous(),
+                                **kw)[0]
+    assert kw["Kp"] == 0 or not torch.equal(pp, pn)
+    for p_ in (pa, pd, pr, pc):
+        assert torch.equal(p_, pp)
+    assert torch.equal(ha, hp) and torch.equal(hd, hp)
+    assert torch.equal(loc, thk._level_records_plain(pp, K=kw["K"], d=d))
+    assert torch.equal(rec, thk._channel_records_plain(pp, gq, K=kw["K"],
+                                                       d=d))
+
+
+def test_level_kernels_categorical_table_of_another_width_raises(cuda):
+    rng = np.random.RandomState(8)
+    bins, pos, gq, ptab, kw = _level_case(rng, 500, 5, 16, 2, cuda,
+                                          categorical=True)
+    onehot = thk._build_onehot_cuda(bins, B=16, Fh=5)
+    for bad in (ptab[:, :5], ptab[:, :4 + 16]):
+        with pytest.raises(ValueError, match="ptab"):
+            thk._fused_level_cuda(bins, pos, gq, bad.contiguous(), **kw)
+        with pytest.raises(ValueError, match="ptab"):
+            thk._hoisted_level_cuda(bins, onehot, pos, gq, bad.contiguous(),
+                                    **kw)
+
+
+def test_walk_kernel_past_2_31_elements(cuda):
+    """43M rows x 50 features, just over 2^31 elements (8.6 GB of X): the
+    wrapper walks two row chunks; rows at both sides of the chunk boundary,
+    of the 2^31st element and at the end equal the plain walk's."""
+    F, T, depth = 50, 10, 6
+    n = (1 << 31) // F + 1
+    assert n * F > 1 << 31
+    chunks = tpred.walk_row_chunks(n, F)
+    assert len(chunks) == 2
+    rng = np.random.RandomState(31)
+    N = (1 << (depth + 1)) - 1
+    internal = (1 << depth) - 1
+    idx = np.arange(N)
+    left = np.tile(np.where(idx < internal, 2 * idx + 1, -1), (T, 1))
+    right = np.tile(np.where(idx < internal, 2 * idx + 2, -1), (T, 1))
+    forest = tpred.forest_from_numpy(
+        left, right, rng.randint(0, F, size=(T, N)),
+        rng.randn(T, N).astype(np.float32), rng.rand(T, N) < 0.5,
+        np.zeros(T), depth, 1, device=cuda, heap_layout=True)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(31)
+    X = torch.randn((n, F), generator=gen, device=cuda)
+    X.view(-1)[::19] = float("nan")
+    base = torch.zeros((n, 1), device=cuda)
+    before = tpred.predict_margin.launches
+    got = tpred.predict_margin(forest, X, base)
+    assert tpred.predict_margin.launches == before + 2
+    edge = chunks[0][1]
+    at_2_31 = (1 << 31) // F
+    tw = torch.ones(T, device=cuda)
+    for lo in (0, edge - 3000, at_2_31 - 3000, n - 3000):
+        rows = slice(lo, lo + 6000) if lo + 6000 <= n else slice(lo, n)
+        want = tpred._predict_margin_plain(forest, X[rows], base[rows], tw)
+        torch.testing.assert_close(got[rows], want, rtol=1e-5, atol=1e-5)
+    assert bool(torch.isfinite(got).all())

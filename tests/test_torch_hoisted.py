@@ -14,6 +14,11 @@ versions) against the JAX package.
   being exact to about 2^-16 per term (as ``test_torch_hist_kernel.py``
   states); and against the port's construct route (``_fused_level_plain``):
   the int64 sums bitwise equal;
+- both level routes on categorical decision tables ``[Kp, 5+B]`` (column 4
+  flags a categorical node, columns 5 on its right-going set): the port's
+  plain versions against ``_fused_level_pallas`` and
+  ``_hoisted_level_pallas`` in interpret mode, levels d = 0..3 with
+  count-valued g/h: ``pos`` and ``hist`` bitwise equal;
 - ``hoist_plan`` against the JAX plan (``use_pallas`` patched on) under the
   same ``XGBTPU_HOIST_BUDGET_MB``, at shapes the JAX VMEM model admits;
 - route independence: 3 boosting rounds on the CPU through the hoisted route
@@ -137,6 +142,66 @@ def test_hoisted_level_matches_pallas_interpret(monkeypatch, count_valued, B,
                                       Kp, B, d)
             err = np.abs(t_hist - np.asarray(p_hist))
             assert (err <= 2.0 ** -15 * abs_hist + 1e-7).all(), err.max()
+        pos = t_pos
+
+
+def _cat_ptab(rng, Kp, B):
+    """A ``[max(Kp, 1), 5+B]`` table: node 0 and about half the others
+    categorical, each set about 40% of the bins (all zero at level 0)."""
+    base = _ptab(rng, Kp, B)
+    if Kp == 0:
+        return np.zeros((1, 5 + B), np.float32)
+    wide = np.concatenate([base, rng.rand(Kp, 1) < 0.5,
+                           rng.rand(Kp, B) < 0.4], axis=1).astype(np.float32)
+    wide[0, 0] = wide[0, 4] = 1.0
+    return wide
+
+
+@pytest.mark.parametrize("route,B,Fh", [
+    ("construct", 16, 0), ("construct", 64, 0),
+    ("hoisted", 16, F), ("hoisted", 16, 3), ("hoisted", 256, 2),
+])
+def test_level_routes_categorical_table_match_pallas_interpret(
+        monkeypatch, route, B, Fh):
+    monkeypatch.setattr(jhk, "_INTERPRET", True)
+    rng = np.random.RandomState(77 + B + Fh)
+    bins = _bins(rng, N, F, B)
+    gh = _gh(rng, N, count_valued=True)
+    bins32 = jnp.asarray(bins.astype(np.int32))
+    if route == "hoisted":
+        onehot = thk.build_onehot(torch.from_numpy(bins), B=B, Fh=Fh)
+        j_onehot = jhk._build_onehot_pallas(bins32[:, :Fh], B=B,
+                                            tr=jhk._build_tr(N, Fh, B))
+    pos = np.zeros((N, 1), np.int32)
+    for d in range(4):
+        K, Kp = 1 << d, (1 << d) >> 1
+        ptab = _cat_ptab(rng, Kp, B)
+        assert ptab.shape[1] == 5 + B
+        if route == "hoisted":
+            t_pos, t_hist = _port_level(bins, onehot, pos, gh, ptab, K, Kp,
+                                        B, d)
+            p_pos, p_hist = jhk._hoisted_level_pallas(
+                bins32, j_onehot, jnp.asarray(pos), jnp.asarray(gh),
+                jnp.asarray(ptab), K=K, Kp=Kp, B=B, d=d)
+        else:
+            gq = thk.quantize_gradients(torch.from_numpy(gh[:, 0]),
+                                        torch.from_numpy(gh[:, 1]))
+            tp, th = thk.fused_level(torch.from_numpy(bins),
+                                     torch.from_numpy(pos), gq,
+                                     torch.from_numpy(ptab), K=K, Kp=Kp, B=B,
+                                     d=d)
+            t_pos, t_hist = tp.numpy(), th.numpy()
+            p_pos, p_hist = jhk._fused_level_pallas(
+                bins32, jnp.asarray(pos), jnp.asarray(gh), jnp.asarray(ptab),
+                K=K, Kp=Kp, B=B, d=d)
+        np.testing.assert_array_equal(t_pos, np.asarray(p_pos))
+        np.testing.assert_array_equal(t_hist, np.asarray(p_hist))
+        if Kp:  # the sets decide: read as numerical, rows go elsewhere
+            num = thk.partition_apply(torch.from_numpy(bins),
+                                      torch.from_numpy(pos),
+                                      torch.from_numpy(ptab[:, :4].copy()),
+                                      Kp=Kp, B=B, d=d)
+            assert not np.array_equal(num.numpy(), t_pos)
         pos = t_pos
 
 

@@ -9,7 +9,12 @@
   a stub kernel library that records its calls), never to the plain
   version: kernel A with uint8 and int16 bins, kernel D when a one-hot is
   given, kernel C for the one-hot itself; a device with no kernel, a failed
-  build, or a failed one-hot build raises, with no degrade to another route.
+  build, or a failed one-hot build raises, with no degrade to another route;
+- categorical decision tables ``[Kp, 5+B]`` reach kernels A and D with
+  their width, and a table of any other width raises;
+- kernel B takes an input of more than 2^31 elements in row chunks, each
+  launch below 2^31 elements; a forest with categorical nodes takes the
+  categorical walk and never reaches kernel B, whose wrapper refuses it.
 """
 
 import ast
@@ -52,7 +57,8 @@ def test_import_loads_no_jax():
 
 def test_no_import_of_jax_in_sources():
     files = sorted((ROOT / "xgboost_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_round_profile.py"]
+    files += [ROOT / "chip_smoke.py",
+              *sorted((ROOT / "scripts").glob("torch_*.py"))]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -142,9 +148,9 @@ def test_device_tensor_reaches_the_level_kernel(stub_cuda):
     assert thk.fused_level.launches == before + 1
     (name, args), = stub_cuda.calls
     assert name == "xgbt_fused_level"
-    # (bins, bin_bytes, n, F, B, pos, pos_out, q, ptab, Kp, prev_offset, K,
-    #  offset, ...)
-    assert args[1:5] == (1, n, F, B) and args[9:13] == (2, 1, K, 3)
+    # (bins, bin_bytes, n, F, B, pos, pos_out, q, ptab, W, Kp, prev_offset,
+    #  K, offset, ...)
+    assert args[1:5] == (1, n, F, B) and args[9:14] == (4, 2, 1, K, 3)
     assert tuple(new_pos.shape) == (n, 1) and tuple(hist.shape) == (F, 2 * K, B)
     # int16 bins (max_bin 256) reach the kernel with their width; wider
     # storage raises, never falls back
@@ -173,10 +179,10 @@ def test_device_tensor_with_onehot_reaches_the_hoisted_kernel(stub_cuda):
     # (bins, bin_bytes, n, F, Fh, B, n_pad, out, stream)
     assert n1 == "xgbt_build_onehot" and a1[1:7] == (2, n, F, Fh, B, 320)
     # (bins, bin_bytes, n, F, B, onehot, Fh, n_pad, pos, pos_out, q, ptab,
-    #  Kp, prev_offset, K, offset, hist, records, unhoisted bins, stream)
-    assert n2 == "xgbt_hoisted_level" and len(a2) == 20
+    #  W, Kp, prev_offset, K, offset, hist, records, unhoisted bins, stream)
+    assert n2 == "xgbt_hoisted_level" and len(a2) == 21
     assert a2[1:5] == (2, n, F, B) and a2[6:8] == (Fh, 320)
-    assert a2[12:16] == (2, 1, K, 3)
+    assert a2[12:17] == (4, 2, 1, K, 3)
     assert tuple(new_pos.shape) == (n, 1) and tuple(hist.shape) == (F, 2 * K, B)
     # a one-hot of the wrong shape raises
     with pytest.raises(ValueError, match="one-hot"):
@@ -244,3 +250,74 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(RuntimeError, match="build failed"):
         _build.library("hist_level")
+
+
+@pytest.mark.parametrize("route", ["construct", "hoisted"])
+def test_categorical_table_reaches_the_level_kernels_with_its_width(
+        stub_cuda, route):
+    n, F, B, K, d = 300, 5, 256, 4, 2
+    bins = torch.empty((n, F), dtype=torch.int16, device="meta")
+    pos, gq, _ = _meta_level(n, F, 2)
+    onehot = (thk.build_onehot(bins, B=B, Fh=3) if route == "hoisted"
+              else None)
+    ptab = torch.empty((2, 5 + B), dtype=torch.float32, device="meta")
+    thk.fused_level(bins, pos, gq, ptab, K=K, Kp=2, B=B, d=d, onehot=onehot)
+    name, args = stub_cuda.calls[-1]
+    if route == "hoisted":
+        assert name == "xgbt_hoisted_level" and args[12:14] == (5 + B, 2)
+    else:
+        assert name == "xgbt_fused_level" and args[9:11] == (5 + B, 2)
+    calls = len(stub_cuda.calls)
+    for width in (5, 4 + B, 6 + B):
+        bad = torch.empty((2, width), dtype=torch.float32, device="meta")
+        with pytest.raises(ValueError, match="ptab"):
+            thk.fused_level(bins, pos, gq, bad, K=K, Kp=2, B=B, d=d,
+                            onehot=onehot)
+    assert len(stub_cuda.calls) == calls
+
+
+def _meta_forest(T, N, F, **cats):
+    meta = dict(device="meta")
+    return tpred.StackedForest(
+        left=torch.empty((T, N), dtype=torch.int32, **meta),
+        right=torch.empty((T, N), dtype=torch.int32, **meta),
+        feature=torch.empty((T, N), dtype=torch.int32, **meta),
+        cond=torch.empty((T, N), dtype=torch.float32, **meta),
+        default_left=torch.empty((T, N), dtype=torch.bool, **meta),
+        tree_group=torch.empty(T, dtype=torch.int32, **meta),
+        max_depth=2, n_groups=1, num_feature=F, **cats)
+
+
+def test_input_past_2_31_elements_reaches_the_walk_kernel_in_row_chunks(
+        stub_cuda):
+    F, T, N = 50, 3, 7
+    n = (1 << 31) // F + 1  # n * F just past 2^31
+    X = torch.empty((n, F), dtype=torch.float32, device="meta")
+    before = tpred.predict_margin.launches
+    out = tpred.predict_margin(_meta_forest(T, N, F), X,
+                               torch.empty((n, 1), device="meta"))
+    assert tuple(out.shape) == (n, 1)
+    rows = [args[1] for name, args in stub_cuda.calls]
+    assert [c[0] for c in stub_cuda.calls] == ["xgbt_predict_margin"] * 2
+    assert tpred.predict_margin.launches == before + 2
+    assert sum(rows) == n and all(r * F < 1 << 31 for r in rows)
+    assert rows[0] % 256 == 0
+
+
+def test_categorical_forest_takes_the_categorical_walk(stub_cuda,
+                                                       monkeypatch):
+    F, T, N, n = 4, 3, 7, 50
+    forest = _meta_forest(
+        T, N, F, has_cats=True,
+        split_type=torch.empty((T, N), dtype=torch.bool, device="meta"),
+        cat_bits=torch.empty((T, N, 1), dtype=torch.int32, device="meta"))
+    X = torch.empty((n, F), dtype=torch.float32, device="meta")
+    base = torch.empty((n, 1), device="meta")
+    walked = []
+    monkeypatch.setattr(tpred, "_predict_margin_cat",
+                        lambda f, x, b, w: walked.append(f) or b)
+    tpred.predict_margin(forest, X, base)
+    assert walked == [forest] and stub_cuda.calls == []
+    with pytest.raises(NotImplementedError, match="categorical"):
+        tpred._predict_margin_cuda(forest, X, base,
+                                   torch.empty(T, device="meta"))

@@ -204,3 +204,25 @@ def test_table_walk_matches_jax_predict_margin(jax_model):
                           port.n_groups, port.max_depth)
         np.testing.assert_allclose(got, _jax_margin(jforest, X), rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("n,F,want", [
+    (1000, 50, 1),                         # far below 2^31 elements
+    ((1 << 31) // 50, 50, 1),              # the last row below 2^31
+    ((1 << 31) // 50 + 1, 50, 2),          # just past 2^31 elements
+    (3 * ((1 << 31) // 7), 7, 4),          # three times the bound
+    (0, 5, 1),
+])
+def test_walk_row_chunks_stay_below_2_31_elements(n, F, want):
+    """Kernel B's launch plan: chunks cover the rows in order, each holds
+    fewer than 2^31 elements and starts at a multiple of 256 rows (X stays
+    16-byte aligned)."""
+    from xgboost_tpu_torch.predictor import walk_row_chunks
+
+    chunks = walk_row_chunks(n, F)
+    assert len(chunks) == want
+    assert chunks[0][0] == 0 and chunks[-1][1] == n
+    for (lo, hi), (lo2, _) in zip(chunks, chunks[1:]):
+        assert hi == lo2
+    for lo, hi in chunks:
+        assert lo % 256 == 0 and (hi - lo) * F < 1 << 31

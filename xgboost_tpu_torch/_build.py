@@ -49,18 +49,18 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "hist_level": {
         "xgbt_fused_level": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _P, _P, _L, _P, _P],
+                             _I, _I, _P, _P, _L, _P, _P],
         "xgbt_level_route": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                             _P, _P],
+                             _I, _P, _P],
     },
     "onehot": {
         "xgbt_build_onehot": [_P, _I, _I, _I, _I, _I, _L, _P, _P],
     },
     "hoisted_level": {
         "xgbt_hoisted_level": [_P, _I, _I, _I, _I, _P, _I, _L, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _P, _P, _P, _P],
+                               _I, _I, _I, _I, _I, _P, _P, _P, _P],
         "xgbt_hoisted_route": [_P, _I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _I,
-                               _I, _I, _I, _P, _P, _P],
+                               _I, _I, _I, _I, _P, _P, _P],
     },
     "predict_walk": {
         "xgbt_predict_margin": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P,

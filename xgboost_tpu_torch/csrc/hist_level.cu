@@ -3,7 +3,8 @@
 // Replaces the TPU kernel xgboost_tpu/tree/hist_kernel.py:_fused_level_pallas
 // (body _level_kernel, helpers _partition_tile and _grad_channels). Same
 // contract as fused_level_xla: route every row through level d-1's decision
-// table, then accumulate (g, h) per (feature, node, bin) for level d into
+// table (numerical [Kp, 4] or categorical [Kp, 5+B], route.cuh), then
+// accumulate (g, h) per (feature, node, bin) for level d into
 // hist [F, 2K, B] (g rows [0, K), h rows [K, 2K)), the missing bin excluded.
 //
 // Where the int8 one-hot of the bins fits the device-memory budget, the
@@ -87,8 +88,8 @@ struct RouteArgs {
   int n, F, B;
   const int32_t* __restrict__ pos_in;
   int32_t* __restrict__ pos_out;
-  const float* __restrict__ ptab;  // [Kp, 4]: is_split, feature, bin, dl
-  int Kp, prev_offset, K, offset;
+  const float* __restrict__ ptab;  // [Kp, W] (route.cuh)
+  int W, Kp, prev_offset, K, offset;
   int32_t* __restrict__ loc;  // [n]: local node at level d, or -1
 };
 
@@ -99,7 +100,7 @@ __global__ void __launch_bounds__(kRouteThreads)
   if (r >= a.n) return;
   int p = a.pos_in[r];
   if (a.Kp > 0)
-    p = route_row(a.bins, a.F, a.B, a.ptab, a.Kp, a.prev_offset, r, p);
+    p = route_row(a.bins, a.F, a.B, a.ptab, a.W, a.Kp, a.prev_offset, r, p);
   a.pos_out[r] = p;
   const int local = p - a.offset;
   a.loc[r] = (local >= 0 && local < a.K) ? local : -1;
@@ -215,11 +216,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 
 template <typename T>
 int launch_route(const T* bins, int n, int F, int B, const int32_t* pos_in,
-                 int32_t* pos_out, const float* ptab, int Kp, int prev_offset,
-                 int K, int offset, int32_t* loc, cudaStream_t s) {
-  if (n < 0 || F < 1 || B < 1 || K < 1) return (int)cudaErrorInvalidValue;
+                 int32_t* pos_out, const float* ptab, int W, int Kp,
+                 int prev_offset, int K, int offset, int32_t* loc,
+                 cudaStream_t s) {
+  if (n < 0 || F < 1 || B < 1 || K < 1 || !route_width_ok(W, B))
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
-  RouteArgs<T> a{bins, n, F, B, pos_in, pos_out, ptab, Kp, prev_offset, K,
+  RouteArgs<T> a{bins, n, F, B, pos_in, pos_out, ptab, W, Kp, prev_offset, K,
                  offset, loc};
   level_route_kernel<T><<<(unsigned)((n + kRouteThreads - 1) / kRouteThreads),
                           kRouteThreads, 0, s>>>(a);
@@ -242,12 +245,12 @@ cudaError_t allow_smem(int dev, int bytes) {
 template <typename T>
 int launch_level(const T* bins, int n, int F, int B, const int32_t* pos_in,
                  int32_t* pos_out, const int32_t* qgh, const float* ptab,
-                 int Kp, int prev_offset, int K, int offset, long long* hist,
-                 const T* bins_t, long long n_pad, int32_t* loc,
-                 cudaStream_t s) {
+                 int W, int Kp, int prev_offset, int K, int offset,
+                 long long* hist, const T* bins_t, long long n_pad,
+                 int32_t* loc, cudaStream_t s) {
   if (n_pad < n || n_pad % kVec != 0 || bins_t == nullptr)
     return (int)cudaErrorInvalidValue;
-  int status = launch_route(bins, n, F, B, pos_in, pos_out, ptab, Kp,
+  int status = launch_route(bins, n, F, B, pos_in, pos_out, ptab, W, Kp,
                             prev_offset, K, offset, loc, s);
   if (status != 0 || n == 0) return status;
 
@@ -305,25 +308,28 @@ int launch_level(const T* bins, int n, int F, int B, const int32_t* pos_in,
 }  // namespace
 
 // One level: pos_out gets the routed positions, hist [F, 2K, B] int64
-// (zeroed by the caller) the level's sums. bins_t is the feature-major copy
-// of the bins, [F, n_pad] with n_pad >= n a multiple of 4; loc [n] int32 is
-// scratch the caller allocates. bin_bytes: 1 for uint8 bins, 2 for int16
-// bins; anything else is refused.
+// (zeroed by the caller) the level's sums. ptab is level d-1's decision
+// table, [Kp, W] with W = 4 or 5 + B (route.cuh). bins_t is the
+// feature-major copy of the bins, [F, n_pad] with n_pad >= n a multiple of
+// 4; loc [n] int32 is scratch the caller allocates. bin_bytes: 1 for uint8
+// bins, 2 for int16 bins; anything else is refused.
 extern "C" int xgbt_fused_level(const void* bins, int bin_bytes, int n, int F,
                                 int B, const int32_t* pos_in, int32_t* pos_out,
-                                const int32_t* qgh, const float* ptab, int Kp,
-                                int prev_offset, int K, int offset,
+                                const int32_t* qgh, const float* ptab, int W,
+                                int Kp, int prev_offset, int K, int offset,
                                 long long* hist, const void* bins_t,
                                 long long n_pad, int32_t* loc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bin_bytes == 1)
     return launch_level(static_cast<const uint8_t*>(bins), n, F, B, pos_in,
-                        pos_out, qgh, ptab, Kp, prev_offset, K, offset, hist,
-                        static_cast<const uint8_t*>(bins_t), n_pad, loc, s);
+                        pos_out, qgh, ptab, W, Kp, prev_offset, K, offset,
+                        hist, static_cast<const uint8_t*>(bins_t), n_pad, loc,
+                        s);
   if (bin_bytes == 2)
     return launch_level(static_cast<const int16_t*>(bins), n, F, B, pos_in,
-                        pos_out, qgh, ptab, Kp, prev_offset, K, offset, hist,
-                        static_cast<const int16_t*>(bins_t), n_pad, loc, s);
+                        pos_out, qgh, ptab, W, Kp, prev_offset, K, offset,
+                        hist, static_cast<const int16_t*>(bins_t), n_pad, loc,
+                        s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -332,15 +338,15 @@ extern "C" int xgbt_fused_level(const void* bins, int bin_bytes, int n, int F,
 // histogram launch.
 extern "C" int xgbt_level_route(const void* bins, int bin_bytes, int n, int F,
                                 int B, const int32_t* pos_in, int32_t* pos_out,
-                                const float* ptab, int Kp, int prev_offset,
-                                int K, int offset, int32_t* loc,
-                                void* stream) {
+                                const float* ptab, int W, int Kp,
+                                int prev_offset, int K, int offset,
+                                int32_t* loc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bin_bytes == 1)
     return launch_route(static_cast<const uint8_t*>(bins), n, F, B, pos_in,
-                        pos_out, ptab, Kp, prev_offset, K, offset, loc, s);
+                        pos_out, ptab, W, Kp, prev_offset, K, offset, loc, s);
   if (bin_bytes == 2)
     return launch_route(static_cast<const int16_t*>(bins), n, F, B, pos_in,
-                        pos_out, ptab, Kp, prev_offset, K, offset, loc, s);
+                        pos_out, ptab, W, Kp, prev_offset, K, offset, loc, s);
   return (int)cudaErrorInvalidValue;
 }

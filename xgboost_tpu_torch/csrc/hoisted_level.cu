@@ -4,7 +4,8 @@
 // Replaces the TPU kernel xgboost_tpu/tree/hist_kernel.py:_hoisted_level_pallas
 // (body _hoisted_kernel, helpers _partition_tile and _grad_channels). Same
 // contract as kernel A (hist_level.cu) and fused_level_xla: route every row
-// through level d-1's decision table, then accumulate (g, h) per
+// through level d-1's decision table (numerical [Kp, 4] or categorical
+// [Kp, 5+B], route.cuh), then accumulate (g, h) per
 // (feature, node, bin) for level d into hist [F, 2K, B] (g rows [0, K), h
 // rows [K, 2K)), the missing bin excluded. The first Fh features come from
 // the one-hot that kernel C (onehot.cu) built once per training matrix,
@@ -127,8 +128,8 @@ struct RouteArgs {
   const int32_t* pos_in;
   int32_t* pos_out;
   const int32_t* qgh;  // [n, 2]
-  const float* ptab;
-  int Kp, prev_offset, K, offset;
+  const float* ptab;   // [Kp, W] (route.cuh)
+  int W, Kp, prev_offset, K, offset;
   int4* rec;   // [n] channel records
   T* bins_t;   // [F-Fh, n_pad], or null for a full hoist
 };
@@ -139,7 +140,7 @@ __global__ void __launch_bounds__(kThreads) route_kernel(RouteArgs<T> a) {
   if (r >= a.n) return;
   int p = a.pos_in[r];
   if (a.Kp > 0)
-    p = route_row(a.bins, a.F, a.B, a.ptab, a.Kp, a.prev_offset, r, p);
+    p = route_row(a.bins, a.F, a.B, a.ptab, a.W, a.Kp, a.prev_offset, r, p);
   a.pos_out[r] = p;
   const int local = p - a.offset;
   const int2 q = reinterpret_cast<const int2*>(a.qgh)[r];
@@ -427,13 +428,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 template <typename T>
 int launch_route(const T* bins, int n, int F, int B, int Fh, long long n_pad,
                  const int32_t* pos_in, int32_t* pos_out, const int32_t* qgh,
-                 const float* ptab, int Kp, int prev_offset, int K, int offset,
-                 int4* rec, T* bins_t, cudaStream_t s) {
+                 const float* ptab, int W, int Kp, int prev_offset, int K,
+                 int offset, int4* rec, T* bins_t, cudaStream_t s) {
   if (n_pad % 32 != 0 || n_pad < n || Fh < 1 || Fh > F || K < 1 || n < 1 ||
-      (Fh < F && bins_t == nullptr))
+      (Fh < F && bins_t == nullptr) || !route_width_ok(W, B))
     return (int)cudaErrorInvalidValue;
   RouteArgs<T> args{bins, n, F, B, Fh, n_pad, pos_in, pos_out, qgh, ptab,
-                    Kp, prev_offset, K, offset, rec, bins_t};
+                    W, Kp, prev_offset, K, offset, rec, bins_t};
   route_kernel<T><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
                     s>>>(args);
   return (int)cudaGetLastError();
@@ -458,11 +459,12 @@ cudaError_t allow_smem(int dev) {
 template <typename T>
 int launch(const T* bins, int n, int F, int B, const int8_t* onehot, int Fh,
            long long n_pad, const int32_t* pos_in, int32_t* pos_out,
-           const int32_t* qgh, const float* ptab, int Kp, int prev_offset,
-           int K, int offset, long long* hist, int4* rec, T* bins_t,
-           cudaStream_t s) {
+           const int32_t* qgh, const float* ptab, int W, int Kp,
+           int prev_offset, int K, int offset, long long* hist, int4* rec,
+           T* bins_t, cudaStream_t s) {
   int status = launch_route(bins, n, F, B, Fh, n_pad, pos_in, pos_out, qgh,
-                            ptab, Kp, prev_offset, K, offset, rec, bins_t, s);
+                            ptab, W, Kp, prev_offset, K, offset, rec, bins_t,
+                            s);
   if (status != 0) return status;
 
   int dev = 0, sms = 0;
@@ -497,7 +499,9 @@ int launch(const T* bins, int n, int F, int B, const int8_t* onehot, int Fh,
 }  // namespace
 
 // One level over the hoisted one-hot: pos_out gets the routed positions,
-// hist [F, 2K, B] int64 (zeroed by the caller) the level's sums. rec [n, 4]
+// hist [F, 2K, B] int64 (zeroed by the caller) the level's sums. ptab is
+// level d-1's decision table, [Kp, W] with W = 4 or 5 + B (route.cuh).
+// rec [n, 4]
 // int32 and, for a partial hoist (Fh < F), bins_t [F-Fh, n_pad] in the bins'
 // type are scratch the caller allocates (bins_t may be null when Fh == F).
 // bin_bytes: 1 for uint8 bins, 2 for int16 bins; anything else is refused.
@@ -505,18 +509,19 @@ extern "C" int xgbt_hoisted_level(const void* bins, int bin_bytes, int n,
                                   int F, int B, const int8_t* onehot, int Fh,
                                   long long n_pad, const int32_t* pos_in,
                                   int32_t* pos_out, const int32_t* qgh,
-                                  const float* ptab, int Kp, int prev_offset,
-                                  int K, int offset, long long* hist,
-                                  void* rec, void* bins_t, void* stream) {
+                                  const float* ptab, int W, int Kp,
+                                  int prev_offset, int K, int offset,
+                                  long long* hist, void* rec, void* bins_t,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int4* r = static_cast<int4*>(rec);
   if (bin_bytes == 1)
     return launch(static_cast<const uint8_t*>(bins), n, F, B, onehot, Fh,
-                  n_pad, pos_in, pos_out, qgh, ptab, Kp, prev_offset, K,
+                  n_pad, pos_in, pos_out, qgh, ptab, W, Kp, prev_offset, K,
                   offset, hist, r, static_cast<uint8_t*>(bins_t), s);
   if (bin_bytes == 2)
     return launch(static_cast<const int16_t*>(bins), n, F, B, onehot, Fh,
-                  n_pad, pos_in, pos_out, qgh, ptab, Kp, prev_offset, K,
+                  n_pad, pos_in, pos_out, qgh, ptab, W, Kp, prev_offset, K,
                   offset, hist, r, static_cast<int16_t*>(bins_t), s);
   return (int)cudaErrorInvalidValue;
 }
@@ -528,17 +533,18 @@ extern "C" int xgbt_hoisted_route(const void* bins, int bin_bytes, int n,
                                   int F, int B, int Fh, long long n_pad,
                                   const int32_t* pos_in, int32_t* pos_out,
                                   const int32_t* qgh, const float* ptab,
-                                  int Kp, int prev_offset, int K, int offset,
-                                  void* rec, void* bins_t, void* stream) {
+                                  int W, int Kp, int prev_offset, int K,
+                                  int offset, void* rec, void* bins_t,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int4* r = static_cast<int4*>(rec);
   if (bin_bytes == 1)
     return launch_route(static_cast<const uint8_t*>(bins), n, F, B, Fh, n_pad,
-                        pos_in, pos_out, qgh, ptab, Kp, prev_offset, K, offset,
-                        r, static_cast<uint8_t*>(bins_t), s);
+                        pos_in, pos_out, qgh, ptab, W, Kp, prev_offset, K,
+                        offset, r, static_cast<uint8_t*>(bins_t), s);
   if (bin_bytes == 2)
     return launch_route(static_cast<const int16_t*>(bins), n, F, B, Fh, n_pad,
-                        pos_in, pos_out, qgh, ptab, Kp, prev_offset, K, offset,
-                        r, static_cast<int16_t*>(bins_t), s);
+                        pos_in, pos_out, qgh, ptab, W, Kp, prev_offset, K,
+                        offset, r, static_cast<int16_t*>(bins_t), s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,12 +5,14 @@ The port of the dense part of the JAX package's ``data/dmatrix.py``
 ``python-package/xgboost/core.py:501`` DMatrix). The data lives on the
 DMatrix's device as [n, F] float32 with NaN for missing; the quantized view
 (``BinnedMatrix``, the ELLPACK analog) is built on first use and cached per
-``max_bin``.
+``max_bin``. Features whose ``feature_types`` entry is ``"c"`` (or
+``"categorical"``) hold integer category codes and are binned one bin per
+category.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -31,17 +33,17 @@ def _vector(v: Any, device: torch.device) -> Optional[torch.Tensor]:
 class DMatrix:
     """In-memory dense matrix + metadata, the training/predict input.
     ``device`` defaults to the CUDA card; pass ``device="cpu"`` for the
-    plain PyTorch versions."""
+    plain PyTorch versions. ``feature_types`` marks categorical columns
+    with ``"c"``; ``enable_categorical`` concerns only data frames, whose
+    adapters are not ported, as in the JAX package."""
 
     def __init__(self, data: Any, label: Any = None, *, weight: Any = None,
                  base_margin: Any = None, missing: float = np.nan,
                  feature_types: Any = None, enable_categorical: bool = False,
                  device: Optional[Union[str, torch.device]] = None) -> None:
         self.device = resolve_device(device)
-        if enable_categorical or (feature_types is not None and any(
-                t in ("c", "categorical") for t in feature_types)):
-            raise NotImplementedError(
-                "categorical features are not ported yet")
+        self.feature_types: Optional[List[str]] = (
+            list(feature_types) if feature_types else None)
         if hasattr(data, "tocsr") or not isinstance(
                 data, (np.ndarray, list, tuple, torch.Tensor)):
             raise NotImplementedError(
@@ -65,14 +67,47 @@ class DMatrix:
     def num_col(self) -> int:
         return int(self.data.shape[1])
 
+    def categorical_features(self) -> List[int]:
+        ft = self.feature_types
+        if not ft:
+            return []
+        return [i for i, t in enumerate(ft) if t in ("c", "categorical")]
+
     def get_binned(self, max_bin: int = 256) -> BinnedMatrix:
         """Build-or-fetch the quantized matrix for this ``max_bin``; the
         sketch is weighted by the row weights, as in the JAX package.
         With row weights (or more than 2^24 rows) the sketch's prefix sum
-        runs on the host even for a CUDA matrix (see ``compute_cuts``)."""
+        runs on the host even for a CUDA matrix (see ``compute_cuts``).
+        Categorical features are checked (``_validate_categorical``) and
+        get identity cuts."""
         bm = self._binned.get(max_bin)
         if bm is None:
+            cat = self.categorical_features()
+            if cat:
+                self._validate_categorical(cat, max_bin)
             bm = BinnedMatrix.from_dense(self.data, max_bin=max_bin,
-                                         weights=self.weight)
+                                         weights=self.weight, categorical=cat)
             self._binned[max_bin] = bm
         return bm
+
+    def _validate_categorical(self, cat: List[int], max_bin: int) -> None:
+        """Categorical codes must be non-negative integers below
+        ``max_bin``: one bin per category, and the predictor's set lookup
+        must agree with the binning (reference ``common/categorical.h``
+        InvalidCat). The messages are the JAX package's."""
+        col = self.data[:, cat]
+        present = ~torch.isnan(col)
+        neg_or_frac = present & ((col < 0) | (col != torch.floor(col)))
+        top = torch.where(present, col,
+                          torch.full_like(col, -1.0)).amax(dim=0)
+        for f, bad, mx, has in zip(cat, neg_or_frac.any(dim=0).tolist(),
+                                   top.tolist(), present.any(dim=0).tolist()):
+            if not has:
+                continue
+            if bad:
+                raise ValueError(f"categorical feature {f} has negative or "
+                                 "non-integer codes")
+            if mx >= max_bin:
+                raise ValueError(
+                    f"categorical feature {f} has {int(mx) + 1} categories, "
+                    f"exceeding max_bin={max_bin}; raise max_bin")

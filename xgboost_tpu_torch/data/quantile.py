@@ -17,7 +17,7 @@ row weights the sequential f32 sum runs on the host
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +26,7 @@ from ..tree.hist_kernel import (build_onehot, feature_major, hoist_plan,
                                 onehot_rows)
 
 __all__ = ["HistogramCuts", "compute_cuts", "bin_matrix", "storage_dtype",
-           "BinnedMatrix"]
+           "BinnedMatrix", "apply_categorical_identity"]
 
 _FLT_MAX = float(np.finfo(np.float32).max)
 # unit-weight partial sums stay exact in f32 up to this many rows
@@ -52,6 +52,17 @@ class HistogramCuts:
         return int(self.values.shape[1])
 
 
+def apply_categorical_identity(values: np.ndarray, min_vals: np.ndarray,
+                               categorical: Sequence[int]) -> None:
+    """Overwrite categorical features' cuts with the identity thresholds
+    ``[1..max_bin]``, so category code ``c`` lands in bin ``c``: one bin per
+    category (reference ``hist_util.cc`` AddCutPoint, categorical path)."""
+    ident = np.arange(1, values.shape[1] + 1, dtype=np.float32)
+    for f in categorical:
+        values[f] = ident
+        min_vals[f] = 0.0
+
+
 def _sequential_cdf(sw: torch.Tensor, unit_weights: bool) -> torch.Tensor:
     """[F, n] f32 prefix sums along rows with strict left-to-right f32
     association."""
@@ -62,10 +73,13 @@ def _sequential_cdf(sw: torch.Tensor, unit_weights: bool) -> torch.Tensor:
 
 
 def compute_cuts(X: torch.Tensor, max_bin: int = 256,
-                 weights: Optional[torch.Tensor] = None) -> HistogramCuts:
+                 weights: Optional[torch.Tensor] = None,
+                 categorical: Optional[Sequence[int]] = None
+                 ) -> HistogramCuts:
     """[n, F] f32 (NaN missing) -> cuts, on ``X``'s device (the port of
     ``_cuts_kernel``): ``max_bin - 1`` weighted quantiles at k/B of the
-    total weight plus a strict-upper sentinel cut.
+    total weight plus a strict-upper sentinel cut. ``categorical``
+    features get identity cuts instead (``apply_categorical_identity``).
 
     One step leaves the device: with row weights, or with more than 2^24
     rows, the strict f32 prefix sum (``_sequential_cdf``) copies the sorted
@@ -100,7 +114,10 @@ def compute_cuts(X: torch.Tensor, max_bin: int = 256,
     sentinel = max_val + torch.clamp(torch.abs(max_val), min=1.0)
     interior = torch.where(has[:, None], interior, torch.zeros_like(interior))
     cuts = torch.cat([interior, sentinel[:, None]], dim=1)
-    return HistogramCuts(values=cuts.cpu().numpy(), min_vals=min_val.cpu().numpy())
+    values, min_vals = cuts.cpu().numpy(), min_val.cpu().numpy()
+    if categorical:
+        apply_categorical_identity(values, min_vals, categorical)
+    return HistogramCuts(values=values, min_vals=min_vals)
 
 
 def storage_dtype(max_bin: int) -> torch.dtype:
@@ -133,6 +150,12 @@ class BinnedMatrix:
     cuts: HistogramCuts
     bins: torch.Tensor
     cut_values: torch.Tensor  # [F, B] f32, on the bins' device
+    # feature ids binned as categorical (identity cuts)
+    categorical: Tuple[int, ...] = ()
+    # categories per categorical feature (aligned with ``categorical``):
+    # max observed code + 1, or 1 for a column with no present value. Picks
+    # one-hot or partition splits (max_cat_to_onehot).
+    cat_counts: Tuple[int, ...] = ()
     # the resident one-hot of the hoisted route and the plan it was built
     # to (None until fused_onehot first runs)
     _onehot: Optional[torch.Tensor] = None
@@ -174,8 +197,20 @@ class BinnedMatrix:
     @classmethod
     def from_dense(cls, X: torch.Tensor, max_bin: int = 256,
                    weights: Optional[torch.Tensor] = None,
-                   cuts: Optional[HistogramCuts] = None) -> "BinnedMatrix":
+                   cuts: Optional[HistogramCuts] = None,
+                   categorical: Optional[Sequence[int]] = None
+                   ) -> "BinnedMatrix":
+        cat = tuple(categorical) if categorical else ()
+        counts: Tuple[int, ...] = ()
+        if cat:
+            col = X[:, list(cat)]
+            present = ~torch.isnan(col)
+            top = torch.where(present, col, torch.full_like(col, -1.0))
+            counts = tuple(int(m) + 1 if has else 1 for m, has in zip(
+                top.amax(dim=0).tolist(), present.any(dim=0).tolist()))
         if cuts is None:
-            cuts = compute_cuts(X, max_bin=max_bin, weights=weights)
+            cuts = compute_cuts(X, max_bin=max_bin, weights=weights,
+                                categorical=cat)
         return cls(cuts=cuts, bins=bin_matrix(X, cuts),
-                   cut_values=torch.as_tensor(cuts.values, device=X.device))
+                   cut_values=torch.as_tensor(cuts.values, device=X.device),
+                   categorical=cat, cat_counts=counts)

@@ -5,18 +5,22 @@ The port of the single-device, in-core, depthwise part of the JAX package's
 gbtree.cc:219, ``CommitModel`` :364). Trees grown on the device stay there
 as heap-layout arrays (``_PendingTree``) and become host ``RegTree``s only
 when model IO asks; the prediction cache of the training rows is updated
-from the grower's per-row leaf values, with no predictor pass.
+from the grower's per-row leaf values, with no predictor pass. Trees grown
+on categorical features carry their right-going sets, stacked as bitsets
+(``_stack_cats``) for the categorical walk.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..params import GBTreeParam, TrainParam
-from ..predictor import StackedForest, stack_forest, with_walk_tables
+from ..predictor import (StackedForest, pack_cat_bits, stack_forest,
+                         with_walk_tables)
 from ..tree.grow import GrowParams
 from ..tree.grow_fused import GrownTree, grow_tree_fused
 from ..tree.model import RegTree
@@ -26,17 +30,22 @@ __all__ = ["GBTreeModel", "GBTree"]
 
 
 class _PendingTree:
-    """A device-grown tree (GrownTree minus the per-row delta)."""
+    """A device-grown tree (GrownTree minus the per-row delta). Trees grown
+    on categorical features keep ``cat_mask`` ([F] bool, host) and their
+    right-going sets ``cat_set``; otherwise both are None."""
 
     __slots__ = ("keep", "feature", "split_bin", "split_cond", "default_left",
-                 "node_weight", "loss_chg", "node_h", "leaf_value", "eta",
-                 "max_depth")
+                 "node_weight", "loss_chg", "node_h", "leaf_value", "cat_set",
+                 "eta", "max_depth", "cat_mask")
 
-    def __init__(self, g: GrownTree, eta: float, max_depth: int):
-        for f in self.__slots__[:-2]:
+    def __init__(self, g: GrownTree, eta: float, max_depth: int,
+                 cat_mask: Optional[np.ndarray] = None):
+        for f in self.__slots__[:-4]:
             setattr(self, f, getattr(g, f))
+        self.cat_set = g.cat_set if cat_mask is not None else None
         self.eta = eta
         self.max_depth = max_depth
+        self.cat_mask = cat_mask
 
     @property
     def n_nodes(self) -> int:
@@ -52,8 +61,34 @@ def _materialize_pending(pending: List[_PendingTree]) -> List[RegTree]:
         h = {f: getattr(t, f).cpu().numpy() for f in fields}
         out.append(RegTree.from_heap(
             h["keep"], h["feature"], h["split_cond"], h["default_left"],
-            h["node_weight"], h["loss_chg"], h["node_h"], eta=t.eta))
+            h["node_weight"], h["loss_chg"], h["node_h"], eta=t.eta,
+            cat_features=t.cat_mask,
+            cat_set=None if t.cat_set is None else t.cat_set.cpu().numpy()))
     return out
+
+
+def _stack_cats(entries: List[_PendingTree], keep: torch.Tensor,
+                feature: torch.Tensor):
+    """``(split_type [T, N], cat_bits [T, N, W])`` of device heap trees
+    (the JAX package's ``_pack_cat_bits`` stacking), or ``{}`` when no tree
+    was grown on a categorical feature. Trees without categories get empty
+    sets."""
+    if all(e.cat_mask is None for e in entries):
+        return {}
+    T, N = keep.shape
+    dev = keep.device
+    B = max(e.cat_set.shape[1] for e in entries if e.cat_set is not None)
+    sets = torch.zeros((T, N, B), dtype=torch.bool, device=dev)
+    is_cat = torch.zeros((T, N), dtype=torch.bool, device=dev)
+    for t, e in enumerate(entries):
+        if e.cat_mask is None:
+            continue
+        m = e.cat_set.shape[0]
+        sets[t, :m, :e.cat_set.shape[1]] = e.cat_set
+        mask = torch.as_tensor(e.cat_mask, device=dev)
+        is_cat[t] = mask[feature[t].long().clamp(0, mask.shape[0] - 1)]
+    return dict(has_cats=True, split_type=is_cat & keep,
+                cat_bits=pack_cat_bits(sets))
 
 
 def _stack_device(entries: List[_PendingTree], tree_info: List[int],
@@ -74,18 +109,20 @@ def _stack_device(entries: List[_PendingTree], tree_info: List[int],
         return torch.stack(rows)
 
     keep = field("keep", False)
+    feature = field("feature", 0)
     iota = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
     minus1 = torch.full_like(keep, -1, dtype=torch.int32)
     return with_walk_tables(StackedForest(
         left=torch.where(keep, 2 * iota + 1, minus1),
         right=torch.where(keep, 2 * iota + 2, minus1),
-        feature=field("feature", 0),
+        feature=feature,
         cond=torch.where(keep, field("split_cond", 0.0),
                          field("leaf_value", 0.0)),
         default_left=field("default_left", False),
         tree_group=torch.as_tensor(np.asarray(tree_info, np.int32), device=dev),
         max_depth=max(max(e.max_depth for e in entries), 1),
-        n_groups=n_groups, num_feature=num_feature, heap_layout=True))
+        n_groups=n_groups, num_feature=num_feature, heap_layout=True,
+        **_stack_cats(entries, keep, feature)))
 
 
 class GBTreeModel:
@@ -103,8 +140,9 @@ class GBTreeModel:
         self.tree_info.append(group)
 
     def add_device(self, grown: GrownTree, eta: float, group: int,
-                   max_depth: int) -> None:
-        self._entries.append(_PendingTree(grown, eta, max_depth))
+                   max_depth: int, cat_mask: Optional[np.ndarray] = None
+                   ) -> None:
+        self._entries.append(_PendingTree(grown, eta, max_depth, cat_mask))
         self.tree_info.append(group)
 
     @property
@@ -133,6 +171,26 @@ class GBTreeModel:
 
     def stacked(self) -> StackedForest:
         return self.stacked_slice(0, self.num_trees)
+
+
+def _cat_cfg(cfg: GrowParams, binned, tp: TrainParam
+             ) -> Tuple[GrowParams, Optional[np.ndarray]]:
+    """The one-hot vs optimal-partition gate (reference UseOneHot,
+    ``evaluate_splits.h``: one-hot when a feature has fewer categories than
+    ``max_cat_to_onehot``) applied to ``cfg`` for ``binned``'s categorical
+    features. Returns ``(cfg, cat_mask)``, ``cat_mask`` [F] bool or None
+    when no feature is categorical."""
+    cats = tuple(binned.categorical)
+    if not cats:
+        return cfg, None
+    counts = tuple(binned.cat_counts) or (0,) * len(cats)
+    cfg = dataclasses.replace(
+        cfg,
+        categorical=tuple(f for f, c in zip(cats, counts)
+                          if c < tp.max_cat_to_onehot),
+        cat_partition=tuple(f for f, c in zip(cats, counts)
+                            if c >= tp.max_cat_to_onehot))
+    return cfg, cfg.cat_mask_np(binned.n_features)
 
 
 _UNSUPPORTED_DEFAULTS = {
@@ -193,7 +251,7 @@ class GBTree:
         resident one-hot (built at the first round; JAX ``gbtree.py:1421``);
         otherwise kernel A reads its resident feature-major bins."""
         tp = self.train_param
-        cfg = self._grow_params()
+        cfg, cat_mask = _cat_cfg(self._grow_params(), binned, tp)
         self.model.num_feature = binned.n_features
         onehot = binned.fused_onehot()
         bins_t = (binned.feature_major() if onehot is None
@@ -205,7 +263,7 @@ class GBTree:
             grown = grow_tree_fused(binned.bins, g, h, binned.cut_values,
                                     float(tp.eta), float(tp.gamma), cfg,
                                     onehot=onehot, bins_t=bins_t)
-            self.model.add_device(grown, tp.eta, k, tp.max_depth)
+            self.model.add_device(grown, tp.eta, k, tp.max_depth, cat_mask)
             new_trees.append(grown)
             if margin_cache is not None:
                 margin_cache = margin_cache.clone()

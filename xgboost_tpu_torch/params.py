@@ -112,6 +112,10 @@ class TrainParam(ParamSet):
         "colsample_bynode": Field(1.0, lower=0.0, upper=1.0),
         "monotone_constraints": Field([], parse=_parse_constraint_list),
         "interaction_constraints": Field([], parse=_parse_interaction),
+        # categorical features with fewer categories than this split one
+        # category against the rest; the others by optimal partition
+        # (reference UseOneHot, evaluate_splits.h)
+        "max_cat_to_onehot": Field(4, lower=1),
     }
 
 

@@ -45,6 +45,8 @@ class GrownTree(NamedTuple):
     loss_chg: torch.Tensor  # f32
     leaf_value: torch.Tensor  # f32 — eta-applied governing leaf value per node
     delta: torch.Tensor  # f32 [n] margin increment of the training rows
+    cat_set: torch.Tensor  # bool [max_nodes, B] right-going sets ([1, 1]
+    # when no feature is categorical)
 
 
 class _HeapState(NamedTuple):
@@ -59,12 +61,18 @@ class _HeapState(NamedTuple):
     node_h: torch.Tensor
     node_w: torch.Tensor
     loss_chg: torch.Tensor
-    ptab: torch.Tensor  # [K, 4] decisions of the last evaluated level
+    # [K, 4] decisions of the last evaluated level, [K, 5+B] with
+    # categorical features (column 4: categorical node; 5 on: its
+    # right-going set)
+    ptab: torch.Tensor
+    cat_set: torch.Tensor  # [max_nodes, B] right-going sets, or [1, 1]
 
 
-def _init_state(cfg: GrowParams, totals: torch.Tensor) -> _HeapState:
+def _init_state(cfg: GrowParams, totals: torch.Tensor, B: int = 0
+                ) -> _HeapState:
     max_nodes = cfg.max_nodes
     dev = totals.device
+    cat = cfg.has_categorical
 
     def z(dt):
         return torch.zeros(max_nodes, dtype=dt, device=dev)
@@ -79,7 +87,10 @@ def _init_state(cfg: GrowParams, totals: torch.Tensor) -> _HeapState:
         split_bin=z(torch.int32), split_cond=z(torch.float32),
         default_left=z(torch.bool), node_g=node_g, node_h=node_h,
         node_w=node_w, loss_chg=z(torch.float32),
-        ptab=torch.zeros((1, 4), dtype=torch.float32, device=dev),
+        ptab=torch.zeros((1, 5 + B if cat else 4), dtype=torch.float32,
+                         device=dev),
+        cat_set=torch.zeros((max_nodes, B) if cat else (1, 1),
+                            dtype=torch.bool, device=dev),
     )
 
 
@@ -108,7 +119,8 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
         torch.cat([hh, h_miss[..., None]], dim=-1),
     ], dim=-1)  # [K, F, B+1, 2]
     node_fmask = torch.ones((K, F), dtype=torch.bool, device=dev)
-    dec = eval_splits(hist, Gtot, Htot, p, node_fmask, B)
+    cat_feats, cat_part = cfg.cat_masks(F, dev)
+    dec = eval_splits(hist, Gtot, Htot, p, node_fmask, B, cat_feats, cat_part)
     can_split = (dec.loss > RT_EPS) & (Htot > 0.0)
     GLb, HLb = dec.GL, dec.HL
     GRb, HRb = Gtot - GLb, Htot - HLb
@@ -147,13 +159,22 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
         can_split.to(torch.float32), dec.f.to(torch.float32),
         dec.b.to(torch.float32), (dec.dir == 1).to(torch.float32),
     ], dim=1)  # [K, 4]
+    cat_set = st.cat_set
+    if cfg.has_categorical:
+        any_cat = torch.as_tensor(cfg.cat_mask_np(F), device=dev)
+        is_cat = any_cat[fl] & can_split
+        win_set = dec.cat_set & is_cat[:, None]  # [K, B]
+        cat_set = cat_set.clone()
+        cat_set[slots] = win_set
+        ptab = torch.cat([ptab, is_cat.to(torch.float32)[:, None],
+                          win_set.to(torch.float32)], dim=1)  # [K, 5+B]
     return _HeapState(
         is_split=is_split, feature=feature, split_bin=split_bin,
         split_cond=split_cond, default_left=default_left,
         node_g=set_children(st.node_g, GLb, GRb),
         node_h=set_children(st.node_h, HLb, HRb),
         node_w=set_children(node_w, wl_c, wr_c),
-        loss_chg=loss_chg, ptab=ptab,
+        loss_chg=loss_chg, ptab=ptab, cat_set=cat_set,
     )
 
 
@@ -208,11 +229,13 @@ def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
     gradients ``grad``/``hess`` [n]; every tensor on one device. ``onehot``
     (``build_onehot`` of ``bins``) sends every level down the hoisted route;
     the trees are the same either way. Without one, kernel A reads
-    ``bins_t``, the bins' ``feature_major`` copy, when given."""
+    ``bins_t``, the bins' ``feature_major`` copy, when given. With
+    categorical features in ``cfg`` the decision tables are ``[K, 5+B]``
+    and the grown tree carries each node's right-going set."""
     B = cut_values.shape[1]
     max_depth = cfg.max_depth
     gq: QuantizedGradients = quantize_gradients(grad, hess)
-    st = _init_state(cfg, gq.totals())
+    st = _init_state(cfg, gq.totals(), B)
     pos = torch.zeros((bins.shape[0], 1), dtype=torch.int32, device=bins.device)
     for d in range(max_depth):
         K = 1 << d
@@ -229,5 +252,5 @@ def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
         split_cond=st.split_cond, default_left=st.default_left,
         node_g=st.node_g, node_h=st.node_h, node_weight=st.node_w,
         loss_chg=st.loss_chg, leaf_value=leaf_value,
-        delta=leaf_delta(pos, leaf_value),
+        delta=leaf_delta(pos, leaf_value), cat_set=st.cat_set,
     )

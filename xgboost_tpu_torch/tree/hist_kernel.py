@@ -27,6 +27,11 @@ every route and device gives the same int64 histogram bits, deterministic,
 as the TPU kernels are. A failed build or launch raises; nothing degrades to
 another route.
 
+The decision table of level ``d-1`` is ``[>= Kp, 4]`` (is_split, feature,
+bin, default_left) or, with categorical features, ``[>= Kp, 5+B]``: column
+4 flags a categorical node and columns 5 on hold its right-going category
+set (the two layouts of ``_partition_tile``). Every route reads both.
+
 ``partition_apply`` (the final routing step; XLA in the JAX package) and
 ``leaf_delta`` (a gather) are plain torch on every device.
 """
@@ -100,17 +105,27 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor
 
 def partition_apply(bins: torch.Tensor, pos: torch.Tensor, ptab: torch.Tensor,
                     *, Kp: int, B: int, d: int) -> torch.Tensor:
-    """Route rows through level ``d-1``'s decisions ``ptab`` [Kp, 4]
-    (is_split, feature, bin, default_left): the rule of
-    ``partition_apply_xla``. Rows at other nodes keep their position."""
+    """Route rows through level ``d-1``'s decisions ``ptab``: ``[Kp, 4]``
+    (is_split, feature, bin, default_left), or ``[Kp, 5+B]`` with
+    categorical features, where column 4 flags a categorical node and
+    columns 5 on hold its right-going category set. The rule of
+    ``partition_apply_xla``: a missing bin follows default_left; a present
+    bin goes left iff ``bin <= split bin`` at a numerical node and iff it
+    is not in the set at a categorical node. Rows at other nodes keep
+    their position."""
     prev_offset = (1 << (d - 1)) - 1 if d > 0 else 0
     p = pos[:, 0]
     lp = p - prev_offset
     inb = (lp >= 0) & (lp < Kp)
-    row = ptab[lp.clamp(0, max(Kp - 1, 0))]  # [n, 4]
+    row = ptab[lp.clamp(0, max(Kp - 1, 0))]  # [n, W]
     f = row[:, 1].long()
     bv = torch.gather(bins, 1, f[:, None])[:, 0].long()
-    goleft = torch.where(bv >= B, row[:, 3] > 0.5, bv <= row[:, 2].long())
+    present_left = bv <= row[:, 2].long()
+    if ptab.shape[1] > 4:
+        member = torch.gather(row, 1, 5 + bv.clamp(max=B - 1)[:, None])[:, 0]
+        present_left = torch.where(row[:, 4] > 0.5, member <= 0.5,
+                                   present_left)
+    goleft = torch.where(bv >= B, row[:, 3] > 0.5, present_left)
     goes = inb & (row[:, 0] > 0.5)
     child = torch.where(goleft, 2 * p + 1, 2 * p + 2)
     return torch.where(goes, child, p)[:, None].to(torch.int32)
@@ -146,8 +161,10 @@ def _fused_level_plain(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B,
 
 
 def _check_level_inputs(bins, pos, gq: QuantizedGradients, ptab, Kp: int,
-                        what: str) -> int:
-    """Check what the level kernels take; returns the bins' width in bytes."""
+                        B: int, what: str) -> int:
+    """Check what the level kernels take; returns the bins' width in bytes.
+    The decision table is ``[>= Kp, 4]`` or, with categorical features,
+    ``[>= Kp, 5+B]``."""
     for t in (bins, pos, gq.q, ptab):
         _build.require_kernel_device(t, what)
     n = bins.shape[0]
@@ -156,9 +173,10 @@ def _check_level_inputs(bins, pos, gq: QuantizedGradients, ptab, Kp: int,
         raise ValueError(f"{what}: pos must be int32 [{n}, 1]")
     if gq.q.dtype != torch.int32 or tuple(gq.q.shape) != (n, 2):
         raise ValueError(f"{what}: quantized gradients must be int32 [{n}, 2]")
-    if ptab.dtype != torch.float32 or ptab.dim() != 2 or ptab.shape[1] != 4 \
-            or ptab.shape[0] < Kp:
-        raise ValueError(f"{what}: ptab must be float32 [>= {Kp}, 4]")
+    if ptab.dtype != torch.float32 or ptab.dim() != 2 \
+            or ptab.shape[1] not in (4, 5 + B) or ptab.shape[0] < Kp:
+        raise ValueError(f"{what}: ptab must be float32 [>= {Kp}, 4] or "
+                         f"[>= {Kp}, {5 + B}]")
     return bin_bytes
 
 
@@ -183,15 +201,15 @@ def _level_records_plain(pos, *, K: int, d: int) -> torch.Tensor:
                        torch.full_like(local, -1)).to(torch.int32)
 
 
-def _level_inputs(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, d,
+def _level_inputs(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B, d,
                   what):
     """Kernel A's routing launch, prepared once for both of its entry
     points: checks, contiguous inputs, the routed positions and the
     per-row records. Returns ``(pos_out, loc, held, args)``; ``held`` keeps
     the contiguous inputs alive until the launch is queued, ``args`` holds
     the C arguments ``(bins, bin_bytes, n, F)``, ``(pos, pos_out, q, ptab,
-    Kp, prev_offset, K, offset)``."""
-    bin_bytes = _check_level_inputs(bins, pos, gq, ptab, Kp, what)
+    W, Kp, prev_offset, K, offset)`` with ``W`` the table's width."""
+    bin_bytes = _check_level_inputs(bins, pos, gq, ptab, Kp, B, what)
     n, F = bins.shape
     held = tuple(t.contiguous() for t in (bins, pos, gq.q, ptab))
     bins, pos, q, ptab = held
@@ -200,7 +218,7 @@ def _level_inputs(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, d,
     prev_offset = (1 << (d - 1)) - 1 if d > 0 else 0
     args = ((bins.data_ptr(), bin_bytes, n, F),
             (pos.data_ptr(), pos_out.data_ptr(), q.data_ptr(), ptab.data_ptr(),
-             Kp, prev_offset, K, (1 << d) - 1))
+             ptab.shape[1], Kp, prev_offset, K, (1 << d) - 1))
     return pos_out, loc, held, args
 
 
@@ -211,7 +229,7 @@ def _level_records_cuda(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp,
     counted in ``fused_level.launches``."""
     what = "fused_level"
     pos_out, loc, held, (head, (p, po, _, pt, *route)) = _level_inputs(
-        bins, pos, gq, ptab, K=K, Kp=Kp, d=d, what=what)
+        bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d, what=what)
     status = _build.library("hist_level").xgbt_level_route(
         *head, B, p, po, pt, *route, loc.data_ptr(),
         _build.stream_of(bins.device))
@@ -237,7 +255,7 @@ def _fused_level_cuda(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B,
                          f"{n}] {bins.dtype}, rows contiguous, a multiple of "
                          "4 apart and 8-byte aligned")
     pos_out, loc, held, (head, route) = _level_inputs(
-        bins, pos, gq, ptab, K=K, Kp=Kp, d=d, what=what)
+        bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d, what=what)
     hist = torch.zeros((F, 2 * K, B), dtype=torch.int64, device=bins.device)
     status = _build.library("hist_level").xgbt_fused_level(
         *head, B, *route, hist.data_ptr(), bins_t.data_ptr(), bins_t.stride(0),
@@ -423,9 +441,9 @@ def _route_inputs(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B, d,
     ``(pos_out, rec, bins_t, held, args)``; the caller keeps the tensors
     (``held``: the contiguous inputs) until its launch is queued. ``args``
     holds the C arguments in three runs, ``(bins, bin_bytes, n, F, B)``,
-    ``(pos, pos_out, q, ptab, Kp, prev_offset, K, offset)`` and ``(rec,
-    bins_t)``."""
-    bin_bytes = _check_level_inputs(bins, pos, gq, ptab, Kp, what)
+    ``(pos, pos_out, q, ptab, W, Kp, prev_offset, K, offset)`` with ``W``
+    the table's width, and ``(rec, bins_t)``."""
+    bin_bytes = _check_level_inputs(bins, pos, gq, ptab, Kp, B, what)
     n, F = bins.shape
     held = tuple(t.contiguous() for t in (bins, pos, gq.q, ptab))
     bins, pos, q, ptab = held
@@ -434,7 +452,7 @@ def _route_inputs(bins, pos, gq: QuantizedGradients, ptab, *, K, Kp, B, d,
     prev_offset = (1 << (d - 1)) - 1 if d > 0 else 0
     args = ((bins.data_ptr(), bin_bytes, n, F, B),
             (pos.data_ptr(), pos_out.data_ptr(), q.data_ptr(), ptab.data_ptr(),
-             Kp, prev_offset, K, (1 << d) - 1),
+             ptab.shape[1], Kp, prev_offset, K, (1 << d) - 1),
             (rec.data_ptr(), None if bins_t is None else bins_t.data_ptr()))
     return pos_out, rec, bins_t, held, args
 

@@ -1,17 +1,21 @@
-"""RegTree: struct-of-arrays decision tree (numerical nodes).
+"""RegTree: struct-of-arrays decision tree.
 
 The port of the JAX package's ``tree/model.py`` (reference
 ``include/xgboost/tree_model.h:131``; JSON layout ``doc/model.schema``,
 ``src/tree/tree_model.cc:898-911``). Host numpy arrays; node 0 is the root,
 leaves have ``left_children[i] == -1`` and keep their (post-eta) leaf value
-in ``split_conditions[i]``; a present value ``x < split_condition`` goes
-left, missing goes to the default child.
+in ``split_conditions[i]``; at a numerical node a present value
+``x < split_condition`` goes left, missing goes to the default child. A
+categorical node (``split_type[i] == 1``) sends a present value RIGHT iff
+its category is in the node's set (``categories[i]``; reference
+``common/categorical.h`` Decision); a one-hot node's set is its single
+category, also kept in ``split_conditions[i]``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -29,10 +33,28 @@ class RegTree:
     base_weights: np.ndarray  # float32 [n]
     loss_changes: np.ndarray  # float32 [n]
     sum_hessian: np.ndarray  # float32 [n]
+    # 0 numerical, 1 categorical; None: every node numerical
+    split_type: Optional[np.ndarray] = None  # int8 [n]
+    # per node its right-going category ids, sorted (empty where none);
+    # None when no node has a set
+    categories: Optional[List[np.ndarray]] = None
 
     @property
     def num_nodes(self) -> int:
         return int(self.left_children.shape[0])
+
+    def categorical_nodes(self) -> np.ndarray:
+        """[n] bool: internal nodes that split on a category."""
+        if self.split_type is None:
+            return np.zeros(self.num_nodes, bool)
+        return (self.split_type == 1) & (self.left_children != -1)
+
+    def node_categories(self, i: int) -> np.ndarray:
+        """The right-going categories of categorical node ``i``: its set,
+        or its one-hot category from ``split_conditions``."""
+        if self.categories is not None and len(self.categories[i]) > 0:
+            return np.asarray(self.categories[i], np.int32)
+        return np.asarray([int(self.split_conditions[i])], np.int32)
 
     def max_depth(self) -> int:
         depth = np.zeros(self.num_nodes, dtype=np.int32)
@@ -44,9 +66,15 @@ class RegTree:
     def from_heap(cls, is_split: np.ndarray, feature: np.ndarray,
                   split_cond: np.ndarray, default_left: np.ndarray,
                   weight: np.ndarray, loss_chg: np.ndarray,
-                  sum_hess: np.ndarray, eta: float) -> "RegTree":
+                  sum_hess: np.ndarray, eta: float,
+                  cat_features: Optional[np.ndarray] = None,
+                  cat_set: Optional[np.ndarray] = None) -> "RegTree":
         """Compact a heap-layout tree (children of heap node i at
-        2i+1/2i+2; ``is_split`` already gamma-pruned) into BFS order."""
+        2i+1/2i+2; ``is_split`` already gamma-pruned) into BFS order.
+        ``cat_features`` [F] bool marks the categorical features and
+        ``cat_set`` [max_nodes, B] bool holds each node's right-going set;
+        a categorical node keeps its set in ``categories`` and, when the
+        set is one category, that category in ``split_conditions``."""
         order: List[int] = []
         queue = [0]
         while queue:
@@ -65,6 +93,8 @@ class RegTree:
         bw = np.zeros(n, np.float32)
         lchg = np.zeros(n, np.float32)
         shess = np.zeros(n, np.float32)
+        stype = np.zeros(n, np.int8)
+        cats = [np.empty(0, np.int32) for _ in range(n)]
         eta32 = np.float32(eta)
         for idx, h in enumerate(order):
             bw[idx] = eta32 * weight[h]
@@ -76,14 +106,37 @@ class RegTree:
                 rc[idx] = compact_of[2 * h + 2]
                 sidx[idx] = feature[h]
                 scond[idx] = split_cond[h]
+                if cat_features is not None and cat_features[feature[h]]:
+                    stype[idx] = 1
+                    cats[idx] = np.flatnonzero(cat_set[h]).astype(np.int32)
+                    scond[idx] = (float(cats[idx][0]) if len(cats[idx]) == 1
+                                  else 0.0)
                 dleft[idx] = bool(default_left[h])
                 lchg[idx] = loss_chg[h]
             else:
                 scond[idx] = eta32 * weight[h]  # leaf value
+        any_cats = bool(stype.any())
         return cls(left_children=lc, right_children=rc, parents=par,
                    split_indices=sidx, split_conditions=scond,
                    default_left=dleft, base_weights=bw, loss_changes=lchg,
-                   sum_hessian=shess)
+                   sum_hessian=shess, split_type=stype,
+                   categories=cats if any_cats else None)
+
+    def _categories_json(self) -> dict:
+        """The categorical nodes' sets in the reference's segmented layout
+        (``tree_model.cc:898-911``)."""
+        cats: List[int] = []
+        nodes: List[int] = []
+        segments: List[int] = []
+        sizes: List[int] = []
+        for i in np.flatnonzero(self.categorical_nodes()):
+            cs = [int(c) for c in self.node_categories(i)]
+            nodes.append(int(i))
+            segments.append(len(cats))
+            cats.extend(cs)
+            sizes.append(len(cs))
+        return {"categories": cats, "categories_nodes": nodes,
+                "categories_segments": segments, "categories_sizes": sizes}
 
     def to_json(self, tree_id: int = 0) -> dict:
         n = self.num_nodes
@@ -101,11 +154,9 @@ class RegTree:
             "split_indices": self.split_indices.tolist(),
             "split_conditions": [float(x) for x in self.split_conditions],
             "default_left": [int(x) for x in self.default_left],
-            "split_type": [0] * n,
-            "categories": [],
-            "categories_nodes": [],
-            "categories_segments": [],
-            "categories_sizes": [],
+            "split_type": ([int(x) for x in self.split_type]
+                           if self.split_type is not None else [0] * n),
+            **self._categories_json(),
             "base_weights": [float(x) for x in self.base_weights],
             "loss_changes": [float(x) for x in self.loss_changes],
             "sum_hessian": [float(x) for x in self.sum_hessian],
@@ -114,29 +165,41 @@ class RegTree:
     @classmethod
     def from_json(cls, j: dict) -> "RegTree":
         n = len(j["left_children"])
-        if any(int(t) != 0 for t in j.get("split_type", [])) or \
-                j.get("categories_nodes"):
-            raise NotImplementedError(
-                "categorical splits are not ported yet")
+        scond = np.asarray(j["split_conditions"], np.float32).copy()
+        categories = None
+        if j.get("categories_nodes"):
+            cats = j.get("categories", [])
+            categories = [np.empty(0, np.int32) for _ in range(n)]
+            for node, seg, size in zip(j["categories_nodes"],
+                                       j["categories_segments"],
+                                       j["categories_sizes"]):
+                categories[node] = np.asarray(cats[seg:seg + size], np.int32)
+                if size == 1:  # one-hot: the category is the condition
+                    scond[node] = float(categories[node][0])
         return cls(
             left_children=np.asarray(j["left_children"], np.int32),
             right_children=np.asarray(j["right_children"], np.int32),
             parents=np.asarray(j["parents"], np.int32),
             split_indices=np.asarray(j["split_indices"], np.int32),
-            split_conditions=np.asarray(j["split_conditions"], np.float32),
+            split_conditions=scond,
             default_left=np.asarray(j["default_left"], bool),
             base_weights=np.asarray(j.get("base_weights", [0.0] * n), np.float32),
             loss_changes=np.asarray(j.get("loss_changes", [0.0] * n), np.float32),
             sum_hessian=np.asarray(j.get("sum_hessian", [0.0] * n), np.float32),
+            split_type=np.asarray(j.get("split_type", [0] * n), np.int8),
+            categories=categories,
         )
 
     def predict_one(self, x: np.ndarray) -> float:
         """Host reference walk of one row (the predictor's oracle)."""
+        is_cat = self.categorical_nodes()
         i = 0
         while self.left_children[i] != -1:
             v = x[self.split_indices[i]]
             if np.isnan(v):
                 left = self.default_left[i]
+            elif is_cat[i]:
+                left = int(v) not in self.node_categories(i)
             else:
                 left = v < self.split_conditions[i]
             i = self.left_children[i] if left else self.right_children[i]
