@@ -74,6 +74,25 @@ adds a per-category effect), ``feature_types`` "c", max_bin 256:
 12. 3 rounds on the first 64k rows on the card and on the CPU: identical
     trees, split types and category sets; predictions within 1e-5.
 
+The training surface, back on the numerical 1M x 50 data (run after
+phase 7, before the categorical phases):
+
+13. through the entry points at max_bin 256, depth 6, AUC + logloss
+    (``phase_train_surface``): early stopping (60
+    rounds at most, stopping on the held-out rows with permuted labels)
+    with ``best_iteration``/``best_score`` set and ``predict`` over an
+    ``iteration_range`` (kernel B) bitwise equal to the sliced Booster's;
+    pickle and ``copy`` bitwise; a learning-rate schedule (0.3 to 0.05
+    over 10 rounds) stored tree by tree; continuation (10 + 10 rounds from
+    a Booster and from ``save_raw`` bytes; kernel B fills the continued
+    cache in its first round) against 20 straight rounds: the first 10
+    trees identical, the later ones counted and the held-out margins'
+    largest difference reported; a numpy logistic objective and metric
+    within 1e-3 AUC of the built-in objective; ``update_many`` bitwise
+    equal to per-round ``update``; ``cv`` (3 folds, 200k rows, early
+    stopping) with the JAX package's keys; median round times with
+    callbacks and eval, bare, and with the numpy objective.
+
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; before that, one JSON line lists the kernels.
@@ -81,6 +100,7 @@ power limit; before that, one JSON line lists the kernels.
 
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -93,6 +113,7 @@ import torch
 import xgboost_tpu_torch as xgbt
 from xgboost_tpu_torch import _build
 from xgboost_tpu_torch.gbm.gbtree import _cat_cfg
+from xgboost_tpu_torch.metric import create_metric
 from xgboost_tpu_torch.objective import create_objective
 from xgboost_tpu_torch.params import TrainParam
 from xgboost_tpu_torch.predictor import (_predict_margin_plain,
@@ -924,6 +945,259 @@ def phase_cat_path(Xtr, ytr, Xte, yte, types):
     return metrics, hoisted_trees
 
 
+class _RoundProbe(xgbt.callback.TrainingCallback):
+    """Per-round host time (``update`` + eval, ending in a device
+    synchronize) and kernel B's launches during the first round."""
+
+    def __init__(self):
+        self.times, self.first_b = [], None
+        self._t0 = self._b0 = None
+
+    def before_iteration(self, model, epoch, evals_log):
+        torch.cuda.synchronize()
+        self._b0 = predict_margin.launches
+        self._t0 = time.perf_counter()
+        return False
+
+    def after_iteration(self, model, epoch, evals_log):
+        torch.cuda.synchronize()
+        self.times.append((time.perf_counter() - self._t0) * 1e3)
+        if self.first_b is None:
+            self.first_b = predict_margin.launches - self._b0
+        return False
+
+    def median_ms(self):
+        return statistics.median(self.times)
+
+
+def _model_trees(bst):
+    """The saved model's trees, without their ids."""
+    return [{k: v for k, v in t.items() if k != "id"} for t in
+            bst.save_json()["learner"]["gradient_booster"]["model"]["trees"]]
+
+
+def _logistic_obj(margin, dtrain):
+    y = dtrain.get_label()
+    p = 1.0 / (1.0 + np.exp(-margin.astype(np.float64)))
+    return p - y, p * (1.0 - p)
+
+
+def _error_metric(margin, dmat):
+    return "err", float(np.mean((margin > 0.0) != (dmat.get_label() > 0.5)))
+
+
+def _auc(bst, X, y):
+    m = bst.predict(xgbt.DMatrix(X), output_margin=True)
+    return create_metric("auc").evaluate(
+        torch.as_tensor(m, device=DEVICE), torch.as_tensor(y, device=DEVICE))
+
+
+#: the learning-rate schedule of the train-surface phase: 0.3 falling
+#: linearly to 0.05 over its 10 rounds
+SCHEDULE = [0.3 - 0.25 * i / (ROUNDS - 1) for i in range(ROUNDS)]
+SURFACE_ES_ROUNDS, SURFACE_CV_ROWS = 60, 200_000
+
+
+def phase_train_surface(Xtr, ytr, Xte, yte):
+    """The training surface through the entry points at 1M x 50, max_bin
+    256, depth 6, AUC + logloss (every check raises on failure): early
+    stopping on a held-out set with permuted labels, ``iteration_range``
+    against slicing; a learning-rate schedule stored tree by tree;
+    continuation from a Booster and from bytes against one straight run;
+    a numpy objective and metric; pickle and copy; ``update_many``
+    against per-round ``update``; ``cv`` on 200k rows; round times."""
+    p = PARAMS_DEFAULT
+    out = {}
+    t_phase = time.perf_counter()
+    reset_launches()
+    dtrain = xgbt.DMatrix(Xtr, ytr)
+    dvalid = xgbt.DMatrix(Xte, yte)
+    dnoise = xgbt.DMatrix(Xte, np.random.RandomState(42).permutation(yte))
+    fresh = xgbt.DMatrix(Xte)  # in no Booster's cache
+
+    # early stopping: the last set (noise) stops improving early
+    probe, res = _RoundProbe(), {}
+    bst = xgbt.train(p, dtrain, SURFACE_ES_ROUNDS,
+                     evals=[(dvalid, "valid"), (dnoise, "noise")],
+                     early_stopping_rounds=5, evals_result=res,
+                     verbose_eval=False, callbacks=[probe])
+    rounds = bst.num_boosted_rounds()
+    best = bst.best_iteration
+    check(rounds < SURFACE_ES_ROUNDS, f"early stopping: {rounds} rounds")
+    check(best is not None and bst.attr("best_score") is not None
+          and rounds == best + 6, f"early stopping: best_iteration {best}, "
+          f"best_score {bst.attr('best_score')}, {rounds} rounds")
+    b0 = predict_margin.launches
+    ranged = bst.predict(dvalid, iteration_range=(0, best + 1))
+    check(predict_margin.launches > b0, "iteration_range walks kernel B")
+    sliced = bst[: best + 1].predict(dvalid)
+    check(np.array_equal(ranged, sliced),
+          "predict(iteration_range) == bst[:best + 1].predict, bitwise")
+    check(np.array_equal(bst.predict(dvalid, iteration_range=(1, rounds)),
+                         bst[1:].predict(dvalid)),
+          "predict(iteration_range=(1, rounds)) == bst[1:].predict, bitwise")
+    for v in res["valid"]["auc"] + res["noise"]["logloss"]:
+        check(v == float(f"{v:.6f}"), "history rounded to 6 decimals")
+    out["early_stopping"] = dict(
+        rounds=rounds, best_iteration=best, best_score=bst.best_score,
+        valid_auc=res["valid"]["auc"], noise_logloss=res["noise"]["logloss"],
+        median_round_ms=probe.median_ms())
+    print(f"train surface: early stopping after {rounds} rounds, "
+          f"best_iteration {best}, best_score {bst.attr('best_score')}; "
+          f"valid AUC {res['valid']['auc'][-1]:.6f}; median round "
+          f"{probe.median_ms():.2f} ms with 2 eval sets and callbacks; "
+          f"iteration_range == slice, bitwise")
+
+    # pickle and copy of that model
+    want = bst.predict(fresh)
+    for how, dup in (("pickle", pickle.loads(pickle.dumps(bst))),
+                     ("copy", bst.copy())):
+        check(dup.device == bst.device and np.array_equal(
+            dup.predict(fresh), want), f"{how}: predictions bitwise")
+        check(dup.attributes() == bst.attributes(), f"{how}: attributes")
+    del bst, dup
+
+    # a learning-rate schedule
+    probe = _RoundProbe()
+    bst = xgbt.train(p, dtrain, ROUNDS, evals=[(dvalid, "valid")],
+                     verbose_eval=False, callbacks=[
+                         xgbt.callback.LearningRateScheduler(SCHEDULE),
+                         probe])
+    for i, e in enumerate(bst._gbm.model._entries):
+        keep = e.keep.cpu().numpy()
+        parent_kept = np.concatenate([[True], keep[(np.arange(
+            1, keep.shape[0]) - 1) // 2]])
+        leaf = ~keep & parent_kept
+        want_leaf = (np.float32(SCHEDULE[i])
+                     * e.node_weight.cpu().numpy()[leaf])
+        check(e.eta == SCHEDULE[i] and np.array_equal(
+            e.leaf_value.cpu().numpy()[leaf], want_leaf),
+            f"schedule: tree {i} grown and stored with eta {SCHEDULE[i]}")
+    out["schedule"] = dict(etas=SCHEDULE, median_round_ms=probe.median_ms())
+    print(f"train surface: schedule {SCHEDULE[0]:.3f} -> {SCHEDULE[-1]:.3f}"
+          f" stored tree by tree; median round {probe.median_ms():.2f} ms "
+          f"with 1 eval set and callbacks")
+    del bst
+
+    # continuation: 10 + 10 from a Booster and from bytes, against 20
+    first = xgbt.train(p, dtrain, ROUNDS, verbose_eval=False)
+    raw = first.save_raw()
+    # the walk that fills a continued model's training cache: the loaded
+    # forest over every training row
+    loaded = xgbt.Booster(model_file=raw)._gbm.model.stacked()
+    base = torch.zeros((ROWS, 1), device=DEVICE)
+    walk_ms = time_ms(lambda: predict_margin(loaded, dtrain.data, base))
+    walk_kms = kernel_ms(lambda: predict_margin(loaded, dtrain.data, base),
+                         "B")
+    del loaded, base
+    straight = xgbt.train(p, dtrain, 2 * ROUNDS, verbose_eval=False)
+    cont = {}
+    for src_name, src_model in (("booster", first), ("bytes", raw)):
+        probe = _RoundProbe()
+        bst = xgbt.train(p, dtrain, ROUNDS, xgb_model=src_model,
+                         verbose_eval=False, callbacks=[probe])
+        check(bst.num_boosted_rounds() == 2 * ROUNDS,
+              f"continuation from {src_name}: 20 rounds")
+        check(probe.first_b >= 1, f"continuation from {src_name}: kernel B "
+              f"launched {probe.first_b} times in the first round")
+        cont[src_name] = (bst, probe)
+    b_trees, s_trees = _model_trees(cont["booster"][0]), _model_trees(straight)
+    check(b_trees == _model_trees(cont["bytes"][0]),
+          "continuation from a Booster == from bytes")
+    check(b_trees[:ROUNDS] == s_trees[:ROUNDS],
+          "continuation: the first 10 trees == the straight run's, bitwise")
+    equal_later = sum(a == b for a, b in zip(b_trees[ROUNDS:],
+                                             s_trees[ROUNDS:]))
+    margin_err = float(np.abs(
+        cont["booster"][0].predict(fresh, output_margin=True)
+        - straight.predict(fresh, output_margin=True)).max())
+    out["continuation"] = dict(
+        equal_later_trees=equal_later, later_trees=ROUNDS,
+        max_abs_margin_diff=margin_err,
+        first_round_b_launches=cont["booster"][1].first_b,
+        cache_walk_ms=walk_ms, cache_walk_kernel_ms=walk_kms,
+        cache_walk_trees=ROUNDS, cache_walk_rows=ROWS)
+    print(f"train surface: continuation (10 + 10, from a Booster and from "
+          f"bytes) against 20 straight: first 10 trees identical, "
+          f"{equal_later}/{ROUNDS} later trees identical, held-out margins "
+          f"max abs diff {margin_err}; kernel B launched "
+          f"{cont['booster'][1].first_b}x in the first continued round; "
+          f"the cache fill's walk ({ROUNDS} trees, {ROWS} rows) "
+          f"{walk_ms:.4f} ms (kernel alone {walk_kms} ms)")
+    del first, straight, cont, bst
+
+    # a numpy objective and metric against the built-in objective
+    res_b, res_f = {}, {}
+    builtin = xgbt.train(p, dtrain, 5, evals=[(dvalid, "valid")],
+                         evals_result=res_b, verbose_eval=False)
+    probe = _RoundProbe()
+    fobj = xgbt.train({"eta": 0.1, "base_score": 0.0,
+                       "disable_default_eval_metric": True}, dtrain, 5,
+                      evals=[(dvalid, "valid")], obj=_logistic_obj,
+                      custom_metric=_error_metric, evals_result=res_f,
+                      verbose_eval=False, callbacks=[probe])
+    auc_b, auc_f = _auc(builtin, Xte, yte), _auc(fobj, Xte, yte)
+    check(list(res_f["valid"]) == ["err"], "custom metric only")
+    check(abs(auc_f - auc_b) <= 1e-3,
+          f"custom objective AUC {auc_f} vs built-in {auc_b}")
+    out["custom_objective"] = dict(auc=auc_f, builtin_auc=auc_b,
+                                   err=res_f["valid"]["err"],
+                                   median_round_ms=probe.median_ms())
+    print(f"train surface: numpy logistic objective + metric, 5 rounds: "
+          f"held-out AUC {auc_f:.6f} vs built-in {auc_b:.6f}; median fobj "
+          f"round {probe.median_ms():.2f} ms (margin to host, numpy "
+          f"gradients, back to the card, 1 eval set)")
+    del builtin, fobj
+
+    # update_many against per-round update, and bare round times
+    per_round, bare = xgbt.Booster(p, cache=[dtrain]), []
+    for i in range(ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_round.update(dtrain, i)
+        torch.cuda.synchronize()
+        bare.append((time.perf_counter() - t0) * 1e3)
+    many = xgbt.Booster(p, cache=[dtrain])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    many.update_many(dtrain, 0, ROUNDS, chunk=5)
+    torch.cuda.synchronize()
+    many_ms = (time.perf_counter() - t0) * 1e3 / ROUNDS
+    same_trees(heap_trees(many, ROUNDS), heap_trees(per_round, ROUNDS),
+               "update_many vs per-round update")
+    out["update_many"] = dict(mean_round_ms=many_ms,
+                              median_update_ms=statistics.median(bare))
+    print(f"train surface: update_many(0, 10, chunk=5) == 10 x update, "
+          f"bitwise; bare rounds: update_many {many_ms:.2f} ms/round "
+          f"(mean), update median {statistics.median(bare):.2f} ms")
+    del per_round, many
+
+    # cv on 200k rows
+    dcv = xgbt.DMatrix(Xtr[:SURFACE_CV_ROWS], ytr[:SURFACE_CV_ROWS])
+    c0 = hk.build_onehot.launches
+    cvres = xgbt.cv(p, dcv, 5, nfold=3, early_stopping_rounds=3,
+                    as_pandas=False)
+    want_keys = [f"{s}-{m}-{a}" for s in ("train", "test")
+                 for m in ("auc", "logloss") for a in ("mean", "std")]
+    check(list(cvres) == want_keys, f"cv keys {list(cvres)}")
+    check(all(np.isfinite(v).all() for v in cvres.values()), "cv finite")
+    check(hk.build_onehot.launches - c0 == 3, "cv: one one-hot per fold")
+    out["cv"] = {k: v for k, v in cvres.items()}
+    print(f"train surface: cv 3 folds x {len(cvres['test-auc-mean'])} "
+          f"rounds on {SURFACE_CV_ROWS} rows: test AUC "
+          f"{cvres['test-auc-mean'][-1]:.6f} +- "
+          f"{cvres['test-auc-std'][-1]:.6f}")
+    del dtrain, dvalid, dnoise, fresh, dcv
+    torch.cuda.empty_cache()
+    got = launches()
+    out["launches"] = got
+    out["phase_s"] = time.perf_counter() - t_phase
+    for k in ("B", "C", "D"):
+        check(got[k] > 0, f"train surface: kernel {k} launched {got[k]}")
+    print(f"train surface: launches {got}; {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -959,6 +1233,8 @@ def main() -> int:
     del bst256
     torch.cuda.empty_cache()
     phase_card_vs_cpu(Xtr, ytr, Xte)
+    surface = phase_train_surface(Xtr, ytr, Xte, yte)
+    torch.cuda.empty_cache()
     del X, Xtr, Xte
     Xc, yc, types = _make_cat_data(ROWS + EVAL_ROWS, COLS, seed=42)
     Xctr, yctr, Xcte, ycte = Xc[:ROWS], yc[:ROWS], Xc[ROWS:], yc[ROWS:]
@@ -980,7 +1256,7 @@ def main() -> int:
         "reference_default_bin256": main256,
         "categorical_levels": cat_levels, "categorical_path": cat_main,
         "categorical_construct_launches": cat_construct,
-        "categorical_walk": cat_walk}))
+        "categorical_walk": cat_walk, "train_surface": surface}))
     for k in (c256, d256):
         k.pop("B"), k.pop("Fh")
     kernels = [

@@ -14,7 +14,10 @@
   their width, and a table of any other width raises;
 - kernel B takes an input of more than 2^31 elements in row chunks, each
   launch below 2^31 elements; a forest with categorical nodes takes the
-  categorical walk and never reaches kernel B, whose wrapper refuses it.
+  categorical walk and never reaches kernel B, whose wrapper refuses it;
+- the training surface (``callback.py``, ``training.py``) imports neither
+  ``jax`` nor ``xgboost_tpu``, and a pickled or copied Booster made for the
+  card comes back on the card, raising where there is none.
 """
 
 import ast
@@ -321,3 +324,39 @@ def test_categorical_forest_takes_the_categorical_walk(stub_cuda,
     with pytest.raises(NotImplementedError, match="categorical"):
         tpred._predict_margin_cuda(forest, X, base,
                                    torch.empty(T, device="meta"))
+
+
+@pytest.mark.parametrize("module", ["xgboost_tpu_torch.callback",
+                                    "xgboost_tpu_torch.training"])
+def test_training_surface_imports_no_jax(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert path in set((ROOT / "xgboost_tpu_torch").rglob("*.py"))
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'xgboost_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_card_booster_unpickles_only_onto_the_card(monkeypatch):
+    import pickle
+
+    X = np.random.RandomState(0).randn(64, 3).astype(np.float32)
+    bst = xgbt.train({"max_depth": 2}, xgbt.DMatrix(X, X[:, 0] > 0,
+                                                    device="cpu"), 1,
+                     verbose_eval=False)
+    assert pickle.loads(pickle.dumps(bst)).device.type == "cpu"
+    bst.device = torch.device("cuda")  # as if made for the card
+    raw = pickle.dumps(bst)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pickle.loads(raw)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bst.copy()
+    with pytest.raises(RuntimeError, match="cuda"):
+        bst[:1]

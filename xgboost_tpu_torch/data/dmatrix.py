@@ -39,9 +39,12 @@ class DMatrix:
 
     def __init__(self, data: Any, label: Any = None, *, weight: Any = None,
                  base_margin: Any = None, missing: float = np.nan,
-                 feature_types: Any = None, enable_categorical: bool = False,
+                 feature_names: Any = None, feature_types: Any = None,
+                 enable_categorical: bool = False,
                  device: Optional[Union[str, torch.device]] = None) -> None:
         self.device = resolve_device(device)
+        self.feature_names: Optional[List[str]] = (
+            list(feature_names) if feature_names else None)
         self.feature_types: Optional[List[str]] = (
             list(feature_types) if feature_types else None)
         if hasattr(data, "tocsr") or not isinstance(
@@ -60,6 +63,58 @@ class DMatrix:
         self.base_margin = (None if base_margin is None else torch.as_tensor(
             np.asarray(base_margin, np.float32), device=self.device))
         self._binned: Dict[int, BinnedMatrix] = {}
+
+    # ---- metadata (the JAX package's ``DMatrix.set_*`` / ``get_*``) ----
+    def set_label(self, label: Any) -> None:
+        self.label = _vector(label, self.device)
+
+    def set_weight(self, weight: Any) -> None:
+        self.weight = _vector(weight, self.device)
+
+    def set_base_margin(self, margin: Any) -> None:
+        self.base_margin = torch.as_tensor(np.asarray(margin, np.float32),
+                                           device=self.device)
+
+    @staticmethod
+    def _host(v: Optional[torch.Tensor]) -> np.ndarray:
+        return (np.empty(0, np.float32) if v is None
+                else v.cpu().numpy())
+
+    def get_label(self) -> np.ndarray:
+        return self._host(self.label)
+
+    def get_weight(self) -> np.ndarray:
+        return self._host(self.weight)
+
+    def get_base_margin(self) -> np.ndarray:
+        return self._host(self.base_margin)
+
+    def slice(self, rindex: Any) -> "DMatrix":
+        """A new DMatrix of the selected rows on the same device, with
+        label, weight, base margin and feature metadata sliced along; its
+        bins are built anew on first use (the JAX package's
+        ``DMatrix.slice``). ``rindex`` is an integer index array or a
+        boolean row mask; out-of-range indices raise IndexError."""
+        rindex = np.asarray(rindex)
+        if rindex.dtype == np.bool_:
+            rindex = np.nonzero(rindex)[0]
+        rindex = rindex.astype(np.int64).ravel()
+        n = self.num_row()
+        if rindex.size and (rindex.min() < -n or rindex.max() >= n):
+            raise IndexError(
+                f"slice index out of range for {n} rows: "
+                f"[{rindex.min()}, {rindex.max()}]")
+        idx = torch.as_tensor(rindex, device=self.device)
+        out = DMatrix.__new__(DMatrix)
+        out.device = self.device
+        out.feature_names = self.feature_names
+        out.feature_types = self.feature_types
+        out.data = self.data[idx]
+        for name in ("label", "weight", "base_margin"):
+            v = getattr(self, name)
+            setattr(out, name, None if v is None else v[idx])
+        out._binned = {}
+        return out
 
     def num_row(self) -> int:
         return int(self.data.shape[0])

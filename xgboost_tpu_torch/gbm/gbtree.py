@@ -172,6 +172,21 @@ class GBTreeModel:
     def stacked(self) -> StackedForest:
         return self.stacked_slice(0, self.num_trees)
 
+    def slice(self, begin: int, end: int, step: int = 1) -> "GBTreeModel":
+        """The trees of boosting rounds ``range(begin, end, step)`` (one
+        round holds ``n_groups`` trees; reference gbtree.cc:326), as host
+        trees: device-grown trees are materialized first, as in the JAX
+        package's ``GBTreeModel.slice``."""
+        out = GBTreeModel(self.n_groups, self.device)
+        out.num_feature = self.num_feature
+        trees = self.trees
+        per_round = max(1, self.n_groups)
+        for r in range(begin, end, step):
+            for t in range(r * per_round, min((r + 1) * per_round,
+                                              len(trees))):
+                out.add(trees[t], self.tree_info[t])
+        return out
+
 
 def _cat_cfg(cfg: GrowParams, binned, tp: TrainParam
              ) -> Tuple[GrowParams, Optional[np.ndarray]]:
@@ -232,6 +247,15 @@ class GBTree:
                 f"tree_method={gp.tree_method!r} is not ported yet")
         if gp.num_parallel_tree != 1:
             raise NotImplementedError("num_parallel_tree > 1 is not ported yet")
+
+    def set_param(self, key: str, value: Any) -> None:
+        """Set one parameter between rounds (the JAX package's
+        ``GBTree.set_param``): the next tree grows with it; ``eta`` is
+        stored with each tree as it grows. Keys of neither struct are
+        ignored here (the learner has checked them)."""
+        rest = self.gbtree_param.update({key: value})
+        self.train_param.update(rest)
+        self._check_supported()
 
     def _grow_params(self) -> GrowParams:
         tp = self.train_param

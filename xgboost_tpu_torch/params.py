@@ -13,7 +13,8 @@ import dataclasses
 import json
 from typing import Any, Callable, Dict, Optional, Tuple
 
-__all__ = ["Field", "ParamSet", "TrainParam", "GBTreeParam", "LearnerParam"]
+__all__ = ["Field", "ParamSet", "TrainParam", "GBTreeParam", "LearnerParam",
+           "NOT_PORTED", "check_ported", "known_keys"]
 
 
 @dataclasses.dataclass
@@ -51,6 +52,7 @@ class ParamSet:
     FIELDS: Dict[str, Field] = {}
 
     def __init__(self, **kwargs: Any):
+        self._explicit: set = set()
         for name, f in self.FIELDS.items():
             setattr(self, name, f.default)
         self.update(kwargs)
@@ -75,7 +77,15 @@ class ParamSet:
             if f.upper is not None and isinstance(v, (int, float)) and v > f.upper:
                 raise ValueError(f"{name}={v} above upper bound {f.upper}")
             setattr(self, name, v)
+            self._explicit.add(name)
         return unknown
+
+    def is_explicit(self, name: str) -> bool:
+        """Whether ``name`` was set by a caller (not left at its default)."""
+        return name in self._explicit
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {name: getattr(self, name) for name in self.FIELDS}
 
 
 def _parse_constraint_list(v: Any) -> Any:
@@ -129,7 +139,10 @@ class GBTreeParam(ParamSet):
 
 
 class LearnerParam(ParamSet):
-    """Learner-level params (reference: ``src/learner.cc``)."""
+    """Learner-level params (reference: ``src/learner.cc``). ``seed``
+    feeds only row and column sampling, which are not ported (sampling
+    parameters other than 1 raise), so it changes no result yet;
+    ``nthread`` and ``verbosity`` change none either."""
 
     FIELDS = {
         "objective": Field("reg:squarederror"),
@@ -138,5 +151,55 @@ class LearnerParam(ParamSet):
         "num_class": Field(0, lower=0),
         "eval_metric": Field([], parse=lambda v: [v] if isinstance(v, str) else list(v)),
         "disable_default_eval_metric": Field(False),
+        "seed": Field(0),
+        "nthread": Field(0, aliases=("n_jobs",)),
+        "verbosity": Field(1, lower=0, upper=3),
+        "validate_parameters": Field(False),
         "scale_pos_weight": Field(1.0),
     }
+
+
+#: keys that the JAX package's parameter structs know and the port has not
+#: ported, each with the value at which it changes nothing; any other value
+#: raises NotImplementedError (``check_ported``)
+NOT_PORTED: Dict[str, Any] = {
+    # tree training (the JAX package's TrainParam)
+    "max_leaves": 0, "sampling_method": "uniform", "sparse_threshold": 0.2,
+    "sketch_eps": 0.03, "single_precision_histogram": True,
+    "refresh_leaf": True,
+    # updaters, refresh and DART (GBTreeParam)
+    "updater": "", "process_type": "default", "predictor": "auto",
+    "sample_type": "uniform", "normalize_type": "tree", "rate_drop": 0.0,
+    "one_drop": False, "skip_drop": 0.0,
+    # the linear booster (GBLinearParam)
+    "feature_selector": "cyclic", "top_k": 0, "reg_lambda_linear": 0.0,
+    "reg_alpha_linear": 0.0, "eta_linear": 0.5,
+    # objectives that are not ported (LearnerParam)
+    "multi_strategy": "one_output_per_tree", "tweedie_variance_power": 1.5,
+    "huber_slope": 1.0, "aft_loss_distribution": "normal",
+    "aft_loss_distribution_scale": 1.0, "max_pairs": 100,
+    "lambdarank_num_pair_per_sample": 1,
+}
+
+
+def check_ported(params: Dict[str, Any]) -> None:
+    """Raise NotImplementedError for a key of ``NOT_PORTED`` set to a value
+    other than the one at which it changes nothing."""
+    for key, value in params.items():
+        if key in NOT_PORTED:
+            default = NOT_PORTED[key]
+            if _coerce(value, default, None) != default:
+                raise NotImplementedError(
+                    f"{key}={value!r} is not ported yet")
+
+
+def known_keys() -> set:
+    """Every parameter name (and alias) that a component of the JAX
+    package knows beyond the learner's own: the set ``validate_parameters``
+    checks against (the JAX package's ``Booster._validate_unknown``)."""
+    known = set(NOT_PORTED)
+    for P in (GBTreeParam, TrainParam):
+        known.update(P.FIELDS)
+        for f in P.FIELDS.values():
+            known.update(f.aliases)
+    return known
