@@ -74,8 +74,8 @@ adds a per-category effect), ``feature_types`` "c", max_bin 256:
 12. 3 rounds on the first 64k rows on the card and on the CPU: identical
     trees, split types and category sets; predictions within 1e-5.
 
-The training surface, back on the numerical 1M x 50 data (run after
-phase 7, before the categorical phases):
+The training surface and grower breadth, back on the numerical 1M x 50
+data (run after phase 7, before the categorical phases):
 
 13. through the entry points at max_bin 256, depth 6, AUC + logloss
     (``phase_train_surface``): early stopping (60
@@ -91,7 +91,21 @@ phase 7, before the categorical phases):
     within 1e-3 AUC of the built-in objective; ``update_many`` bitwise
     equal to per-round ``update``; ``cv`` (3 folds, 200k rows, early
     stopping) with the JAX package's keys; median round times with
-    callbacks and eval, bare, and with the numpy objective.
+    callbacks and eval, bare, and with the numpy objective;
+14. grower breadth through the entry points at max_bin 256, depth 6, eta
+    0.1, 10 rounds each (``phase_grower_breadth``): (a) uniform row and
+    column sampling (0.7 of the rows, and of the columns per tree, level
+    and node), (b) MVS at 0.5 with a weighted per-tree column sample, (c)
+    monotone constraints on the generator's 10 largest weights (their
+    signs) with interaction groups [0..9], [10..29], [30..49]: each run C
+    once, D 60 times, A never, B at least 10 times, held-out AUC rising
+    (>= 0.75 for (a) and (b)); (c)'s margins monotone along each
+    constrained feature on a 1,000 x 21 grid and every root-to-leaf path
+    inside one group; (a) by the construct route (A 18 times) with the
+    hoisted run's trees; (a) and (c) on the card and on the CPU with the
+    same trees; MVS keeping 0.5 of the rows within 2% and a row draw plus
+    MVS timed at 1M rows; round times with and without sampling in
+    alternating pairs on one matrix.
 
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
@@ -111,7 +125,7 @@ import numpy as np
 import torch
 
 import xgboost_tpu_torch as xgbt
-from xgboost_tpu_torch import _build
+from xgboost_tpu_torch import _build, threefry
 from xgboost_tpu_torch.gbm.gbtree import _cat_cfg
 from xgboost_tpu_torch.metric import create_metric
 from xgboost_tpu_torch.objective import create_objective
@@ -120,7 +134,8 @@ from xgboost_tpu_torch.predictor import (_predict_margin_plain,
                                          forest_from_numpy, predict_margin,
                                          walk_row_chunks)
 from xgboost_tpu_torch.tree import hist_kernel as hk
-from xgboost_tpu_torch.tree.grow import GrowParams
+from xgboost_tpu_torch.tree.grow import (GrowParams, apply_row_sampling,
+                                         mvs_sample)
 from xgboost_tpu_torch.tree.grow_fused import _init_state, _level_update
 from xgboost_tpu_torch.tree.param import SplitParams
 
@@ -152,6 +167,8 @@ ELEMS_2_31 = 1 << 31
 
 
 def _make_data(rows: int, cols: int, sparsity: float, seed: int = 42):
+    """``(X, y, w)``: the rows, their labels and the generator's weights
+    (the label is ``X @ w * 0.5`` plus unit noise, thresholded at 0)."""
     rng = np.random.RandomState(seed)
     X = rng.randn(rows, cols).astype(np.float32)
     if sparsity > 0:
@@ -159,7 +176,7 @@ def _make_data(rows: int, cols: int, sparsity: float, seed: int = 42):
     w = rng.randn(cols).astype(np.float32)
     logits = np.nan_to_num(X) @ w * 0.5
     y = (logits + rng.randn(rows).astype(np.float32) > 0).astype(np.float32)
-    return X, y
+    return X, y, w
 
 
 def _make_cat_data(rows: int, cols: int, seed: int = 42):
@@ -550,7 +567,7 @@ def phase_walk_kernel():
     shapes = []
     for T, rows in WALK_SHAPES:
         forest = _random_forest(rng, T, DEPTH, COLS)
-        Xe, _ = _make_data(rows, COLS, 0.05, seed=7)
+        Xe, _, _ = _make_data(rows, COLS, 0.05, seed=7)
         X = torch.as_tensor(Xe, device=DEVICE)
         base = torch.zeros((rows, 1), device=DEVICE)
         tw = torch.ones(T, device=DEVICE)
@@ -683,14 +700,15 @@ def phase_cat_walk():
 
 
 def phase_train(name, params, Xtr, ytr, Xte, yte, rounds, want,
-                feature_types=None, min_auc=0.80):
+                feature_types=None, min_auc=0.80, feature_weights=None):
     """train() with eval, predict() and inplace_predict() through the public
     entry points; the launch counts of the run must equal ``want`` (kernel
     B: at least ``want["B"]``)."""
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dtrain = xgbt.DMatrix(Xtr, ytr, feature_types=feature_types)
+    dtrain = xgbt.DMatrix(Xtr, ytr, feature_types=feature_types,
+                          feature_weights=feature_weights)
     dtest = xgbt.DMatrix(Xte, yte, feature_types=feature_types)
     max_bin = params.get("max_bin", DEFAULT_MAX_BIN)
     binned = dtrain.get_binned(max_bin)
@@ -771,13 +789,13 @@ def _json_trees(bst):
 
 
 def phase_card_vs_cpu(Xtr, ytr, Xte, feature_types=None,
-                      name="card vs CPU"):
+                      name="card vs CPU", params=PARAMS_DEFAULT):
     """3 rounds at max_bin 256 on the card and on the CPU: same trees (and
     category sets), same predictions."""
     X, y = Xtr[:CPU_ROWS], ytr[:CPU_ROWS]
     out = []
     for dev in (DEVICE, torch.device("cpu")):
-        bst = xgbt.train(PARAMS_DEFAULT, xgbt.DMatrix(
+        bst = xgbt.train(params, xgbt.DMatrix(
             X, y, feature_types=feature_types, device=dev), CPU_ROUNDS,
             verbose_eval=False)
         out.append((heap_trees(bst, CPU_ROUNDS),
@@ -1198,6 +1216,177 @@ def phase_train_surface(Xtr, ytr, Xte, yte):
     return out
 
 
+#: the grower-breadth configurations (max_bin 256, depth 6, eta 0.1):
+#: (a) uniform row and column sampling at every level, (b) minimal-variance
+#: row sampling with a weighted per-tree column sample, (c) monotone and
+#: interaction constraints (built from the generator's weights in
+#: ``breadth_params``)
+BREADTH_A = {**PARAMS_DEFAULT, "subsample": 0.7, "colsample_bytree": 0.7,
+             "colsample_bylevel": 0.7, "colsample_bynode": 0.7}
+BREADTH_B = {**PARAMS_DEFAULT, "subsample": 0.5,
+             "sampling_method": "gradient_based", "colsample_bytree": 0.5}
+BREADTH_GROUPS = [list(range(0, 10)), list(range(10, 30)),
+                  list(range(30, 50))]
+MONO_GRID_ROWS, MONO_GRID_VALUES = 1000, 21
+
+
+def breadth_params(w):
+    """Config (c): monotone constraints on the 10 features of largest
+    ``|w|`` (the sign of ``w``), interaction groups ``BREADTH_GROUPS``."""
+    mono = np.zeros(COLS, np.int64)
+    top = np.argsort(-np.abs(w))[:10]
+    mono[top] = np.sign(w[top]).astype(np.int64)
+    return {**PARAMS_DEFAULT, "monotone_constraints": tuple(mono.tolist()),
+            "interaction_constraints": BREADTH_GROUPS}, mono
+
+
+def _leaf_paths(tree):
+    """The split features of every root-to-leaf path of a saved tree."""
+    lc, rc = tree["left_children"], tree["right_children"]
+    feat = tree["split_indices"]
+    out, stack = [], [(0, frozenset())]
+    while stack:
+        i, used = stack.pop()
+        if lc[i] == -1:
+            out.append(used)
+        else:
+            stack += [(lc[i], used | {feat[i]}), (rc[i], used | {feat[i]})]
+    return out
+
+
+def _host_ms(fn, reps: int = 10):
+    """Median host time of ``fn`` ending in a device synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_grower_breadth(Xtr, ytr, Xte, yte, w):
+    """Row and column sampling and monotone and interaction constraints
+    through the entry points at 1M x 50, max_bin 256, depth 6, eta 0.1, 10
+    rounds each: (a) uniform sampling, (b) MVS with feature weights, (c)
+    monotone + interaction constraints. Each run launches C once, D 60
+    times and B at least 10 times; held-out AUC rises (>= 0.75 for (a) and
+    (b)). MVS keeps ``subsample`` of the rows within 2%; (c)'s predictions
+    are monotone along each constrained feature on a grid and its paths
+    stay inside one interaction group. (a) by the construct route gives the
+    hoisted trees; (a) and (c) on the card and on the CPU give the same
+    trees. Round times with and without sampling alternate on one matrix;
+    a row draw plus MVS is timed at 1M rows."""
+    out = {}
+    t_phase = time.perf_counter()
+    params_c, mono = breadth_params(w)
+    fw = (np.abs(w) + 0.1).astype(np.float32)
+    want = {"A": 0, "B": ROUNDS, "C": 1, "D": ROUNDS * DEPTH}
+    runs = (("breadth (a) uniform sampling", BREADTH_A, 0.75, None),
+            ("breadth (b) MVS + feature weights", BREADTH_B, 0.75, fw),
+            ("breadth (c) monotone + interaction", params_c, 0.5, None))
+    hoisted_a = bst_c = None
+    for name, params, min_auc, weights in runs:
+        bst, metrics = phase_train(name, params, Xtr, ytr, Xte, yte, ROUNDS,
+                                   want, min_auc=min_auc,
+                                   feature_weights=weights)
+        out[name.split()[1]] = metrics
+        if params is BREADTH_A:
+            hoisted_a = heap_trees(bst, CPU_ROUNDS)
+        if params is params_c:
+            bst_c = bst
+        else:
+            del bst
+        torch.cuda.empty_cache()
+
+    # (c): monotone along each constrained feature, paths in one group
+    rows = Xte[:MONO_GRID_ROWS]
+    grid = np.linspace(-3.0, 3.0, MONO_GRID_VALUES, dtype=np.float32)
+    used = 0
+    for f in np.flatnonzero(mono):
+        Xg = np.repeat(rows, grid.size, axis=0)
+        Xg[:, f] = np.tile(grid, rows.shape[0])
+        m = bst_c.predict(xgbt.DMatrix(Xg), output_margin=True)
+        steps = np.diff(m.reshape(rows.shape[0], grid.size), axis=1) * mono[f]
+        check((steps >= 0).all(), f"breadth (c): monotone along feature {f}")
+        used += bool((steps > 0).any())
+    groups = [set(g) for g in BREADTH_GROUPS]
+    trees = bst_c.save_json()["learner"]["gradient_booster"]["model"]["trees"]
+    paths = [p for t in trees for p in _leaf_paths(t)]
+    check(all(any(p <= g for g in groups) for p in paths),
+          "breadth (c): every path inside one interaction group")
+    out["monotone"] = dict(features=int((mono != 0).sum()), used=used,
+                           grid=[MONO_GRID_ROWS, MONO_GRID_VALUES],
+                           paths=len(paths))
+    print(f"breadth (c): monotone on a {MONO_GRID_ROWS} x {MONO_GRID_VALUES} "
+          f"grid along {int((mono != 0).sum())} features ({used} of them "
+          f"used by the model); {len(paths)} paths each inside one group")
+    del bst_c
+    torch.cuda.empty_cache()
+
+    # (a) by the construct route: kernel A, the hoisted run's trees
+    out["construct_a"] = phase_construct_route(
+        Xtr, ytr, hoisted_a, params=BREADTH_A,
+        name="breadth (a) construct route")
+    torch.cuda.empty_cache()
+
+    # (a) and (c): the card and the CPU grow the same trees
+    phase_card_vs_cpu(Xtr, ytr, Xte, name="breadth (a) card vs CPU",
+                      params=BREADTH_A)
+    phase_card_vs_cpu(Xtr, ytr, Xte, name="breadth (c) card vs CPU",
+                      params=params_c)
+
+    # MVS: kept fraction and the time of a row draw plus MVS at 1M rows,
+    # on the gradients of a 3-round model
+    dtrain = xgbt.DMatrix(Xtr, ytr)
+    bst = xgbt.train(PARAMS_DEFAULT, dtrain, CPU_ROUNDS, verbose_eval=False)
+    margin = torch.as_tensor(bst.predict(dtrain, output_margin=True),
+                             device=DEVICE)
+    grad, hess = create_objective("binary:logistic").get_gradient(
+        margin, dtrain.label, None)
+    key = threefry.prng_key(11)
+    sub = BREADTH_B["subsample"]
+    _, h_s = mvs_sample(key, grad, hess, sub, 1.0)
+    kept = float((h_s != 0).float().mean())
+    check(abs(kept / sub - 1.0) <= 0.02,
+          f"MVS kept {kept:.6f} of the rows at subsample {sub}")
+    mvs_ms = _host_ms(lambda: mvs_sample(key, grad, hess, sub, 1.0))
+    cfg_u = GrowParams(subsample=BREADTH_A["subsample"])
+    uni_ms = _host_ms(lambda: apply_row_sampling(cfg_u, key, grad, hess))
+    out["mvs"] = dict(rows=int(grad.shape[0]), kept_fraction=kept,
+                      draw_mvs_ms=mvs_ms, uniform_draw_ms=uni_ms)
+    print(f"MVS at {grad.shape[0]} rows: kept {kept:.6f} (subsample {sub}); "
+          f"row draw + MVS {mvs_ms:.3f} ms, uniform row draw {uni_ms:.3f} ms "
+          f"(host clock around a synchronize, median of 10)")
+    del bst, margin, grad, hess, h_s
+
+    # round times with and without sampling, alternating on one matrix
+    sampled = xgbt.Booster(BREADTH_A, [dtrain])
+    plain = xgbt.Booster(PARAMS_DEFAULT, [dtrain])
+    times = {"sampled": [], "plain": []}
+    for i in range(ROUNDS):
+        for tag, b in (("sampled", sampled), ("plain", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.update(dtrain, i)
+            torch.cuda.synchronize()
+            times[tag].append((time.perf_counter() - t0) * 1e3)
+    # round 0 of each booster fills its prediction cache: the medians
+    # skip it
+    med = {k: statistics.median(v[1:]) for k, v in times.items()}
+    out["round_ms"] = dict(median=med, all=times)
+    print(f"breadth rounds (update only, alternating, median of rounds "
+          f"1-{ROUNDS - 1}): sampled (a) {med['sampled']:.2f} ms, "
+          f"unsampled {med['plain']:.2f} ms")
+    del sampled, plain, dtrain
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"grower breadth: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1207,7 +1396,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     phase_build()
-    X, y = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
+    X, y, w_gen = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
     Xtr, ytr, Xte, yte = X[:ROWS], y[:ROWS], X[ROWS:], y[ROWS:]
     c64, a64, d64 = phase_level_kernels(Xtr, ytr, MAX_BIN)
     c256, a256, d256 = phase_level_kernels(Xtr, ytr, DEFAULT_MAX_BIN)
@@ -1235,6 +1424,8 @@ def main() -> int:
     phase_card_vs_cpu(Xtr, ytr, Xte)
     surface = phase_train_surface(Xtr, ytr, Xte, yte)
     torch.cuda.empty_cache()
+    breadth = phase_grower_breadth(Xtr, ytr, Xte, yte, w_gen)
+    torch.cuda.empty_cache()
     del X, Xtr, Xte
     Xc, yc, types = _make_cat_data(ROWS + EVAL_ROWS, COLS, seed=42)
     Xctr, yctr, Xcte, ycte = Xc[:ROWS], yc[:ROWS], Xc[ROWS:], yc[ROWS:]
@@ -1256,7 +1447,8 @@ def main() -> int:
         "reference_default_bin256": main256,
         "categorical_levels": cat_levels, "categorical_path": cat_main,
         "categorical_construct_launches": cat_construct,
-        "categorical_walk": cat_walk, "train_surface": surface}))
+        "categorical_walk": cat_walk, "train_surface": surface,
+        "grower_breadth": breadth}))
     for k in (c256, d256):
         k.pop("B"), k.pop("Fh")
     kernels = [

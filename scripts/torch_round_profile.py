@@ -4,9 +4,10 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 scripts/torch_round_profile.py
 
-For each of ``chip_smoke.py``'s three training configurations (``PARAMS``,
+For each of ``chip_smoke.py``'s four training configurations (``PARAMS``,
 max_bin 64, and ``PARAMS_DEFAULT``, max_bin left at 256, on ``bench.py``'s
-generator; ``PARAMS_DEFAULT`` on the categorical data of
+generator; ``BREADTH_A``, the same with uniform row and column sampling
+per tree, level and node; ``PARAMS_DEFAULT`` on the categorical data of
 ``_make_cat_data`` with its ``feature_types``), each by the
 hoisted route (the default plan) and by the construct route
 (``XGBTPU_HOIST_BUDGET_MB=0``), at its shape
@@ -39,8 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import xgboost_tpu_torch as xgbt  # noqa: E402
 from xgboost_tpu_torch.tree import hist_kernel as hk  # noqa: E402
-from chip_smoke import (COLS, EVAL_ROWS, PARAMS, PARAMS_DEFAULT,  # noqa: E402
-                        ROWS, _make_cat_data, _make_data)
+from chip_smoke import (BREADTH_A, COLS, EVAL_ROWS, PARAMS,  # noqa: E402
+                        PARAMS_DEFAULT, ROWS, _make_cat_data, _make_data)
 
 WARMUP = 3
 TIMED_ROUNDS = 5
@@ -131,11 +132,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    X, y = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
+    X, y, _ = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
     Xc, yc, types = _make_cat_data(ROWS + EVAL_ROWS, COLS, seed=42)
     for name, params, data in (
             ("max_bin 64", PARAMS, (X, y)),
             ("max_bin 256 (default)", PARAMS_DEFAULT, (X, y)),
+            ("max_bin 256, sampled (a)", BREADTH_A, (X, y)),
             ("categorical, max_bin 256", PARAMS_DEFAULT, (Xc, yc, types))):
         for route, budget in (("hoisted", None), ("construct", "0")):
             if budget is not None:

@@ -15,9 +15,13 @@
 - kernel B takes an input of more than 2^31 elements in row chunks, each
   launch below 2^31 elements; a forest with categorical nodes takes the
   categorical walk and never reaches kernel B, whose wrapper refuses it;
-- the training surface (``callback.py``, ``training.py``) imports neither
-  ``jax`` nor ``xgboost_tpu``, and a pickled or copied Booster made for the
-  card comes back on the card, raising where there is none.
+- the training surface (``callback.py``, ``training.py``) and the random
+  stream (``threefry.py``) import neither ``jax`` nor ``xgboost_tpu``, and
+  a pickled or copied Booster made for the card comes back on the card,
+  raising where there is none;
+- row and column samples of data on a device are drawn there: the draws,
+  the sampled gradients and the feature masks never come back to the CPU
+  (only the keys, two integers each, live on the host).
 """
 
 import ast
@@ -327,7 +331,8 @@ def test_categorical_forest_takes_the_categorical_walk(stub_cuda,
 
 
 @pytest.mark.parametrize("module", ["xgboost_tpu_torch.callback",
-                                    "xgboost_tpu_torch.training"])
+                                    "xgboost_tpu_torch.training",
+                                    "xgboost_tpu_torch.threefry"])
 def test_training_surface_imports_no_jax(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     assert path in set((ROOT / "xgboost_tpu_torch").rglob("*.py"))
@@ -360,3 +365,25 @@ def test_card_booster_unpickles_only_onto_the_card(monkeypatch):
         bst.copy()
     with pytest.raises(RuntimeError, match="cuda"):
         bst[:1]
+
+
+def test_samples_are_drawn_on_the_data_device():
+    from xgboost_tpu_torch import threefry
+    from xgboost_tpu_torch.tree import grow as tgrow
+
+    meta = dict(device="meta")
+    key = threefry.prng_key(7)
+    assert key.device.type == "cpu"
+    g = torch.empty(1000, **meta)
+    h = torch.empty(1000, **meta)
+    for method in ("uniform", "gradient_based"):
+        cfg = tgrow.GrowParams(subsample=0.5, sampling_method=method)
+        out = tgrow.apply_row_sampling(cfg, key, g, h)
+        assert all(t.device.type == "meta" for t in out), method
+    w = torch.empty(50, **meta)
+    for weights in (None, w):
+        mask = tgrow._sample_features_exact(key, 50, 0.3, weights,
+                                            device="meta")
+        assert mask.device.type == "meta" and mask.dtype == torch.bool
+    parent = torch.empty((8, 50), dtype=torch.bool, **meta)
+    assert tgrow.exact_k_subset(key, parent, 5).device.type == "meta"

@@ -577,7 +577,7 @@ def test_validate_parameters_matches(both, params, raises):
 
 
 @pytest.mark.parametrize("params", [{"max_leaves": 8},
-                                    {"sampling_method": "gradient_based"},
+                                    {"num_parallel_tree": 2},
                                     {"updater": "refresh"},
                                     {"huber_slope": 2.0}])
 def test_unported_parameters_raise(both, params):

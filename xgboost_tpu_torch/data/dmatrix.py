@@ -35,12 +35,14 @@ class DMatrix:
     ``device`` defaults to the CUDA card; pass ``device="cpu"`` for the
     plain PyTorch versions. ``feature_types`` marks categorical columns
     with ``"c"``; ``enable_categorical`` concerns only data frames, whose
-    adapters are not ported, as in the JAX package."""
+    adapters are not ported, as in the JAX package. ``feature_weights``
+    ([F]) weight the per-tree column sample (``colsample_bytree``)."""
 
     def __init__(self, data: Any, label: Any = None, *, weight: Any = None,
                  base_margin: Any = None, missing: float = np.nan,
                  feature_names: Any = None, feature_types: Any = None,
                  enable_categorical: bool = False,
+                 feature_weights: Any = None,
                  device: Optional[Union[str, torch.device]] = None) -> None:
         self.device = resolve_device(device)
         self.feature_names: Optional[List[str]] = (
@@ -62,6 +64,7 @@ class DMatrix:
         self.weight = _vector(weight, self.device)
         self.base_margin = (None if base_margin is None else torch.as_tensor(
             np.asarray(base_margin, np.float32), device=self.device))
+        self.feature_weights = _vector(feature_weights, self.device)
         self._binned: Dict[int, BinnedMatrix] = {}
 
     # ---- metadata (the JAX package's ``DMatrix.set_*`` / ``get_*``) ----
@@ -74,6 +77,11 @@ class DMatrix:
     def set_base_margin(self, margin: Any) -> None:
         self.base_margin = torch.as_tensor(np.asarray(margin, np.float32),
                                            device=self.device)
+
+    def set_feature_weights(self, weights: Any) -> None:
+        """[F] float32 weights of the per-tree column sample (the JAX
+        package's ``set_float_info("feature_weights", ...)``)."""
+        self.feature_weights = _vector(weights, self.device)
 
     @staticmethod
     def _host(v: Optional[torch.Tensor]) -> np.ndarray:
@@ -89,11 +97,14 @@ class DMatrix:
     def get_base_margin(self) -> np.ndarray:
         return self._host(self.base_margin)
 
+    def get_feature_weights(self) -> np.ndarray:
+        return self._host(self.feature_weights)
+
     def slice(self, rindex: Any) -> "DMatrix":
         """A new DMatrix of the selected rows on the same device, with
         label, weight, base margin and feature metadata sliced along; its
         bins are built anew on first use (the JAX package's
-        ``DMatrix.slice``). ``rindex`` is an integer index array or a
+        ``DMatrix.slice``); the feature weights are kept. ``rindex`` is an integer index array or a
         boolean row mask; out-of-range indices raise IndexError."""
         rindex = np.asarray(rindex)
         if rindex.dtype == np.bool_:
@@ -109,6 +120,7 @@ class DMatrix:
         out.device = self.device
         out.feature_names = self.feature_names
         out.feature_types = self.feature_types
+        out.feature_weights = self.feature_weights
         out.data = self.data[idx]
         for name in ("label", "weight", "base_margin"):
             v = getattr(self, name)

@@ -7,7 +7,9 @@ as heap-layout arrays (``_PendingTree``) and become host ``RegTree``s only
 when model IO asks; the prediction cache of the training rows is updated
 from the grower's per-row leaf values, with no predictor pass. Trees grown
 on categorical features carry their right-going sets, stacked as bitsets
-(``_stack_cats``) for the categorical walk.
+(``_stack_cats``) for the categorical walk. Each tree's row and column
+samples are drawn under ``prng_key(round_seed_py(seed, iteration, group))``,
+the JAX package's key.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import threefry
 from ..params import GBTreeParam, TrainParam
 from ..predictor import (StackedForest, pack_cat_bits, stack_forest,
                          with_walk_tables)
@@ -208,10 +211,11 @@ def _cat_cfg(cfg: GrowParams, binned, tp: TrainParam
     return cfg, cfg.cat_mask_np(binned.n_features)
 
 
-_UNSUPPORTED_DEFAULTS = {
-    "subsample": 1.0, "colsample_bytree": 1.0, "colsample_bylevel": 1.0,
-    "colsample_bynode": 1.0,
-}
+def round_seed_py(seed: int, iteration: int, k: int = 0,
+                  ptree: int = 0) -> int:
+    """Per-tree RNG seed of boosting round ``iteration``, output group
+    ``k`` and parallel tree ``ptree`` (the JAX package's formula)."""
+    return (seed * 1000003 + iteration * 131 + k * 17 + ptree) & 0x7FFFFFFF
 
 
 class GBTree:
@@ -231,14 +235,8 @@ class GBTree:
 
     def _check_supported(self) -> None:
         tp, gp = self.train_param, self.gbtree_param
-        for key, default in _UNSUPPORTED_DEFAULTS.items():
-            if getattr(tp, key) != default:
-                raise NotImplementedError(f"{key} < 1 is not ported yet")
-        if any(int(c) != 0 for c in tp.monotone_constraints):
-            raise NotImplementedError("monotone_constraints are not ported yet")
-        if tp.interaction_constraints:
-            raise NotImplementedError(
-                "interaction_constraints are not ported yet")
+        if tp.sampling_method not in ("uniform", "gradient_based"):
+            raise ValueError(f"Unknown sampling_method: {tp.sampling_method}")
         if tp.grow_policy != "depthwise":
             raise NotImplementedError(
                 f"grow_policy={tp.grow_policy!r} is not ported yet")
@@ -261,19 +259,33 @@ class GBTree:
         tp = self.train_param
         return GrowParams(
             max_depth=tp.max_depth,
+            subsample=tp.subsample,
+            sampling_method=tp.sampling_method,
+            colsample_bytree=tp.colsample_bytree,
+            colsample_bylevel=tp.colsample_bylevel,
+            colsample_bynode=tp.colsample_bynode,
             split=SplitParams(
                 reg_lambda=tp.reg_lambda, reg_alpha=tp.reg_alpha,
                 max_delta_step=tp.max_delta_step,
-                min_child_weight=tp.min_child_weight, min_split_loss=tp.gamma))
+                min_child_weight=tp.min_child_weight, min_split_loss=tp.gamma),
+            monotone=tuple(int(c) for c in tp.monotone_constraints),
+            interaction=tuple(tuple(int(f) for f in grp)
+                              for grp in tp.interaction_constraints))
 
     def boost_one_round(self, binned, grad: torch.Tensor, hess: torch.Tensor,
-                        margin_cache: Optional[torch.Tensor]
+                        margin_cache: Optional[torch.Tensor],
+                        iteration: int = 0,
+                        feature_weights: Optional[torch.Tensor] = None
                         ) -> Tuple[List[GrownTree], Optional[torch.Tensor]]:
         """One round: one tree per output group, grown on the device; the
         margin cache gets each tree's per-row leaf values (gbtree.cc:219).
         Where the hoist plan admits it, every level streams the matrix's
         resident one-hot (built at the first round; JAX ``gbtree.py:1421``);
-        otherwise kernel A reads its resident feature-major bins."""
+        otherwise kernel A reads its resident feature-major bins. Tree
+        ``k`` samples under ``prng_key(round_seed_py(seed, iteration,
+        k))`` (a key on the CPU: the draws themselves run on the bins'
+        device), with ``feature_weights`` ([F]) weighting its column
+        sample."""
         tp = self.train_param
         cfg, cat_mask = _cat_cfg(self._grow_params(), binned, tp)
         self.model.num_feature = binned.n_features
@@ -284,9 +296,11 @@ class GBTree:
         for k in range(self.n_groups):
             g = grad[:, k] if grad.dim() == 2 else grad
             h = hess[:, k] if hess.dim() == 2 else hess
+            key = threefry.prng_key(round_seed_py(tp.seed, iteration, k))
             grown = grow_tree_fused(binned.bins, g, h, binned.cut_values,
                                     float(tp.eta), float(tp.gamma), cfg,
-                                    onehot=onehot, bins_t=bins_t)
+                                    onehot=onehot, bins_t=bins_t, key=key,
+                                    feature_weights=feature_weights)
             self.model.add_device(grown, tp.eta, k, tp.max_depth, cat_mask)
             new_trees.append(grown)
             if margin_cache is not None:

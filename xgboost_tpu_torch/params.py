@@ -117,6 +117,8 @@ class TrainParam(ParamSet):
         "reg_alpha": Field(0.0, aliases=("alpha",), lower=0.0),
         "max_delta_step": Field(0.0, lower=0.0),
         "subsample": Field(1.0, lower=0.0, upper=1.0),
+        # "uniform" | "gradient_based" (MVS); checked in the booster
+        "sampling_method": Field("uniform"),
         "colsample_bytree": Field(1.0, lower=0.0, upper=1.0),
         "colsample_bylevel": Field(1.0, lower=0.0, upper=1.0),
         "colsample_bynode": Field(1.0, lower=0.0, upper=1.0),
@@ -126,6 +128,10 @@ class TrainParam(ParamSet):
         # category against the rest; the others by optimal partition
         # (reference UseOneHot, evaluate_splits.h)
         "max_cat_to_onehot": Field(4, lower=1),
+        # the row and column samplers' seed (each tree's key is
+        # round_seed_py(seed, iteration, group), gbm/gbtree.py); as in the
+        # JAX package, only set_param on a configured booster sets it
+        "seed": Field(0),
     }
 
 
@@ -140,9 +146,9 @@ class GBTreeParam(ParamSet):
 
 class LearnerParam(ParamSet):
     """Learner-level params (reference: ``src/learner.cc``). ``seed``
-    feeds only row and column sampling, which are not ported (sampling
-    parameters other than 1 raise), so it changes no result yet;
-    ``nthread`` and ``verbosity`` change none either."""
+    stays here, as in the JAX package, and reaches the tree samplers'
+    ``TrainParam.seed`` only through ``Booster.set_param`` on a configured
+    booster; ``nthread`` and ``verbosity`` change no result."""
 
     FIELDS = {
         "objective": Field("reg:squarederror"),
@@ -164,7 +170,7 @@ class LearnerParam(ParamSet):
 #: raises NotImplementedError (``check_ported``)
 NOT_PORTED: Dict[str, Any] = {
     # tree training (the JAX package's TrainParam)
-    "max_leaves": 0, "sampling_method": "uniform", "sparse_threshold": 0.2,
+    "max_leaves": 0, "sparse_threshold": 0.2,
     "sketch_eps": 0.03, "single_precision_histogram": True,
     "refresh_leaf": True,
     # updaters, refresh and DART (GBTreeParam)

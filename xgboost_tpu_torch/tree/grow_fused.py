@@ -15,15 +15,27 @@ Rows are not padded: the CUDA kernels mask the ragged edge themselves
 n training rows. Gradients are quantised once per tree (``quantize_gradients``); the root
 totals come from the same integers as every histogram, so a node's total
 and the sum of its bins agree exactly.
+
+Sampling and constraints follow the JAX package: the tree's key splits
+into the row, tree-column and level keys; row sampling zeroes or rescales
+the float gradients before they are quantised; the column masks (per tree,
+per level, per node) and the interaction sets act only in split
+evaluation; monotone bounds ride along in the heap state. The level
+kernels see the same shapes with or without them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from .grow import GrowParams, eval_splits, seq_cumsum
+from .. import threefry
+from .grow import (GrowParams, _sample_features_exact, apply_row_sampling,
+                   child_bounds_and_weights, eval_splits, exact_k_subset,
+                   interaction_allowed, n_sampled, seq_cumsum)
 from .hist_kernel import (QuantizedGradients, fused_level, leaf_delta,
                           partition_apply, quantize_gradients)
 from .param import RT_EPS, calc_weight
@@ -61,6 +73,9 @@ class _HeapState(NamedTuple):
     node_h: torch.Tensor
     node_w: torch.Tensor
     loss_chg: torch.Tensor
+    lo_b: torch.Tensor  # [max_nodes] monotone weight bounds, [1] without
+    up_b: torch.Tensor
+    used: torch.Tensor  # [max_nodes, F] path features, [1, F] without
     # [K, 4] decisions of the last evaluated level, [K, 5+B] with
     # categorical features (column 4: categorical node; 5 on: its
     # right-going set)
@@ -68,8 +83,26 @@ class _HeapState(NamedTuple):
     cat_set: torch.Tensor  # [max_nodes, B] right-going sets, or [1, 1]
 
 
-def _init_state(cfg: GrowParams, totals: torch.Tensor, B: int = 0
-                ) -> _HeapState:
+@functools.lru_cache(maxsize=16)
+def _constraint_consts(cfg: GrowParams, F: int, device: torch.device):
+    """``(mono [F] int32, groups [G, F] bool)`` on ``device``, each None
+    when its constraint is unset; made once per configuration (a copy to
+    the card synchronizes its stream) and only read after."""
+    mono = gmask = None
+    if cfg.has_monotone:
+        m = np.zeros(F, np.int32)
+        m[:len(cfg.monotone)] = cfg.monotone[:F]
+        mono = torch.as_tensor(m, device=device)
+    if cfg.has_interaction:
+        g = np.zeros((len(cfg.interaction), F), bool)
+        for gi, grp in enumerate(cfg.interaction):
+            g[gi, [f for f in grp if f < F]] = True
+        gmask = torch.as_tensor(g, device=device)
+    return mono, gmask
+
+
+def _init_state(cfg: GrowParams, totals: torch.Tensor, B: int = 0,
+                F: int = 0) -> _HeapState:
     max_nodes = cfg.max_nodes
     dev = totals.device
     cat = cfg.has_categorical
@@ -87,6 +120,12 @@ def _init_state(cfg: GrowParams, totals: torch.Tensor, B: int = 0
         split_bin=z(torch.int32), split_cond=z(torch.float32),
         default_left=z(torch.bool), node_g=node_g, node_h=node_h,
         node_w=node_w, loss_chg=z(torch.float32),
+        lo_b=torch.full((max_nodes if cfg.has_monotone else 1,),
+                        float("-inf"), device=dev),
+        up_b=torch.full((max_nodes if cfg.has_monotone else 1,),
+                        float("inf"), device=dev),
+        used=torch.zeros((max_nodes if cfg.has_interaction else 1, F),
+                         dtype=torch.bool, device=dev),
         ptab=torch.zeros((1, 5 + B if cat else 4), dtype=torch.float32,
                          device=dev),
         cat_set=torch.zeros((max_nodes, B) if cat else (1, 1),
@@ -95,11 +134,15 @@ def _init_state(cfg: GrowParams, totals: torch.Tensor, B: int = 0
 
 
 def _level_update(st: _HeapState, histC: torch.Tensor,
-                  cut_values: torch.Tensor, cfg: GrowParams, d: int
-                  ) -> _HeapState:
+                  cut_values: torch.Tensor, cfg: GrowParams, d: int,
+                  tree_mask: Optional[torch.Tensor] = None,
+                  k_level: Optional[torch.Tensor] = None) -> _HeapState:
     """Evaluate level ``d``'s splits from its histogram ``histC``
     [F, 2K, B] (missing excluded) and write the heap arrays and the next
-    partition table."""
+    partition table. ``tree_mask`` ([F] bool, default all) is the tree's
+    column sample; the level's and the nodes' samples are drawn under
+    ``fold_in(k_level, d)`` and ``fold_in(fold_in(k_level, d), 1)`` when
+    ``colsample_bylevel`` / ``colsample_bynode`` are below 1."""
     F, B = cut_values.shape
     p = cfg.split
     max_nodes = cfg.max_nodes
@@ -118,9 +161,29 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
         torch.cat([hg, g_miss[..., None]], dim=-1),
         torch.cat([hh, h_miss[..., None]], dim=-1),
     ], dim=-1)  # [K, F, B+1, 2]
-    node_fmask = torch.ones((K, F), dtype=torch.bool, device=dev)
+    mono, gmask = _constraint_consts(cfg, F, dev)
+    node_lo = node_up = None
+    if mono is not None:
+        node_lo, node_up = st.lo_b[off:off + K], st.up_b[off:off + K]
+    fmask = (torch.ones(F, dtype=torch.bool, device=dev) if tree_mask is None
+             else tree_mask)
+    k_tree = (n_sampled(cfg.colsample_bytree, F)
+              if cfg.colsample_bytree < 1.0 else F)
+    k_lvl = k_tree
+    if cfg.colsample_bylevel < 1.0:
+        k_lvl = n_sampled(cfg.colsample_bylevel, k_tree)
+        fmask = exact_k_subset(threefry.fold_in(k_level, d), fmask, k_lvl)
+    node_fmask = fmask[None, :].expand(K, F)
+    if cfg.colsample_bynode < 1.0:
+        kn = threefry.fold_in(threefry.fold_in(k_level, d), 1)
+        node_fmask = exact_k_subset(kn, node_fmask,
+                                    n_sampled(cfg.colsample_bynode, k_lvl))
+    if gmask is not None:
+        node_fmask = node_fmask & interaction_allowed(st.used[off:off + K],
+                                                      gmask)
     cat_feats, cat_part = cfg.cat_masks(F, dev)
-    dec = eval_splits(hist, Gtot, Htot, p, node_fmask, B, cat_feats, cat_part)
+    dec = eval_splits(hist, Gtot, Htot, p, node_fmask, B, cat_feats, cat_part,
+                      mono=mono, node_lo=node_lo, node_up=node_up)
     can_split = (dec.loss > RT_EPS) & (Htot > 0.0)
     GLb, HLb = dec.GL, dec.HL
     GRb, HRb = Gtot - GLb, Htot - HLb
@@ -143,14 +206,18 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
     node_w = st.node_w.clone()
     node_w[slots] = dec.w_node
 
-    wl_c = calc_weight(GLb, HLb, p)
-    wr_c = calc_weight(GRb, HRb, p)
+    if mono is not None:
+        l_lo, l_up, r_lo, r_up, wl_c, wr_c = child_bounds_and_weights(
+            p, mono[fl], GLb, HLb, GRb, HRb, node_lo, node_up)
+    else:
+        wl_c = calc_weight(GLb, HLb, p)
+        wr_c = calc_weight(GRb, HRb, p)
     # children of nodes that do not split go to a dropped slot (max_nodes)
     lidx = torch.where(can_split, 2 * slots + 1, torch.full_like(slots, max_nodes))
     ridx = torch.where(can_split, 2 * slots + 2, torch.full_like(slots, max_nodes))
 
     def set_children(base, left_vals, right_vals):
-        ext = torch.cat([base, base.new_zeros(1)])
+        ext = torch.cat([base, base.new_zeros((1,) + base.shape[1:])])
         ext[lidx] = left_vals
         ext[ridx] = right_vals
         return ext[:max_nodes]
@@ -159,6 +226,14 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
         can_split.to(torch.float32), dec.f.to(torch.float32),
         dec.b.to(torch.float32), (dec.dir == 1).to(torch.float32),
     ], dim=1)  # [K, 4]
+    lo_b, up_b, used = st.lo_b, st.up_b, st.used
+    if mono is not None:
+        lo_b = set_children(lo_b, l_lo, r_lo)
+        up_b = set_children(up_b, l_up, r_up)
+    if gmask is not None:
+        child_used = used[off:off + K].clone()
+        child_used[torch.arange(K, device=dev), fl] = True
+        used = set_children(used, child_used, child_used)
     cat_set = st.cat_set
     if cfg.has_categorical:
         any_cat = torch.as_tensor(cfg.cat_mask_np(F), device=dev)
@@ -174,7 +249,8 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
         node_g=set_children(st.node_g, GLb, GRb),
         node_h=set_children(st.node_h, HLb, HRb),
         node_w=set_children(node_w, wl_c, wr_c),
-        loss_chg=loss_chg, ptab=ptab, cat_set=cat_set,
+        loss_chg=loss_chg, lo_b=lo_b, up_b=up_b, used=used, ptab=ptab,
+        cat_set=cat_set,
     )
 
 
@@ -224,24 +300,39 @@ def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
                     hess: torch.Tensor, cut_values: torch.Tensor, eta: float,
                     gamma: float, cfg: GrowParams,
                     onehot: Optional[torch.Tensor] = None,
-                    bins_t: Optional[torch.Tensor] = None) -> GrownTree:
+                    bins_t: Optional[torch.Tensor] = None,
+                    key: Optional[torch.Tensor] = None,
+                    feature_weights: Optional[torch.Tensor] = None
+                    ) -> GrownTree:
     """Grow one depthwise tree on ``bins`` [n, F] (missing == B) with
     gradients ``grad``/``hess`` [n]; every tensor on one device. ``onehot``
     (``build_onehot`` of ``bins``) sends every level down the hoisted route;
     the trees are the same either way. Without one, kernel A reads
     ``bins_t``, the bins' ``feature_major`` copy, when given. With
     categorical features in ``cfg`` the decision tables are ``[K, 5+B]``
-    and the grown tree carries each node's right-going set."""
+    and the grown tree carries each node's right-going set. ``key`` (a
+    ``threefry`` key, default ``prng_key(0)``) seeds the row and column
+    samples; ``feature_weights`` ([F], on the bins' device) weight the
+    per-tree column sample."""
     B = cut_values.shape[1]
+    F = bins.shape[1]
     max_depth = cfg.max_depth
+    k_sub, k_ctree, k_level = threefry.split(
+        threefry.prng_key(0) if key is None else key, 3)
+    grad, hess = apply_row_sampling(cfg, k_sub, grad, hess)
+    tree_mask = None
+    if cfg.colsample_bytree < 1.0:
+        tree_mask = _sample_features_exact(k_ctree, F, cfg.colsample_bytree,
+                                           feature_weights,
+                                           device=bins.device)
     gq: QuantizedGradients = quantize_gradients(grad, hess)
-    st = _init_state(cfg, gq.totals(), B)
+    st = _init_state(cfg, gq.totals(), B, F)
     pos = torch.zeros((bins.shape[0], 1), dtype=torch.int32, device=bins.device)
     for d in range(max_depth):
         K = 1 << d
         pos, histC = fused_level(bins, pos, gq, st.ptab, K=K, Kp=K >> 1, B=B,
                                  d=d, onehot=onehot, bins_t=bins_t)
-        st = _level_update(st, histC, cut_values, cfg, d)
+        st = _level_update(st, histC, cut_values, cfg, d, tree_mask, k_level)
     # route rows through the last level's splits to their leaves
     if max_depth > 0:
         pos = partition_apply(bins, pos, st.ptab, Kp=1 << (max_depth - 1),

@@ -4,6 +4,8 @@
 - ``calc_weight`` = -ThresholdL1(G)/(H+lambda), clamped by max_delta_step
 - ``calc_gain``  = ThresholdL1(G)^2/(H+lambda) (max_delta_step == 0 path),
   else -(2*G*w + (H+lambda)*w^2) with the clamped weight
+- ``calc_gain_given_weight`` = -(2*G*w + (H+lambda)*w^2) for a given ``w``
+  (the monotone-constrained gain, reference param.h CalcGainGivenWeight)
 
 Plain elementwise torch, the same operations in the same order as the JAX
 package's ``tree/param.py``, so they vectorize over [nodes, features, bins].
@@ -15,7 +17,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["RT_EPS", "SplitParams", "threshold_l1", "calc_weight", "calc_gain"]
+__all__ = ["RT_EPS", "SplitParams", "threshold_l1", "calc_weight", "calc_gain",
+           "calc_gain_given_weight"]
 
 # reference: kRtEps in src/common/math.h — minimum loss_chg to accept a split
 RT_EPS = 1e-6
@@ -59,3 +62,9 @@ def calc_gain(G: torch.Tensor, H: torch.Tensor, p: SplitParams) -> torch.Tensor:
         w = calc_weight(G, H, p)
         g = -(2.0 * G * w + denom * w * w)
     return torch.where(H < p.min_child_weight, torch.zeros_like(g), g)
+
+
+def calc_gain_given_weight(G: torch.Tensor, H: torch.Tensor, w: torch.Tensor,
+                           p: SplitParams) -> torch.Tensor:
+    denom = H + p.reg_lambda
+    return -(2.0 * G * w + denom * w * w)
