@@ -107,6 +107,36 @@ data (run after phase 7, before the categorical phases):
     MVS timed at 1M rows; round times with and without sampling in
     alternating pairs on one matrix.
 
+Objectives and metrics, on the same numerical rows (after phase 14):
+
+15. ``multi:softprob`` with 7 classes (``phase_multiclass``; labels
+    ``_multiclass_labels``: argmax of a linear score plus Gumbel noise),
+    depth 6, eta 0.1, max_bin 256, 10 rounds, ``merror``/``mlogloss``/
+    ``auc`` on the held-out rows: C once, D 10 x 7 x 6 = 420 times, A
+    never, B at least 10 times, every walk at G = 7; ``mlogloss`` falling,
+    ``merror`` below 1 minus the largest class share, probabilities summing
+    to 1 within 1e-5, ``multi:softmax`` on the same model their argmax,
+    ``inplace_predict`` equal to ``predict``, the median round time; 3
+    rounds by the construct route (A 126 times, the same 21 trees) and on
+    64k rows on the card and on the CPU (the same trees);
+16. kernel B at G = 7 (``phase_walk_groups``): on the 7-class model's own
+    forest (interleaved ``tree_info``) and on a random 70-tree forest with
+    the same groups over 100k rows, against its plain version within
+    1e-5, timed beside the same trees walked as one group;
+17. the regression family and survival (``phase_objectives``):
+    ``reg:squaredlogerror``, ``reg:pseudohubererror``, ``reg:logistic``,
+    ``binary:logitraw``, ``binary:hinge``, ``count:poisson``,
+    ``reg:gamma``, ``reg:tweedie`` (rho 1.5), ``survival:aft`` (normal;
+    60% exact, 30% right-, 10% interval-censored) and ``survival:cox``
+    (censored rows negative), 10 rounds each on one 1M x 50 matrix with
+    labels that suit each (``_family_labels``): C once on the first run,
+    D 60, A 0, B at least 10 per run; the default metric (and ``mae``
+    where it applies, ``FAMILY_EXTRA``; ``interval-regression-accuracy``
+    for AFT) finite and
+    better in round 10 than in round 1; ``count:poisson``, ``reg:gamma``,
+    ``reg:tweedie`` and ``reg:pseudohubererror`` on 64k rows for 3 rounds
+    on the card and on the CPU: the same trees.
+
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; before that, one JSON line lists the kernels.
@@ -513,7 +543,9 @@ def phase_construct_10x(bins, bins_t, gq, tables, B: int):
     return levels
 
 
-def _random_forest(rng, T, depth, F):
+def _random_forest(rng, T, depth, F, G=1):
+    """T random depth-``depth`` heap trees over F features; tree ``t`` in
+    group ``t % G`` (the interleaved ``tree_info`` of a K-class model)."""
     N = (1 << (depth + 1)) - 1
     internal = (1 << depth) - 1
     idx = np.arange(N)
@@ -525,7 +557,7 @@ def _random_forest(rng, T, depth, F):
                     rng.randn(T, N) * 0.1).astype(np.float32)
     default_left = rng.rand(T, N) < 0.5
     return forest_from_numpy(left, right, feature, cond, default_left,
-                             np.zeros(T), depth, 1, device=DEVICE,
+                             np.arange(T) % G, depth, G, device=DEVICE,
                              heap_layout=True)
 
 
@@ -758,8 +790,9 @@ def phase_train(name, params, Xtr, ytr, Xte, yte, rounds, want,
 
 def phase_construct_route(Xtr, ytr, hoisted_trees, params=PARAMS,
                           feature_types=None, name="construct route"):
-    """The model with hoisting disabled: kernel A at every level, and the
-    trees of the hoisted run."""
+    """The model with hoisting disabled: kernel A at every level of every
+    tree (K trees per round for K output groups), and the trees of the
+    hoisted run."""
     reset_launches()
     os.environ["XGBTPU_HOIST_BUDGET_MB"] = "0"
     try:
@@ -770,14 +803,15 @@ def phase_construct_route(Xtr, ytr, hoisted_trees, params=PARAMS,
     finally:
         del os.environ["XGBTPU_HOIST_BUDGET_MB"]
     got = launches()
+    trees = CPU_ROUNDS * bst.n_groups
     print(f"{name} (XGBTPU_HOIST_BUDGET_MB=0): launches {got}")
-    want = {"A": CPU_ROUNDS * DEPTH, "C": 0, "D": 0}
+    want = {"A": trees * DEPTH, "C": 0, "D": 0}
     for k, v in want.items():
         check(got[k] == v, f"{name}: kernel {k} launched {got[k]} times, "
                            f"want {v}")
-    same_trees(heap_trees(bst, CPU_ROUNDS), hoisted_trees,
+    same_trees(heap_trees(bst, trees), hoisted_trees,
                f"{name} vs hoisted route")
-    print(f"{name}: {CPU_ROUNDS} trees identical to the hoisted run's")
+    print(f"{name}: {trees} trees identical to the hoisted run's")
     return got
 
 
@@ -789,16 +823,19 @@ def _json_trees(bst):
 
 
 def phase_card_vs_cpu(Xtr, ytr, Xte, feature_types=None,
-                      name="card vs CPU", params=PARAMS_DEFAULT):
+                      name="card vs CPU", params=PARAMS_DEFAULT, **info):
     """3 rounds at max_bin 256 on the card and on the CPU: same trees (and
-    category sets), same predictions."""
+    category sets; K per round for K output groups), same predictions.
+    ``info`` holds per-row arrays for the DMatrix (the label bounds)."""
     X, y = Xtr[:CPU_ROWS], ytr[:CPU_ROWS]
+    info = {k: v[:CPU_ROWS] for k, v in info.items()}
     out = []
+    t0 = time.perf_counter()
     for dev in (DEVICE, torch.device("cpu")):
         bst = xgbt.train(params, xgbt.DMatrix(
-            X, y, feature_types=feature_types, device=dev), CPU_ROUNDS,
-            verbose_eval=False)
-        out.append((heap_trees(bst, CPU_ROUNDS),
+            X, y, feature_types=feature_types, device=dev, **info),
+            CPU_ROUNDS, verbose_eval=False)
+        out.append((heap_trees(bst, CPU_ROUNDS * bst.n_groups),
                     bst.predict(xgbt.DMatrix(Xte[:10000], device=dev)),
                     _json_trees(bst)))
     (card_trees, card_pred, card_json), (cpu_trees, cpu_pred, cpu_json) = out
@@ -806,8 +843,9 @@ def phase_card_vs_cpu(Xtr, ytr, Xte, feature_types=None,
     check(card_json == cpu_json, f"{name}: model JSON trees")
     err = float(np.abs(card_pred - cpu_pred).max())
     check(err <= 1e-5, f"{name} predictions max abs err {err}")
-    print(f"{name} (max_bin {DEFAULT_MAX_BIN}): {CPU_ROUNDS} trees "
-          f"identical, predictions max abs err {err}")
+    print(f"{name} (max_bin {DEFAULT_MAX_BIN}): {len(card_trees)} trees "
+          f"identical, predictions max abs err {err} "
+          f"({time.perf_counter() - t0:.1f} s)")
 
 
 def _cat_level_case(Xtr, ytr, types):
@@ -1387,6 +1425,298 @@ def phase_grower_breadth(Xtr, ytr, Xte, yte, w):
     return out
 
 
+MC_CLASSES = 7
+PARAMS_MC = {"objective": "multi:softprob", "num_class": MC_CLASSES,
+             "eta": 0.1, "eval_metric": ["merror", "mlogloss", "auc"]}
+
+
+def _multiclass_labels(X, seed: int = 42):
+    """argmax(0.5 X W + Gumbel noise) over ``MC_CLASSES`` classes, ``W``
+    [F, 7] and the noise drawn from ``RandomState(seed + 3)``; NaNs read as
+    0 for the label only (Covertype's 7 classes, in shape)."""
+    rng = np.random.RandomState(seed + 3)
+    W = rng.randn(X.shape[1], MC_CLASSES).astype(np.float32)
+    g = rng.gumbel(size=(X.shape[0], MC_CLASSES)).astype(np.float32)
+    return np.argmax(np.nan_to_num(X) @ W * 0.5 + g, axis=1).astype(
+        np.float32)
+
+
+def _walk_g7(forest, X, m):
+    """Kernel B on ``forest`` against its plain version on the first ``m``
+    rows; ``(err, got)``."""
+    base = torch.zeros((X.shape[0], forest.n_groups), device=DEVICE)
+    tw = torch.ones(forest.num_trees, device=DEVICE)
+    got = predict_margin(forest, X, base)
+    want = _predict_margin_plain(forest, X[:m], base[:m], tw)
+    torch.cuda.synchronize()
+    return float((got[:m] - want).abs().max()), got
+
+
+def phase_walk_groups(mc_forest, Xte):
+    """Kernel B at G = 7: on the 7-class model's own 70-tree forest (its
+    interleaved ``tree_info``) over the held-out rows, and on a random
+    70-tree forest with the same groups over the walk phase's 100k rows (5%
+    NaN), each against its plain version within 1e-5; the random forest
+    timed at G = 7 and, as one group, at G = 1 (the multi-group branch's
+    per-tree read-modify-write of ``out[r, g]`` against the register
+    accumulator)."""
+    T, m = ROUNDS * MC_CLASSES, WALK_PLAIN_ROWS
+    err_model, _ = _walk_g7(mc_forest, torch.as_tensor(Xte, device=DEVICE),
+                            m)
+    check(err_model <= 1e-5, f"kernel B G=7 on the model's forest == plain "
+                             f"(max abs err {err_model})")
+    rng = np.random.RandomState(77)
+    forest = _random_forest(rng, T, DEPTH, COLS, G=MC_CLASSES)
+    one = forest._replace(tree_group=torch.zeros_like(forest.tree_group),
+                          n_groups=1)
+    Xe, _, _ = _make_data(EVAL_ROWS, COLS, 0.05, seed=7)
+    X = torch.as_tensor(Xe, device=DEVICE)
+    err, got = _walk_g7(forest, X, m)
+    check(err <= 1e-5, f"kernel B G=7 random forest == plain ({err})")
+    check(bool(torch.isfinite(got).all()), "kernel B G=7: finite")
+    base7 = torch.zeros((EVAL_ROWS, MC_CLASSES), device=DEVICE)
+    base1 = torch.zeros((EVAL_ROWS, 1), device=DEVICE)
+    tw = torch.ones(T, device=DEVICE)
+    run7 = lambda: predict_margin(forest, X, base7)  # noqa: E731
+    run1 = lambda: predict_margin(one, X, base1)  # noqa: E731
+    ms, ms1 = time_ms(run7), time_ms(run1)
+    k_ms, k_ms1 = kernel_ms(run7, "B"), kernel_ms(run1, "B")
+    plain_ms = time_ms(lambda: _predict_margin_plain(forest, X[:m],
+                                                     base7[:m], tw),
+                       reps=5, warmup=1)
+    N = forest.left.shape[1]
+    nbytes = (walk_x_bytes(forest, X) + 2 * EVAL_ROWS * MC_CLASSES * 4
+              + T * N * 16 + T * 8)
+    bnd, by = bound_ms(nbytes, EVAL_ROWS * T * DEPTH * 2)
+    print(f"kernel B G={MC_CLASSES} (T={T}, depth {DEPTH}, {EVAL_ROWS} "
+          f"rows): {ms:.4f} ms (alone {k_ms} ms); the same trees as one "
+          f"group {ms1:.4f} ms (alone {k_ms1} ms); plain {plain_ms:.4f} ms "
+          f"on {m} rows; bound {bnd:.4f} ms ({by}); max abs err {err}, on "
+          f"the 7-class model's forest {err_model}")
+    del forest, one, X, got
+    return dict(G=MC_CLASSES, T=T, rows=EVAL_ROWS, ms=ms, kernel_ms=k_ms,
+                plain_ms=plain_ms, plain_rows=m, bound_ms=bnd, bound_by=by,
+                max_abs_err=err, model_forest_max_abs_err=err_model,
+                one_group_ms=ms1, one_group_kernel_ms=k_ms1)
+
+
+def phase_multiclass(X):
+    """``multi:softprob`` with 7 classes through the entry points at 1M x
+    50 (held out: the last 100k rows), depth 6, eta 0.1, max_bin 256, 10
+    rounds, ``merror``/``mlogloss``/``auc`` on the held-out rows: C once,
+    D 10 x 7 x 6 = 420 times, A never, B at least 10 times (all at G = 7);
+    held-out ``mlogloss`` falling from round 1, ``merror`` below 1 minus
+    the largest class share; probabilities summing to 1 within 1e-5;
+    ``multi:softmax`` on the same model the argmax of the probabilities;
+    ``inplace_predict`` equal to ``predict``. Then 3 rounds by the
+    construct route (A 126 times, the hoisted run's 21 trees), 3 rounds on
+    64k rows on the card and on the CPU (the same trees), and kernel B at
+    G = 7 (``phase_walk_groups``)."""
+    t_phase = time.perf_counter()
+    y = _multiclass_labels(X)
+    Xtr, Xte, ytr, yte = X[:ROWS], X[ROWS:], y[:ROWS], y[ROWS:]
+    K = MC_CLASSES
+    reset_launches()
+    dtrain, dtest = xgbt.DMatrix(Xtr, ytr), xgbt.DMatrix(Xte, yte)
+    probe, res = _RoundProbe(), {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = xgbt.train(PARAMS_MC, dtrain, ROUNDS, evals=[(dtest, "test")],
+                     evals_result=res, verbose_eval=True, callbacks=[probe])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    got = launches()
+    want = {"A": 0, "C": 1, "D": ROUNDS * K * DEPTH}
+    for k, v in want.items():
+        check(got[k] == v, f"multiclass: kernel {k} launched {got[k]} "
+                           f"times, want {v}")
+    check(got["B"] >= ROUNDS, f"multiclass: kernel B launched {got['B']}")
+    hoisted = heap_trees(bst, CPU_ROUNDS * K)
+    mc_forest = bst._gbm.model.stacked()
+    check(mc_forest.n_groups == K and mc_forest.tree_group.tolist()
+          == list(range(K)) * ROUNDS, "multiclass: interleaved tree_info")
+    hist = res["test"]
+    share = float(np.bincount(yte.astype(np.int64), minlength=K).max()
+                  / yte.size)
+    print(f"multiclass: {K} classes, launches {got}, {t_train:.3f} s for "
+          f"{ROUNDS} rounds, median round {probe.median_ms():.1f} ms "
+          f"(update + eval); mlogloss {hist['mlogloss'][0]:.6f} -> "
+          f"{hist['mlogloss'][-1]:.6f}, merror {hist['merror'][0]:.6f} -> "
+          f"{hist['merror'][-1]:.6f} (largest class share {share:.6f}), "
+          f"auc {hist['auc'][0]:.6f} -> {hist['auc'][-1]:.6f}")
+    check(hist["mlogloss"][-1] < hist["mlogloss"][0],
+          f"multiclass: mlogloss {hist['mlogloss']}")
+    check(hist["merror"][-1] < 1.0 - share,
+          f"multiclass: merror {hist['merror'][-1]} vs share {share}")
+    b0 = predict_margin.launches
+    prob = bst.predict(xgbt.DMatrix(Xte))
+    check(predict_margin.launches > b0, "multiclass: predict walks kernel B")
+    check(prob.shape == (EVAL_ROWS, K) and np.isfinite(prob).all(),
+          f"multiclass: probabilities {prob.shape}")
+    row_err = float(np.abs(prob.sum(axis=1) - 1.0).max())
+    check(row_err <= 1e-5, f"multiclass: rows sum to 1 ({row_err})")
+    check(np.array_equal(bst.inplace_predict(Xte), prob),
+          "multiclass: inplace_predict == predict")
+    raw = json.loads(bst.save_raw())
+    raw["learner"]["objective"]["name"] = "multi:softmax"
+    soft = xgbt.Booster(model_file=json.dumps(raw).encode())
+    cls = soft.predict(xgbt.DMatrix(Xte))
+    check(cls.shape == (EVAL_ROWS,) and np.array_equal(
+        cls, np.argmax(prob, axis=1).astype(np.float32)),
+        "multi:softmax == argmax of the softprob predictions")
+    out = dict(classes=K, launches=got, train_s=t_train,
+               median_round_ms=probe.median_ms(), round_ms=probe.times,
+               mlogloss=hist["mlogloss"], merror=hist["merror"],
+               auc=hist["auc"], largest_class_share=share,
+               row_sum_max_err=row_err)
+    del bst, soft, dtrain, dtest
+    torch.cuda.empty_cache()
+    out["walk_g7"] = phase_walk_groups(mc_forest, Xte)
+    out["walk_g7"]["launches"] = got["B"]
+    del mc_forest
+    out["construct"] = phase_construct_route(
+        Xtr, ytr, hoisted, params=PARAMS_MC, name="multiclass construct route")
+    torch.cuda.empty_cache()
+    phase_card_vs_cpu(Xtr, ytr, Xte, name="multiclass card vs CPU",
+                      params=PARAMS_MC)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"multiclass: {out['phase_s']:.1f} s")
+    return out
+
+
+def _family_labels(objective, z, ybin, seed: int = 42):
+    """Labels that suit ``objective``, from the standardized generator
+    score ``z`` (and the binary labels ``ybin``), drawn from
+    ``RandomState(seed + 5)``: ``(label, label_lower, label_upper)``."""
+    rng = np.random.RandomState(seed + 5)
+    n = z.shape[0]
+    bounds = (None, None)
+    if objective == "reg:squaredlogerror":  # exp of a score, minus 1
+        y = np.expm1(1.0 + 0.5 * z + 0.1 * rng.randn(n))
+    elif objective == "reg:pseudohubererror":  # Student-t noise
+        y = z + rng.standard_t(2.0, n)
+    elif objective == "reg:logistic":  # soft labels
+        y = 1.0 / (1.0 + np.exp(-(z + 0.5 * rng.randn(n))))
+    elif objective in ("binary:logitraw", "binary:hinge"):
+        y = ybin
+    elif objective == "count:poisson":
+        y = rng.poisson(np.exp(0.5 * z))
+    elif objective == "reg:gamma":
+        y = rng.gamma(2.0, np.exp(0.5 * z) / 2.0)
+    elif objective == "reg:tweedie":  # compound Poisson-Gamma, mostly 0
+        k = rng.poisson(0.3 * np.exp(0.5 * z))
+        y = np.where(k > 0, rng.gamma(2.0 * np.maximum(k, 1), 1.0), 0.0)
+    else:
+        t = 10.0 * np.exp(0.5 * z + 0.5 * rng.randn(n))
+        if objective == "survival:cox":  # negative: censored
+            y = np.where(rng.rand(n) < 0.3, -t, t)
+        else:  # survival:aft: 60% exact, 30% right-, 10% interval-censored
+            u = rng.rand(n)
+            lower = np.where((u >= 0.6) & (u < 0.9),
+                             t * rng.uniform(0.5, 1.0, n),
+                             np.where(u >= 0.9, 0.7 * t, t))
+            upper = np.select([u < 0.6, u < 0.9], [t, np.inf], 1.5 * t)
+            y, bounds = lower, (lower, upper)
+    f32 = (lambda a: None if a is None else np.asarray(a, np.float32))
+    return f32(y), f32(bounds[0]), f32(bounds[1])
+
+
+FAMILY = ("reg:squaredlogerror", "reg:pseudohubererror", "reg:logistic",
+          "binary:logitraw", "binary:hinge", "count:poisson", "reg:gamma",
+          "reg:tweedie")
+#: metrics beside each objective's default, where they apply: ``mae``
+#: where the objective's minimiser is near the label's median; ``mape``
+#: nowhere, since every label set here has labels near 0, whose
+#: ``|y - p| / |y|`` rules its mean (at 1M x 50 ``mape`` rises over 10
+#: rounds of ``reg:squaredlogerror`` while its ``rmsle`` falls)
+FAMILY_EXTRA = {"reg:squaredlogerror": ["mae"],
+                "reg:pseudohubererror": ["mae"], "count:poisson": ["mae"],
+                "reg:gamma": ["mae"]}
+FAMILY_CARD_VS_CPU = ("count:poisson", "reg:gamma", "reg:tweedie",
+                      "reg:pseudohubererror")
+SURVIVAL_METRICS = {"survival:aft": ["aft-nloglik",
+                                     "interval-regression-accuracy"],
+                    "survival:cox": ["cox-nloglik"]}
+
+
+def _family_run(name, params, dtrain, dtest, first):
+    """``train`` for 10 rounds with its metrics on ``dtest``; the launches
+    (C once on the first run of the shared matrix, then 0; D 60; A 0; B at
+    least 10) and every metric finite and better in round 10 than in round
+    1."""
+    reset_launches()
+    res = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xgbt.train(params, dtrain, ROUNDS, evals=[(dtest, "test")],
+               evals_result=res, verbose_eval=False)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    got = launches()
+    want = {"A": 0, "C": 1 if first else 0, "D": ROUNDS * DEPTH}
+    for k, v in want.items():
+        check(got[k] == v, f"{name}: kernel {k} launched {got[k]} times, "
+                           f"want {v}")
+    check(got["B"] >= ROUNDS, f"{name}: kernel B launched {got['B']}")
+    hist = res["test"]
+    for metric, vals in hist.items():
+        check(all(np.isfinite(vals)), f"{name}: {metric} finite {vals}")
+        better = (vals[-1] > vals[0] if create_metric(metric).maximize
+                  else vals[-1] < vals[0])
+        check(better, f"{name}: {metric} {vals[0]} -> {vals[-1]}")
+    print(f"{name}: {t / ROUNDS * 1e3:.1f} ms/round incl. eval, launches "
+          f"{got}; " + ", ".join(f"{k} {v[0]:.6f} -> {v[-1]:.6f}"
+                                  for k, v in hist.items()))
+    return dict(launches=got, ms_per_round=t / ROUNDS * 1e3, **hist)
+
+
+def phase_objectives(X, ybin, w):
+    """The regression family and the survival objectives through the entry
+    points at 1M x 50 (held out: the last 100k rows), depth 6, eta 0.1,
+    max_bin 256, 10 rounds each, on one training matrix whose labels (and
+    label bounds) change between runs: ``FAMILY`` with each default metric
+    plus ``FAMILY_EXTRA``, ``survival:aft`` (normal; ``aft-nloglik`` and
+    ``interval-regression-accuracy``) and ``survival:cox`` (censored rows
+    negative; ``cox-nloglik`` on held-out rows sorted by time, the metric's
+    contract). Then ``FAMILY_CARD_VS_CPU`` on 64k rows for 3 rounds on the
+    card and on the CPU: the same trees."""
+    t_phase = time.perf_counter()
+    s = np.nan_to_num(X) @ w
+    z = ((s - s.mean()) / s.std()).astype(np.float32)
+    dtrain, dtest = xgbt.DMatrix(X[:ROWS]), xgbt.DMatrix(X[ROWS:])
+    out, labels = {}, {}
+    for i, obj in enumerate(FAMILY + tuple(SURVIVAL_METRICS)):
+        y, lo, hi = _family_labels(obj, z, ybin)
+        labels[obj] = (y, lo, hi)
+        for d, sl in ((dtrain, slice(0, ROWS)), (dtest, slice(ROWS, None))):
+            d.set_label(y[sl])
+            d.set_float_info("label_lower_bound", None if lo is None
+                             else lo[sl])
+            d.set_float_info("label_upper_bound", None if hi is None
+                             else hi[sl])
+        ev = dtest
+        if obj == "survival:cox":
+            order = np.argsort(np.abs(y[ROWS:]), kind="stable")
+            ev = xgbt.DMatrix(X[ROWS:][order], y[ROWS:][order])
+        default = create_objective(obj, None).default_metric()
+        metrics = SURVIVAL_METRICS.get(obj) or [default] + FAMILY_EXTRA.get(
+            obj, [])
+        params = {"objective": obj, "eta": 0.1, "eval_metric": metrics}
+        if obj == "survival:aft":
+            params["aft_loss_distribution"] = "normal"
+        out[obj] = _family_run(obj, params, dtrain, ev, first=i == 0)
+    del dtrain, dtest
+    torch.cuda.empty_cache()
+    for obj in FAMILY_CARD_VS_CPU:
+        y, _, _ = labels[obj]
+        phase_card_vs_cpu(X[:ROWS], y[:ROWS], X[ROWS:],
+                          name=f"{obj} card vs CPU",
+                          params={"objective": obj, "eta": 0.1})
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"objectives: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1426,6 +1756,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     breadth = phase_grower_breadth(Xtr, ytr, Xte, yte, w_gen)
     torch.cuda.empty_cache()
+    multiclass = phase_multiclass(X)
+    torch.cuda.empty_cache()
+    objectives = phase_objectives(X, y, w_gen)
+    torch.cuda.empty_cache()
     del X, Xtr, Xte
     Xc, yc, types = _make_cat_data(ROWS + EVAL_ROWS, COLS, seed=42)
     Xctr, yctr, Xcte, ycte = Xc[:ROWS], yc[:ROWS], Xc[ROWS:], yc[ROWS:]
@@ -1448,7 +1782,8 @@ def main() -> int:
         "categorical_levels": cat_levels, "categorical_path": cat_main,
         "categorical_construct_launches": cat_construct,
         "categorical_walk": cat_walk, "train_surface": surface,
-        "grower_breadth": breadth}))
+        "grower_breadth": breadth, "multiclass": multiclass,
+        "objectives": objectives}))
     for k in (c256, d256):
         k.pop("B"), k.pop("Fh")
     kernels = [
@@ -1459,7 +1794,8 @@ def main() -> int:
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
              replaces="xgboost_tpu/predictor/__init__.py:299",
-             launches=main256["launches"]["B"], **b),
+             launches=main256["launches"]["B"],
+             groups=multiclass["walk_g7"], **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:378",

@@ -4,11 +4,13 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 scripts/torch_round_profile.py
 
-For each of ``chip_smoke.py``'s four training configurations (``PARAMS``,
+For each of ``chip_smoke.py``'s five training configurations (``PARAMS``,
 max_bin 64, and ``PARAMS_DEFAULT``, max_bin left at 256, on ``bench.py``'s
 generator; ``BREADTH_A``, the same with uniform row and column sampling
 per tree, level and node; ``PARAMS_DEFAULT`` on the categorical data of
-``_make_cat_data`` with its ``feature_types``), each by the
+``_make_cat_data`` with its ``feature_types``; ``PARAMS_MC``, 7-class
+``multi:softprob`` on the generator's rows with ``_multiclass_labels``,
+7 trees per round), each by the
 hoisted route (the default plan) and by the construct route
 (``XGBTPU_HOIST_BUDGET_MB=0``), at its shape
 (``ROWS`` x ``COLS`` training rows and ``EVAL_ROWS`` held-out rows): trains ``WARMUP`` rounds, times the next
@@ -41,7 +43,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import xgboost_tpu_torch as xgbt  # noqa: E402
 from xgboost_tpu_torch.tree import hist_kernel as hk  # noqa: E402
 from chip_smoke import (BREADTH_A, COLS, EVAL_ROWS, PARAMS,  # noqa: E402
-                        PARAMS_DEFAULT, ROWS, _make_cat_data, _make_data)
+                        PARAMS_DEFAULT, PARAMS_MC, ROWS, _make_cat_data,
+                        _make_data, _multiclass_labels)
 
 WARMUP = 3
 TIMED_ROUNDS = 5
@@ -138,7 +141,9 @@ def main() -> int:
             ("max_bin 64", PARAMS, (X, y)),
             ("max_bin 256 (default)", PARAMS_DEFAULT, (X, y)),
             ("max_bin 256, sampled (a)", BREADTH_A, (X, y)),
-            ("categorical, max_bin 256", PARAMS_DEFAULT, (Xc, yc, types))):
+            ("categorical, max_bin 256", PARAMS_DEFAULT, (Xc, yc, types)),
+            ("7 classes, max_bin 256", PARAMS_MC,
+             (X, _multiclass_labels(X)))):
         for route, budget in (("hoisted", None), ("construct", "0")):
             if budget is not None:
                 os.environ["XGBTPU_HOIST_BUDGET_MB"] = budget

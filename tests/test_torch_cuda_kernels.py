@@ -30,7 +30,9 @@ every row's |q| at the quantiser's extremes in one cell; a bin count whose
 single node does not fit shared memory (the device-memory path); its
 routing launch's records against ``_level_records_plain``. Kernel B's:
 500 trees over many shared-memory chunks (X staged), tree counts that
-leave a tail of single walks, three groups with tree weights, forests
+leave a tail of single walks, three groups with tree weights, seven
+groups of a 10-round 7-class model's own forest (interleaved
+``tree_info``), forests
 deep enough to walk from device memory, and non-heap forests (node ids
 permuted, as JSON models number them) with leaves mid-tree; and one input of
 just over 2^31 elements (43M rows x 50), which the wrapper walks in two
@@ -348,6 +350,38 @@ def test_walk_kernel_chunks_groups_and_layouts(cuda, T, depth, G, n, F, heap):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def test_walk_kernel_seven_groups_of_a_multiclass_model(cuda):
+    """Kernel B at G = 7 on a 10-round 7-class model's own forest (its
+    interleaved ``tree_info``; the device-grown heap stack and the saved
+    model's) against the plain walk, with unit and random tree weights."""
+    import xgboost_tpu_torch as xgbt
+
+    rng = np.random.RandomState(70)
+    n, F, K = 6000, 12, 7
+    X = rng.randn(n, F).astype(np.float32)
+    X[rng.rand(n, F) < 0.05] = np.nan
+    y = np.argmax(np.nan_to_num(X) @ rng.randn(F, K)
+                  + rng.gumbel(size=(n, K)), 1).astype(np.float32)
+    bst = xgbt.train({"objective": "multi:softprob", "num_class": K,
+                      "max_depth": 6, "eta": 0.3},
+                     xgbt.DMatrix(X, y, device=cuda), 10, verbose_eval=False)
+    Xt = torch.as_tensor(X, device=cuda)
+    base = torch.as_tensor(rng.randn(n, K).astype(np.float32), device=cuda)
+    heap = bst._gbm.model.stacked()
+    saved = xgbt.Booster(model_file=bst.save_raw(),
+                         device=cuda)._gbm.model.stacked()
+    for forest in (heap, saved):
+        assert forest.n_groups == K and forest.num_trees == 10 * K
+        assert forest.tree_group.tolist() == list(range(K)) * 10
+        for tw in (forest.unit_weights, torch.as_tensor(
+                rng.uniform(0.5, 2.0, 10 * K).astype(np.float32),
+                device=cuda)):
+            got = tpred._predict_margin_cuda(forest, Xt, base, tw)
+            want = tpred._predict_margin_plain(forest, Xt, base, tw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("n,F,B,Fh,d", [
     (1000, 7, 16, 7, 1),        # K = 2, full hoist, uint8
     (5000, 50, 64, 50, 5),      # the main path's width at K = 32
@@ -429,3 +463,68 @@ def test_walk_kernel_past_2_31_elements(cuda):
         want = tpred._predict_margin_plain(forest, X[rows], base[rows], tw)
         torch.testing.assert_close(got[rows], want, rtol=1e-5, atol=1e-5)
     assert bool(torch.isfinite(got).all())
+
+
+_OBJECTIVES = [
+    ("reg:squarederror", {}), ("reg:squaredlogerror", {}),
+    ("reg:pseudohubererror", {}), ("reg:pseudohubererror",
+                                   {"huber_slope": 1.7}),
+    ("reg:logistic", {}), ("binary:logistic", {"scale_pos_weight": 3.0}),
+    ("binary:hinge", {}), ("count:poisson", {}), ("reg:gamma", {}),
+    ("reg:tweedie", {"tweedie_variance_power": 1.3}),
+    ("multi:softprob", {"num_class": 7}),
+    ("survival:aft", {"aft_loss_distribution": "normal",
+                      "aft_loss_distribution_scale": 1.3}),
+    ("survival:aft", {"aft_loss_distribution": "logistic"}),
+    ("survival:aft", {"aft_loss_distribution": "extreme",
+                      "aft_loss_distribution_scale": 0.7}),
+    ("survival:cox", {}),
+]
+
+
+@pytest.mark.parametrize("name,params", _OBJECTIVES,
+                         ids=[f"{n}-{i}" for i, (n, _) in
+                              enumerate(_OBJECTIVES)])
+def test_objective_gradients_same_bits_on_card_and_cpu(cuda, name, params):
+    """Every objective's gradients, hessians and transforms on the card
+    equal the CPU's bit for bit (float64 transcendentals and square roots
+    rounded once, IEEE quotients), and so do their quantised values (exact
+    power-of-two scales): the trees then grow the same on either. 200k
+    rows of margins, labels and censoring intervals."""
+    from xgboost_tpu_torch.objective import create_objective
+    from xgboost_tpu_torch.params import LearnerParam
+
+    rng = np.random.RandomState(9)
+    n = 200_000
+    K = params.get("num_class", 1)
+    m = (rng.randn(n, K) * 2.0).astype(np.float32)
+    m = m[:, 0] if K == 1 else m
+    t = rng.gamma(2.0, 10.0, n).astype(np.float32)
+    u = rng.rand(n)
+    label = {
+        "multi:softprob": rng.randint(0, K, n),
+        "survival:cox": np.where(u < 0.3, -t, t),
+        "reg:logistic": u,
+        "binary:logistic": (u < 0.4), "binary:hinge": (u < 0.4),
+        "reg:pseudohubererror": rng.standard_t(2.0, n),
+        "reg:squaredlogerror": np.expm1(rng.randn(n)),
+    }.get(name, t / 10.0).astype(np.float32)
+    lower = np.where(u < 0.1, 0.0, np.where(u < 0.3, 0.6 * t, t))
+    upper = np.where(u < 0.3, 1.4 * t, np.where(u < 0.6, np.inf, t))
+    obj = create_objective(name, LearnerParam(objective=name, **params))
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        def T(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        g, h = obj.get_gradient(T(m), T(label), T(w), 0, label_lower=T(lower),
+                                label_upper=T(upper))
+        gq = thk.quantize_gradients(g if g.dim() == 1 else g[:, 0],
+                                    h if h.dim() == 1 else h[:, 0])
+        out.append([v.cpu() for v in (g, h, obj.pred_transform(T(m)),
+                                      obj.eval_transform(T(m)), gq.q,
+                                      gq.exp)])
+    for what, a, b in zip(("grad", "hess", "pred", "eval", "q", "exp"),
+                          *out):
+        bad = int((a != b).sum()) - int((a.isnan() & b.isnan()).sum())
+        assert bad == 0, f"{name} {what}: {bad} values differ"

@@ -216,3 +216,27 @@ def test_level_records_match_jax_positions():
             rec, np.where((local >= 0) & (local < K), local, -1))
         assert rec.dtype == np.int32 and (rec >= 0).sum() > N // 2
         pos = t_pos.numpy()
+
+
+def test_quantiser_scales_are_exact_powers_of_two():
+    """The quantiser's scales are exact ``2^e`` built from the exponent
+    bits (``torch.ldexp`` multiplies by ``torch.pow(2, e)``, which the card
+    rounds), and the quantised values are ``rint(x * 2^e)`` computed in
+    exact float64."""
+    e = torch.arange(-300, 301)
+    np.testing.assert_array_equal(thk._pow2(e).numpy(),
+                                  np.ldexp(1.0, e.numpy()))
+    rng = np.random.RandomState(3)
+    for gmax, hmax in ((0.99, 0.25), (1.0, 1.0), (3e-5, 7.5)):
+        g = (rng.uniform(-1, 1, 4097) * gmax).astype(np.float32)
+        h = (rng.uniform(0, 1, 4097) * hmax).astype(np.float32)
+        gq = thk.quantize_gradients(torch.as_tensor(g), torch.as_tensor(h))
+        ex = gq.exp.numpy().astype(np.int64)
+        want = np.rint(np.stack([np.ldexp(g.astype(np.float64), ex[0]),
+                                 np.ldexp(h.astype(np.float64), ex[1])], 1))
+        np.testing.assert_array_equal(gq.q.numpy(), want.astype(np.int32))
+        assert np.abs(want).max() <= 2 ** 30
+        sums = torch.as_tensor(want.sum(0).astype(np.int64))
+        np.testing.assert_array_equal(
+            gq.dequantize(sums, torch.arange(2)).numpy(),
+            np.ldexp(want.sum(0), -ex).astype(np.float32))

@@ -21,7 +21,12 @@
   raising where there is none;
 - row and column samples of data on a device are drawn there: the draws,
   the sampled gradients and the feature masks never come back to the CPU
-  (only the keys, two integers each, live on the host).
+  (only the keys, two integers each, live on the host);
+- the multiclass and survival objectives and metrics import neither
+  ``jax`` nor ``xgboost_tpu``; a 3-class Booster made for the card sends
+  its eval walk and its training walk to kernel B's wrapper with G = 3,
+  and its softmax, gradients and (for ``survival:aft``) label bounds stay
+  on the data's device; the ranking objectives raise NotImplementedError.
 """
 
 import ast
@@ -332,7 +337,11 @@ def test_categorical_forest_takes_the_categorical_walk(stub_cuda,
 
 @pytest.mark.parametrize("module", ["xgboost_tpu_torch.callback",
                                     "xgboost_tpu_torch.training",
-                                    "xgboost_tpu_torch.threefry"])
+                                    "xgboost_tpu_torch.threefry",
+                                    "xgboost_tpu_torch.objective.multiclass",
+                                    "xgboost_tpu_torch.objective.survival",
+                                    "xgboost_tpu_torch.metric.multiclass",
+                                    "xgboost_tpu_torch.metric.survival"])
 def test_training_surface_imports_no_jax(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     assert path in set((ROOT / "xgboost_tpu_torch").rglob("*.py"))
@@ -387,3 +396,111 @@ def test_samples_are_drawn_on_the_data_device():
         assert mask.device.type == "meta" and mask.dtype == torch.bool
     parent = torch.empty((8, 50), dtype=torch.bool, **meta)
     assert tgrow.exact_k_subset(key, parent, 5).device.type == "meta"
+
+
+def _on_meta(bst, d):
+    """``bst`` and ``d`` as if made for the card: every tensor on the stub
+    tests' 'meta' device (shapes and dtypes, no data)."""
+    meta = torch.device("meta")
+    bst.device = bst._gbm.device = bst._gbm.model.device = meta
+    out = xgbt.DMatrix.__new__(xgbt.DMatrix)
+    out.__dict__.update(d.__dict__)
+    out.device, out._binned = meta, {}
+    for name in ("data", "label", "weight", "base_margin", "feature_weights",
+                 "label_lower_bound", "label_upper_bound"):
+        v = getattr(d, name)
+        setattr(out, name, None if v is None else v.to(meta))
+    return out
+
+
+_MC = {"objective": "multi:softprob", "num_class": 3, "max_depth": 2,
+       "eval_metric": "mlogloss"}
+_AFT = {"objective": "survival:aft", "max_depth": 2}
+
+
+def _aft_labels():
+    rng = np.random.RandomState(2)
+    t = rng.gamma(2.0, 10.0, 300).astype(np.float32)
+    upper = np.where(rng.rand(300) < 0.3, np.inf, t).astype(np.float32)
+    return t, dict(label_lower_bound=t, label_upper_bound=upper)
+
+
+@pytest.fixture(scope="module")
+def cpu_models():
+    """Two-round models trained on the CPU (before the stub card replaces
+    the plain versions): 3-class and AFT, as model bytes."""
+    X = np.random.RandomState(0).randn(300, 4).astype(np.float32)
+    y = np.random.RandomState(1).randint(0, 3, 300).astype(np.float32)
+    t, bounds = _aft_labels()
+    out = {}
+    for key, params, label, kw in (("mc", _MC, y, {}),
+                                   ("aft", _AFT, t, bounds)):
+        bst = xgbt.train(params, xgbt.DMatrix(X, label, device="cpu", **kw),
+                         2, verbose_eval=False)
+        out[key] = (bst.save_raw(), params, X, label, kw)
+    return out
+
+
+def _meta_case(case):
+    raw, params, X, y, bounds = case
+    card = xgbt.Booster(model_file=raw, device="cpu")
+    card.set_param(params)
+    return card, _on_meta(card, xgbt.DMatrix(X, y, device="cpu", **bounds))
+
+
+def test_multiclass_booster_walks_kernel_b_with_its_groups(
+        cpu_models, stub_cuda, monkeypatch):
+    from xgboost_tpu_torch.metric.multiclass import MultiLogLoss
+
+    card, d = _meta_case(cpu_models["mc"])
+    seen = []
+    monkeypatch.setattr(MultiLogLoss, "evaluate",
+                        lambda self, p, lab, w=None, **kw:
+                        seen.append((p.device.type, tuple(p.shape))) or 0.0)
+    assert card.eval_values([(d, "val")]) == {"val": {"mlogloss": 0.0}}
+    assert seen == [("meta", (300, 3))]
+    (name, args), = stub_cuda.calls
+    # (X, n, F, nodes, tree_group, tree_weight, T, N, max_depth, G, ...)
+    assert name == "xgbt_predict_margin" and args[6] == 6 and args[9] == 3
+    boosted = []
+    monkeypatch.setattr(card, "_boost",
+                        lambda dm, g, h, i: boosted.append((g, h)))
+    card.update(d, 2)
+    (g, h), = boosted
+    assert g.device.type == h.device.type == "meta"
+    assert tuple(g.shape) == tuple(h.shape) == (300, 3)
+    assert [c[0] for c in stub_cuda.calls] == ["xgbt_predict_margin"] * 2
+    assert stub_cuda.calls[-1][1][9] == 3
+
+
+def test_label_bounds_stay_on_the_data_device(cpu_models, stub_cuda,
+                                              monkeypatch):
+    card, d = _meta_case(cpu_models["aft"])
+    assert d.label_lower_bound.device.type == "meta"
+    got = []
+    real = card._obj.get_gradient
+
+    def spy(m, lab, w, it, *, label_lower=None, label_upper=None):
+        got.append((label_lower.device.type, label_upper.device.type))
+        return real(m, lab, w, it, label_lower=label_lower,
+                    label_upper=label_upper)
+
+    monkeypatch.setattr(card._obj, "get_gradient", spy)
+    boosted = []
+    monkeypatch.setattr(card, "_boost",
+                        lambda dm, g, h, i: boosted.append((g, h)))
+    card.update(d, 2)
+    assert got == [("meta", "meta")]
+    (g, h), = boosted
+    assert g.device.type == h.device.type == "meta"
+    assert [c[0] for c in stub_cuda.calls] == ["xgbt_predict_margin"]
+
+
+@pytest.mark.parametrize("objective", ["rank:pairwise", "rank:ndcg",
+                                       "rank:map"])
+def test_ranking_objectives_are_not_ported(objective):
+    X = np.zeros((8, 2), np.float32)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        xgbt.train({"objective": objective},
+                   xgbt.DMatrix(X, np.zeros(8), device="cpu"), 1,
+                   verbose_eval=False)

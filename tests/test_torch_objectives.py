@@ -1,0 +1,566 @@
+"""Port parity for the objectives: every objective of the port against the
+JAX package's on the same margins, labels, weights and label bounds
+(``get_gradient``, ``pred_transform``, ``eval_transform``,
+``prob_to_margin``, ``default_metric``), each configured by its own
+package's ``LearnerParam`` from the same keys; and the reference's own
+unit-test values.
+
+Tolerances. The JAX package evaluates in float32; the port evaluates every
+transcendental in float64 and rounds once (so that the card and the CPU
+agree bit for bit), so the two differ by float32 ulps, amplified where a
+formula cancels:
+
+- gradients, hessians and transforms within rtol 2e-6 and atol 2e-6 of the
+  larger magnitude in the array (``_close``); the elementwise objectives of
+  the regression family and the multiclass softmax mostly agree exactly;
+- ``survival:cox``: the risk-set sums run in float64 in the port and in
+  float32 (after the same stable sort) in the JAX package, so its
+  gradients and hessians are held within rtol 1e-5 (atol 1e-5 of the
+  scale);
+- ``survival:aft`` over the 3 distributions x 4 censoring types on a grid
+  of margins that reaches both saturated tails: the float32 compositions
+  are the JAX package's step by step, with float64 transcendentals;
+  gradients and log-likelihoods within rtol 2e-5 (atol 2e-5 of the
+  scale), hessians within rtol 2e-4, and where the float32 probability of
+  a row's interval cancels (the far tails) within a slack proportional to
+  that cancellation, which ``test_aft_matches_jax`` states. There both
+  packages compute rounding noise; ROADMAP queue 3 records it;
+- the reference's fixtures (``tests/cpp/objective/test_*_obj.cc``, copied
+  with their citations from ``tests/test_golden_parity.py:70-317``) within
+  the tolerances the reference and that file state: 0.01 for
+  ``CheckObjFunction``, 2e-3 / 5e-3 for the AFT grid.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xgboost_tpu.objective import create_objective as j_create
+from xgboost_tpu.params import LearnerParam as JParam
+from xgboost_tpu_torch.objective import create_objective as t_create
+from xgboost_tpu_torch.params import LearnerParam as TParam
+
+torch.set_num_threads(1)
+
+N = 257
+
+
+def _labels(kind, rng, n):
+    if kind == "real":
+        return rng.randn(n)
+    if kind == "positive":
+        return rng.gamma(2.0, 1.5, n)
+    if kind == "nonneg":
+        return np.expm1(np.abs(rng.randn(n)))
+    if kind == "binary":
+        return (rng.rand(n) < 0.4).astype(np.float64)
+    if kind == "soft":
+        return rng.rand(n)
+    if kind == "counts":
+        return rng.poisson(1.5, n).astype(np.float64)
+    if kind == "tweedie":
+        counts = rng.poisson(0.6, n)
+        return np.array([rng.gamma(2.0, 1.0, c).sum() for c in counts])
+    if kind == "cox":  # signed times with ties; negative: censored
+        t = rng.randint(1, 40, n).astype(np.float64)
+        return np.where(rng.rand(n) < 0.3, -t, t)
+    raise ValueError(kind)
+
+
+# (objective, params, label kind)
+CASES = [
+    ("reg:squarederror", {}, "real"),
+    ("reg:squaredlogerror", {}, "nonneg"),
+    ("reg:pseudohubererror", {}, "real"),
+    ("reg:pseudohubererror", {"huber_slope": 2.5}, "real"),
+    ("reg:logistic", {}, "soft"),
+    ("binary:logistic", {}, "binary"),
+    ("binary:logistic", {"scale_pos_weight": 3.0}, "binary"),
+    ("binary:logitraw", {}, "binary"),
+    ("binary:hinge", {}, "binary"),
+    ("count:poisson", {}, "counts"),
+    ("count:poisson", {"max_delta_step": 0.0}, "counts"),
+    ("count:poisson", {"max_delta_step": 0.3}, "counts"),
+    ("reg:gamma", {}, "positive"),
+    ("reg:tweedie", {}, "tweedie"),
+    ("reg:tweedie", {"tweedie_variance_power": 1.2}, "tweedie"),
+    ("survival:cox", {}, "cox"),
+]
+
+
+def _ids(cases):
+    return [f"{c[0]}-{'-'.join(f'{k}={v}' for k, v in c[1].items())}"
+            for c in cases]
+
+
+def _close(got, want, rtol=2e-6, atol=2e-6):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    scale = max(1.0, float(np.nanmax(np.abs(want)))) if want.size else 1.0
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol * scale)
+
+
+def _pair(name, params):
+    full = {"objective": name, **params}
+    return j_create(name, JParam(**full)), t_create(name, TParam(**full))
+
+
+def _grad_both(jobj, tobj, m, y, w, lower=None, upper=None):
+    def j(a):
+        return None if a is None else jnp.asarray(a, jnp.float32)
+
+    def t(a):
+        return None if a is None else torch.as_tensor(a, dtype=torch.float32)
+
+    jg, jh = jobj.get_gradient(j(m), j(y), j(w), 0, label_lower=j(lower),
+                               label_upper=j(upper))
+    tg, th = tobj.get_gradient(t(m), t(y), t(w), 0, label_lower=t(lower),
+                               label_upper=t(upper))
+    return (np.asarray(jg), np.asarray(jh)), (tg.numpy(), th.numpy())
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("name,params,kind", CASES, ids=_ids(CASES))
+def test_gradients_match_jax(name, params, kind, weighted):
+    rng = np.random.RandomState(len(name) + 7 * weighted)
+    m = (rng.randn(N) * 1.5).astype(np.float32)
+    y = _labels(kind, rng, N).astype(np.float32)
+    w = rng.uniform(0.2, 3.0, N).astype(np.float32) if weighted else None
+    jobj, tobj = _pair(name, params)
+    (jg, jh), (tg, th) = _grad_both(jobj, tobj, m, y, w)
+    tol = dict(rtol=1e-5, atol=1e-5) if name == "survival:cox" else {}
+    _close(tg, jg, **tol)
+    _close(th, jh, **tol)
+    assert tg.dtype == th.dtype == np.float32
+
+
+@pytest.mark.parametrize("name,params,kind", CASES, ids=_ids(CASES))
+def test_transforms_and_defaults_match_jax(name, params, kind):
+    rng = np.random.RandomState(3)
+    m = (rng.randn(N) * 2.0).astype(np.float32)
+    jobj, tobj = _pair(name, params)
+    mt = torch.as_tensor(m)
+    _close(tobj.pred_transform(mt).numpy(),
+           np.asarray(jobj.pred_transform(jnp.asarray(m))))
+    _close(tobj.eval_transform(mt).numpy(),
+           np.asarray(jobj.eval_transform(jnp.asarray(m))))
+    for base in (0.1, 0.5, 0.9, 3.0):
+        if name in ("reg:logistic", "binary:logistic", "binary:logitraw") \
+                and base > 1:
+            continue
+        assert tobj.prob_to_margin(base) == pytest.approx(
+            jobj.prob_to_margin(base), rel=1e-12, abs=1e-12)
+    assert tobj.default_metric() == jobj.default_metric()
+    assert tobj.default_base_score() == jobj.default_base_score()
+    assert tobj.n_targets() == jobj.n_targets() == 1
+    assert tobj.name == jobj.name == name
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("name", ["multi:softprob", "multi:softmax"])
+def test_multiclass_matches_jax(name, weighted):
+    rng = np.random.RandomState(11 + weighted)
+    K = 4
+    m = (rng.randn(N, K) * 2.0).astype(np.float32)
+    y = rng.randint(0, K, N).astype(np.float32)
+    w = rng.uniform(0.2, 3.0, N).astype(np.float32) if weighted else None
+    jobj, tobj = _pair(name, {"num_class": K})
+    assert tobj.n_targets() == jobj.n_targets() == K
+    (jg, jh), (tg, th) = _grad_both(jobj, tobj, m, y, w)
+    assert tg.shape == (N, K)
+    _close(tg, jg)
+    _close(th, jh)
+    mt = torch.as_tensor(m)
+    jp = np.asarray(jobj.pred_transform(jnp.asarray(m)))
+    tp = tobj.pred_transform(mt).numpy()
+    if name == "multi:softmax":
+        assert tp.shape == (N,) and tp.dtype == np.float32
+        np.testing.assert_array_equal(tp, jp)
+    else:
+        _close(tp, jp)
+        np.testing.assert_allclose(tp.sum(1), 1.0, atol=1e-6)
+    _close(tobj.eval_transform(mt).numpy(),
+           np.asarray(jobj.eval_transform(jnp.asarray(m))))
+    assert tobj.default_metric() == jobj.default_metric() == "mlogloss"
+
+
+@pytest.mark.parametrize("num_class", [0, 1])
+def test_multiclass_needs_two_classes(num_class):
+    for name in ("multi:softprob", "multi:softmax"):
+        with pytest.raises(ValueError, match="num_class"):
+            t_create(name, TParam(num_class=num_class)).n_targets()
+
+
+# AFT: margins over the reference's grid and beyond it, both tails
+_AFT_MARGINS = np.concatenate([
+    np.linspace(-12.0, 16.0, 57), [-40.0, 40.0, 0.0, 2.5, 4.2]]
+).astype(np.float32)
+_AFT_BOUNDS = {
+    "uncensored": (100.0, 100.0),
+    "left": (0.0, 20.0),
+    "right": (60.0, float("inf")),
+    "interval": (16.0, 200.0),
+}
+
+
+_CDF64 = {
+    "normal": lambda z: 0.5 * torch.special.erfc(-z / math.sqrt(2.0)),
+    "logistic": torch.sigmoid,
+    "extreme": lambda z: -torch.expm1(-torch.exp(torch.clamp(z, max=50.0))),
+}
+
+
+def _cdf_slack(dist, margins, lo, hi, scale):
+    """Per-row slack where a probability ``D = F(z_u) - F(z_l)`` cancels
+    (``F(z_u)`` is 1 for a right-censored row, ``F(z_l)`` 0 for a
+    left-censored one). Both packages form ``D`` in float32, with an error
+    of about one float32 ulp of ``max(F)``; relative to ``D`` (the float64
+    value here) that error reaches the interval gradient, the hessian and
+    ``log D``. Where the two cdfs round to nearly the same float32 number
+    (the far tail), each package's value is that rounding noise, and the
+    port's noise is not the JAX package's: the slack is 8 such errors."""
+    m = torch.as_tensor(margins, dtype=torch.float64)
+    one = torch.ones_like(m)
+    F_l = _CDF64[dist]((math.log(lo) - m) / scale) if lo > 0 else 0 * one
+    F_u = (_CDF64[dist]((math.log(hi) - m) / scale) if math.isfinite(hi)
+           else one)
+    D = torch.clamp(F_u - F_l, min=1e-300)
+    rel = 8 * np.finfo(np.float32).eps * torch.maximum(F_u, F_l) / D
+    return np.minimum(rel.numpy(), 1e6)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1.7])
+@pytest.mark.parametrize("censoring", list(_AFT_BOUNDS))
+@pytest.mark.parametrize("dist", ["normal", "logistic", "extreme"])
+def test_aft_matches_jax(dist, censoring, scale):
+    """Gradients and the log-likelihood within rtol/atol 2e-5, hessians
+    within rtol 2e-4 (atol 2e-5): a normal censored row's hessian is a
+    ratio of erfc tails, whose float32 evaluation in XLA is not correctly
+    rounded, and an interval row's is ``g^2`` minus a term of nearly the
+    same size (up to ~100x cancellation at the clip edge). Where the
+    float32 probability of the row's interval itself cancels, the values
+    are also allowed ``_cdf_slack`` (times 15, the clip bound, for the
+    interval gradient and hessian). Rows whose slack is below 2e-5 are
+    held to the tolerances alone."""
+    lo, hi = _AFT_BOUNDS[censoring]
+    n = _AFT_MARGINS.shape[0]
+    lower = np.full(n, lo, np.float32)
+    upper = np.full(n, hi, np.float32)
+    jobj, tobj = _pair("survival:aft", {
+        "aft_loss_distribution": dist, "aft_loss_distribution_scale": scale})
+    slack = _cdf_slack(dist, _AFT_MARGINS, lo, hi, scale)
+    w = np.random.RandomState(5).uniform(0.5, 2.0, n).astype(np.float32)
+    for weight in (None, w):
+        (jg, jh), (tg, th) = _grad_both(jobj, tobj, _AFT_MARGINS, lower,
+                                        weight, lower, upper)
+        assert np.isfinite(tg).all() and np.isfinite(th).all()
+        assert (np.abs(tg) <= 15 * (1 if weight is None else 2)).all()
+        if censoring == "interval":
+            sl = slack * 15 * (1 if weight is None else weight)
+            ok = sl <= 2e-5
+            _close(tg[ok], jg[ok], rtol=2e-5, atol=2e-5)
+            _close(th[ok], jh[ok], rtol=2e-4, atol=2e-5)
+            assert (np.abs(tg - jg) <= 2e-5 * (1 + np.abs(jg)) + sl).all()
+            assert (np.abs(th - jh) <= 2e-4 * (1 + np.abs(jh)) + sl).all()
+        else:
+            _close(tg, jg, rtol=2e-5, atol=2e-5)
+            _close(th, jh, rtol=2e-4, atol=2e-5)
+    m = torch.as_tensor(_AFT_MARGINS)
+    ll_t = tobj._loglik(m, torch.as_tensor(lower),
+                        torch.as_tensor(upper)).numpy()
+    ll_j = np.asarray(jobj._loglik(jnp.asarray(_AFT_MARGINS),
+                                   jnp.asarray(lower), jnp.asarray(upper)))
+    # the log-likelihood takes a left-censored row's lower bound as 1e-12
+    # (not 0), so its interval probability cancels too
+    sl = _cdf_slack(dist, _AFT_MARGINS, max(lo, 1e-12), hi, scale)
+    if censoring == "uncensored":
+        sl = 0 * sl
+    ok = sl <= 2e-5
+    _close(ll_t[ok], ll_j[ok], rtol=2e-5, atol=2e-5)
+    assert (np.abs(ll_t - ll_j) <= 2e-5 * (1 + np.abs(ll_j)) + sl).all()
+    np.testing.assert_array_equal(tobj.eval_transform(m).numpy(),
+                                  _AFT_MARGINS)
+
+
+def test_aft_mixed_rows_and_label_fallback_match_jax():
+    """Rows of all four censoring types in one call; without bounds the
+    label is both bounds (every row uncensored)."""
+    rng = np.random.RandomState(9)
+    n = 400
+    t = rng.gamma(2.0, 20.0, n).astype(np.float32)
+    kind = rng.randint(0, 4, n)
+    lower = np.where(kind == 2, 0.0, t).astype(np.float32)
+    upper = np.select([kind == 1, kind == 3], [np.inf, t * 2.5], t
+                      ).astype(np.float32)
+    m = (np.log(t) + rng.randn(n)).astype(np.float32)
+    for dist in ("normal", "logistic", "extreme"):
+        jobj, tobj = _pair("survival:aft", {"aft_loss_distribution": dist})
+        (jg, jh), (tg, th) = _grad_both(jobj, tobj, m, t, None, lower, upper)
+        _close(tg, jg, rtol=2e-5, atol=2e-5)
+        _close(th, jh, rtol=2e-5, atol=2e-5)
+        (jg, jh), (tg, th) = _grad_both(jobj, tobj, m, t, None)
+        _close(tg, jg, rtol=2e-5, atol=2e-5)
+        _close(th, jh, rtol=2e-5, atol=2e-5)
+
+
+def test_rank_objectives_are_not_ported():
+    for name in ("rank:pairwise", "rank:ndcg", "rank:map"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            t_create(name, TParam())
+
+
+def test_aliases_resolve_to_the_jax_name():
+    assert t_create("reg:linear").name == j_create("reg:linear").name \
+        == "reg:squarederror"
+
+
+def test_poisson_max_delta_step_is_the_objectives_own():
+    """Unset, the objective's own 0.7; set, the value, 0 included; the
+    JAX package's ``is_explicit`` rule."""
+    for params, want in (({}, 0.7), ({"max_delta_step": 0.0}, 0.0),
+                         ({"max_delta_step": 0.4}, 0.4)):
+        jobj, tobj = _pair("count:poisson", params)
+        assert tobj._max_delta_step() == jobj._max_delta_step() == want
+
+
+# ---------------------------------------------------------------------------
+# the reference's fixtures, as tests/test_golden_parity.py:70-317 carries
+# them (values copied, not imported); tests/cpp/objective/*.cc
+# ---------------------------------------------------------------------------
+
+class _P:
+    """A bare parameter namespace (objectives read it with getattr)."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+def check_obj(name, preds, labels, grad, hess, params=None, tol=0.01, **kw):
+    """The reference's CheckObjFunction (helpers.cc:95): EXPECT_NEAR 0.01."""
+    obj = t_create(name, params)
+    m = torch.tensor(preds, dtype=torch.float32)
+    y = torch.tensor(labels, dtype=torch.float32)
+    g, h = obj.get_gradient(m, y, None, 0, **kw)
+    np.testing.assert_allclose(g.numpy().ravel(), grad, atol=tol, rtol=0)
+    np.testing.assert_allclose(h.numpy().ravel(), hess, atol=tol, rtol=0)
+
+
+_P8 = [0, 0.1, 0.9, 1, 0, 0.1, 0.9, 1]
+_Y8 = [0, 0, 0, 0, 1, 1, 1, 1]
+GOLDEN = {
+    # test_regression_obj.cc:20
+    "squarederror": ("reg:squarederror", _P8, _Y8,
+                     [0, 0.1, 0.9, 1.0, -1.0, -0.9, -0.1, 0], [1] * 8, None),
+    # :43
+    "squaredlogerror": ("reg:squaredlogerror", [0.1, 0.2, 0.4, 0.8, 1.6],
+                        [1.0] * 5,
+                        [-0.5435, -0.4257, -0.25475, -0.05855, 0.1009],
+                        [1.3205, 1.0492, 0.69215, 0.34115, 0.1091], None),
+    # :66
+    "pseudohuber": ("reg:pseudohubererror", [0.1, 0.2, 0.4, 0.8, 1.6],
+                    [1.0] * 5,
+                    [-0.668965, -0.624695, -0.514496, -0.196116, 0.514496],
+                    [0.410660, 0.476140, 0.630510, 0.9428660, 0.630510],
+                    None),
+    # :155 (max_delta_step 0.1)
+    "poisson": ("count:poisson", _P8, _Y8,
+                [1, 1.10, 2.45, 2.71, 0, 0.10, 1.45, 1.71],
+                [1.10, 1.22, 2.71, 3.00, 1.10, 1.22, 2.71, 3.00],
+                _P(max_delta_step=0.1)),
+    # :205
+    "gamma": ("reg:gamma", _P8, [2, 2, 2, 2, 1, 1, 1, 1],
+              [-1, -0.809, 0.187, 0.264, 0, 0.09, 0.59, 0.63],
+              [2, 1.809, 0.813, 0.735, 1, 0.90, 0.40, 0.36], None),
+    # :252 (variance power 1.1)
+    "tweedie": ("reg:tweedie", _P8, _Y8,
+                [1, 1.09, 2.24, 2.45, 0, 0.10, 1.33, 1.55],
+                [0.89, 0.98, 2.02, 2.21, 1, 1.08, 2.11, 2.30],
+                _P(tweedie_variance_power=1.1)),
+    # :360
+    "cox": ("survival:cox", _P8, [0, -2, -2, 2, 3, 5, -10, 100],
+            [0, 0, 0, -0.799, -0.788, -0.590, 0.910, 1.006],
+            [0, 0, 0, 0.160, 0.186, 0.348, 0.610, 0.639], None),
+}
+
+
+@pytest.mark.parametrize("case", list(GOLDEN))
+def test_golden_gradients(case):
+    name, preds, labels, grad, hess, params = GOLDEN[case]
+    check_obj(name, preds, labels, grad, hess, params)
+
+
+@pytest.mark.parametrize("name", ["reg:logistic", "binary:logitraw",
+                                  "binary:logistic"])
+def test_golden_logistic_gpair(name):  # test_regression_obj.cc:89, :137
+    check_obj(name, _P8, _Y8,
+              [0.5, 0.52, 0.71, 0.73, -0.5, -0.47, -0.28, -0.26],
+              [0.25, 0.24, 0.20, 0.19, 0.25, 0.24, 0.20, 0.19])
+
+
+def test_golden_logistic_transforms():  # test_regression_obj.cc:108-128
+    obj = t_create("reg:logistic")
+    assert obj.prob_to_margin(0.1) == pytest.approx(-2.197, abs=0.01)
+    assert obj.prob_to_margin(0.5) == pytest.approx(0, abs=0.01)
+    assert obj.prob_to_margin(0.9) == pytest.approx(2.197, abs=0.01)
+    out = obj.pred_transform(torch.tensor([0, 0.1, 0.5, 0.9, 1.0]))
+    np.testing.assert_allclose(out.numpy(), [0.5, 0.524, 0.622, 0.710, 0.731],
+                               atol=0.01)
+
+
+def test_golden_poisson_default_mds():
+    """Unset max_delta_step is the objective's own 0.7, not the tree
+    parameter's 0 (regression_obj.cu:200 set_default(0.7f))."""
+    _, h = t_create("count:poisson").get_gradient(
+        torch.zeros(1), torch.zeros(1), None, 0)
+    assert float(h[0]) == pytest.approx(math.exp(0.7), abs=1e-4)
+
+
+def test_golden_poisson_transforms():  # test_regression_obj.cc:183-196
+    obj = t_create("count:poisson")
+    assert obj.prob_to_margin(0.5) == pytest.approx(-0.69, abs=0.01)
+    out = obj.pred_transform(torch.tensor([0, 0.1, 0.5, 0.9, 1.0]))
+    np.testing.assert_allclose(out.numpy(), [1, 1.10, 1.64, 2.45, 2.71],
+                               atol=0.01)
+
+
+def test_golden_softmax_gpair():  # test_multiclass_obj.cc:21
+    obj = t_create("multi:softmax", _P(num_class=3))
+    g, h = obj.get_gradient(torch.tensor([[1.0, 0.0, 2.0], [2.0, 0.0, 1.0]]),
+                            torch.tensor([1.0, 0.0]), None, 0)
+    np.testing.assert_allclose(g.numpy().ravel(),
+                               [0.24, -0.91, 0.66, -0.33, 0.09, 0.24],
+                               atol=0.01)
+    np.testing.assert_allclose(h.numpy().ravel(),
+                               [0.36, 0.16, 0.44, 0.45, 0.16, 0.37],
+                               atol=0.01)
+
+
+def test_golden_softmax_softprob_transforms():  # test_multiclass_obj.cc:39,59
+    obj = t_create("multi:softmax", _P(num_class=3))
+    out = obj.pred_transform(torch.tensor([[2.0, 0.0, 1.0], [1.0, 0.0, 2.0]]))
+    np.testing.assert_allclose(out.numpy(), [0.0, 2.0], atol=0.01)
+    obj2 = t_create("multi:softprob", _P(num_class=3))
+    out = obj2.pred_transform(torch.tensor([[2.0, 0.0, 1.0]]))
+    np.testing.assert_allclose(out.numpy().ravel(),
+                               [0.66524096, 0.09003057, 0.24472847],
+                               atol=0.01)
+
+
+# test_aft_obj.cc:40-170: 20 margins, (lower, upper) -> {dist: (grad, hess)}
+_AFT_PREDS = [math.log(2.0 ** (i * (15.0 - 1.0) / 19 + 1.0))
+              for i in range(20)]
+_AFT_GOLDEN = {
+    (100.0, 100.0): {
+        "normal": (
+            [-3.9120, -3.4013, -2.8905, -2.3798, -1.8691, -1.3583, -0.8476,
+             -0.3368, 0.1739, 0.6846, 1.1954, 1.7061, 2.2169, 2.7276, 3.2383,
+             3.7491, 4.2598, 4.7706, 5.2813, 5.7920],
+            [1.0] * 20),
+        "logistic": (
+            [-0.9608, -0.9355, -0.8948, -0.8305, -0.7327, -0.5910, -0.4001,
+             -0.1668, 0.0867, 0.3295, 0.5354, 0.6927, 0.8035, 0.8773, 0.9245,
+             0.9540, 0.9721, 0.9832, 0.9899, 0.9939],
+            [0.0384, 0.0624, 0.0997, 0.1551, 0.2316, 0.3254, 0.4200, 0.4861,
+             0.4962, 0.4457, 0.3567, 0.2601, 0.1772, 0.1152, 0.0726, 0.0449,
+             0.0275, 0.0167, 0.0101, 0.0061]),
+        "extreme": (
+            [-15.0000, -15.0000, -15.0000, -9.8028, -5.4822, -2.8897,
+             -1.3340, -0.4005, 0.1596, 0.4957, 0.6974, 0.8184, 0.8910,
+             0.9346, 0.9608, 0.9765, 0.9859, 0.9915, 0.9949, 0.9969],
+            [15.0000, 15.0000, 15.0000, 10.8028, 6.4822, 3.8897, 2.3340,
+             1.4005, 0.8404, 0.5043, 0.3026, 0.1816, 0.1090, 0.0654, 0.0392,
+             0.0235, 0.0141, 0.0085, 0.0051, 0.0031]),
+    },
+    (0.0, 20.0): {
+        "normal": (
+            [0.0285, 0.0832, 0.1951, 0.3804, 0.6403, 0.9643, 1.3379, 1.7475,
+             2.1828, 2.6361, 3.1023, 3.5779, 4.0603, 4.5479, 5.0394, 5.5340,
+             6.0309, 6.5298, 7.0303, 7.5326],
+            [0.0663, 0.1559, 0.2881, 0.4378, 0.5762, 0.6878, 0.7707, 0.8300,
+             0.8719, 0.9016, 0.9229, 0.9385, 0.9501, 0.9588, 0.9656, 0.9709,
+             0.9751, 0.9785, 0.9813, 0.9877]),
+        "logistic": (
+            [0.0909, 0.1428, 0.2174, 0.3164, 0.4355, 0.5625, 0.6818, 0.7812,
+             0.8561, 0.9084, 0.9429, 0.9650, 0.9787, 0.9871, 0.9922, 0.9953,
+             0.9972, 0.9983, 0.9990, 0.9994],
+            [0.0826, 0.1224, 0.1701, 0.2163, 0.2458, 0.2461, 0.2170, 0.1709,
+             0.1232, 0.0832, 0.0538, 0.0338, 0.0209, 0.0127, 0.0077, 0.0047,
+             0.0028, 0.0017, 0.0010, 0.0006]),
+        "extreme": (
+            [0.0005, 0.0149, 0.1011, 0.2815, 0.4881, 0.6610, 0.7847, 0.8665,
+             0.9183, 0.9504, 0.9700, 0.9820, 0.9891, 0.9935, 0.9961, 0.9976,
+             0.9986, 0.9992, 0.9995, 0.9997],
+            [0.0041, 0.0747, 0.2731, 0.4059, 0.3829, 0.2901, 0.1973, 0.1270,
+             0.0793, 0.0487, 0.0296, 0.0179, 0.0108, 0.0065, 0.0039, 0.0024,
+             0.0014, 0.0008, 0.0005, 0.0003]),
+    },
+    (60.0, float("inf")): {
+        "normal": (
+            [-3.6583, -3.1815, -2.7135, -2.2577, -1.8190, -1.4044, -1.0239,
+             -0.6905, -0.4190, -0.2209, -0.0973, -0.0346, -0.0097, -0.0021,
+             -0.0004, -0.0000, -0.0000, -0.0000, -0.0000, -0.0000],
+            [0.9407, 0.9259, 0.9057, 0.8776, 0.8381, 0.7821, 0.7036, 0.5970,
+             0.4624, 0.3128, 0.1756, 0.0780, 0.0265, 0.0068, 0.0013, 0.0002,
+             0.0000, 0.0000, 0.0000, 0.0000]),
+        "logistic": (
+            [-0.9677, -0.9474, -0.9153, -0.8663, -0.7955, -0.7000, -0.5834,
+             -0.4566, -0.3352, -0.2323, -0.1537, -0.0982, -0.0614, -0.0377,
+             -0.0230, -0.0139, -0.0084, -0.0051, -0.0030, -0.0018],
+            [0.0312, 0.0499, 0.0776, 0.1158, 0.1627, 0.2100, 0.2430, 0.2481,
+             0.2228, 0.1783, 0.1300, 0.0886, 0.0576, 0.0363, 0.0225, 0.0137,
+             0.0083, 0.0050, 0.0030, 0.0018]),
+        "extreme": (
+            [-15.0000, -15.0000, -10.8018, -6.4817, -3.8893, -2.3338,
+             -1.4004, -0.8403, -0.5042, -0.3026, -0.1816, -0.1089, -0.0654,
+             -0.0392, -0.0235, -0.0141, -0.0085, -0.0051, -0.0031, -0.0018],
+            [15.0000, 15.0000, 10.8018, 6.4817, 3.8893, 2.3338, 1.4004,
+             0.8403, 0.5042, 0.3026, 0.1816, 0.1089, 0.0654, 0.0392, 0.0235,
+             0.0141, 0.0085, 0.0051, 0.0031, 0.0018]),
+    },
+    (16.0, 200.0): {
+        "normal": (
+            [-2.4435, -1.9965, -1.5691, -1.1679, -0.7990, -0.4649, -0.1596,
+             0.1336, 0.4370, 0.7682, 1.1340, 1.5326, 1.9579, 2.4035, 2.8639,
+             3.3351, 3.8143, 4.2995, 4.7891, 5.2822],
+            [0.8909, 0.8579, 0.8134, 0.7557, 0.6880, 0.6221, 0.5789, 0.5769,
+             0.6171, 0.6818, 0.7500, 0.8088, 0.8545, 0.8884, 0.9131, 0.9312,
+             0.9446, 0.9547, 0.9624, 0.9684]),
+        "logistic": (
+            [-0.8790, -0.8112, -0.7153, -0.5893, -0.4375, -0.2697, -0.0955,
+             0.0800, 0.2545, 0.4232, 0.5768, 0.7054, 0.8040, 0.8740, 0.9210,
+             0.9513, 0.9703, 0.9820, 0.9891, 0.9934],
+            [0.1086, 0.1588, 0.2176, 0.2745, 0.3164, 0.3374, 0.3433, 0.3434,
+             0.3384, 0.3191, 0.2789, 0.2229, 0.1637, 0.1125, 0.0737, 0.0467,
+             0.0290, 0.0177, 0.0108, 0.0065]),
+        "extreme": (
+            [-8.0000, -4.8004, -2.8805, -1.7284, -1.0371, -0.6168, -0.3140,
+             -0.0121, 0.2841, 0.5261, 0.6989, 0.8132, 0.8857, 0.9306, 0.9581,
+             0.9747, 0.9848, 0.9909, 0.9945, 0.9967],
+            [8.0000, 4.8004, 2.8805, 1.7284, 1.0380, 0.6567, 0.5727, 0.6033,
+             0.5384, 0.4051, 0.2757, 0.1776, 0.1110, 0.0682, 0.0415, 0.0251,
+             0.0151, 0.0091, 0.0055, 0.0033]),
+    },
+}
+
+
+@pytest.mark.parametrize("bounds", list(_AFT_GOLDEN))
+@pytest.mark.parametrize("dist", ["normal", "logistic", "extreme"])
+def test_golden_aft(bounds, dist):  # test_aft_obj.cc:40-170
+    """Gradients within 2e-3 and hessians within 5e-3 of the reference's
+    pinned values, the tolerances ``tests/test_golden_parity.py`` holds the
+    JAX package to (its note: the deep-tail hessians the reference pins
+    carry the reference's own float error)."""
+    lo, hi = bounds
+    grad, hess = _AFT_GOLDEN[bounds][dist]
+    obj = t_create("survival:aft", _P(aft_loss_distribution=dist,
+                                      aft_loss_distribution_scale=1.0))
+    m = torch.tensor(_AFT_PREDS, dtype=torch.float32)
+    n = m.shape[0]
+    g, h = obj.get_gradient(m, torch.full((n,), lo), None, 0,
+                            label_lower=torch.full((n,), lo),
+                            label_upper=torch.full((n,), hi))
+    np.testing.assert_allclose(g.numpy(), grad, atol=2e-3)
+    np.testing.assert_allclose(h.numpy(), hess, atol=5e-3)

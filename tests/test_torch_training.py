@@ -579,7 +579,7 @@ def test_validate_parameters_matches(both, params, raises):
 @pytest.mark.parametrize("params", [{"max_leaves": 8},
                                     {"num_parallel_tree": 2},
                                     {"updater": "refresh"},
-                                    {"huber_slope": 2.0}])
+                                    {"multi_strategy": "multi_output_tree"}])
 def test_unported_parameters_raise(both, params):
     with pytest.raises(NotImplementedError):
         xgbt.train({**PARAMS, **params}, both.td, 1, verbose_eval=False)

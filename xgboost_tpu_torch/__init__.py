@@ -1,8 +1,9 @@
 """xgboost_tpu_torch: the PyTorch/CUDA port of ``xgboost_tpu``.
 
 Dense ``DMatrix`` construction and quantile binning, the depthwise
-``tpu_hist`` grower, ``binary:logistic`` / ``reg:squarederror``, AUC /
-logloss / error / rmse evaluation, the forest-walk predictor and XGBoost-
+``tpu_hist`` grower, the JAX package's objectives and metrics but ranking
+(the regression family, multiclass softmax with K trees per round,
+survival with censoring intervals), the forest-walk predictor and XGBoost-
 schema JSON model IO; the training surface around them: ``train`` with
 callbacks, early stopping, custom objectives and metrics and continued
 training, ``cv``, and the ``Booster``'s predict options, slicing, copies,

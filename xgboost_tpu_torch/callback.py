@@ -23,6 +23,7 @@ __all__ = [
     "EarlyStopping",
     "EvaluationMonitor",
     "TrainingCheckPoint",
+    "is_maximize",
 ]
 
 _EvalsLog = Dict[str, Dict[str, List[float]]]
@@ -98,13 +99,30 @@ class LearningRateScheduler(TrainingCallback):
         return False
 
 
+#: metrics better when larger, for a metric no Booster object names (a
+#: custom metric's name)
+_MAXIMIZE_METRICS = ("auc", "aucpr", "map", "ndcg", "pre", "ams",
+                     "interval-regression-accuracy")
+
+
+def is_maximize(metric: str, model=None,
+                maximize: Optional[bool] = None) -> bool:
+    """Early stopping's direction for ``metric``: ``maximize`` if given,
+    else the ``maximize`` of ``model``'s metric object of that name, else
+    (a custom metric) whether its base name is in ``_MAXIMIZE_METRICS``."""
+    if maximize is not None:
+        return maximize
+    found = (model.metric_maximize(metric)
+             if hasattr(model, "metric_maximize") else None)
+    if found is not None:
+        return found
+    return metric.split("@")[0] in _MAXIMIZE_METRICS
+
+
 class EarlyStopping(TrainingCallback):
     """Stop when the watched metric (by default the last metric of the last
     data set) has not improved by more than ``min_delta`` for ``rounds``
     rounds; ``save_best`` returns the model cut after the best round."""
-
-    _MAXIMIZE_METRICS = ("auc", "aucpr", "map", "ndcg", "pre", "ams",
-                         "interval-regression-accuracy")
 
     def __init__(self, rounds: int, metric_name: Optional[str] = None,
                  data_name: Optional[str] = None,
@@ -124,11 +142,6 @@ class EarlyStopping(TrainingCallback):
         self.best_scores = []
         return model
 
-    def _is_maximize(self, metric: str) -> bool:
-        if self.maximize is not None:
-            return self.maximize
-        return metric.split("@")[0] in self._MAXIMIZE_METRICS
-
     def after_iteration(self, model, epoch, evals_log) -> bool:
         if not evals_log:
             return False
@@ -138,7 +151,7 @@ class EarlyStopping(TrainingCallback):
         score = metrics[metric_name][-1]
         if not self.best_scores:
             improved = True
-        elif self._is_maximize(metric_name):
+        elif is_maximize(metric_name, model, self.maximize):
             improved = score > self.best_scores[-1] + self.min_delta
         else:
             improved = score < self.best_scores[-1] - self.min_delta

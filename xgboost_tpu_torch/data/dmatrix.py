@@ -36,13 +36,21 @@ class DMatrix:
     plain PyTorch versions. ``feature_types`` marks categorical columns
     with ``"c"``; ``enable_categorical`` concerns only data frames, whose
     adapters are not ported, as in the JAX package. ``feature_weights``
-    ([F]) weight the per-tree column sample (``colsample_bytree``)."""
+    ([F]) weight the per-tree column sample (``colsample_bytree``).
+    ``label_lower_bound`` and ``label_upper_bound`` ([n]) are the censoring
+    intervals of ``survival:aft``; like the label they live on the
+    matrix's device."""
+
+    #: the fields of ``set_float_info`` / ``get_float_info``
+    _FLOAT_INFO = ("label", "weight", "base_margin", "label_lower_bound",
+                   "label_upper_bound", "feature_weights")
 
     def __init__(self, data: Any, label: Any = None, *, weight: Any = None,
                  base_margin: Any = None, missing: float = np.nan,
                  feature_names: Any = None, feature_types: Any = None,
                  enable_categorical: bool = False,
                  feature_weights: Any = None,
+                 label_lower_bound: Any = None, label_upper_bound: Any = None,
                  device: Optional[Union[str, torch.device]] = None) -> None:
         self.device = resolve_device(device)
         self.feature_names: Optional[List[str]] = (
@@ -65,6 +73,8 @@ class DMatrix:
         self.base_margin = (None if base_margin is None else torch.as_tensor(
             np.asarray(base_margin, np.float32), device=self.device))
         self.feature_weights = _vector(feature_weights, self.device)
+        self.label_lower_bound = _vector(label_lower_bound, self.device)
+        self.label_upper_bound = _vector(label_upper_bound, self.device)
         self._binned: Dict[int, BinnedMatrix] = {}
 
     # ---- metadata (the JAX package's ``DMatrix.set_*`` / ``get_*``) ----
@@ -82,6 +92,22 @@ class DMatrix:
         """[F] float32 weights of the per-tree column sample (the JAX
         package's ``set_float_info("feature_weights", ...)``)."""
         self.feature_weights = _vector(weights, self.device)
+
+    def set_float_info(self, field: str, data: Any) -> None:
+        """Set one of ``_FLOAT_INFO`` (the JAX package's
+        ``set_float_info``), on the matrix's device."""
+        if field not in self._FLOAT_INFO:
+            raise ValueError(f"unknown float field: {field!r}")
+        if field == "base_margin":
+            self.set_base_margin(data)
+        else:
+            setattr(self, field, _vector(data, self.device))
+
+    def get_float_info(self, field: str) -> np.ndarray:
+        """One of ``_FLOAT_INFO`` on the host, empty when unset."""
+        if field not in self._FLOAT_INFO:
+            raise ValueError(f"unknown float field: {field!r}")
+        return self._host(getattr(self, field))
 
     @staticmethod
     def _host(v: Optional[torch.Tensor]) -> np.ndarray:
@@ -102,10 +128,11 @@ class DMatrix:
 
     def slice(self, rindex: Any) -> "DMatrix":
         """A new DMatrix of the selected rows on the same device, with
-        label, weight, base margin and feature metadata sliced along; its
-        bins are built anew on first use (the JAX package's
-        ``DMatrix.slice``); the feature weights are kept. ``rindex`` is an integer index array or a
-        boolean row mask; out-of-range indices raise IndexError."""
+        label, weight, base margin, label bounds and feature metadata
+        sliced along; its bins are built anew on first use (the JAX
+        package's ``DMatrix.slice``); the feature weights are kept.
+        ``rindex`` is an integer index array or a boolean row mask;
+        out-of-range indices raise IndexError."""
         rindex = np.asarray(rindex)
         if rindex.dtype == np.bool_:
             rindex = np.nonzero(rindex)[0]
@@ -122,7 +149,8 @@ class DMatrix:
         out.feature_types = self.feature_types
         out.feature_weights = self.feature_weights
         out.data = self.data[idx]
-        for name in ("label", "weight", "base_margin"):
+        for name in ("label", "weight", "base_margin", "label_lower_bound",
+                     "label_upper_bound"):
             v = getattr(self, name)
             setattr(out, name, None if v is None else v[idx])
         out._binned = {}

@@ -7,7 +7,9 @@ JSON model IO :659-994, ``Learner::Slice``). A Booster lives on one device
 predicts must be on the same device, and a pickled or copied Booster comes
 back on the device it was made for (raising where that device is absent).
 The model JSON is the XGBoost schema the JAX package writes, feature names,
-types and attributes included, so models carry across in both directions.
+types, attributes, ``num_class`` and the objective included, so models
+carry across in both directions. With K output groups (``num_class``) a
+round grows K trees and margins are ``[n, K]``.
 """
 
 from __future__ import annotations
@@ -89,6 +91,10 @@ class Booster:
         unknown = self.lparam.update(params)
         check_ported(unknown)
         self._extra_params.update(unknown)
+        # read by the tree parameters and by count:poisson alike: the
+        # learner keeps it and forwards it (the JAX package's rule)
+        if "max_delta_step" in params:
+            self._extra_params["max_delta_step"] = params["max_delta_step"]
         if self.lparam.validate_parameters:
             known = known_keys()
             bad = [k for k in self._extra_params if k not in known]
@@ -116,8 +122,6 @@ class Booster:
         if self.lparam.booster != "gbtree":
             raise NotImplementedError(
                 f"booster={self.lparam.booster!r} is not ported yet")
-        if self.lparam.num_class > 1:
-            raise NotImplementedError("multiclass is not ported yet")
         if self._obj is None:
             self._obj = create_objective(self.lparam.objective, self.lparam)
         if self._gbm is None:
@@ -190,10 +194,15 @@ class Booster:
             self.boost(dtrain, grad, hess)
             return
         m = margin[:, 0] if self.n_groups == 1 else margin
-        label = (dtrain.label if dtrain.label is not None
-                 else torch.zeros(dtrain.num_row(), device=self.device))
-        grad, hess = self._obj.get_gradient(m, label, dtrain.weight, iteration)
+        grad, hess = self._obj.get_gradient(
+            m, self._label(dtrain), dtrain.weight, iteration,
+            label_lower=dtrain.label_lower_bound,
+            label_upper=dtrain.label_upper_bound)
         self._boost(dtrain, grad, hess, iteration)
+
+    def _label(self, dmat: DMatrix) -> torch.Tensor:
+        return (dmat.label if dmat.label is not None
+                else torch.zeros(dmat.num_row(), device=self.device))
 
     def boost(self, dtrain: DMatrix, grad, hess) -> None:
         """One round from caller-given gradients (reference BoostOneIter
@@ -243,20 +252,38 @@ class Booster:
             if not names and not self.lparam.disable_default_eval_metric:
                 names = [self._obj.default_metric()]
             self._metrics = [create_metric(n) for n in names]
+            for m in self._metrics:
+                # metrics configured like the objective (aft-nloglik's
+                # distribution and scale) read the learner's parameters
+                m.lparam = self.lparam
         return self._metrics
 
+    def metric_maximize(self, name: str) -> Optional[bool]:
+        """Whether the metric ``name`` of this Booster is better when
+        larger (early stopping's direction), or None when no metric of
+        the Booster has that name (a custom metric)."""
+        for m in self._resolve_metrics():
+            if m.name == name:
+                return bool(m.maximize)
+        return None
+
     def eval_values(self, evals, iteration: int = 0) -> Dict[str, Dict[str, float]]:
-        """{data name: {metric name: value}} for one round."""
+        """{data name: {metric name: value}} for one round. The metrics see
+        the objective's ``eval_transform`` of the margin (softmax
+        probabilities for both multiclass objectives, the log-space score
+        for ``survival:aft``) and the label bounds."""
         self._configure()
         out: Dict[str, Dict[str, float]] = {}
         for dmat, name in evals:
             margin = self._predict_margin(dmat)
             preds = self._obj.eval_transform(
                 margin[:, 0] if self.n_groups == 1 else margin)
-            label = (dmat.label if dmat.label is not None
-                     else torch.zeros(dmat.num_row(), device=self.device))
-            out[name] = {m.name: m.evaluate(preds, label, dmat.weight)
-                         for m in self._resolve_metrics()}
+            label = self._label(dmat)
+            out[name] = {m.name: m.evaluate(
+                preds, label, dmat.weight,
+                label_lower=dmat.label_lower_bound,
+                label_upper=dmat.label_upper_bound)
+                for m in self._resolve_metrics()}
         return out
 
     def eval_set(self, evals, iteration: int = 0, feval=None,
@@ -319,8 +346,11 @@ class Booster:
         """Predictions of ``data`` (the JAX package's ``Booster.predict``,
         ``learner.py:734``, and its shape rules): transformed values, or
         margins with ``output_margin``, whose ``[n, 1]`` becomes ``[n]``
-        unless ``strict_shape``; with ``pred_leaf`` the ``[n,
-        T]`` leaf ids of the saved (BFS-compacted) trees, every tree.
+        unless ``strict_shape``. With K output groups the margins and the
+        ``multi:softprob`` probabilities are ``[n, K]`` and
+        ``multi:softmax`` gives ``[n]`` class indices (as floats, strict
+        or not). With ``pred_leaf`` the ``[n, T]`` leaf ids of the saved
+        (BFS-compacted) trees, every tree.
         ``iteration_range=(lo, hi)`` keeps rounds ``[lo, hi)`` and walks
         them afresh, bypassing the prediction cache; ``ntree_limit`` (when
         no range is given) keeps the first ``ntree_limit // K`` rounds.
@@ -356,14 +386,17 @@ class Booster:
 
     def inplace_predict(self, data, iteration_range=None,
                         predict_type: str = "value", missing: float = np.nan,
-                        base_margin=None) -> np.ndarray:
+                        base_margin=None, strict_shape: bool = False
+                        ) -> np.ndarray:
         """Predict from a dense array, with no DMatrix and no binning
         (reference ``XGBoosterPredictFromDense``, c_api.cc:833; the JAX
         package's ``Booster.inplace_predict``, ``learner.py:838``): the rows
         go to the device and straight through ``predict_margin`` (kernel B on
         the card), which checks the feature count. ``predict_type`` is
         ``"value"`` or ``"margin"``; ``iteration_range`` ``(lo, hi)`` keeps
-        rounds ``[lo, hi)`` (``hi`` 0: to the last). The JAX package pads
+        rounds ``[lo, hi)`` (``hi`` 0: to the last). Shapes as ``predict``'s,
+        except that ``strict_shape`` also makes ``[n]`` (``multi:softmax``)
+        ``[n, 1]``, as in the JAX package. The JAX package pads
         rows to power-of-two buckets to bound XLA recompiles
         (``predictor/serving.py``); eager PyTorch compiles nothing per shape,
         so the port walks the rows as given."""
@@ -395,8 +428,10 @@ class Booster:
         out = margin if predict_type == "margin" else self._obj.pred_transform(
             margin[:, 0] if K == 1 else margin)
         out = out.cpu().numpy()
-        if out.ndim == 2 and out.shape[1] == 1:
+        if out.ndim == 2 and out.shape[1] == 1 and not strict_shape:
             out = out[:, 0]
+        elif strict_shape and out.ndim == 1:
+            out = out.reshape(n, 1)
         return out
 
     # ------------------------------------------------------------------

@@ -1,7 +1,10 @@
-"""Binary ROC AUC (reference ``src/metric/auc.cc``; the JAX package's
-``metric/auc.py``): sort by score, build tie blocks from score boundaries,
-and compute P(s_pos > s_neg) + 0.5 P(=) from weighted block sums. The sums
-run in float64."""
+"""ROC AUC and AUC-PR (reference ``src/metric/auc.cc``; the JAX package's
+``metric/auc.py``). ROC AUC sorts by score, builds tie blocks from score
+boundaries and computes P(s_pos > s_neg) + 0.5 P(=) from weighted block
+sums; K classes give the plain mean of the K one-vs-rest AUCs, as the JAX
+package computes it. AUC-PR walks the scores in descending order and
+evaluates precision and recall at the ends of tie blocks. Sums run in
+float64, on the predictions' device."""
 
 from __future__ import annotations
 
@@ -11,7 +14,15 @@ import torch
 
 from .base import Metric, register
 
-__all__ = ["AUC"]
+__all__ = ["AUC", "AUCPR"]
+
+
+def _weights(label: torch.Tensor, weight: Optional[torch.Tensor]
+             ) -> torch.Tensor:
+    n = label.shape[0]
+    if weight is not None and weight.numel() == n:
+        return weight
+    return torch.ones(n, dtype=torch.float32, device=label.device)
 
 
 def _binary_auc(score: torch.Tensor, label: torch.Tensor,
@@ -39,13 +50,50 @@ def _binary_auc(score: torch.Tensor, label: torch.Tensor,
 @register("auc")
 class AUC(Metric):
     name = "auc"
+    maximize = True
 
-    def evaluate(self, preds, label, weight: Optional[torch.Tensor] = None):
+    def evaluate(self, preds, label, weight=None, **kw):
+        w = _weights(label, weight)
+        if float(w.double().sum()) <= 0:
+            return float("nan")  # the JAX package's weighted mean
+        if preds.dim() == 2 and preds.shape[1] > 1:
+            # one-vs-rest per class, then the unweighted mean (the JAX
+            # package's; NaN when some class has no rows or all of them)
+            aucs = [_binary_auc(preds[:, k], (label == k).to(torch.float32), w)
+                    for k in range(preds.shape[1])]
+            return float(sum(aucs) / len(aucs))
         if preds.dim() == 2:
-            if preds.shape[1] > 1:
-                raise NotImplementedError("multiclass AUC is not ported yet")
             preds = preds[:, 0]
-        n = label.shape[0]
-        w = (weight if weight is not None and weight.numel() == n
-             else torch.ones(n, dtype=torch.float32, device=label.device))
         return _binary_auc(preds, label, w)
+
+
+@register("aucpr")
+class AUCPR(Metric):
+    name = "aucpr"
+    maximize = True
+
+    def evaluate(self, preds, label, weight=None, **kw):
+        p = preds.reshape(-1).double()
+        y = label.double()
+        if p.shape[0] != y.shape[0]:
+            # the JAX package flattens K-class scores, and its label no
+            # longer lines up (numpy raises there)
+            raise ValueError("aucpr takes one score per row; K-class "
+                             "predictions are not supported")
+        w = _weights(label, weight).double()
+        if y.shape[0] == 0:
+            return float("nan")
+        order = torch.argsort(-p, stable=True)
+        y, w, p = y[order], w[order], p[order]
+        tp = torch.cumsum(w * y, 0)
+        fp = torch.cumsum(w * (1.0 - y), 0)
+        total_pos = float(tp[-1])
+        if total_pos <= 0 or float(w.sum()) <= 0:
+            return float("nan")
+        ends = torch.ones_like(p, dtype=torch.bool)
+        ends[:-1] = p[1:] != p[:-1]
+        tp_e, fp_e = tp[ends], fp[ends]
+        recall = tp_e / total_pos
+        precision = tp_e / torch.clamp(tp_e + fp_e, min=1e-30)
+        prev_r = torch.cat([recall.new_zeros(1), recall[:-1]])
+        return float(((recall - prev_r) * precision).sum())

@@ -1,30 +1,54 @@
 """Metric base (reference ``include/xgboost/metric.h``; every elementwise
-metric is sum(w * loss) / sum(w), ``elementwise_metric.cu``)."""
+metric is sum(w * loss) / sum(w), ``elementwise_metric.cu``). Metrics run
+on the predictions' device; their sums run in float64."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Type
+from typing import Dict, Optional, Tuple, Type
 
 import torch
 
-__all__ = ["Metric", "ElementwiseMetric", "create_metric", "register"]
+__all__ = ["Metric", "ElementwiseMetric", "create_metric", "register",
+           "weighted_sum"]
 
 _REGISTRY: Dict[str, Type["Metric"]] = {}
 
 
-def register(name: str):
+def register(*names: str):
+    """Register a metric class under ``names``. A name ending in ``@``
+    takes an argument (``error@0.7``, ``tweedie-nloglik@1.2``): the class
+    is built as ``cls(arg, full_name=name)``."""
     def deco(cls):
-        _REGISTRY[name] = cls
+        for n in names:
+            _REGISTRY[n] = cls
         return cls
     return deco
 
 
 class Metric:
     name: str = ""
+    #: True for metrics where larger is better; early stopping reads it
+    maximize: bool = False
+    #: the learner's parameters, for metrics configured like the
+    #: objective (``aft-nloglik``); set by the learner
+    lparam = None
 
     def evaluate(self, preds: torch.Tensor, label: torch.Tensor,
-                 weight: Optional[torch.Tensor] = None) -> float:
+                 weight: Optional[torch.Tensor] = None, *,
+                 label_lower: Optional[torch.Tensor] = None,
+                 label_upper: Optional[torch.Tensor] = None) -> float:
         raise NotImplementedError
+
+
+def weighted_sum(loss: torch.Tensor, weight: Optional[torch.Tensor]
+                 ) -> Tuple[float, float]:
+    """``(sum(w * loss), sum(w))`` in float64; unit weights when ``weight``
+    is None or empty."""
+    loss = loss.double()
+    if weight is not None and weight.numel():
+        w = weight.double()
+        return float((loss * w).sum()), float(w.sum())
+    return float(loss.sum()), float(loss.shape[0])
 
 
 class ElementwiseMetric(Metric):
@@ -37,22 +61,26 @@ class ElementwiseMetric(Metric):
         # wsum == 0 returns the raw sum (elementwise_metric.cu GetFinal)
         return s if w == 0 else s / w
 
-    def evaluate(self, preds, label, weight=None):
+    def evaluate(self, preds, label, weight=None, **kw):
         if preds.dim() == 2 and preds.shape[1] == 1:
             preds = preds[:, 0]
-        loss = self.loss(preds, label).double()
-        if weight is not None and weight.numel():
-            w = weight.double()
-            s, tw = (loss * w).sum(), w.sum()
-        else:
-            s, tw = loss.sum(), float(loss.shape[0])
-        return self.finalize(float(s), float(tw))
+        return self.finalize(*weighted_sum(self.loss(preds, label), weight))
 
 
 def create_metric(name: str) -> Metric:
+    """The metric ``name``; ``base@arg`` builds the argument form of
+    ``base`` (the JAX package's ``registry.create_metric``)."""
+    if "@" in name:
+        base, _, arg = name.partition("@")
+        cls = _REGISTRY.get(base + "@")
+        if cls is not None:
+            return cls(arg, full_name=name)
     cls = _REGISTRY.get(name)
     if cls is None:
         raise NotImplementedError(
             f"metric {name!r} is not ported yet; the port has "
             f"{sorted(_REGISTRY)}")
-    return cls()
+    m = cls()
+    if not m.name:
+        m.name = name
+    return m

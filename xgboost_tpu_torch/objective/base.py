@@ -1,26 +1,80 @@
-"""ObjFunction base class (reference: ``include/xgboost/objective.h``)."""
+"""ObjFunction base class (reference: ``include/xgboost/objective.h``).
+
+Gradients must not depend on the device: the card's and the CPU's float32
+``exp``/``log``/``erfc``/``sqrt`` differ in the last ulp, and one ulp can
+flip a near-tie split. So every transcendental of a gradient or a
+transform is evaluated in float64 and rounded once to float32 (``f64``;
+square roots through ``sqrt``); additions, products and quotients of
+tensors stay in float32, where both devices round exactly (IEEE), in the
+JAX package's order of operations. A quotient with a Python number goes
+through ``div``: PyTorch's CUDA kernel multiplies by the number's
+reciprocal where the CPU's divides.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Type
+from typing import Callable, Dict, Optional, Tuple, Type
 
 import torch
 
-__all__ = ["ObjFunction", "create_objective", "apply_weight", "register"]
+__all__ = ["ObjFunction", "create_objective", "apply_weight", "register",
+           "f64", "sqrt", "div", "param"]
 
 _REGISTRY: Dict[str, Type["ObjFunction"]] = {}
+_ALIASES: Dict[str, str] = {}
 
 
-def register(*names: str):
+def register(name: str, *aliases: str):
+    """Register an objective class as ``name``; ``aliases`` resolve to
+    ``name``, the name the model JSON carries (the JAX package's
+    ``Registry.resolve``)."""
     def deco(cls):
-        for n in names:
-            _REGISTRY[n] = cls
+        _REGISTRY[name] = cls
+        for a in aliases:
+            _ALIASES[a] = name
         return cls
     return deco
 
 
+def f64(fn: Callable[[torch.Tensor], torch.Tensor],
+        x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` evaluated in float64 and rounded once to ``x``'s dtype, so
+    the card and the CPU get the same bits."""
+    return fn(x.double()).to(x.dtype)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``sqrt(x)`` of non-negative ``x`` rounded once to ``x``'s dtype:
+    float64 ``torch.sqrt`` refined by one Newton step. The CPU's
+    ``torch.sqrt`` is not correctly rounded (in float32 nor float64), and
+    in a few thread chunks of a large tensor it has been seen off by ~1e-11
+    relative; the Newton step takes any such error below a float64 ulp, so
+    the rounded result is the card's."""
+    d = x.double()
+    y = torch.sqrt(d)
+    y = torch.where(y > 0, 0.5 * (y + d / y), y)
+    return y.to(x.dtype)
+
+
+def div(a, b) -> torch.Tensor:
+    """``a / b`` rounded as IEEE division on every device: a Python-number
+    operand becomes a tensor like the other (a number divisor would be a
+    multiplication by its reciprocal on the card)."""
+    if not torch.is_tensor(a):
+        a = torch.full_like(b, a)
+    if not torch.is_tensor(b):
+        b = torch.full_like(a, b)
+    return a / b
+
+
+def param(params, name: str, default):
+    """``params.name``, or ``default`` when there are no params (the JAX
+    package's ``getattr(self.params, name, default)``)."""
+    return getattr(params, name, default) if params is not None else default
+
+
 class ObjFunction:
-    """Gradient/hessian provider. Shapes: margin [n]."""
+    """Gradient/hessian provider. Shapes: margin [n] or [n, n_targets]."""
 
     name: str = ""
 
@@ -31,7 +85,9 @@ class ObjFunction:
         return 1
 
     def get_gradient(self, margin: torch.Tensor, label: torch.Tensor,
-                     weight: Optional[torch.Tensor], iteration: int = 0
+                     weight: Optional[torch.Tensor], iteration: int = 0, *,
+                     label_lower: Optional[torch.Tensor] = None,
+                     label_upper: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
@@ -39,6 +95,7 @@ class ObjFunction:
     def pred_transform(self, margin: torch.Tensor) -> torch.Tensor:
         return margin
 
+    # the same for evaluation-time predictions (softmax differs)
     def eval_transform(self, margin: torch.Tensor) -> torch.Tensor:
         return self.pred_transform(margin)
 
@@ -54,6 +111,10 @@ class ObjFunction:
 
 
 def create_objective(name: str, params=None) -> ObjFunction:
+    """The objective registered as ``name``. The ranking objectives
+    (``rank:*``) and any other name the port lacks raise
+    NotImplementedError."""
+    name = _ALIASES.get(name, name)
     cls = _REGISTRY.get(name)
     if cls is None:
         raise NotImplementedError(
@@ -67,6 +128,9 @@ def create_objective(name: str, params=None) -> ObjFunction:
 def apply_weight(grad: torch.Tensor, hess: torch.Tensor,
                  weight: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row weights times gradients, broadcast over ``[n, K]``."""
     if weight is None:
         return grad, hess
+    if grad.dim() == 2:
+        weight = weight[:, None]
     return grad * weight, hess * weight

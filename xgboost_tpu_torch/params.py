@@ -145,10 +145,11 @@ class GBTreeParam(ParamSet):
 
 
 class LearnerParam(ParamSet):
-    """Learner-level params (reference: ``src/learner.cc``). ``seed``
-    stays here, as in the JAX package, and reaches the tree samplers'
-    ``TrainParam.seed`` only through ``Booster.set_param`` on a configured
-    booster; ``nthread`` and ``verbosity`` change no result."""
+    """Learner-level params (reference: ``src/learner.cc``), with the
+    objectives' own parameters. ``seed`` stays here, as in the JAX package,
+    and reaches the tree samplers' ``TrainParam.seed`` only through
+    ``Booster.set_param`` on a configured booster; ``nthread`` and
+    ``verbosity`` change no result."""
 
     FIELDS = {
         "objective": Field("reg:squarederror"),
@@ -162,6 +163,16 @@ class LearnerParam(ParamSet):
         "verbosity": Field(1, lower=0, upper=3),
         "validate_parameters": Field(False),
         "scale_pos_weight": Field(1.0),
+        # the objectives' own parameters (reference regression_obj.cu,
+        # aft_obj.cu; the JAX package's LearnerParam)
+        "tweedie_variance_power": Field(1.5, lower=1.0, upper=2.0),
+        "huber_slope": Field(1.0),
+        "aft_loss_distribution": Field("normal"),
+        "aft_loss_distribution_scale": Field(1.0),
+        # read by both the tree parameters and count:poisson, whose own
+        # default is 0.7 unless the key is set (regression_obj.cu:197);
+        # the learner forwards it to the booster as well
+        "max_delta_step": Field(0.0, lower=0.0),
     }
 
 
@@ -180,10 +191,8 @@ NOT_PORTED: Dict[str, Any] = {
     # the linear booster (GBLinearParam)
     "feature_selector": "cyclic", "top_k": 0, "reg_lambda_linear": 0.0,
     "reg_alpha_linear": 0.0, "eta_linear": 0.5,
-    # objectives that are not ported (LearnerParam)
-    "multi_strategy": "one_output_per_tree", "tweedie_variance_power": 1.5,
-    "huber_slope": 1.0, "aft_loss_distribution": "normal",
-    "aft_loss_distribution_scale": 1.0, "max_pairs": 100,
+    # multi-output trees and the ranking objectives (LearnerParam)
+    "multi_strategy": "one_output_per_tree", "max_pairs": 100,
     "lambdarank_num_pair_per_sample": 1,
 }
 

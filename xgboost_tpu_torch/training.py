@@ -12,7 +12,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .callback import (CallbackContainer, EarlyStopping, EvaluationMonitor,
-                       TrainingCallback)
+                       TrainingCallback, is_maximize)
 from .data.dmatrix import DMatrix
 from .learner import Booster
 
@@ -181,9 +181,8 @@ def cv(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
             if test_keys:
                 key = test_keys[-1]
                 score = agg[key][0]
-                is_max = (maximize if maximize is not None
-                          else key[len("test-"):].split("@")[0]
-                          in EarlyStopping._MAXIMIZE_METRICS)
+                is_max = is_maximize(key[len("test-"):], cvpacks[0][0],
+                                     maximize)
                 if (best is None or (is_max and score > best)
                         or (not is_max and score < best)):
                     best, stale, best_iteration = score, 0, i

@@ -70,6 +70,14 @@ def _bin_bytes(bins: torch.Tensor, what: str) -> int:
     return nb
 
 
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """Exact float64 ``2^e`` of integers ``e`` in [-1022, 1023], built from
+    the exponent bits: ``torch.ldexp`` multiplies by ``torch.pow(2, e)``,
+    which the card rounds (2^29 comes out one ulp low), so the quantised
+    gradients, and with them the trees, would differ from the CPU's."""
+    return ((e.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
 class QuantizedGradients(NamedTuple):
     """Fixed-point (g, h): ``q[:, j] = rint(x[:, j] * 2^exp[j])`` with one
     power-of-two scale per lane, chosen so ``|q| <= 2^30``."""
@@ -81,9 +89,7 @@ class QuantizedGradients(NamedTuple):
         """int64 sums -> float32, lane[i] picking the scale of each sum
         (int64 -> double is exact below 2^53, and a power-of-two scale is
         exact, so the only rounding is the final cast)."""
-        scale = torch.ldexp(torch.ones(2, dtype=torch.float64,
-                                       device=sums.device), -self.exp)
-        return (sums.double() * scale[lane]).float()
+        return (sums.double() * _pow2(-self.exp)[lane]).float()
 
     def totals(self) -> torch.Tensor:
         """[2] float32 (G, H) over all rows, from the same integers the
@@ -99,7 +105,7 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor
     gh = torch.stack([grad, hess], dim=1).to(torch.float32)
     _, e = torch.frexp(gh.abs().amax(dim=0))
     exp = (_QBITS - e).to(torch.int32)
-    scaled = torch.ldexp(gh.double(), exp.double())
+    scaled = gh.double() * _pow2(exp)
     return QuantizedGradients(q=torch.round(scaled).to(torch.int32), exp=exp)
 
 
