@@ -137,6 +137,39 @@ Objectives and metrics, on the same numerical rows (after phase 14):
     ``reg:tweedie`` and ``reg:pseudohubererror`` on 64k rows for 3 rounds
     on the card and on the CPU: the same trees.
 
+Ranking (after phase 17; ``phase_ranking``), on an MSLR-WEB10K-shaped
+configuration (``_make_rank_data``: 136 features with 5% NaN and a
+per-query offset, relevance 0-4 at MSLR's skew within each query), the XGBoost
+LTR demo's parameters (depth 6, eta 0.1, max_bin 256):
+
+18. ``rank:ndcg`` for 10 rounds through ``train`` on 1M rows in queries of
+    60-180 documents (the sampled-pair gradient), ``ndcg@10``/``map@10`` on
+    100k held-out rows in whole queries: C once, D 60 times (a partial
+    hoist), A never, B at least 10 times; both metrics rising;
+    ``inplace_predict`` equal to ``predict``; the saved JSON, loaded back,
+    within 1e-5; the median round, the gradient's own time;
+19. the inspection surface on that model, card against CPU (``get_score``
+    x5, ``get_dump`` text/json/dot with stats, a split-value histogram),
+    and ``save_config`` -> ``load_config`` onto a fresh Booster on the card
+    training the next round as the original does (that round profiled:
+    kernel D's device time per level at F = 136);
+20. kernels C, D and A against their plain versions, bitwise, at every
+    level of a tree on the 1M x 136 bins with ``rank:ndcg``'s round-0
+    gradients (``phase_rank_levels``): the hoist plan's prefix of about 33
+    features, D's routing launch writing the other ~103 feature-major, A
+    at F = 136; each timed beside its plain version, library call and bound;
+21. the construct route (``XGBTPU_HOIST_BUDGET_MB=0``) for 3 rounds: A 18
+    times, the same trees; a profiled fourth round: kernel A per level;
+22. the all-pairs gradient at full width: 200k rows in queries of 8-32,
+    ``rank:pairwise``/``ndcg``/``map`` for 5 rounds each with the default
+    metric, the grouped ``auc``, ``pre@5`` and ``ndcg-`` (the default
+    metric rising on the training queries);
+23. 3 rounds on the card and on the CPU, the same trees: ``rank:ndcg`` on a
+    partial hoist of about 33 features and ``rank:map`` on the construct
+    route, both on 64k rows in queries of 400-1000 (sampled pairs); all
+    three on 64k rows of phase 22's data with per-group weights set after
+    the first binning.
+
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; before that, one JSON line lists the kernels.
@@ -263,13 +296,37 @@ KERNEL_KEYS = {"A": ("level_",), "B": ("walk_kernel",), "C": ("onehot",),
                "D": ("route_kernel", "hoisted_kernel"),
                "A_route": ("level_route_kernel",),
                "D_route": ("route_kernel",)}
+#: CUDA launches per wrapper call (A and D: the routing launch and the
+#: histogram launch; one level each)
+KERNEL_LAUNCHES = {"A": 2, "B": 1, "C": 1, "D": 2, "A_route": 1,
+                   "D_route": 1}
+
+
+def _profiled_ms(prof, kernel: str, calls: int):
+    """The device time per call of ``kernel`` in ``prof`` over ``calls``
+    calls: the mean of its launch records times ``KERNEL_LAUNCHES``. The
+    profiler can drop records late in a long run (on the H100, 19 of 20
+    kept, at worst 8), so a sum over the records would read low; the
+    shortfall is printed. None if it saw none, or more launches than the
+    calls make."""
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and any(k in e.key for k in KERNEL_KEYS[kernel])]
+    seen = sum(e.count for e in ev)
+    want = calls * KERNEL_LAUNCHES[kernel]
+    if seen != want:
+        print(f"  profiler: kernel {kernel}: {seen} of {want} launch records")
+    if not seen or seen > want:
+        return None
+    us = sum(e.self_device_time_total for e in ev)
+    return us / seen * KERNEL_LAUNCHES[kernel] / 1e3
 
 
 def kernel_ms(fn, kernel: str, reps: int = TIMING_REPS):
     """The kernel's own device time per call: ``torch.profiler``'s device
     time of the kernels named in ``KERNEL_KEYS[kernel]`` over ``reps``
-    calls of ``fn``, without the wrapper's other device operations and host
-    gaps. None if the profiler saw none of them."""
+    calls of ``fn`` (``_profiled_ms``), without the wrapper's other device
+    operations and host gaps."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -278,15 +335,27 @@ def kernel_ms(fn, kernel: str, reps: int = TIMING_REPS):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(k in e.key for k in KERNEL_KEYS[kernel]))
-    return us / reps / 1e3 if us > 0 else None
+    return _profiled_ms(prof, kernel, reps)
 
 
 def bound_ms(nbytes: float, nops: float, peak_ops: float = PEAK_OPS):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def level_bounds(n: int, F: int, Fh: int, B: int, bs: int, lvl: int):
+    """``(bound_ms, bound_by)`` of kernel D (``Fh`` features hoisted) and of
+    kernel A at level ``lvl`` of ``n`` rows of ``F`` features of ``bs``-byte
+    bins: each reads its bins (D the one-hot and the unhoisted bins), the
+    positions, q and the table once and writes positions and the int64
+    histogram once; D's int8 products count 2 x 8K x the one-hot's
+    elements, A's two operations per bin."""
+    K, Kp = 1 << lvl, (1 << lvl) >> 1
+    onehot = Fh * B * hk.onehot_rows(n)
+    small = n * 4 + n * 8 + Kp * 16 + n * 4 + F * 2 * K * B * 8
+    d_bytes = onehot + n * (F - Fh + 1) * bs + small
+    return (bound_ms(d_bytes, 2 * 8 * K * onehot, PEAK_INT8),
+            bound_ms(n * F * bs + small, 2 * n * F))
 
 
 def reset_launches() -> None:
@@ -371,10 +440,13 @@ def _int_mm_ms(M: int, onehot):
         return None
 
 
-def phase_level_kernels(Xtr, ytr, max_bin: int):
-    """Kernels C, D and A at every level of a real tree, for one max_bin."""
+def phase_level_kernels(d, max_bin: int, objective="binary:logistic",
+                        prefix="", rows_10m=False):
+    """Kernels C, D and A at every level of a real tree, for one max_bin,
+    on ``d``'s bins and ``objective``'s gradients at margin 0 (within
+    ``d``'s query groups, if any); ``rows_10m`` adds kernel A at 10M rows
+    (``phase_construct_10x``)."""
     dev = DEVICE
-    d = xgbt.DMatrix(Xtr, ytr)
     binned = d.get_binned(max_bin)
     bins, cuts = binned.bins, binned.cut_values
     bins_t = binned.feature_major()
@@ -383,8 +455,9 @@ def phase_level_kernels(Xtr, ytr, max_bin: int):
     Fh = hk.hoist_plan(hk.onehot_rows(n), F, B, dev)
     check(Fh > 0, f"max_bin {B}: hoist plan {Fh}")
     onehot, c_stats = phase_onehot_kernel(bins, B, Fh)
-    obj = create_objective("binary:logistic")
-    grad, hess = obj.get_gradient(torch.zeros(n, device=dev), d.label, None)
+    obj = create_objective(objective)
+    grad, hess = obj.get_gradient(torch.zeros(n, device=dev), d.label, None,
+                                  groups=d.groups)
     gq = hk.quantize_gradients(grad, hess)
     cfg = GrowParams(max_depth=DEPTH, split=SplitParams())
     st = _init_state(cfg, gq.totals())
@@ -403,7 +476,7 @@ def phase_level_kernels(Xtr, ytr, max_bin: int):
         pdp, hdp = hk._hoisted_level_plain(bins, onehot, pos, gq, st.ptab, **kw)
         pap, hap = hk._fused_level_plain(bins, pos, gq, st.ptab, **kw)
         torch.cuda.synchronize()
-        tag = f"B={B} level {lvl}"
+        tag = f"{prefix}B={B} level {lvl}"
         for name, (p_, h_) in (("D", (pd, hd)), ("D again", (pd2, hd2)),
                                ("A", (pa, ha)), ("A again", (pa2, ha2)),
                                ("D plain", (pdp, hdp))):
@@ -459,10 +532,7 @@ def phase_level_kernels(Xtr, ytr, max_bin: int):
         flat = torch.zeros(F * 2 * K * B, dtype=torch.float32, device=dev)
         a_lib = time_ms(lambda: flat.index_add_(0, idx, vals))
         del local, b, keep, cell, rows, idx, vals, flat
-        small = n * 4 + n * 8 + Kp * 16 + n * 4 + F * 2 * K * B * 8
-        d_bytes = onehot.numel() + n * (F - Fh + 1) * bs + small
-        d_bnd, d_by = bound_ms(d_bytes, 2 * 8 * K * onehot.numel(), PEAK_INT8)
-        a_bnd, a_by = bound_ms(n * F * bs + small, 2 * n * F)
+        (d_bnd, d_by), (a_bnd, a_by) = level_bounds(n, F, Fh, B, bs, lvl)
         d_levels.append(dict(level=lvl, ms=d_ms, kernel_ms=d_kms,
                              plain_ms=d_plain, library_ms=d_lib,
                              bound_ms=d_bnd, bound_by=d_by))
@@ -479,8 +549,8 @@ def phase_level_kernels(Xtr, ytr, max_bin: int):
         pos = pd
     del onehot
     torch.cuda.empty_cache()
-    big = (phase_construct_10x(bins, bins_t, gq, tables, B)
-           if B == DEFAULT_MAX_BIN else None)
+    big = (phase_construct_10x(bins, bins_t, gq, tables, B) if rows_10m
+           else None)
     del tables
 
     def summary(levels):
@@ -789,16 +859,18 @@ def phase_train(name, params, Xtr, ytr, Xte, yte, rounds, want,
 
 
 def phase_construct_route(Xtr, ytr, hoisted_trees, params=PARAMS,
-                          feature_types=None, name="construct route"):
+                          feature_types=None, name="construct route",
+                          group=None):
     """The model with hoisting disabled: kernel A at every level of every
     tree (K trees per round for K output groups), and the trees of the
-    hoisted run."""
+    hoisted run. Returns the launches, the Booster and its training
+    matrix (query sizes ``group``, if given; its hoist plan stays 0)."""
     reset_launches()
     os.environ["XGBTPU_HOIST_BUDGET_MB"] = "0"
     try:
-        bst = xgbt.train(params, xgbt.DMatrix(Xtr, ytr,
-                                              feature_types=feature_types),
-                         CPU_ROUNDS, verbose_eval=False)
+        dtrain = xgbt.DMatrix(Xtr, ytr, feature_types=feature_types,
+                              group=group)
+        bst = xgbt.train(params, dtrain, CPU_ROUNDS, verbose_eval=False)
         torch.cuda.synchronize()
     finally:
         del os.environ["XGBTPU_HOIST_BUDGET_MB"]
@@ -812,7 +884,7 @@ def phase_construct_route(Xtr, ytr, hoisted_trees, params=PARAMS,
     same_trees(heap_trees(bst, trees), hoisted_trees,
                f"{name} vs hoisted route")
     print(f"{name}: {trees} trees identical to the hoisted run's")
-    return got
+    return got, bst, dtrain
 
 
 def _json_trees(bst):
@@ -823,29 +895,59 @@ def _json_trees(bst):
 
 
 def phase_card_vs_cpu(Xtr, ytr, Xte, feature_types=None,
-                      name="card vs CPU", params=PARAMS_DEFAULT, **info):
+                      name="card vs CPU", params=PARAMS_DEFAULT, group=None,
+                      group_weights=None, hoist_budget_mb=None,
+                      want_launches=None, **info):
     """3 rounds at max_bin 256 on the card and on the CPU: same trees (and
     category sets; K per round for K output groups), same predictions.
-    ``info`` holds per-row arrays for the DMatrix (the label bounds)."""
+    ``info`` holds per-row arrays for the DMatrix (the label bounds).
+    With query sizes ``group`` the rows are taken whole (at most
+    ``CPU_ROWS``); ``group_weights`` are then set after the first
+    binning. ``hoist_budget_mb`` sets ``XGBTPU_HOIST_BUDGET_MB`` for the
+    card's run (0: the construct route; a partial hoist below the full
+    one-hot's size), and ``want_launches`` the card's kernel launches."""
     X, y = Xtr[:CPU_ROWS], ytr[:CPU_ROWS]
     info = {k: v[:CPU_ROWS] for k, v in info.items()}
+    check(group is None or int(np.sum(group)) == len(X),
+          f"{name}: whole queries")
     out = []
     t0 = time.perf_counter()
+    reset_launches()
     for dev in (DEVICE, torch.device("cpu")):
-        bst = xgbt.train(params, xgbt.DMatrix(
-            X, y, feature_types=feature_types, device=dev, **info),
-            CPU_ROUNDS, verbose_eval=False)
+        d = xgbt.DMatrix(X, y, feature_types=feature_types, group=group,
+                         device=dev, **info)
+        if hoist_budget_mb is not None and dev == DEVICE:
+            os.environ["XGBTPU_HOIST_BUDGET_MB"] = str(hoist_budget_mb)
+        try:
+            if group_weights is not None:
+                d.get_binned(DEFAULT_MAX_BIN)
+                d.set_weight(group_weights)
+            bst = xgbt.train(params, d, CPU_ROUNDS, verbose_eval=False)
+        finally:
+            os.environ.pop("XGBTPU_HOIST_BUDGET_MB", None)
         out.append((heap_trees(bst, CPU_ROUNDS * bst.n_groups),
                     bst.predict(xgbt.DMatrix(Xte[:10000], device=dev)),
                     _json_trees(bst)))
+        if dev == DEVICE and hoist_budget_mb is not None:
+            got = launches()
+            onehot = d.get_binned(DEFAULT_MAX_BIN).fused_onehot()  # frozen
+            fh = 0 if onehot is None else onehot.shape[0] // DEFAULT_MAX_BIN
+            check(fh == 0 if hoist_budget_mb == 0 else 0 < fh < X.shape[1],
+                  f"{name}: card hoisted {fh} features")
+            for k, v in (want_launches or {}).items():
+                check(got[k] == v, f"{name}: kernel {k} launched {got[k]} "
+                                   f"times, want {v}")
     (card_trees, card_pred, card_json), (cpu_trees, cpu_pred, cpu_json) = out
     same_trees(card_trees, cpu_trees, name)
     check(card_json == cpu_json, f"{name}: model JSON trees")
     err = float(np.abs(card_pred - cpu_pred).max())
     check(err <= 1e-5, f"{name} predictions max abs err {err}")
-    print(f"{name} (max_bin {DEFAULT_MAX_BIN}): {len(card_trees)} trees "
-          f"identical, predictions max abs err {err} "
+    route = "" if hoist_budget_mb is None else (
+        f", card hoisted {fh}/{X.shape[1]} features, launches {got}")
+    print(f"{name} (max_bin {DEFAULT_MAX_BIN}{route}): {len(card_trees)} "
+          f"trees identical, predictions max abs err {err} "
           f"({time.perf_counter() - t0:.1f} s)")
+    return err
 
 
 def _cat_level_case(Xtr, ytr, types):
@@ -1367,7 +1469,7 @@ def phase_grower_breadth(Xtr, ytr, Xte, yte, w):
     # (a) by the construct route: kernel A, the hoisted run's trees
     out["construct_a"] = phase_construct_route(
         Xtr, ytr, hoisted_a, params=BREADTH_A,
-        name="breadth (a) construct route")
+        name="breadth (a) construct route")[0]
     torch.cuda.empty_cache()
 
     # (a) and (c): the card and the CPU grow the same trees
@@ -1575,7 +1677,8 @@ def phase_multiclass(X):
     out["walk_g7"]["launches"] = got["B"]
     del mc_forest
     out["construct"] = phase_construct_route(
-        Xtr, ytr, hoisted, params=PARAMS_MC, name="multiclass construct route")
+        Xtr, ytr, hoisted, params=PARAMS_MC,
+        name="multiclass construct route")[0]
     torch.cuda.empty_cache()
     phase_card_vs_cpu(Xtr, ytr, Xte, name="multiclass card vs CPU",
                       params=PARAMS_MC)
@@ -1717,6 +1820,327 @@ def phase_objectives(X, ybin, w):
     return out
 
 
+# MSLR-WEB10K-shaped ranking (Microsoft Learning to Rank Datasets; Qin & Liu,
+# "Introducing LETOR 4.0 Datasets", 2013): 136 features, relevance 0-4,
+# about 120 documents per query; synthetic, from a seed
+RANK_COLS = 136
+RANK_ROWS, RANK_EVAL_ROWS = 1_000_000, 100_000
+#: the XGBoost LTR demo's parameters (max_bin left at 256)
+RANK_PARAMS = {"objective": "rank:ndcg", "max_depth": DEPTH, "eta": 0.1,
+               "eval_metric": ["ndcg@10", "map@10"]}
+#: cumulative shares of the grades 0-3 within each query, roughly
+#: MSLR-WEB10K's skew: about half the documents irrelevant
+MSLR_GRADES = (0.52, 0.84, 0.965, 0.99)
+RANK_OBJECTIVES = ("rank:pairwise", "rank:ndcg", "rank:map")
+ALL_PAIRS_ROWS, ALL_PAIRS_EVAL_ROWS, ALL_PAIRS_ROUNDS = 200_000, 50_000, 5
+
+
+def _make_rank_data(rows: int, lo: int, hi: int, seed: int = 42):
+    """``(X, y, sizes)``: whole queries of ``lo``-``hi`` documents, at
+    least ``rows`` rows; ``RANK_COLS`` standard normal features plus a
+    per-query offset of each feature, 5% NaN; each document's relevance
+    0-4 from its within-query score (the generator's weights times the
+    features without the offset, plus noise), thresholded at the
+    ``MSLR_GRADES`` quantiles of its query."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lo, hi + 1, rows // lo + 1)
+    sizes = sizes[:np.searchsorted(np.cumsum(sizes), rows) + 1]
+    n, G, F = int(sizes.sum()), len(sizes), RANK_COLS
+    X = rng.standard_normal((n, F), dtype=np.float32)
+    w = rng.standard_normal(F, dtype=np.float32)
+    s = X @ w + 2.0 * rng.standard_normal(n, dtype=np.float32)
+    X += np.repeat(rng.standard_normal((G, F), dtype=np.float32), sizes,
+                   axis=0)
+    X[rng.random((n, F), dtype=np.float32) < 0.05] = np.nan
+    group_of = np.repeat(np.arange(G), sizes)
+    local = np.empty(n)
+    local[np.lexsort((s, group_of))] = (
+        np.arange(n) - np.repeat(np.cumsum(sizes) - sizes, sizes))
+    y = np.searchsorted(np.asarray(MSLR_GRADES),
+                        local / np.repeat(sizes, sizes), side="right")
+    return X, y.astype(np.float32), sizes
+
+
+def _split_queries(X, y, sizes, rows: int):
+    """The first whole queries holding about ``rows`` rows, and the rest."""
+    q = int(np.searchsorted(np.cumsum(sizes), rows))
+    cut = int(sizes[:q].sum())
+    return (X[:cut], y[:cut], sizes[:q]), (X[cut:], y[cut:], sizes[q:])
+
+
+def _round_kernel_ms(bst, dtrain, it: int, kernel: str):
+    """One ``update`` under ``torch.profiler``: the device time of
+    ``kernel``'s launches per level of the round's tree."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        bst.update(dtrain, it)
+        torch.cuda.synchronize()
+    return _profiled_ms(prof, kernel, DEPTH)
+
+
+def _mean_level_bound(dtrain, which: int):
+    """The mean over levels 0-5 of ``level_bounds`` for ``dtrain``'s bins
+    at max_bin 256 with the hoist plan's prefix: ``which`` 0 for kernel D,
+    1 for kernel A; ``(ms, bound_by of the last level)``."""
+    bins = dtrain.get_binned(DEFAULT_MAX_BIN).bins
+    n, F = bins.shape
+    Fh = hk.hoist_plan(hk.onehot_rows(n), F, DEFAULT_MAX_BIN, DEVICE)
+    per = [level_bounds(n, F, Fh, DEFAULT_MAX_BIN, bins.element_size(),
+                        lvl)[which] for lvl in range(DEPTH)]
+    return sum(b for b, _ in per) / DEPTH, per[-1][1]
+
+
+def phase_rank_main(train, test):
+    """``rank:ndcg`` on the MSLR-WEB10K-shaped configuration through the
+    entry points: 10 rounds at 1M x 136 with ``ndcg@10``/``map@10`` on the
+    held-out queries (the sampled-pair path: G * S^2 is far above the
+    all-pairs budget); C once, D 60 times, A never, B at least 10 times;
+    both metrics rising; ``inplace_predict`` equal to ``predict``; the
+    saved JSON, loaded back, within 1e-5. Returns the Booster, its
+    matrices, its first 3 trees and the phase's numbers."""
+    from xgboost_tpu_torch.objective import ranking as trank
+
+    (Xtr, ytr, str_), (Xte, yte, ste) = train, test
+    reset_launches()
+    dtrain = xgbt.DMatrix(Xtr, ytr, group=str_)
+    dtest = xgbt.DMatrix(Xte, yte, group=ste)
+    G, S = dtrain.groups.n_groups, dtrain.groups.max_size
+    check(G * S * S > trank._ALL_PAIRS_BUDGET, "ranking: the sampled path")
+    probe, res = _RoundProbe(), {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = xgbt.train(RANK_PARAMS, dtrain, ROUNDS, evals=[(dtest, "test")],
+                     evals_result=res, verbose_eval=True, callbacks=[probe])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    got = launches()
+    want = {"A": 0, "C": 1, "D": ROUNDS * DEPTH}
+    for k, v in want.items():
+        check(got[k] == v, f"ranking: kernel {k} launched {got[k]} times, "
+                           f"want {v}")
+    check(got["B"] >= ROUNDS, f"ranking: kernel B launched {got['B']}")
+    onehot = dtrain.get_binned(DEFAULT_MAX_BIN).fused_onehot()
+    fh = 0 if onehot is None else onehot.shape[0] // DEFAULT_MAX_BIN
+    check(0 < fh < RANK_COLS, f"ranking: a partial hoist ({fh} features)")
+    hoisted = heap_trees(bst, CPU_ROUNDS)
+    hist = res["test"]
+    for name in RANK_PARAMS["eval_metric"]:
+        check(hist[name][-1] > hist[name][0], f"ranking: {name} {hist[name]}")
+    preds = bst.predict(xgbt.DMatrix(Xte))
+    check(preds.shape == (Xte.shape[0],) and np.isfinite(preds).all(),
+          "ranking: predictions finite, one per row")
+    check(np.array_equal(bst.inplace_predict(Xte), preds),
+          "ranking: inplace_predict == predict")
+    back = xgbt.Booster(model_file=bst.save_raw())
+    err = float(np.abs(back.predict(xgbt.DMatrix(Xte)) - preds).max())
+    check(err <= 1e-5, f"ranking: saved JSON predicts within 1e-5 ({err})")
+    margin = bst._predict_margin(dtrain)[:, 0]
+    grad_ms = time_ms(lambda: bst._obj.get_gradient(
+        margin, dtrain.label, None, ROUNDS, groups=dtrain.groups), reps=10)
+    print(f"ranking (rank:ndcg, {Xtr.shape[0]} x {RANK_COLS} in {G} queries "
+          f"of up to {S}, hoisted {fh}/{RANK_COLS} features): launches "
+          f"{got}, {t_train:.3f} s for {ROUNDS} rounds, median round "
+          f"{probe.median_ms():.1f} ms (update + eval), gradient "
+          f"{grad_ms:.3f} ms; " + ", ".join(
+              f"{k} {v[0]:.6f} -> {v[-1]:.6f}" for k, v in hist.items()))
+    out = dict(rows=int(Xtr.shape[0]), queries=G, max_query=S,
+               hoisted_features=fh, launches=got, train_s=t_train,
+               median_round_ms=probe.median_ms(), round_ms=probe.times,
+               gradient_ms=grad_ms, saved_json_max_abs_err=err, **hist)
+    return bst, dtrain, dtest, hoisted, out
+
+
+def phase_rank_inspect(bst, dtrain, dtest):
+    """The inspection surface on the ranking model, on the card against the
+    same model loaded on the CPU: ``get_score`` of all five types,
+    ``get_dump`` text/json/dot with stats and a split-value histogram. Then
+    a fresh Booster on the card given the model and ``load_config`` of the
+    configuration trains the next round as the original does (the
+    original's round profiled: kernel D's device time per level at F =
+    136)."""
+    cpu = xgbt.Booster(model_file=bst.save_raw(), device="cpu")
+    for t in ("weight", "gain", "cover", "total_gain", "total_cover"):
+        check(bst.get_score(importance_type=t)
+              == cpu.get_score(importance_type=t), f"get_score {t}")
+    for fmt in ("text", "json", "dot"):
+        check(bst.get_dump(with_stats=True, dump_format=fmt)
+              == cpu.get_dump(with_stats=True, dump_format=fmt),
+              f"get_dump {fmt}")
+    top = max(bst.get_score(), key=bst.get_score().get)
+    h_card = bst.get_split_value_histogram(top, as_pandas=False)
+    check(np.array_equal(h_card, cpu.get_split_value_histogram(
+        top, as_pandas=False)), "get_split_value_histogram")
+    fresh = xgbt.Booster()
+    fresh.load_model(bst.save_raw())
+    fresh.load_config(bst.save_config())
+    # both take the next round's margins from the forest walk: the
+    # original's cache, summed leaf by leaf onto the base margin of 0.5,
+    # rounds differently from a walk
+    bst._caches.clear()
+    d_ms = _round_kernel_ms(bst, dtrain, ROUNDS, "D")
+    d_bound = _mean_level_bound(dtrain, 0)
+    fresh.update(dtrain, ROUNDS)
+    check(fresh.save_raw() == bst.save_raw(),
+          "load_config: the next round equals the original's")
+    check(fresh.eval(dtest) == bst.eval(dtest), "load_config: eval")
+    print(f"ranking inspection: get_score x5, get_dump x3, split histogram "
+          f"of {top} ({len(h_card)} bins) card == CPU; save_config -> "
+          f"load_config trains round {ROUNDS + 1} identically; kernel D "
+          f"{d_ms} ms/level at F = {RANK_COLS} (profiled round; bound "
+          f"{d_bound[0]:.4f} ms, {d_bound[1]})")
+    return dict(kernel_D_ms_per_level=d_ms, kernel_D_bound_ms=d_bound[0],
+                kernel_D_bound_by=d_bound[1], split_histogram_feature=top)
+
+
+def phase_rank_levels(dtrain):
+    """Kernels C, D and A against their plain versions at every level of a
+    ranking tree at 1M x 136, max_bin 256 (``phase_level_kernels`` on the
+    training matrix's bins and ``rank:ndcg``'s round-0 gradients): the
+    hoist plan's partial prefix, so D's routing launch writes the other
+    features feature-major and D reads both halves, and A at F = 136."""
+    c, a, d = phase_level_kernels(dtrain, DEFAULT_MAX_BIN,
+                                  RANK_PARAMS["objective"],
+                                  prefix="ranking ")
+    check(0 < d["Fh"] < RANK_COLS, f"ranking levels: a partial hoist "
+                                   f"({d['Fh']} features)")
+    return dict(C=c, A=a, D=d)
+
+
+def phase_rank_construct(train, hoisted_trees):
+    """The construct route on the ranking configuration
+    (``phase_construct_route``: 3 rounds, kernel A 18 times, C and D
+    never, the hoisted run's trees); a profiled fourth round gives kernel
+    A's device time per level at F = 136."""
+    Xtr, ytr, sizes = train
+    got, bst, dtrain = phase_construct_route(
+        Xtr, ytr, hoisted_trees, params=RANK_PARAMS,
+        name="ranking construct route", group=sizes)
+    a_ms = _round_kernel_ms(bst, dtrain, CPU_ROUNDS, "A")  # plan frozen: 0
+    a_bound = _mean_level_bound(dtrain, 1)
+    print(f"ranking construct route: kernel A {a_ms} ms/level at F = "
+          f"{RANK_COLS} (profiled round; bound {a_bound[0]:.4f} ms, "
+          f"{a_bound[1]})")
+    return dict(launches=got, kernel_A_ms_per_level=a_ms,
+                kernel_A_bound_ms=a_bound[0], kernel_A_bound_by=a_bound[1])
+
+
+def phase_rank_all_pairs():
+    """The all-pairs path at full width: 200k rows in queries of 8-32
+    documents (G * S^2 about 1e7) and 50k held out; ``rank:pairwise``,
+    ``rank:ndcg`` and ``rank:map`` for 5 rounds each with their default
+    metric, the grouped ``auc``, ``pre@5`` and ``ndcg-`` on the training
+    and the held-out queries: every default metric on the training queries
+    higher in the last round than in the first. Returns the training data
+    (for the card-against-CPU cut) and the phase's numbers."""
+    from xgboost_tpu_torch.objective import ranking as trank
+
+    X, y, sizes = _make_rank_data(ALL_PAIRS_ROWS + ALL_PAIRS_EVAL_ROWS, 8,
+                                  32, seed=43)
+    (Xtr, ytr, str_), (Xte, yte, ste) = _split_queries(X, y, sizes,
+                                                       ALL_PAIRS_ROWS)
+    dtrain = xgbt.DMatrix(Xtr, ytr, group=str_)
+    dtest = xgbt.DMatrix(Xte, yte, group=ste)
+    G, S = dtrain.groups.n_groups, dtrain.groups.max_size
+    check(G * S * S <= trank._ALL_PAIRS_BUDGET, "all pairs: the padded path")
+    out = {}
+    for obj in RANK_OBJECTIVES:
+        default = create_objective(obj, None).default_metric()
+        res = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = xgbt.train({"objective": obj, "eta": 0.1,
+                          "eval_metric": [default, "auc", "pre@5", "ndcg-"]},
+                         dtrain, ALL_PAIRS_ROUNDS,
+                         evals=[(dtrain, "train"), (dtest, "test")],
+                         evals_result=res, verbose_eval=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / ALL_PAIRS_ROUNDS * 1e3
+        margin = bst._predict_margin(dtrain)[:, 0]
+        grad_ms = time_ms(lambda: bst._obj.get_gradient(
+            margin, dtrain.label, None, ALL_PAIRS_ROUNDS,
+            groups=dtrain.groups), reps=5)
+        fit = res["train"][default]
+        check(fit[-1] > fit[0], f"{obj}: training {default} {fit}")
+        print(f"all pairs {obj} ({Xtr.shape[0]} rows in {G} queries of up "
+              f"to {S}; G*S^2 {G * S * S}): {ms:.1f} ms/round incl. 2 "
+              f"evals, gradient {grad_ms:.3f} ms; train {default} "
+              f"{fit[0]:.6f} -> {fit[-1]:.6f}; held out "
+              + ", ".join(f"{k} {v[0]:.6f} -> {v[-1]:.6f}"
+                          for k, v in res["test"].items()))
+        out[obj] = dict(ms_per_round=ms, gradient_ms=grad_ms,
+                        train=res["train"], test=res["test"])
+    return (Xtr, ytr, str_), out
+
+
+def phase_rank_card_vs_cpu(all_pairs_train):
+    """The ranking gradients on the card and the CPU grow the same trees:
+    3 rounds on cuts of whole queries at 136 features, ``rank:ndcg`` (on a
+    partial hoist) and ``rank:map`` (on the construct route) on 64k rows
+    in queries of 400-1000 documents (the sampled path) and all three
+    objectives (full hoist) on the first 64k rows of the all-pairs data
+    with per-group weights set after the first binning."""
+    from xgboost_tpu_torch.objective import ranking as trank
+
+    t0 = time.perf_counter()
+    sampled, _ = _split_queries(*_make_rank_data(2 * CPU_ROWS, 400, 1000,
+                                                 seed=44), CPU_ROWS)
+    G, S = len(sampled[2]), int(sampled[2].max())
+    check(G * S * S > trank._ALL_PAIRS_BUDGET, "the cut takes sampled pairs")
+    cut, _ = _split_queries(*all_pairs_train, CPU_ROWS)
+    w = np.random.default_rng(45).uniform(0.5, 2.0, len(cut[2])).astype(
+        np.float32)
+    errs = {}
+    # the sampled cut on the card's two other level routes: rank:ndcg on a
+    # partial hoist of about 33 of the 136 features (kernel D builds the
+    # rest each level, as at 1M rows), rank:map on the construct route
+    n_pad = hk.onehot_rows(len(sampled[1]))
+    part_mb = 33 * DEFAULT_MAX_BIN * n_pad // (1 << 20) + 1
+    levels = CPU_ROUNDS * DEPTH
+    routes = {"rank:ndcg": (part_mb, {"A": 0, "C": 1, "D": levels}),
+              "rank:map": (0, {"A": levels, "C": 0, "D": 0})}
+    for obj, (mb, want) in routes.items():
+        X, y, sizes = sampled
+        errs[f"{obj} sampled"] = phase_card_vs_cpu(
+            X, y, X, name=f"{obj} sampled card vs CPU", group=sizes,
+            params={"objective": obj, "eta": 0.1}, hoist_budget_mb=mb,
+            want_launches=want)
+    for obj in RANK_OBJECTIVES:
+        X, y, sizes = cut
+        errs[f"{obj} all pairs"] = phase_card_vs_cpu(
+            X, y, X, name=f"{obj} all pairs card vs CPU", group=sizes,
+            params={"objective": obj, "eta": 0.1}, group_weights=w)
+    t = time.perf_counter() - t0
+    print(f"ranking card vs CPU: {len(errs)} runs of {CPU_ROUNDS} rounds, "
+          f"trees identical, predictions max abs err "
+          f"{max(errs.values())} ({t:.1f} s)")
+    return dict(max_abs_err=errs, phase_s=t)
+
+
+def phase_ranking():
+    """Phases 18-23: the MSLR-WEB10K-shaped ranking configuration."""
+    t_phase = time.perf_counter()
+    X, y, sizes = _make_rank_data(RANK_ROWS + RANK_EVAL_ROWS, 60, 180)
+    train, test = _split_queries(X, y, sizes, RANK_ROWS)
+    del X, y
+    bst, dtrain, dtest, hoisted, main = phase_rank_main(train, test)
+    main["inspection"] = phase_rank_inspect(bst, dtrain, dtest)
+    del bst, dtest
+    torch.cuda.empty_cache()
+    main["level_kernels"] = phase_rank_levels(dtrain)
+    del dtrain
+    torch.cuda.empty_cache()
+    main["construct"] = phase_rank_construct(train, hoisted)
+    del train, test
+    torch.cuda.empty_cache()
+    all_pairs_train, main["all_pairs"] = phase_rank_all_pairs()
+    torch.cuda.empty_cache()
+    main["card_vs_cpu"] = phase_rank_card_vs_cpu(all_pairs_train)
+    main["phase_s"] = time.perf_counter() - t_phase
+    print(f"ranking: {main['phase_s']:.1f} s")
+    return main
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1728,8 +2152,11 @@ def main() -> int:
     phase_build()
     X, y, w_gen = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
     Xtr, ytr, Xte, yte = X[:ROWS], y[:ROWS], X[ROWS:], y[ROWS:]
-    c64, a64, d64 = phase_level_kernels(Xtr, ytr, MAX_BIN)
-    c256, a256, d256 = phase_level_kernels(Xtr, ytr, DEFAULT_MAX_BIN)
+    dlevels = xgbt.DMatrix(Xtr, ytr)
+    c64, a64, d64 = phase_level_kernels(dlevels, MAX_BIN)
+    c256, a256, d256 = phase_level_kernels(dlevels, DEFAULT_MAX_BIN,
+                                           rows_10m=True)
+    del dlevels
     torch.cuda.empty_cache()
     b = phase_walk_kernel()
     b["past_2_31"] = phase_walk_past_2_31()
@@ -1742,7 +2169,7 @@ def main() -> int:
     hoisted_trees = heap_trees(bst64, CPU_ROUNDS)
     del bst64
     torch.cuda.empty_cache()  # the bin-64 one-hot (3.2 GB) goes first
-    construct = phase_construct_route(Xtr, ytr, hoisted_trees)
+    construct = phase_construct_route(Xtr, ytr, hoisted_trees)[0]
     torch.cuda.empty_cache()
     bst256, main256 = phase_train(
         "reference-default path", PARAMS_DEFAULT, Xtr, ytr, Xte, yte, ROUNDS,
@@ -1761,13 +2188,15 @@ def main() -> int:
     objectives = phase_objectives(X, y, w_gen)
     torch.cuda.empty_cache()
     del X, Xtr, Xte
+    ranking = phase_ranking()
+    torch.cuda.empty_cache()
     Xc, yc, types = _make_cat_data(ROWS + EVAL_ROWS, COLS, seed=42)
     Xctr, yctr, Xcte, ycte = Xc[:ROWS], yc[:ROWS], Xc[ROWS:], yc[ROWS:]
     cat_lv, cat_levels = phase_cat_levels(Xctr, yctr, types)
     cat_main, cat_trees = phase_cat_path(Xctr, yctr, Xcte, ycte, types)
     cat_construct = phase_construct_route(
         Xctr, yctr, cat_trees, params=PARAMS_DEFAULT, feature_types=types,
-        name="categorical construct route")
+        name="categorical construct route")[0]
     torch.cuda.empty_cache()
     phase_card_vs_cpu(Xctr, yctr, Xcte, feature_types=types,
                       name="categorical card vs CPU")
@@ -1783,27 +2212,49 @@ def main() -> int:
         "categorical_construct_launches": cat_construct,
         "categorical_walk": cat_walk, "train_surface": surface,
         "grower_breadth": breadth, "multiclass": multiclass,
-        "objectives": objectives}))
-    for k in (c256, d256):
+        "objectives": objectives, "ranking": ranking}))
+    rank_lv = ranking["level_kernels"]
+    for k in (c256, d256, rank_lv["C"], rank_lv["D"]):
         k.pop("B"), k.pop("Fh")
+    # the ranking path's kernels at F = 136: the level check's numbers
+    # (kernel against plain, every level of one tree) beside the profiled
+    # rounds' device time per level
+    rank_k = {k: {x: v[x] for x in ("ms", "kernel_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "max_abs_err")}
+              for k, v in rank_lv.items()}
     kernels = [
         dict(name="fused_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hist_level.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:560",
-             launches=cat_construct["A"], categorical=cat_lv["A"], **a64),
+             launches=cat_construct["A"], categorical=cat_lv["A"],
+             ranking=dict(launches=ranking["construct"]["launches"]["A"],
+                          kernel_ms_per_level_f136=ranking["construct"][
+                              "kernel_A_ms_per_level"],
+                          bound_ms_f136=ranking["construct"][
+                              "kernel_A_bound_ms"], levels_f136=rank_k["A"]),
+             **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
              replaces="xgboost_tpu/predictor/__init__.py:299",
              launches=main256["launches"]["B"],
-             groups=multiclass["walk_g7"], **b),
+             groups=multiclass["walk_g7"],
+             ranking=dict(launches=ranking["launches"]["B"]), **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:378",
-             launches=cat_main["launches"]["C"], **c256),
+             launches=cat_main["launches"]["C"],
+             ranking=dict(launches=ranking["launches"]["C"],
+                          f136=rank_k["C"]), **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:645",
              launches=cat_main["launches"]["D"], categorical=cat_lv["D"],
+             ranking=dict(launches=ranking["launches"]["D"],
+                          kernel_ms_per_level_f136=ranking["inspection"][
+                              "kernel_D_ms_per_level"],
+                          bound_ms_f136=ranking["inspection"][
+                              "kernel_D_bound_ms"], levels_f136=rank_k["D"]),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))

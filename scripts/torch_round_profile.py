@@ -10,7 +10,9 @@ generator; ``BREADTH_A``, the same with uniform row and column sampling
 per tree, level and node; ``PARAMS_DEFAULT`` on the categorical data of
 ``_make_cat_data`` with its ``feature_types``; ``PARAMS_MC``, 7-class
 ``multi:softprob`` on the generator's rows with ``_multiclass_labels``,
-7 trees per round), each by the
+7 trees per round; ``RANK_PARAMS``, ``rank:ndcg`` on the MSLR-WEB10K-shaped
+rows of ``_make_rank_data``, 1M x 136 in queries of 60-180 documents, the
+sampled-pair gradient), each by the
 hoisted route (the default plan) and by the construct route
 (``XGBTPU_HOIST_BUDGET_MB=0``), at its shape
 (``ROWS`` x ``COLS`` training rows and ``EVAL_ROWS`` held-out rows): trains ``WARMUP`` rounds, times the next
@@ -43,8 +45,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import xgboost_tpu_torch as xgbt  # noqa: E402
 from xgboost_tpu_torch.tree import hist_kernel as hk  # noqa: E402
 from chip_smoke import (BREADTH_A, COLS, EVAL_ROWS, PARAMS,  # noqa: E402
-                        PARAMS_DEFAULT, PARAMS_MC, ROWS, _make_cat_data,
-                        _make_data, _multiclass_labels)
+                        PARAMS_DEFAULT, PARAMS_MC, RANK_EVAL_ROWS,
+                        RANK_PARAMS, RANK_ROWS, ROWS, _make_cat_data,
+                        _make_data, _make_rank_data, _multiclass_labels,
+                        _split_queries)
 
 WARMUP = 3
 TIMED_ROUNDS = 5
@@ -68,9 +72,15 @@ def _host_timed(fn, record):
     return timed
 
 
-def profile(name, params, X, y, types=None) -> int:
-    dtrain = xgbt.DMatrix(X[:ROWS], y[:ROWS], feature_types=types)
-    dtest = xgbt.DMatrix(X[ROWS:], y[ROWS:], feature_types=types)
+def profile(name, params, X, y, types=None, groups=None) -> int:
+    """``groups``: the query sizes of the training and the held-out rows
+    (which then split at the training queries' row count)."""
+    split = ROWS if groups is None else int(groups[0].sum())
+    gtr, gte = (None, None) if groups is None else groups
+    dtrain = xgbt.DMatrix(X[:split], y[:split], feature_types=types,
+                          group=gtr)
+    dtest = xgbt.DMatrix(X[split:], y[split:], feature_types=types,
+                         group=gte)
     evals = [(dtest, "test")]
     bst = xgbt.train(params, dtrain, WARMUP, evals=evals, verbose_eval=False)
     torch.cuda.synchronize()
@@ -111,7 +121,7 @@ def profile(name, params, X, y, types=None) -> int:
                          text=True, timeout=60).stdout.strip()
     round_ms = statistics.median(plain_ms)
     report = {
-        "config": name, "card": smi, "rows": ROWS, "profiled_round": it,
+        "config": name, "card": smi, "rows": split, "profiled_round": it,
         "unprofiled_round_ms": plain_ms, "median_round_ms": round_ms,
         "profiled_round_ms": profiled_ms, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / round_ms,
@@ -137,13 +147,17 @@ def main() -> int:
         return 2
     X, y, _ = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
     Xc, yc, types = _make_cat_data(ROWS + EVAL_ROWS, COLS, seed=42)
+    Xr, yr, sizes = _make_rank_data(RANK_ROWS + RANK_EVAL_ROWS, 60, 180)
+    (_, _, gtr), (_, _, gte) = _split_queries(Xr, yr, sizes, RANK_ROWS)
     for name, params, data in (
             ("max_bin 64", PARAMS, (X, y)),
             ("max_bin 256 (default)", PARAMS_DEFAULT, (X, y)),
             ("max_bin 256, sampled (a)", BREADTH_A, (X, y)),
             ("categorical, max_bin 256", PARAMS_DEFAULT, (Xc, yc, types)),
             ("7 classes, max_bin 256", PARAMS_MC,
-             (X, _multiclass_labels(X)))):
+             (X, _multiclass_labels(X))),
+            ("rank:ndcg 1M x 136, max_bin 256", RANK_PARAMS,
+             (Xr, yr, None, (gtr, gte)))):
         for route, budget in (("hoisted", None), ("construct", "0")):
             if budget is not None:
                 os.environ["XGBTPU_HOIST_BUDGET_MB"] = budget

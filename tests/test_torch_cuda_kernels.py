@@ -479,6 +479,18 @@ _OBJECTIVES = [
     ("survival:aft", {"aft_loss_distribution": "extreme",
                       "aft_loss_distribution_scale": 0.7}),
     ("survival:cox", {}),
+] + [
+    # ranking: each scheme on both gradient paths (``_path``: the group
+    # sizes that select it), with and without per-group weights
+    (name, {"_path": path, "_group_weights": gw,
+            "lambdarank_num_pair_per_sample": 2})
+    for name in ("rank:pairwise", "rank:ndcg", "rank:map")
+    for path in ("all_pairs", "sampled") for gw in (False, True)
+] + [
+    # 3 pairs per row: the sampled weights divide by 6, not a power of two
+    (name, {"_path": "sampled", "_group_weights": False,
+            "lambdarank_num_pair_per_sample": 3})
+    for name in ("rank:pairwise", "rank:ndcg", "rank:map")
 ]
 
 
@@ -490,12 +502,22 @@ def test_objective_gradients_same_bits_on_card_and_cpu(cuda, name, params):
     equal the CPU's bit for bit (float64 transcendentals and square roots
     rounded once, IEEE quotients), and so do their quantised values (exact
     power-of-two scales): the trees then grow the same on either. 200k
-    rows of margins, labels and censoring intervals."""
+    rows of margins, labels and censoring intervals. The ranking cases run
+    on query groups of 8-32 rows (the all-pairs path) or 60-180 (the
+    sampled path, whose opponent ends are summed in a fixed order) with
+    graded labels 0-4, margins rounded to one decimal (ties), and per-row
+    or per-group weights."""
     from xgboost_tpu_torch.objective import create_objective
     from xgboost_tpu_torch.params import LearnerParam
 
+    params = dict(params)
+    path = params.pop("_path", None)
+    group_weights = params.pop("_group_weights", False)
     rng = np.random.RandomState(9)
     n = 200_000
+    if path is not None:
+        return _ranking_same_bits(cuda, name, params, path, group_weights,
+                                  rng, n)
     K = params.get("num_class", 1)
     m = (rng.randn(n, K) * 2.0).astype(np.float32)
     m = m[:, 0] if K == 1 else m
@@ -528,3 +550,34 @@ def test_objective_gradients_same_bits_on_card_and_cpu(cuda, name, params):
                           *out):
         bad = int((a != b).sum()) - int((a.isnan() & b.isnan()).sum())
         assert bad == 0, f"{name} {what}: {bad} values differ"
+
+
+def _ranking_same_bits(cuda, name, params, path, group_weights, rng, n):
+    from xgboost_tpu_torch.data.dmatrix import QueryGroups
+    from xgboost_tpu_torch.objective import create_objective
+    from xgboost_tpu_torch.objective import ranking as trank
+    from xgboost_tpu_torch.params import LearnerParam
+
+    lo, hi = (8, 33) if path == "all_pairs" else (60, 181)
+    sizes = rng.randint(lo, hi, n // lo)
+    sizes = sizes[:np.searchsorted(np.cumsum(sizes), n)]
+    ptr = np.concatenate([[0], np.cumsum(sizes)])
+    rows = int(ptr[-1])
+    G, S = len(sizes), int(sizes.max())
+    assert (G * S * S > trank._ALL_PAIRS_BUDGET) == (path == "sampled")
+    m = np.round(rng.randn(rows) * 2.0, 1).astype(np.float32)
+    label = rng.randint(0, 5, rows).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, G if group_weights else rows).astype(
+        np.float32)
+    obj = create_objective(name, LearnerParam(objective=name, **params))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        def T(a):
+            return torch.as_tensor(a, device=dev)
+        g, h = obj.get_gradient(T(m), T(label), T(w), 3,
+                                groups=QueryGroups(ptr, dev))
+        gq = thk.quantize_gradients(g, h)
+        out.append([v.cpu() for v in (g, h, gq.q, gq.exp)])
+    for what, a, b in zip(("grad", "hess", "q", "exp"), *out):
+        bad = int((a != b).sum())
+        assert bad == 0, f"{name} {path} {what}: {bad} values differ"

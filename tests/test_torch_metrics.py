@@ -230,9 +230,11 @@ def test_create_metric_parses_arguments_and_refuses_unported():
         assert t_metric(name).maximize and j_metric(name).maximize
     for name in ("rmse", "mlogloss", "merror", "cox-nloglik"):
         assert not t_metric(name).maximize
-    for name in ("ndcg", "map@3", "pre@2", "ams@0.15"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_metric(name)
+    for name in ("ndcg", "map@3", "pre@2", "ams@0.15", "ndcg-", "map@2-"):
+        assert t_metric(name).name == j_metric(name).name == name
+        assert t_metric(name).maximize and j_metric(name).maximize
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_metric("no-such-metric")
 
 
 # ---------------------------------------------------------------------------

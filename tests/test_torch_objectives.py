@@ -307,9 +307,18 @@ def test_aft_mixed_rows_and_label_fallback_match_jax():
 
 
 def test_rank_objectives_are_not_ported():
+    """Each ranking objective resolves to the JAX package's name, default
+    metric and identity transforms (their gradients:
+    ``tests/test_torch_ranking.py``); an unknown name still raises. (The
+    name dates from before ranking was ported, when this test checked
+    that it raised.)"""
     for name in ("rank:pairwise", "rank:ndcg", "rank:map"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_create(name, TParam())
+        jobj, tobj = _pair(name, {})
+        assert tobj.name == jobj.name == name
+        assert tobj.default_metric() == jobj.default_metric()
+        assert tobj.prob_to_margin(0.5) == jobj.prob_to_margin(0.5) == 0.5
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_create("rank:unknown", TParam())
 
 
 def test_aliases_resolve_to_the_jax_name():

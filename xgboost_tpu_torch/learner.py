@@ -197,7 +197,7 @@ class Booster:
         grad, hess = self._obj.get_gradient(
             m, self._label(dtrain), dtrain.weight, iteration,
             label_lower=dtrain.label_lower_bound,
-            label_upper=dtrain.label_upper_bound)
+            label_upper=dtrain.label_upper_bound, groups=dtrain.groups)
         self._boost(dtrain, grad, hess, iteration)
 
     def _label(self, dmat: DMatrix) -> torch.Tensor:
@@ -271,7 +271,7 @@ class Booster:
         """{data name: {metric name: value}} for one round. The metrics see
         the objective's ``eval_transform`` of the margin (softmax
         probabilities for both multiclass objectives, the log-space score
-        for ``survival:aft``) and the label bounds."""
+        for ``survival:aft``), the label bounds and the query groups."""
         self._configure()
         out: Dict[str, Dict[str, float]] = {}
         for dmat, name in evals:
@@ -282,7 +282,7 @@ class Booster:
             out[name] = {m.name: m.evaluate(
                 preds, label, dmat.weight,
                 label_lower=dmat.label_lower_bound,
-                label_upper=dmat.label_upper_bound)
+                label_upper=dmat.label_upper_bound, groups=dmat.groups)
                 for m in self._resolve_metrics()}
         return out
 
@@ -475,8 +475,8 @@ class Booster:
         return {"version": _VERSION, "learner": learner}
 
     def save_raw(self, raw_format: str = "json") -> bytes:
-        if raw_format != "json":
-            raise NotImplementedError("only the JSON model format is ported")
+        """The model JSON as bytes, whatever ``raw_format`` asks for: the
+        JAX package writes JSON for ``"ubj"`` and ``"deprecated"`` too."""
         return json.dumps(self.save_json()).encode()
 
     def save_model(self, fname: Union[str, os.PathLike]) -> None:
@@ -610,6 +610,221 @@ class Booster:
     @feature_types.setter
     def feature_types(self, types) -> None:
         self._loaded_feature_types = list(types) if types else []
+
+    # ------------------------------------------------------------------
+    # configuration and model inspection (the JAX package's
+    # learner.py:1071-1360)
+    # ------------------------------------------------------------------
+    def save_config(self) -> str:
+        """The configuration as a JSON string (reference
+        XGBoosterSaveJsonConfig): the learner's parameters, the booster's
+        name and parameters and the objective, enough for ``load_config``
+        to configure a Booster the same way."""
+        self._configure()
+        return json.dumps({
+            "version": list(_VERSION),
+            "learner": {
+                "learner_train_param": self.lparam.to_dict(),
+                "gradient_booster": {"name": self._gbm.name,
+                                     "params": dict(self._extra_params)},
+                "objective": {"name": self._obj.name},
+            },
+        })
+
+    def load_config(self, config: str) -> None:
+        """Apply a ``save_config`` string: its parameters go through
+        ``_apply_params`` and to a configured booster; the model is
+        untouched."""
+        learner = json.loads(config).get("learner", {})
+        self._apply_params(dict(learner.get("learner_train_param", {})))
+        gb = learner.get("gradient_booster", {})
+        if gb.get("name"):
+            self._apply_params({"booster": gb["name"]})
+        gb_params = dict(gb.get("params", {}))
+        self._apply_params(gb_params)
+        obj = learner.get("objective", {})
+        if obj.get("name"):
+            self._apply_params({"objective": obj["name"]})
+        if self._gbm is not None:
+            for k, v in gb_params.items():
+                self._gbm.set_param(k, v)
+        self._metrics = []
+
+    @staticmethod
+    def _parse_fmap_full(fmap: str
+                         ) -> Optional[Tuple[List[str], List[str]]]:
+        """A feature map file (``<id> <name> <type>`` per line; types ``i``,
+        ``q``, ``int``, ``float``, ``c``): ``(names, types)``, or None when
+        no file is named. A missing file raises ValueError."""
+        if not fmap:
+            return None
+        if not os.path.exists(fmap):
+            raise ValueError(f"No such featmap file: {fmap!r}")
+        names: Dict[int, str] = {}
+        types: Dict[int, str] = {}
+        with open(fmap) as f:
+            for line in f:
+                ps = line.split()
+                if len(ps) >= 2:
+                    names[int(ps[0])] = ps[1]
+                    if len(ps) >= 3:
+                        types[int(ps[0])] = ps[2]
+        if not names:
+            return None
+        n = max(names) + 1
+        return ([names.get(i, f"f{i}") for i in range(n)],
+                [types.get(i, "q") for i in range(n)])
+
+    def _names(self, fmap: str) -> Optional[List[str]]:
+        """Feature names from ``fmap``, else the Booster's, else None."""
+        parsed = self._parse_fmap_full(fmap)
+        return (parsed[0] if parsed else None) or self._feature_meta()[0] \
+            or None
+
+    def get_split_value_histogram(self, feature: str, fmap: str = "",
+                                  bins: Optional[int] = None,
+                                  as_pandas: bool = True):
+        """``[[split value, count], ...]`` of the numerical splits on
+        ``feature`` (a name, or ``f<i>`` without names), over
+        ``min(bins, distinct values)`` equal-width bins (reference
+        core.py:2508); a pandas DataFrame where pandas imports and
+        ``as_pandas``. A feature split only by category raises."""
+        self._configure()
+        names = self._names(fmap) or []
+        try:
+            fidx = (int(feature[1:]) if (not names and feature.startswith("f")
+                                         and feature[1:].isdigit())
+                    else names.index(feature))
+        except (ValueError, AttributeError):
+            raise ValueError(f"unknown feature: {feature!r}")
+        values: List[float] = []
+        is_cat = False
+        for t in self._gbm.model.trees:
+            mask = (t.left_children != -1) & (t.split_indices == fidx)
+            if bool((t.split_type[mask] != 0).any()):
+                is_cat = True
+                continue
+            values.extend(float(v) for v in t.split_conditions[mask])
+        if not values and is_cat:
+            raise ValueError(
+                "Split value historgam doesn't support categorical split.")
+        n_unique = len(np.unique(values))
+        bins = max(min(n_unique, bins) if bins is not None else n_unique, 1)
+        nph = np.histogram(values, bins=bins)
+        nph = np.column_stack((nph[1][1:], nph[0]))
+        nph = nph[nph[:, 1] > 0]
+        if as_pandas:
+            try:
+                import pandas as pd
+            except ImportError:
+                return nph
+            return pd.DataFrame(nph, columns=["SplitValue", "Count"])
+        return nph
+
+    def get_dump(self, fmap: str = "", with_stats: bool = False,
+                 dump_format: str = "text") -> List[str]:
+        """One dump string per tree: ``"text"``, ``"json"`` (the
+        reference's per-node dump) or ``"dot"`` / ``"dot:{attrs json}"``
+        (Graphviz). ``fmap`` names the features and gives their types."""
+        self._configure()
+        parsed = self._parse_fmap_full(fmap)
+        names, types = parsed if parsed else (None, None)
+        if not names:
+            meta_names, meta_types = self._feature_meta()
+            names = meta_names or None
+            types = types or (meta_types or None)
+        out = []
+        for t in self._gbm.model.trees:
+            if dump_format == "json":
+                out.append(t.dump_json_ref(names, with_stats, types))
+            elif dump_format == "text":
+                out.append(t.dump_text(names, with_stats, types))
+            elif dump_format.startswith("dot"):
+                attrs = (json.loads(dump_format[4:])
+                         if dump_format.startswith("dot:") else None)
+                out.append(t.dump_dot(names, types, attrs))
+            else:
+                raise ValueError(f"Unknown dump format: {dump_format!r}")
+        return out
+
+    def dump_model(self, fout, fmap: str = "", with_stats: bool = False,
+                   dump_format: str = "text") -> None:
+        """``get_dump`` into the file ``fout``: a JSON list, or each tree
+        after a ``booster[i]:`` line."""
+        dumps = self.get_dump(fmap, with_stats, dump_format)
+        with open(fout, "w") as f:
+            if dump_format == "json":
+                f.write("[\n" + ",\n".join(dumps) + "\n]")
+            else:
+                for i, d in enumerate(dumps):
+                    f.write(f"booster[{i}]:\n{d}\n")
+
+    def get_score(self, fmap: str = "", importance_type: str = "weight"
+                  ) -> Dict[str, float]:
+        """Feature importance over every split (reference
+        CalcFeatureScore): ``weight`` (split count), ``total_gain``,
+        ``total_cover``, and ``gain`` / ``cover`` per split."""
+        self._configure()
+        gain: Dict[int, float] = {}
+        cover: Dict[int, float] = {}
+        weight: Dict[int, float] = {}
+        for t in self._gbm.model.trees:
+            internal = t.left_children != -1
+            for f, g, c in zip(t.split_indices[internal],
+                               t.loss_changes[internal],
+                               t.sum_hessian[internal]):
+                f = int(f)
+                weight[f] = weight.get(f, 0.0) + 1.0
+                gain[f] = gain.get(f, 0.0) + float(g)
+                cover[f] = cover.get(f, 0.0) + float(c)
+        names = self._names(fmap)
+
+        def nm(f: int) -> str:
+            return names[f] if names and f < len(names) else f"f{f}"
+
+        if importance_type == "weight":
+            return {nm(f): v for f, v in weight.items()}
+        if importance_type == "total_gain":
+            return {nm(f): v for f, v in gain.items()}
+        if importance_type == "total_cover":
+            return {nm(f): v for f, v in cover.items()}
+        if importance_type == "gain":
+            return {nm(f): gain[f] / weight[f] for f in gain}
+        if importance_type == "cover":
+            return {nm(f): cover[f] / weight[f] for f in cover}
+        raise ValueError(f"Unknown importance_type: {importance_type}")
+
+    def get_fscore(self, fmap: str = "") -> Dict[str, float]:
+        return self.get_score(fmap, "weight")
+
+    def trees_to_dataframe(self, fmap: str = ""):
+        """One pandas row per node: Tree, Node, ID, Feature (``f<i>`` or
+        ``Leaf``), Split, Yes, No, Missing, Gain (the leaf value at
+        leaves) and Cover. Imports pandas."""
+        import pandas as pd
+
+        self._configure()
+        rows = []
+        for ti, t in enumerate(self._gbm.model.trees):
+            for i in range(t.num_nodes):
+                leaf = t.left_children[i] == -1
+                yes = f"{ti}-{t.left_children[i]}"
+                no = f"{ti}-{t.right_children[i]}"
+                rows.append({
+                    "Tree": ti,
+                    "Node": i,
+                    "ID": f"{ti}-{i}",
+                    "Feature": "Leaf" if leaf else f"f{t.split_indices[i]}",
+                    "Split": None if leaf else float(t.split_conditions[i]),
+                    "Yes": None if leaf else yes,
+                    "No": None if leaf else no,
+                    "Missing": None if leaf else (
+                        yes if t.default_left[i] else no),
+                    "Gain": (float(t.split_conditions[i]) if leaf
+                             else float(t.loss_changes[i])),
+                    "Cover": float(t.sum_hessian[i]),
+                })
+        return pd.DataFrame(rows)
 
     def __getitem__(self, val) -> "Booster":
         """The rounds ``val`` selects (an int or a slice with a step), as a

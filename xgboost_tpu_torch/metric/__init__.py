@@ -1,4 +1,4 @@
-from . import auc, elementwise, multiclass, survival  # noqa: F401  (registers)
+from . import auc, elementwise, multiclass, rank, survival  # noqa: F401  (registers)
 from .base import Metric, create_metric
 
 __all__ = ["Metric", "create_metric"]

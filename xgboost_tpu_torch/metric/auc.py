@@ -2,9 +2,10 @@
 ``metric/auc.py``). ROC AUC sorts by score, builds tie blocks from score
 boundaries and computes P(s_pos > s_neg) + 0.5 P(=) from weighted block
 sums; K classes give the plain mean of the K one-vs-rest AUCs, as the JAX
-package computes it. AUC-PR walks the scores in descending order and
-evaluates precision and recall at the ends of tie blocks. Sums run in
-float64, on the predictions' device."""
+package computes it; with query groups, the mean of the per-group AUCs of
+``label > 0`` over the groups that hold both classes. AUC-PR walks the
+scores in descending order and evaluates precision and recall at the ends
+of tie blocks. Sums run in float64, on the predictions' device."""
 
 from __future__ import annotations
 
@@ -47,12 +48,46 @@ def _binary_auc(score: torch.Tensor, label: torch.Tensor,
     return float(num) / (Wp * Wn)
 
 
+def _grouped_auc(score: torch.Tensor, label: torch.Tensor,
+                 weight: torch.Tensor, groups) -> float:
+    """The mean of the per-group ROC AUCs over the groups that hold both
+    classes (the JAX package's ``_grouped_auc``): one sort by (group,
+    score), tie blocks that stop at group boundaries, and ``_binary_auc``'s
+    block sums per group."""
+    n, G = score.shape[0], groups.n_groups
+    dev = score.device
+    order = groups.argsort(score)
+    g, s = groups.rows()[0][order], score[order]
+    y, w = label[order].double(), weight[order].double()
+    wp, wn = w * y, w * (1.0 - y)
+    newblk = torch.ones(n, dtype=torch.bool, device=dev)
+    newblk[1:] = (s[1:] != s[:-1]) | (g[1:] != g[:-1])
+    seg = torch.cumsum(newblk.long(), dim=0) - 1
+    blk_wn = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+        0, seg, wn)
+    cum_blk = (torch.cumsum(blk_wn, dim=0) - blk_wn)[seg]
+    per_group = torch.zeros(3, G, dtype=torch.float64, device=dev)
+    per_group[0].index_add_(0, g, wn)
+    Wn_g = per_group[0]
+    below = cum_blk - (torch.cumsum(Wn_g, dim=0) - Wn_g)[g]  # in-group
+    per_group[1].index_add_(0, g, wp * (below + 0.5 * blk_wn[seg]))
+    per_group[2].index_add_(0, g, wp)
+    num_g, Wp_g = per_group[1], per_group[2]
+    valid = (Wp_g > 0) & (Wn_g > 0)
+    cnt = int(valid.sum())
+    if cnt == 0:
+        return float("nan")
+    auc_g = num_g / torch.clamp(Wp_g * Wn_g, min=1e-30)
+    return float(torch.where(valid, auc_g, torch.zeros_like(auc_g)).sum()) \
+        / cnt
+
+
 @register("auc")
 class AUC(Metric):
     name = "auc"
     maximize = True
 
-    def evaluate(self, preds, label, weight=None, **kw):
+    def evaluate(self, preds, label, weight=None, *, groups=None, **kw):
         w = _weights(label, weight)
         if float(w.double().sum()) <= 0:
             return float("nan")  # the JAX package's weighted mean
@@ -64,6 +99,11 @@ class AUC(Metric):
             return float(sum(aucs) / len(aucs))
         if preds.dim() == 2:
             preds = preds[:, 0]
+        if groups is not None and groups.n_groups > 1:
+            # ranking: relevant (label > 0) against not, within each query
+            groups.check_rows(preds.shape[0])
+            return _grouped_auc(preds, (label > 0).to(torch.float32), w,
+                                groups)
         return _binary_auc(preds, label, w)
 
 

@@ -32,11 +32,17 @@ class Metric:
     #: the learner's parameters, for metrics configured like the
     #: objective (``aft-nloglik``); set by the learner
     lparam = None
+    #: set by a trailing ``-`` in the name (``create_metric``)
+    minus: bool = False
 
     def evaluate(self, preds: torch.Tensor, label: torch.Tensor,
                  weight: Optional[torch.Tensor] = None, *,
                  label_lower: Optional[torch.Tensor] = None,
-                 label_upper: Optional[torch.Tensor] = None) -> float:
+                 label_upper: Optional[torch.Tensor] = None,
+                 groups=None) -> float:
+        """The metric of ``preds``; ``groups`` is the matrix's
+        ``QueryGroups`` (read by the ranking metrics and the grouped
+        AUC)."""
         raise NotImplementedError
 
 
@@ -69,18 +75,27 @@ class ElementwiseMetric(Metric):
 
 def create_metric(name: str) -> Metric:
     """The metric ``name``; ``base@arg`` builds the argument form of
-    ``base`` (the JAX package's ``registry.create_metric``)."""
-    if "@" in name:
-        base, _, arg = name.partition("@")
+    ``base``, and a trailing ``-`` (``ndcg-``, ``map@2-``) sets ``minus``:
+    a ranking group without relevant rows then scores 0 instead of 1 (the
+    JAX package's ``registry.create_metric``)."""
+    minus = name.endswith("-")
+    core = name[:-1] if minus else name
+    m = None
+    if "@" in core:
+        base, _, arg = core.partition("@")
         cls = _REGISTRY.get(base + "@")
         if cls is not None:
-            return cls(arg, full_name=name)
-    cls = _REGISTRY.get(name)
-    if cls is None:
-        raise NotImplementedError(
-            f"metric {name!r} is not ported yet; the port has "
-            f"{sorted(_REGISTRY)}")
-    m = cls()
-    if not m.name:
+            m = cls(arg, full_name=name)
+    if m is None:
+        cls = _REGISTRY.get(core)
+        if cls is None:
+            raise NotImplementedError(
+                f"metric {name!r} is not ported yet; the port has "
+                f"{sorted(_REGISTRY)}")
+        m = cls()
+        if not m.name:
+            m.name = core
+    if minus:
         m.name = name
+        m.minus = True
     return m

@@ -1,4 +1,4 @@
-from . import multiclass, regression, survival  # noqa: F401  (registers)
+from . import multiclass, ranking, regression, survival  # noqa: F401  (registers)
 from .base import ObjFunction, create_objective
 
 __all__ = ["ObjFunction", "create_objective"]

@@ -87,8 +87,11 @@ class ObjFunction:
     def get_gradient(self, margin: torch.Tensor, label: torch.Tensor,
                      weight: Optional[torch.Tensor], iteration: int = 0, *,
                      label_lower: Optional[torch.Tensor] = None,
-                     label_upper: Optional[torch.Tensor] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     label_upper: Optional[torch.Tensor] = None,
+                     groups=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(grad, hess)`` of ``margin``; ``label_lower``/``label_upper``
+        are the censoring bounds (survival) and ``groups`` the matrix's
+        ``QueryGroups`` (ranking)."""
         raise NotImplementedError
 
     # margin -> user-facing prediction (reference: PredTransform)
@@ -111,8 +114,7 @@ class ObjFunction:
 
 
 def create_objective(name: str, params=None) -> ObjFunction:
-    """The objective registered as ``name``. The ranking objectives
-    (``rank:*``) and any other name the port lacks raise
+    """The objective registered as ``name``; a name the port lacks raises
     NotImplementedError."""
     name = _ALIASES.get(name, name)
     cls = _REGISTRY.get(name)

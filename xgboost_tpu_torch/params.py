@@ -173,6 +173,11 @@ class LearnerParam(ParamSet):
         # default is 0.7 unless the key is set (regression_obj.cu:197);
         # the learner forwards it to the booster as well
         "max_delta_step": Field(0.0, lower=0.0),
+        # the ranking objectives: opponents drawn per row on the sampled
+        # pair path; max_pairs is accepted and read by nothing, as in the
+        # JAX package
+        "lambdarank_num_pair_per_sample": Field(1, lower=1),
+        "max_pairs": Field(100),
     }
 
 
@@ -191,9 +196,8 @@ NOT_PORTED: Dict[str, Any] = {
     # the linear booster (GBLinearParam)
     "feature_selector": "cyclic", "top_k": 0, "reg_lambda_linear": 0.0,
     "reg_alpha_linear": 0.0, "eta_linear": 0.5,
-    # multi-output trees and the ranking objectives (LearnerParam)
-    "multi_strategy": "one_output_per_tree", "max_pairs": 100,
-    "lambdarank_num_pair_per_sample": 1,
+    # multi-output trees (LearnerParam)
+    "multi_strategy": "one_output_per_tree",
 }
 
 

@@ -9,12 +9,16 @@ in ``split_conditions[i]``; at a numerical node a present value
 categorical node (``split_type[i] == 1``) sends a present value RIGHT iff
 its category is in the node's set (``categories[i]``; reference
 ``common/categorical.h`` Decision); a one-hot node's set is its single
-category, also kept in ``split_conditions[i]``.
+category, also kept in ``split_conditions[i]``. The dump generators
+(``dump_text``, ``dump_json_ref``, ``dump_dot``) write the reference's
+text, JSON and Graphviz dumps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -204,3 +208,174 @@ class RegTree:
                 left = v < self.split_conditions[i]
             i = self.left_children[i] if left else self.right_children[i]
         return float(self.split_conditions[i])
+
+    # ---- dump generators: the reference's TreeGenerator family
+    # (src/tree/tree_model.cc:235 Text, :362 Json, :550 Graphviz) with its
+    # per-feature-type formatting from a feature map's types: "i"
+    # (indicator: the name only, yes = the value-1 child), "int" (the
+    # threshold rounded up to an integer), "q"/"float" (quantitative);
+    # categorical nodes by their category set, which goes right ----
+
+    def _fname(self, i: int, names) -> str:
+        f = int(self.split_indices[i])
+        return names[f] if names and f < len(names) else f"f{f}"
+
+    def _ftype(self, i: int, types) -> str:
+        f = int(self.split_indices[i])
+        return types[f] if types and f < len(types) else "q"
+
+    def _is_cat(self, i: int) -> bool:
+        return self.split_type is not None and bool(self.split_type[i] == 1)
+
+    def _cats_of(self, i: int) -> List[int]:
+        if self.categories is None:
+            return []
+        return [int(c) for c in self.categories[i]]
+
+    def _cond(self, i: int, ftype: str) -> str:
+        cond = float(self.split_conditions[i])
+        return str(int(math.ceil(cond))) if ftype == "int" else f"{cond:.6g}"
+
+    def dump_text(self, fmap: Optional[List[str]] = None,
+                  with_stats: bool = False,
+                  ftypes: Optional[List[str]] = None) -> str:
+        """The text dump: one line per node, depth-first, tab-indented."""
+        lines: List[str] = []
+
+        def rec(i: int, depth: int) -> None:
+            indent = "\t" * depth
+            if self.left_children[i] == -1:
+                s = f"{indent}{i}:leaf={self.split_conditions[i]:.6g}"
+                if with_stats:
+                    s += f",cover={self.sum_hessian[i]:.6g}"
+                lines.append(s)
+                return
+            fname = self._fname(i, fmap)
+            ftype = self._ftype(i, ftypes)
+            yes, no = self.left_children[i], self.right_children[i]
+            miss = yes if self.default_left[i] else no
+            if self._is_cat(i):
+                # the stored set goes right: yes = right (tree_model.cc:321)
+                cats = "{" + ",".join(str(c) for c in self._cats_of(i)) + "}"
+                s = (f"{indent}{i}:[{fname}:{cats}] "
+                     f"yes={no},no={yes},missing={miss}")
+            elif ftype == "i":
+                nyes = no if self.default_left[i] else yes
+                s = f"{indent}{i}:[{fname}] yes={nyes},no={miss}"
+            else:
+                s = (f"{indent}{i}:[{fname}<{self._cond(i, ftype)}] "
+                     f"yes={yes},no={no},missing={miss}")
+            if with_stats:
+                s += (f",gain={self.loss_changes[i]:.6g}"
+                      f",cover={self.sum_hessian[i]:.6g}")
+            lines.append(s)
+            rec(yes, depth + 1)
+            rec(no, depth + 1)
+
+        rec(0, 0)
+        return "\n".join(lines)
+
+    def dump_json_ref(self, fmap: Optional[List[str]] = None,
+                      with_stats: bool = False,
+                      ftypes: Optional[List[str]] = None) -> str:
+        """The reference's per-node recursive JSON dump (tree_model.cc:362
+        JsonGenerator: nodeid/depth/split/split_condition/yes/no/missing/
+        children), not the model schema of ``to_json``."""
+
+        def rec(i: int, depth: int) -> str:
+            ind = "  " * (depth + 1)
+            if self.left_children[i] == -1:
+                s = (f'{{ "nodeid": {i}, '
+                     f'"leaf": {float(self.split_conditions[i]):.6g}')
+                if with_stats:
+                    s += f', "cover": {float(self.sum_hessian[i]):.6g} '
+                return s + "}"
+            fname = self._fname(i, fmap)
+            ftype = self._ftype(i, ftypes)
+            yes, no = int(self.left_children[i]), int(self.right_children[i])
+            miss = yes if self.default_left[i] else no
+            head = (f'{{ "nodeid": {i}, "depth": {depth}, '
+                    f'"split": {json.dumps(fname)}, ')
+            if self._is_cat(i):
+                cats = "[" + ", ".join(
+                    str(c) for c in self._cats_of(i)) + "]"
+                head += (f'"split_condition": {cats}, "yes": {no}, '
+                         f'"no": {yes}, "missing": {miss}')
+            elif ftype == "i":
+                nyes = no if self.default_left[i] else yes
+                head += f'"yes": {nyes}, "no": {miss}'
+            else:
+                head += (f'"split_condition": {self._cond(i, ftype)}, '
+                         f'"yes": {yes}, "no": {no}, "missing": {miss}')
+            if with_stats:
+                head += (f', "gain": {float(self.loss_changes[i]):.6g}, '
+                         f'"cover": {float(self.sum_hessian[i]):.6g}')
+            return (head + ', "children": [\n'
+                    + "  " * (depth + 2) + rec(yes, depth + 1) + ",\n"
+                    + "  " * (depth + 2) + rec(no, depth + 1) + "\n"
+                    + ind + "]}")
+
+        return rec(0, 0)
+
+    def dump_dot(self, fmap: Optional[List[str]] = None,
+                 ftypes: Optional[List[str]] = None,
+                 attrs: Optional[dict] = None) -> str:
+        """The Graphviz dump (tree_model.cc:550 GraphvizGenerator): a node
+        per split ("name<cond", the name alone for indicators,
+        "name:{set}" for categories), yes/no edges, ", missing" on the
+        default child's. ``attrs`` takes the reference's ``rankdir``,
+        ``edge`` colours, ``condition_node_params``, ``leaf_node_params``
+        and ``graph_attrs``."""
+        attrs = attrs or {}
+        yes_color = attrs.get("edge", {}).get("yes_color", "#0000FF")
+        no_color = attrs.get("edge", {}).get("no_color", "#FF0000")
+        rankdir = attrs.get("rankdir", "TB")
+        cond_params = " ".join(
+            f'{k}="{v}"' for k, v in
+            attrs.get("condition_node_params", {}).items())
+        leaf_params = " ".join(
+            f'{k}="{v}"' for k, v in attrs.get("leaf_node_params", {}).items())
+        graph_attrs = "".join(
+            f'    graph [ {k}="{v}" ]\n'
+            for k, v in attrs.get("graph_attrs", {}).items())
+        out: List[str] = []
+
+        def edge(i: int, child: int, left: bool, is_cat: bool) -> str:
+            miss = (self.left_children[i] if self.default_left[i]
+                    else self.right_children[i])
+            is_missing = child == miss
+            branch = (("no" if left else "yes") if is_cat
+                      else ("yes" if left else "no"))
+            if is_missing:
+                branch += ", missing"
+            color = yes_color if is_missing else no_color
+            return (f'    {i} -> {child} [label="{branch}" '
+                    f'color="{color}"]\n')
+
+        def rec(i: int) -> None:
+            if self.left_children[i] == -1:
+                out.append(
+                    f'    {i} [ label="leaf={self.split_conditions[i]:.6g}"'
+                    f' {leaf_params}]\n')
+                return
+            fname = self._fname(i, fmap)
+            yes, no = int(self.left_children[i]), int(self.right_children[i])
+            is_cat = self._is_cat(i)
+            if is_cat:
+                cats = "{" + ",".join(str(c) for c in self._cats_of(i)) + "}"
+                label = f"{fname}:{cats}"
+            elif self._ftype(i, ftypes) == "i":
+                label = fname
+            else:
+                label = f"{fname}<{float(self.split_conditions[i]):.6g}"
+            out.append(f'    {i} [ label="{label}" {cond_params}]\n')
+            out.append(edge(i, yes, True, is_cat))
+            out.append(edge(i, no, False, is_cat))
+            rec(yes)
+            rec(no)
+
+        rec(0)
+        return ("digraph {\n"
+                f"    graph [ rankdir={rankdir} ]\n"
+                f"{graph_attrs}\n"
+                + "".join(out) + "}")
