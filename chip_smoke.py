@@ -170,6 +170,39 @@ LTR demo's parameters (depth 6, eta 0.1, max_bin 256):
     three on 64k rows of phase 22's data with per-group weights set after
     the first binning.
 
+The other growers and boosters, back on the numerical 1M x 50 rows
+(after phase 17, before ranking), max_bin 256, AUC + logloss on the 100k
+held-out rows:
+
+24. lossguide at LightGBM's published settings (``LG_PARAMS``: 255
+    leaves, no depth limit, eta 0.1) for 10 rounds through ``train``
+    (``phase_lossguide``): kernel A 36 times a tree (the root and 35 steps
+    of the top-8 queue, every step's child histograms at ``d = 0``,
+    ``Kp = 0``, ``K = 16``), B 10, C and D never; held-out AUC rising; at
+    most 255 leaves a tree and 255 in one; ``inplace_predict`` equal to
+    ``predict``; the saved JSON, loaded back, within 1e-5; kernel B on the
+    device-stacked forest against its plain version (its walk bound the
+    deepest node + 1); kernel A on a real step's child histograms at
+    ``K`` = 16 and (a 31-leaf tree) 2, bitwise equal to its plain version,
+    timed beside ``index_add_`` and its bound;
+25. lossguide at 31 and 255 leaves with sampling and a monotone
+    constraint, 3 rounds on 64k rows on the card and on the CPU: the same
+    trees;
+26. DART at its tutorial's parameters (``DART_PARAMS``: depth 5, eta 0.1,
+    uniform drops at 0.1, ``skip_drop`` 0.5) for 50 rounds
+    (``phase_dart``): C once, D 250 times, A never, B at least 99 times
+    (a training walk with the drops every round but the first, an eval
+    walk every round); AUC rising; then 5 rounds at ``rate_drop`` 0.5 on
+    the card and the CPU: the same trees and ``weight_drop``;
+27. a random forest at its tutorial's parameters (``RF_PARAMS``: 100
+    parallel trees of depth 5, learning rate 1, ``subsample`` and
+    ``colsample_bynode`` 0.8) in one round (``phase_random_forest``): C
+    once, D 500 times, B once; 100 trees, one round; the margins' AUC
+    above one tree's; ``iteration_range=(0, 1)`` the whole model; 4
+    parallel trees for 2 rounds on the card and the CPU: the same trees;
+28. one round with ``sketch_eps``, ``sparse_threshold`` and ``predictor``
+    set grows the same tree as without them, with a warning for each.
+
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; before that, one JSON line lists the kernels.
@@ -183,6 +216,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -196,10 +230,12 @@ from xgboost_tpu_torch.params import TrainParam
 from xgboost_tpu_torch.predictor import (_predict_margin_plain,
                                          forest_from_numpy, predict_margin,
                                          walk_row_chunks)
+from xgboost_tpu_torch.tree import grow_lossguide as glg
 from xgboost_tpu_torch.tree import hist_kernel as hk
 from xgboost_tpu_torch.tree.grow import (GrowParams, apply_row_sampling,
                                          mvs_sample)
 from xgboost_tpu_torch.tree.grow_fused import _init_state, _level_update
+from xgboost_tpu_torch.tree.grow_lossguide import lossguide_steps
 from xgboost_tpu_torch.tree.param import SplitParams
 
 DEVICE = torch.device("cuda")
@@ -220,6 +256,7 @@ PARAMS = {"objective": "binary:logistic", "tree_method": "tpu_hist",
 PARAMS_DEFAULT = {"objective": "binary:logistic", "eta": 0.1, **METRICS}
 HEAP_FIELDS = ("keep", "feature", "split_bin", "split_cond", "default_left",
                "leaf_value")
+ALLOC_FIELDS = ("left", "right", "n_nodes", "depth_max")
 # (column, categories) of the categorical configuration: fewer than
 # max_cat_to_onehot (4) categories split one-hot, the rest by partition
 CAT_COLUMNS = ((0, 3), (1, 3), (10, 32), (11, 32), (12, 32), (40, 200),
@@ -370,11 +407,15 @@ def launches() -> dict:
 
 
 def heap_trees(bst, count: int):
-    """The first ``count`` device-grown trees' heap arrays, on the host,
-    with their category sets where they were grown on categories."""
+    """The first ``count`` device-grown trees' arrays, on the host, with
+    their category sets where they were grown on categories, and the
+    explicit children and node count of lossguide (allocation-ordered)
+    trees."""
     out = []
     for e in bst._gbm.model._entries[:count]:
         fields = HEAP_FIELDS + (("cat_set",) if e.cat_set is not None else ())
+        if hasattr(e, "left"):
+            fields += ALLOC_FIELDS
         out.append({f: getattr(e, f).cpu().numpy() for f in fields})
     return out
 
@@ -639,18 +680,22 @@ WALK_SHAPES = ((1, EVAL_ROWS), (10, EVAL_ROWS), (500, EVAL_ROWS),
 WALK_PLAIN_ROWS = 10_000
 
 
-def walk_x_bytes(forest, X) -> int:
-    """The bytes of X that the walk needs: 4 per distinct (row, feature)
-    that some tree's path tests (the bound counts what this data needs,
-    not all of X)."""
+def walk_need(forest, X):
+    """``(bytes of X, node tests)`` that the walk of ``forest`` over ``X``
+    needs: 4 bytes per distinct (row, feature) that some tree's path
+    tests, and one test per split node on each row's path in each tree
+    (a bound counts what this data needs, not all of X nor ``max_depth``
+    steps for every tree)."""
     n = X.shape[0]
     rows = torch.arange(n, device=X.device)
     seen = torch.zeros(X.shape, dtype=torch.bool, device=X.device)
+    tests = torch.zeros((), dtype=torch.int64, device=X.device)
     for t in range(forest.num_trees):
         node = torch.zeros(n, dtype=torch.int64, device=X.device)
         for _ in range(forest.max_depth):
             left = forest.left[t][node]
             internal = left >= 0
+            tests += internal.sum()
             f = forest.feature[t][node].long()
             seen[rows[internal], f[internal]] = True
             v = X[rows, f]
@@ -658,7 +703,7 @@ def walk_x_bytes(forest, X) -> int:
                                  v < forest.cond[t][node])
             nxt = torch.where(goleft, left, forest.right[t][node]).long()
             node = torch.where(internal, nxt, node)
-    return int(seen.sum()) * 4
+    return int(seen.sum()) * 4, int(tests)
 
 
 def phase_walk_kernel():
@@ -688,7 +733,7 @@ def phase_walk_kernel():
             lambda: _predict_margin_plain(forest, X[:m], base[:m], tw),
             reps=5 if T > 10 else TIMING_REPS, warmup=1)
         N = forest.left.shape[1]
-        nbytes = walk_x_bytes(forest, X) + 2 * rows * 4 + T * N * 16 + T * 8
+        nbytes = walk_need(forest, X)[0] + 2 * rows * 4 + T * N * 16 + T * 8
         bnd, by = bound_ms(nbytes, rows * T * DEPTH * 2)
         print(f"kernel B (T={T}, depth {DEPTH}, {rows} rows): {ms:.4f} ms "
               f"(alone {k_ms} ms)  plain {plain_ms:.4f} ms on {m} rows  "
@@ -888,7 +933,8 @@ def phase_construct_route(Xtr, ytr, hoisted_trees, params=PARAMS,
 
 
 def _json_trees(bst):
-    trees = bst.save_json()["learner"]["gradient_booster"]["model"]["trees"]
+    model = bst.save_json()["learner"]["gradient_booster"]["model"]
+    trees = model.get("gbtree", model)["trees"]
     keys = ("left_children", "split_indices", "split_type", "categories",
             "categories_nodes", "categories_sizes", "default_left")
     return [{k: t[k] for k in keys} for t in trees]
@@ -897,9 +943,10 @@ def _json_trees(bst):
 def phase_card_vs_cpu(Xtr, ytr, Xte, feature_types=None,
                       name="card vs CPU", params=PARAMS_DEFAULT, group=None,
                       group_weights=None, hoist_budget_mb=None,
-                      want_launches=None, **info):
-    """3 rounds at max_bin 256 on the card and on the CPU: same trees (and
-    category sets; K per round for K output groups), same predictions.
+                      want_launches=None, rounds=CPU_ROUNDS, **info):
+    """``rounds`` (3) rounds at max_bin 256 on the card and on the CPU: same
+    trees (and category sets; K x ``num_parallel_tree`` per round for K
+    output groups; DART's ``weight_drop``), same predictions.
     ``info`` holds per-row arrays for the DMatrix (the label bounds).
     With query sizes ``group`` the rows are taken whole (at most
     ``CPU_ROWS``); ``group_weights`` are then set after the first
@@ -922,12 +969,12 @@ def phase_card_vs_cpu(Xtr, ytr, Xte, feature_types=None,
             if group_weights is not None:
                 d.get_binned(DEFAULT_MAX_BIN)
                 d.set_weight(group_weights)
-            bst = xgbt.train(params, d, CPU_ROUNDS, verbose_eval=False)
+            bst = xgbt.train(params, d, rounds, verbose_eval=False)
         finally:
             os.environ.pop("XGBTPU_HOIST_BUDGET_MB", None)
-        out.append((heap_trees(bst, CPU_ROUNDS * bst.n_groups),
+        out.append((heap_trees(bst, bst._gbm.model.num_trees),
                     bst.predict(xgbt.DMatrix(Xte[:10000], device=dev)),
-                    _json_trees(bst)))
+                    _json_trees(bst), getattr(bst._gbm, "weight_drop", None)))
         if dev == DEVICE and hoist_budget_mb is not None:
             got = launches()
             onehot = d.get_binned(DEFAULT_MAX_BIN).fused_onehot()  # frozen
@@ -937,9 +984,11 @@ def phase_card_vs_cpu(Xtr, ytr, Xte, feature_types=None,
             for k, v in (want_launches or {}).items():
                 check(got[k] == v, f"{name}: kernel {k} launched {got[k]} "
                                    f"times, want {v}")
-    (card_trees, card_pred, card_json), (cpu_trees, cpu_pred, cpu_json) = out
+    ((card_trees, card_pred, card_json, card_drop),
+     (cpu_trees, cpu_pred, cpu_json, cpu_drop)) = out
     same_trees(card_trees, cpu_trees, name)
     check(card_json == cpu_json, f"{name}: model JSON trees")
+    check(card_drop == cpu_drop, f"{name}: DART weight_drop")
     err = float(np.abs(card_pred - cpu_pred).max())
     check(err <= 1e-5, f"{name} predictions max abs err {err}")
     route = "" if hoist_budget_mb is None else (
@@ -1587,7 +1636,7 @@ def phase_walk_groups(mc_forest, Xte):
                                                      base7[:m], tw),
                        reps=5, warmup=1)
     N = forest.left.shape[1]
-    nbytes = (walk_x_bytes(forest, X) + 2 * EVAL_ROWS * MC_CLASSES * 4
+    nbytes = (walk_need(forest, X)[0] + 2 * EVAL_ROWS * MC_CLASSES * 4
               + T * N * 16 + T * 8)
     bnd, by = bound_ms(nbytes, EVAL_ROWS * T * DEPTH * 2)
     print(f"kernel B G={MC_CLASSES} (T={T}, depth {DEPTH}, {EVAL_ROWS} "
@@ -2141,6 +2190,346 @@ def phase_ranking():
     return main
 
 
+# LightGBM's published Experiments comparison (docs/Experiments.rst, against
+# xgboost_hist): best-first growth to num_leaves 255 with no depth limit
+LG_LEAVES = 255
+LG_PARAMS = {"objective": "binary:logistic", "grow_policy": "lossguide",
+             "max_leaves": LG_LEAVES, "max_depth": 0, "eta": 0.1, **METRICS}
+LG_STEPS = lossguide_steps(LG_LEAVES)
+# XGBoost's DART tutorial (doc/tutorials/dart.rst)
+DART_PARAMS = {"objective": "binary:logistic", "booster": "dart",
+               "max_depth": 5, "learning_rate": 0.1, "sample_type": "uniform",
+               "normalize_type": "tree", "rate_drop": 0.1, "skip_drop": 0.5,
+               **METRICS}
+DART_ROUNDS, DART_DEPTH = 50, 5
+# XGBoost's random-forest tutorial (doc/tutorials/rf.rst)
+RF_TREES, RF_DEPTH = 100, 5
+RF_PARAMS = {"objective": "binary:logistic", "num_parallel_tree": RF_TREES,
+             "max_depth": RF_DEPTH, "learning_rate": 1, "subsample": 0.8,
+             "colsample_bynode": 0.8, **METRICS}
+# the keys that change nothing (the JAX package warns and trains)
+INERT_KEYS = {"sketch_eps": 0.1, "sparse_threshold": 0.5,
+              "predictor": "gpu_predictor"}
+
+
+def _capture_step(binned, grad, hess, max_leaves: int, step: int):
+    """``(child slots, quantised gradients, K)`` that expansion step
+    ``step`` of a real lossguide tree on ``binned`` gives kernel A (its
+    ``fused_level`` call; call 0 is the root's)."""
+    seen = []
+    real = glg.fused_level
+
+    def record(bins, pos, gq, ptab, **kw):
+        if len(seen) == step:
+            seen.append((pos.clone(), gq, kw["K"]))
+        else:
+            seen.append(None)
+        return real(bins, pos, gq, ptab, **kw)
+
+    glg.fused_level = record
+    try:
+        glg.grow_tree_lossguide(binned.bins, grad, hess, binned.cut_values,
+                                GrowParams(max_depth=0, split=SplitParams()),
+                                max_leaves, bins_t=binned.feature_major())
+    finally:
+        glg.fused_level = real
+    return seen[step]
+
+
+def phase_child_histograms(binned, grad, hess, max_leaves: int):
+    """Kernel A on one step's child histograms (two thirds into the tree's
+    steps) of a real tree at 1M x 50
+    (``d = 0``, ``Kp = 0``, ``K = 2 K_EXP``): bitwise equal to its plain
+    version, twice; timed beside the plain version, one ``index_add_`` of
+    the same cells and its bound (the rows at a child read their bins, q
+    and position; every row's position is read and written; the int64
+    histogram written once)."""
+    bins, B = binned.bins, binned.cuts.max_bin
+    bins_t = binned.feature_major()
+    n, F = bins.shape
+    step = lossguide_steps(max_leaves) * 2 // 3
+    seg, gq, K = _capture_step(binned, grad, hess, max_leaves, step)
+    table = torch.zeros((1, 4), dtype=torch.float32, device=DEVICE)
+    kw = dict(K=K, Kp=0, B=B, d=0)
+    pk, hk_ = hk._fused_level_cuda(bins, seg, gq, table, bins_t=bins_t, **kw)
+    pk2, hk2 = hk._fused_level_cuda(bins, seg, gq, table, bins_t=bins_t, **kw)
+    pp, hp = hk._fused_level_plain(bins, seg, gq, table, **kw)
+    torch.cuda.synchronize()
+    tag = (f"lossguide child histograms (K={K}, step {step} of a "
+           f"{max_leaves}-leaf tree)")
+    check(torch.equal(pk, pp) and torch.equal(hk_, hp),
+          f"{tag}: kernel A == plain")
+    check(torch.equal(pk2, pk) and torch.equal(hk2, hk_), f"{tag}: twice")
+    del pk, pk2, hk2, pp, hp
+    def run():
+        return hk.fused_level(bins, seg, gq, table, bins_t=bins_t, **kw)
+
+    ms = time_ms(run)
+    k_ms = kernel_ms(run, "A")
+    lane = (torch.arange(2 * K, device=DEVICE) >= K).long()[None, :, None]
+    plain_ms = time_ms(lambda: gq.dequantize(hk._fused_level_plain(
+        bins, seg, gq, table, **kw)[1], lane), reps=5, warmup=1)
+    local = seg[:, 0].long()
+    b = bins.long()
+    keep = (local >= 0)[:, None] & (b < B)
+    cell = ((torch.arange(F, device=DEVICE)[None, :] * 2 * K
+             + local[:, None]) * B + b)[keep]
+    rows = torch.nonzero(keep)[:, 0]
+    idx = torch.cat([cell, cell + K * B])
+    vals = torch.cat([grad[rows], hess[rows]])
+    flat = torch.zeros(F * 2 * K * B, dtype=torch.float32, device=DEVICE)
+    lib_ms = time_ms(lambda: flat.index_add_(0, idx, vals))
+    active = int((local >= 0).sum())
+    del local, b, keep, cell, rows, idx, vals, flat
+    nbytes = (active * (F * bins.element_size() + 8) + n * 8
+              + F * 2 * K * B * 8)
+    bnd, by = bound_ms(nbytes, 2 * active * F)
+    print(f"{tag}: {active} of {n} rows at a child; kernel A {ms:.4f} ms "
+          f"(alone {k_ms} ms)  plain {plain_ms:.4f} ms  index_add_ "
+          f"{lib_ms:.4f} ms  bound {bnd:.4f} ms ({by}) | bitwise equal")
+    return dict(K=K, step=step, rows_at_children=active, ms=ms,
+                kernel_ms=k_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bnd, bound_by=by, max_abs_err=0.0)
+
+
+def phase_lossguide_walk(forest, Xte):
+    """Kernel B on the lossguide forest (allocation order, explicit
+    children; its walk bound the deepest node + 1) over the held-out rows:
+    against its plain version on the first 10k rows, timed, with a bound
+    that counts the node tests this data needs."""
+    X = torch.as_tensor(Xte, device=DEVICE)
+    base = torch.zeros((X.shape[0], 1), device=DEVICE)
+    tw = torch.ones(forest.num_trees, device=DEVICE)
+    m = WALK_PLAIN_ROWS
+    got = predict_margin(forest, X, base)
+    want = _predict_margin_plain(forest, X[:m], base[:m], tw)
+    torch.cuda.synchronize()
+    err = float((got[:m] - want).abs().max())
+    check(torch.allclose(got[:m], want, rtol=1e-5, atol=1e-5),
+          f"lossguide walk == plain (max abs err {err})")
+    run = lambda: predict_margin(forest, X, base)  # noqa: E731
+    ms = time_ms(run)
+    k_ms = kernel_ms(run, "B")
+    plain_ms = time_ms(lambda: _predict_margin_plain(forest, X[:m], base[:m],
+                                                     tw), reps=5, warmup=1)
+    x_bytes, tests = walk_need(forest, X)
+    T, N = forest.left.shape
+    nbytes = x_bytes + 2 * X.shape[0] * 4 + T * N * 16 + T * 8
+    bnd, by = bound_ms(nbytes, 2 * tests)
+    print(f"kernel B on the lossguide forest (T={T}, N={N}, walk bound "
+          f"{forest.max_depth}, {X.shape[0]} rows, "
+          f"{tests / X.shape[0] / T:.1f} tests per row and tree): {ms:.4f} ms (alone {k_ms} ms)  plain "
+          f"{plain_ms:.4f} ms on {m} rows  bound {bnd:.4f} ms ({by})  max "
+          f"abs err {err}")
+    return dict(T=T, walk_bound=forest.max_depth, ms=ms, kernel_ms=k_ms,
+                plain_ms=plain_ms, plain_rows=m, bound_ms=bnd, bound_by=by,
+                max_abs_err=err, library_ms=None,
+                tests_per_row_tree=tests / X.shape[0] / T)
+
+
+def _leaf_counts(bst):
+    model = bst.save_json()["learner"]["gradient_booster"]["model"]
+    return [(len(t["left_children"]) + 1) // 2
+            for t in model.get("gbtree", model)["trees"]]
+
+
+def phase_lossguide(Xtr, ytr, Xte, yte, w):
+    """Best-first growth at LightGBM's published settings (255 leaves, no
+    depth limit, eta 0.1, max_bin 256) for 10 rounds through ``train``:
+    kernel A 36 times a tree (the root and 35 steps of the top-8 queue), B
+    once a round (the eval walk), C and D never; held-out AUC rising; at
+    most 255 leaves a tree and 255 in at least one; ``inplace_predict``
+    equal to ``predict``; the saved JSON, loaded back, within 1e-5. Then
+    kernel A on real steps' child histograms at K = 16 and (a 31-leaf
+    tree) K = 2, kernel B on the forest, and the card against the CPU at
+    31 and 255 leaves with sampling and a monotone constraint."""
+    t_phase = time.perf_counter()
+    dtrain = xgbt.DMatrix(Xtr, ytr)
+    dtest = xgbt.DMatrix(Xte, yte)
+    binned = dtrain.get_binned(DEFAULT_MAX_BIN)
+    binned.feature_major()
+    torch.cuda.synchronize()
+    probe = _RoundProbe()
+    res = {}
+    reset_launches()
+    bst = xgbt.train(LG_PARAMS, dtrain, ROUNDS, evals=[(dtest, "test")],
+                     evals_result=res, verbose_eval=False, callbacks=[probe])
+    torch.cuda.synchronize()
+    got = launches()
+    want = {"A": ROUNDS * (1 + LG_STEPS), "B": ROUNDS, "C": 0, "D": 0}
+    for k, v in want.items():
+        check(got[k] == v, f"lossguide: kernel {k} launched {got[k]} times, "
+                           f"want {v}")
+    auc = res["test"]["auc"]
+    check(auc[-1] > auc[0], f"lossguide: held-out AUC {auc}")
+    forest = bst._gbm.model.stacked()  # the device-stacked forest
+    walk = phase_lossguide_walk(forest, Xte)
+    del forest
+    preds = bst.predict(xgbt.DMatrix(Xte))
+    check(np.array_equal(bst.inplace_predict(Xte), preds),
+          "lossguide: inplace_predict == predict")
+    leaves = _leaf_counts(bst)
+    check(max(leaves) == LG_LEAVES and min(leaves) > 1,
+          f"lossguide: leaves per tree {leaves}")
+    loaded = xgbt.Booster(model_file=bst.save_raw())
+    err = float(np.abs(loaded.predict(xgbt.DMatrix(Xte)) - preds).max())
+    check(err <= 1e-5, f"lossguide: JSON round trip max abs err {err}")
+    print(f"lossguide ({LG_LEAVES} leaves, max_depth 0): launches {got}; "
+          f"median round {probe.median_ms():.1f} ms (incl. eval); leaves "
+          f"{leaves}; auc {auc[0]:.6f} -> {auc[-1]:.6f}; JSON round trip "
+          f"max abs err {err}")
+    del bst, loaded
+    grad, hess = create_objective("binary:logistic").get_gradient(
+        torch.zeros(Xtr.shape[0], device=DEVICE), dtrain.label, None)
+    k16 = phase_child_histograms(binned, grad, hess, LG_LEAVES)
+    k2 = phase_child_histograms(binned, grad, hess, 31)
+    del dtrain, dtest, binned, grad, hess
+    torch.cuda.empty_cache()
+    mono = "(%d)" % (1 if w[0] > 0 else -1)
+    errs = {}
+    for leaves_cut in (31, LG_LEAVES):
+        params = {**LG_PARAMS, "max_leaves": leaves_cut, "subsample": 0.8,
+                  "colsample_bynode": 0.8, "monotone_constraints": mono}
+        errs[leaves_cut] = phase_card_vs_cpu(
+            Xtr, ytr, Xte, name=f"lossguide {leaves_cut} leaves card vs CPU",
+            params=params)
+    out = dict(launches=got, auc=auc, logloss=res["test"]["logloss"],
+               ms_per_round_median=probe.median_ms(), round_ms=probe.times,
+               leaves=leaves, json_max_abs_err=err, child_hist_k16=k16,
+               child_hist_k2=k2, walk=walk, card_vs_cpu=errs,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"lossguide: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_dart(Xtr, ytr, Xte, yte):
+    """DART at the DART tutorial's parameters for 50 rounds through
+    ``train``: every round after the first walks the whole forest with its
+    drops for the training margin (kernel B), every round walks it for the
+    eval; C once, D 50 x 5, A never; held-out AUC in the last round above
+    round 1's; some trees reweighted. Then 5 rounds at ``rate_drop`` 0.5
+    and ``skip_drop`` 0 on the card and the CPU: the same trees and
+    ``weight_drop``."""
+    t_phase = time.perf_counter()
+    dtrain = xgbt.DMatrix(Xtr, ytr)
+    dtest = xgbt.DMatrix(Xte, yte)
+    dtrain.get_binned(DEFAULT_MAX_BIN)
+    probe = _RoundProbe()
+    res = {}
+    reset_launches()
+    bst = xgbt.train(DART_PARAMS, dtrain, DART_ROUNDS,
+                     evals=[(dtest, "test")], evals_result=res,
+                     verbose_eval=False, callbacks=[probe])
+    torch.cuda.synchronize()
+    got = launches()
+    want = {"A": 0, "C": 1, "D": DART_ROUNDS * DART_DEPTH}
+    for k, v in want.items():
+        check(got[k] == v, f"dart: kernel {k} launched {got[k]} times, "
+                           f"want {v}")
+    check(got["B"] >= 2 * DART_ROUNDS - 1,
+          f"dart: kernel B launched {got['B']} times (a training and an "
+          f"eval walk a round)")
+    auc = res["test"]["auc"]
+    check(auc[-1] > auc[0], f"dart: held-out AUC {auc}")
+    wd = bst._gbm.weight_drop
+    check(len(wd) == DART_ROUNDS and min(wd) < 1.0,
+          f"dart: weight_drop {len(wd)} weights, smallest {min(wd)}")
+    check(np.array_equal(bst.inplace_predict(Xte),
+                         bst.predict(xgbt.DMatrix(Xte))),
+          "dart: inplace_predict == predict")
+    print(f"dart ({DART_ROUNDS} rounds, rate_drop 0.1, skip_drop 0.5): "
+          f"launches {got}; median round {probe.median_ms():.1f} ms (incl. "
+          f"the training walk and eval); {sum(x < 1.0 for x in wd)} of "
+          f"{len(wd)} trees reweighted; auc {auc[0]:.6f} -> {auc[-1]:.6f}")
+    del bst, dtrain, dtest
+    torch.cuda.empty_cache()
+    err = phase_card_vs_cpu(
+        Xtr, ytr, Xte, name="dart card vs CPU", rounds=5,
+        params={**DART_PARAMS, "rate_drop": 0.5, "skip_drop": 0.0})
+    out = dict(launches=got, auc=auc, logloss=res["test"]["logloss"],
+               ms_per_round_median=probe.median_ms(), round_ms=probe.times,
+               reweighted=sum(x < 1.0 for x in wd), card_vs_cpu=err,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"dart: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_random_forest(Xtr, ytr, Xte, yte):
+    """A random forest at the random-forest tutorial's parameters: 100
+    parallel trees in one round through ``train``: C once, D 100 x 5, A
+    never, B once (the eval walk); 100 trees and one boosted round; the
+    held-out margins' AUC above one tree's grown with the same parameters
+    (the probabilities saturate);
+    ``iteration_range=(0, 1)`` equal to the whole model. Then 4 parallel
+    trees for 2 rounds on the card and the CPU: the same trees."""
+    t_phase = time.perf_counter()
+    dtrain = xgbt.DMatrix(Xtr, ytr)
+    dtest = xgbt.DMatrix(Xte, yte)
+    dtrain.get_binned(DEFAULT_MAX_BIN)
+    res = {}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = xgbt.train(RF_PARAMS, dtrain, 1, evals=[(dtest, "test")],
+                     evals_result=res, verbose_eval=False)
+    torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
+    got = launches()
+    want = {"A": 0, "B": 1, "C": 1, "D": RF_TREES * RF_DEPTH}
+    for k, v in want.items():
+        check(got[k] == v, f"random forest: kernel {k} launched {got[k]} "
+                           f"times, want {v}")
+    check(bst._gbm.model.num_trees == RF_TREES
+          and bst.num_boosted_rounds() == 1,
+          f"random forest: {bst._gbm.model.num_trees} trees, "
+          f"{bst.num_boosted_rounds()} rounds")
+    preds = bst.predict(xgbt.DMatrix(Xte))
+    check(np.array_equal(bst.predict(xgbt.DMatrix(Xte),
+                                     iteration_range=(0, 1)), preds),
+          "random forest: iteration_range (0, 1) == the whole model")
+    one = xgbt.train({**RF_PARAMS, "num_parallel_tree": 1}, dtrain, 1,
+                     verbose_eval=False)
+    # the round's 100 leaf values add up at learning rate 1: the margins
+    # reach |m| ~ 50, where float32's sigmoid is exactly 0 or 1, so the
+    # AUC of the probabilities ties rows; the AUC of the margins does not
+    auc, auc1 = float(_auc(bst, Xte, yte)), float(_auc(one, Xte, yte))
+    saturated = float(np.mean((preds == 0.0) | (preds == 1.0)))
+    check(auc > auc1, f"random forest: margin AUC {auc} vs one tree's {auc1}")
+    print(f"random forest ({RF_TREES} trees, depth {RF_DEPTH}, subsample "
+          f"0.8, colsample_bynode 0.8): launches {got}; the round "
+          f"{t_round * 1e3:.1f} ms (incl. eval); held-out auc of the "
+          f"margins {auc:.6f} against one tree's {auc1:.6f} (of the "
+          f"probabilities {res['test']['auc'][-1]:.6f}, {saturated:.3f} of "
+          f"them exactly 0 or 1)")
+    del bst, one, dtrain, dtest
+    torch.cuda.empty_cache()
+    err = phase_card_vs_cpu(
+        Xtr, ytr, Xte, name="random forest card vs CPU", rounds=2,
+        params={**RF_PARAMS, "num_parallel_tree": 4})
+    out = dict(launches=got, margin_auc=auc, one_tree_margin_auc=auc1,
+               auc=res["test"]["auc"], saturated=saturated,
+               round_ms=t_round * 1e3, card_vs_cpu=err,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"random forest: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_inert_keys(Xtr, ytr):
+    """One round with the keys that change nothing set grows the same tree
+    as without them, with one warning for each."""
+    dtrain = xgbt.DMatrix(Xtr, ytr)
+    plain = xgbt.train(PARAMS_DEFAULT, dtrain, 1, verbose_eval=False)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = xgbt.train({**PARAMS_DEFAULT, **INERT_KEYS}, dtrain, 1,
+                         verbose_eval=False)
+    same_trees(heap_trees(got, 1), heap_trees(plain, 1), "inert keys")
+    said = [str(c.message) for c in caught]
+    check(len(said) == len(INERT_KEYS), f"inert keys: warnings {said}")
+    print(f"inert keys {sorted(INERT_KEYS)}: the same tree; warned: {said}")
+    return dict(keys=INERT_KEYS, warnings=said)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2187,6 +2576,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     objectives = phase_objectives(X, y, w_gen)
     torch.cuda.empty_cache()
+    lossguide = phase_lossguide(Xtr, ytr, Xte, yte, w_gen)
+    torch.cuda.empty_cache()
+    dart = phase_dart(Xtr, ytr, Xte, yte)
+    torch.cuda.empty_cache()
+    forest = phase_random_forest(Xtr, ytr, Xte, yte)
+    torch.cuda.empty_cache()
+    inert = phase_inert_keys(Xtr, ytr)
+    torch.cuda.empty_cache()
     del X, Xtr, Xte
     ranking = phase_ranking()
     torch.cuda.empty_cache()
@@ -2212,7 +2609,9 @@ def main() -> int:
         "categorical_construct_launches": cat_construct,
         "categorical_walk": cat_walk, "train_surface": surface,
         "grower_breadth": breadth, "multiclass": multiclass,
-        "objectives": objectives, "ranking": ranking}))
+        "objectives": objectives, "ranking": ranking,
+        "lossguide": lossguide, "dart": dart, "random_forest": forest,
+        "inert_keys": inert}))
     rank_lv = ranking["level_kernels"]
     for k in (c256, d256, rank_lv["C"], rank_lv["D"]):
         k.pop("B"), k.pop("Fh")
@@ -2233,19 +2632,28 @@ def main() -> int:
                               "kernel_A_ms_per_level"],
                           bound_ms_f136=ranking["construct"][
                               "kernel_A_bound_ms"], levels_f136=rank_k["A"]),
+             lossguide=dict(launches=lossguide["launches"]["A"],
+                            k16=lossguide["child_hist_k16"],
+                            k2=lossguide["child_hist_k2"]),
              **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
              replaces="xgboost_tpu/predictor/__init__.py:299",
              launches=main256["launches"]["B"],
              groups=multiclass["walk_g7"],
-             ranking=dict(launches=ranking["launches"]["B"]), **b),
+             ranking=dict(launches=ranking["launches"]["B"]),
+             lossguide=dict(launches=lossguide["launches"]["B"],
+                            forest=lossguide["walk"]),
+             dart=dict(launches=dart["launches"]["B"]),
+             random_forest=dict(launches=forest["launches"]["B"]), **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:378",
              launches=cat_main["launches"]["C"],
              ranking=dict(launches=ranking["launches"]["C"],
-                          f136=rank_k["C"]), **c256),
+                          f136=rank_k["C"]),
+             dart=dict(launches=dart["launches"]["C"]),
+             random_forest=dict(launches=forest["launches"]["C"]), **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:645",
@@ -2255,6 +2663,8 @@ def main() -> int:
                               "kernel_D_ms_per_level"],
                           bound_ms_f136=ranking["inspection"][
                               "kernel_D_bound_ms"], levels_f136=rank_k["D"]),
+             dart=dict(launches=dart["launches"]["D"]),
+             random_forest=dict(launches=forest["launches"]["D"]),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))

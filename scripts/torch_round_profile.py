@@ -2,19 +2,23 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 scripts/torch_round_profile.py
+    python3 scripts/torch_round_profile.py [NAME ...]
 
-For each of ``chip_smoke.py``'s five training configurations (``PARAMS``,
-max_bin 64, and ``PARAMS_DEFAULT``, max_bin left at 256, on ``bench.py``'s
-generator; ``BREADTH_A``, the same with uniform row and column sampling
+(with names, only the configurations whose name holds one of them, e.g.
+``lossguide dart``). For each of ``chip_smoke.py``'s training
+configurations (``PARAMS``, max_bin 64, and ``PARAMS_DEFAULT``, max_bin
+left at 256, on ``bench.py``'s generator; ``BREADTH_A``, the same with uniform row and column sampling
 per tree, level and node; ``PARAMS_DEFAULT`` on the categorical data of
 ``_make_cat_data`` with its ``feature_types``; ``PARAMS_MC``, 7-class
 ``multi:softprob`` on the generator's rows with ``_multiclass_labels``,
 7 trees per round; ``RANK_PARAMS``, ``rank:ndcg`` on the MSLR-WEB10K-shaped
 rows of ``_make_rank_data``, 1M x 136 in queries of 60-180 documents, the
-sampled-pair gradient), each by the
-hoisted route (the default plan) and by the construct route
-(``XGBTPU_HOIST_BUDGET_MB=0``), at its shape
+sampled-pair gradient; ``DART_PARAMS``, DART at its tutorial's
+parameters, whose round walks the whole forest for its training margin),
+each by the hoisted route (the default plan) and by the construct route
+(``XGBTPU_HOIST_BUDGET_MB=0``), and ``LG_PARAMS`` (lossguide to 255
+leaves, every step's child histograms through kernel A whatever the
+plan) once, at its shape
 (``ROWS`` x ``COLS`` training rows and ``EVAL_ROWS`` held-out rows): trains ``WARMUP`` rounds, times the next
 ``TIMED_ROUNDS`` rounds (``Booster.update`` + ``eval_values``) on the host
 clock without the profiler, then profiles one more round with
@@ -44,8 +48,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import xgboost_tpu_torch as xgbt  # noqa: E402
 from xgboost_tpu_torch.tree import hist_kernel as hk  # noqa: E402
-from chip_smoke import (BREADTH_A, COLS, EVAL_ROWS, PARAMS,  # noqa: E402
-                        PARAMS_DEFAULT, PARAMS_MC, RANK_EVAL_ROWS,
+from chip_smoke import (BREADTH_A, COLS, DART_PARAMS, EVAL_ROWS,  # noqa: E402
+                        LG_PARAMS, PARAMS, PARAMS_DEFAULT, PARAMS_MC,
+                        RANK_EVAL_ROWS,
                         RANK_PARAMS, RANK_ROWS, ROWS, _make_cat_data,
                         _make_data, _make_rank_data, _multiclass_labels,
                         _split_queries)
@@ -146,19 +151,31 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     X, y, _ = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
-    Xc, yc, types = _make_cat_data(ROWS + EVAL_ROWS, COLS, seed=42)
-    Xr, yr, sizes = _make_rank_data(RANK_ROWS + RANK_EVAL_ROWS, 60, 180)
-    (_, _, gtr), (_, _, gte) = _split_queries(Xr, yr, sizes, RANK_ROWS)
-    for name, params, data in (
-            ("max_bin 64", PARAMS, (X, y)),
-            ("max_bin 256 (default)", PARAMS_DEFAULT, (X, y)),
-            ("max_bin 256, sampled (a)", BREADTH_A, (X, y)),
-            ("categorical, max_bin 256", PARAMS_DEFAULT, (Xc, yc, types)),
+
+    def rank():
+        Xr, yr, sizes = _make_rank_data(RANK_ROWS + RANK_EVAL_ROWS, 60, 180)
+        (_, _, gtr), (_, _, gte) = _split_queries(Xr, yr, sizes, RANK_ROWS)
+        return Xr, yr, None, (gtr, gte)
+
+    both = (("hoisted", None), ("construct", "0"))
+    configs = [(name, params, data, both) for name, params, data in (
+            ("max_bin 64", PARAMS, lambda: (X, y)),
+            ("max_bin 256 (default)", PARAMS_DEFAULT, lambda: (X, y)),
+            ("max_bin 256, sampled (a)", BREADTH_A, lambda: (X, y)),
+            ("categorical, max_bin 256", PARAMS_DEFAULT,
+             lambda: _make_cat_data(ROWS + EVAL_ROWS, COLS, seed=42)),
             ("7 classes, max_bin 256", PARAMS_MC,
-             (X, _multiclass_labels(X))),
-            ("rank:ndcg 1M x 136, max_bin 256", RANK_PARAMS,
-             (Xr, yr, None, (gtr, gte)))):
-        for route, budget in (("hoisted", None), ("construct", "0")):
+             lambda: (X, _multiclass_labels(X))),
+            ("rank:ndcg 1M x 136, max_bin 256", RANK_PARAMS, rank),
+            ("dart, max_bin 256", DART_PARAMS, lambda: (X, y)))]
+    configs.append(("lossguide 255 leaves, max_bin 256", LG_PARAMS,
+                    lambda: (X, y), (("kernel A", None),)))
+    wanted = sys.argv[1:]
+    for name, params, make_data, routes in configs:
+        if wanted and not any(w in name for w in wanted):
+            continue
+        data = make_data()
+        for route, budget in routes:
             if budget is not None:
                 os.environ["XGBTPU_HOIST_BUDGET_MB"] = budget
             try:

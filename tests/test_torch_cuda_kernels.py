@@ -581,3 +581,51 @@ def _ranking_same_bits(cuda, name, params, path, group_weights, rng, n):
     for what, a, b in zip(("grad", "hess", "q", "exp"), *out):
         bad = int((a != b).sum())
         assert bad == 0, f"{name} {path} {what}: {bad} values differ"
+
+
+@pytest.mark.parametrize("n,F,B,K", [(70_001, 50, 256, 2),
+                                     (70_001, 50, 256, 16),
+                                     (5000, 7, 64, 16), (1, 3, 16, 2)])
+def test_level_kernel_child_slots_at_d0_match_plain(cuda, n, F, B, K):
+    """The lossguide grower's child histograms: kernel A at ``d = 0``,
+    ``Kp = 0`` (no routing) with each row's child slot in ``[-1, K)`` as
+    its position (-1: no child), bitwise equal to its plain version."""
+    rng = np.random.RandomState(n + K)
+    bins, _, gq, ptab, _ = _level_case(rng, n, F, B, 0, cuda)
+    seg = torch.as_tensor(rng.randint(-1, K, size=(n, 1)).astype(np.int32),
+                          device=cuda)
+    _fused_level_checks(bins, seg, gq, ptab[:1, :4],
+                        dict(K=K, Kp=0, B=B, d=0))
+
+
+@pytest.mark.parametrize("max_leaves,kw", [
+    (31, dict(max_depth=0, subsample=0.8, colsample_bynode=0.8,
+              monotone=(1, 0, -1))),
+    (100, dict(max_depth=0, colsample_bylevel=0.7,
+               interaction=((0, 1, 2), (3, 4, 5, 6)))),
+])
+def test_lossguide_tree_same_on_card_and_cpu(cuda, max_leaves, kw):
+    """A lossguide tree (kernel A on the card, the plain version on the
+    CPU) and its finalize pass: every array equal bitwise."""
+    from xgboost_tpu_torch import threefry
+    from xgboost_tpu_torch.tree import grow as tgrow
+    from xgboost_tpu_torch.tree import grow_lossguide as tlg
+
+    rng = np.random.RandomState(max_leaves)
+    n, F, B = 20_000, 7, 64
+    bins = rng.randint(0, B + 1, size=(n, F)).astype(np.uint8)
+    cuts = np.sort(rng.randn(F, B).astype(np.float32), axis=1)
+    g = rng.randn(n).astype(np.float32)
+    h = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    cfg = tgrow.GrowParams(**kw)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        tree = tlg.grow_tree_lossguide(
+            t(bins), t(g), t(h), t(cuts), cfg, max_leaves,
+            key=threefry.prng_key(3),
+            bins_t=thk.feature_major(t(bins)) if dev.type == "cuda" else None)
+        fin = tlg.finalize_alloc(tree, 0.1, 0.2)
+        out.append([x.cpu() for x in (*tree, *fin)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)

@@ -510,3 +510,37 @@ def test_ranking_objectives_are_not_ported(objective):
     g, h = bst._obj.get_gradient(d.data[:, 0], d.label, None,
                                  groups=d.groups)
     assert g.device == h.device == d.device and g.dtype == torch.float32
+
+
+@pytest.mark.parametrize("max_leaves", [3, 70])
+def test_lossguide_steps_reach_the_level_kernel_at_d0(stub_cuda, max_leaves):
+    """A lossguide tree on device tensors builds its root's and every
+    expansion step's child histograms through kernel A at ``d = 0``,
+    ``Kp = 0`` (no routing) and ``K = 2 * K_EXP`` (``K = 1`` at the
+    root), over the feature-major bins; never the plain version."""
+    from xgboost_tpu_torch.tree import grow as tgrow
+    from xgboost_tpu_torch.tree import grow_lossguide as tlg
+
+    n, F, B = 300, 5, 16
+    meta = dict(device="meta")
+    bins = torch.empty((n, F), dtype=torch.uint8, **meta)
+    cuts = torch.empty((F, B), **meta)
+    g, h = torch.empty(n, **meta), torch.empty(n, **meta)
+    before = thk.fused_level.launches
+    tree = tlg.grow_tree_lossguide(bins, g, h, cuts,
+                                   tgrow.GrowParams(max_depth=0), max_leaves,
+                                   bins_t=thk.feature_major(bins))
+    steps = tlg.lossguide_steps(max_leaves)
+    kexp = tlg.expansions_per_step(max_leaves)
+    assert thk.fused_level.launches == before + 1 + steps
+    names = [c[0] for c in stub_cuda.calls]
+    assert names == ["xgbt_fused_level"] * (1 + steps)
+    # (bins, bin_bytes, n, F, B, pos, pos_out, q, ptab, W, Kp, prev_offset,
+    #  K, offset, hist, bins_t, ...)
+    ks = [args[12] for _, args in stub_cuda.calls]
+    assert ks == [1] + [2 * kexp] * steps
+    for _, args in stub_cuda.calls:
+        assert args[1:5] == (1, n, F, B)
+        assert args[9:12] == (4, 0, 0) and args[13] == 0
+    assert tree.positions.device.type == "meta"
+    assert tuple(tree.left.shape) == (2 * max_leaves - 1,)

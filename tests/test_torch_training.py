@@ -576,11 +576,22 @@ def test_validate_parameters_matches(both, params, raises):
         _assert_same_model(jb, tb, both)
 
 
-@pytest.mark.parametrize("params", [{"max_leaves": 8},
-                                    {"num_parallel_tree": 2},
-                                    {"updater": "refresh"},
-                                    {"multi_strategy": "multi_output_tree"}])
-def test_unported_parameters_raise(both, params):
+@pytest.mark.parametrize("params,ported", [
+    ({"max_leaves": 8}, True),
+    ({"num_parallel_tree": 2}, True),
+    ({"updater": "refresh"}, False),
+    ({"multi_strategy": "multi_output_tree"}, False),
+    ({"booster": "gblinear"}, False)])
+def test_unported_parameters_raise(both, params, ported):
+    """A key the port has not ported raises, through ``train`` and
+    ``set_param``. ``max_leaves`` (read by the lossguide grower only) and
+    ``num_parallel_tree`` are ported: they train the JAX package's model."""
+    if ported:
+        jb = xgb.train({**PARAMS, **params}, both.jd, 2, verbose_eval=False)
+        tb = xgbt.train({**PARAMS, **params}, both.td, 2, verbose_eval=False)
+        _assert_same_model(jb, tb, both)
+        assert tb.num_boosted_rounds() == jb.num_boosted_rounds() == 2
+        return
     with pytest.raises(NotImplementedError):
         xgbt.train({**PARAMS, **params}, both.td, 1, verbose_eval=False)
     bst = xgbt.train(PARAMS, both.td, 1, verbose_eval=False)

@@ -1,3 +1,3 @@
-from .gbtree import GBTree, GBTreeModel
+from .gbtree import Dart, GBTree, GBTreeModel
 
-__all__ = ["GBTree", "GBTreeModel"]
+__all__ = ["Dart", "GBTree", "GBTreeModel"]

@@ -110,6 +110,9 @@ class TrainParam(ParamSet):
         "eta": Field(0.3, aliases=("learning_rate",), lower=0.0),
         "gamma": Field(0.0, aliases=("min_split_loss",), lower=0.0),
         "max_depth": Field(6, lower=0),
+        # the lossguide grower's leaf budget (0: 2^max_depth up to depth 8,
+        # else 255; gbm/gbtree.py); depthwise growth ignores it
+        "max_leaves": Field(0, lower=0),
         "max_bin": Field(256, lower=2),
         "grow_policy": Field("depthwise"),
         "min_child_weight": Field(1.0, lower=0.0),
@@ -128,9 +131,17 @@ class TrainParam(ParamSet):
         # category against the rest; the others by optimal partition
         # (reference UseOneHot, evaluate_splits.h)
         "max_cat_to_onehot": Field(4, lower=1),
+        # accepted and read by nothing but the booster's warnings, as in
+        # the JAX package: the sketch is sized by max_bin, the matrix is
+        # dense with a missing bin, and the histograms sum fixed-point
+        # integers exactly
+        "sparse_threshold": Field(0.2),
+        "sketch_eps": Field(0.03),
+        "single_precision_histogram": Field(True),
         # the row and column samplers' seed (each tree's key is
-        # round_seed_py(seed, iteration, group), gbm/gbtree.py); as in the
-        # JAX package, only set_param on a configured booster sets it
+        # round_seed_py(seed, iteration, group, parallel tree),
+        # gbm/gbtree.py); as in the JAX package, only set_param on a
+        # configured booster sets it
         "seed": Field(0),
     }
 
@@ -141,6 +152,15 @@ class GBTreeParam(ParamSet):
     FIELDS = {
         "tree_method": Field("auto"),
         "num_parallel_tree": Field(1, lower=1),
+        # "auto" and the names of the reference's predictors; every one
+        # walks the stacked forest (a warning says so for cpu_ / gpu_)
+        "predictor": Field("auto"),
+        # DART (reference DartTrainParam, gbtree.cc)
+        "sample_type": Field("uniform"),
+        "normalize_type": Field("tree"),
+        "rate_drop": Field(0.0, lower=0.0, upper=1.0),
+        "one_drop": Field(False),
+        "skip_drop": Field(0.0, lower=0.0, upper=1.0),
     }
 
 
@@ -185,14 +205,8 @@ class LearnerParam(ParamSet):
 #: ported, each with the value at which it changes nothing; any other value
 #: raises NotImplementedError (``check_ported``)
 NOT_PORTED: Dict[str, Any] = {
-    # tree training (the JAX package's TrainParam)
-    "max_leaves": 0, "sparse_threshold": 0.2,
-    "sketch_eps": 0.03, "single_precision_histogram": True,
-    "refresh_leaf": True,
-    # updaters, refresh and DART (GBTreeParam)
-    "updater": "", "process_type": "default", "predictor": "auto",
-    "sample_type": "uniform", "normalize_type": "tree", "rate_drop": 0.0,
-    "one_drop": False, "skip_drop": 0.0,
+    # the updater sequences and the refresh (TrainParam, GBTreeParam)
+    "refresh_leaf": True, "updater": "", "process_type": "default",
     # the linear booster (GBLinearParam)
     "feature_selector": "cyclic", "top_k": 0, "reg_lambda_linear": 0.0,
     "reg_alpha_linear": 0.0, "eta_linear": 0.5,

@@ -322,10 +322,11 @@ def predict_margin(forest: StackedForest, X: torch.Tensor,
                    base_margin: torch.Tensor,
                    tree_weights: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
-    """[n, n_groups] raw margins (base + forest sums): for a numerical
-    forest kernel B on a CUDA tensor, the plain version on a CPU tensor
-    (``predict_margin.launches`` counts kernel B's launches); for a forest
-    with categorical nodes the categorical walk on either."""
+    """[n, n_groups] raw margins (base + forest sums, each tree's leaf
+    times its weight in ``tree_weights``, one per tree; default 1): for a
+    numerical forest kernel B on a CUDA tensor, the plain version on a CPU
+    tensor (``predict_margin.launches`` counts kernel B's launches); for a
+    forest with categorical nodes the categorical walk on either."""
     if forest.num_trees == 0:
         return base_margin
     if X.shape[1] < forest.num_feature:
@@ -336,6 +337,9 @@ def predict_margin(forest: StackedForest, X: torch.Tensor,
         tree_weights = (forest.unit_weights if forest.unit_weights is not None
                         else torch.ones(forest.num_trees, dtype=torch.float32,
                                         device=X.device))
+    elif tree_weights.shape[0] != forest.num_trees:
+        raise ValueError(f"{tree_weights.shape[0]} tree weights for "
+                         f"{forest.num_trees} trees")
     if forest.has_cats:
         return _predict_margin_cat(forest, X, base_margin, tree_weights)
     if X.device.type == "cpu":

@@ -30,8 +30,9 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["prng_key", "threefry_2x32", "split", "fold_in", "random_bits",
-           "uniform", "bernoulli", "permutation", "gumbel"]
+__all__ = ["prng_key", "threefry_2x32", "split", "fold_in", "fold_in_many",
+           "random_bits", "uniform", "uniform_rows", "bernoulli",
+           "permutation", "gumbel"]
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -108,6 +109,22 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return _key(*threefry_2x32(*_words(key), 0, int(data) & _M))
 
 
+def fold_in_many(keys: torch.Tensor, data: Union[int, torch.Tensor]
+                 ) -> torch.Tensor:
+    """``fold_in`` of many keys or many data, as ``jax.vmap(fold_in)``:
+    ``keys`` is one ``[2]`` CPU key or ``[..., 2]`` keys on a device, ``data``
+    an int or an integer tensor; the result is ``[..., 2]`` int64 keys on
+    the tensors' device (keys derived on the device from data that lives
+    there, so nothing crosses the bus)."""
+    if keys.dim() == 1:
+        k1, k2 = _words(keys)
+    else:
+        k1, k2 = keys[..., 0], keys[..., 1]
+    d = data.long() & _M if torch.is_tensor(data) else int(data) & _M
+    return torch.stack(torch.broadcast_tensors(*threefry_2x32(k1, k2, 0, d)),
+                       dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape: Shape,
                 device: Optional[Union[str, torch.device]] = None
                 ) -> torch.Tensor:
@@ -127,7 +144,12 @@ def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
     """``jax.random.uniform`` in float32: the top 23 bits as the mantissa
     of a float in [1, 2), minus 1, scaled to ``[minval, maxval)`` and
     clamped below at ``minval``, each step in float32."""
-    bits = random_bits(key, shape, device)
+    return _unit_floats(random_bits(key, shape, device), minval, maxval)
+
+
+def _unit_floats(bits: torch.Tensor, minval: float, maxval: float
+                 ) -> torch.Tensor:
+    """32-bit draws -> ``jax.random.uniform``'s float32 values."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     # float32 scalars as host numbers (a device tensor made from a host
     # value would synchronize the stream); a float32 tensor computes with
@@ -135,6 +157,15 @@ def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
     lo = float(np.float32(minval))
     width = float(np.float32(maxval) - np.float32(minval))
     return torch.clamp(f * width + lo, min=lo)
+
+
+def uniform_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``[m, n]`` float32: row ``i`` is ``uniform(keys[i], (n,))`` for the
+    ``[m, 2]`` device keys ``keys`` (``jax.vmap`` of ``uniform``), drawn on
+    their device."""
+    hi, lo = _counters((n,), keys.device)
+    b1, b2 = threefry_2x32(keys[:, :1], keys[:, 1:], hi, lo)
+    return _unit_floats(b1 ^ b2, 0.0, 1.0)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Shape,

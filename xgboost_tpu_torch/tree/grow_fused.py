@@ -40,7 +40,7 @@ from .hist_kernel import (QuantizedGradients, fused_level, leaf_delta,
                           partition_apply, quantize_gradients)
 from .param import RT_EPS, calc_weight
 
-__all__ = ["GrownTree", "grow_tree_fused"]
+__all__ = ["GrownTree", "grow_tree_fused", "with_missing"]
 
 
 class GrownTree(NamedTuple):
@@ -133,6 +133,24 @@ def _init_state(cfg: GrowParams, totals: torch.Tensor, B: int = 0,
     )
 
 
+def with_missing(histC: torch.Tensor, Gtot: torch.Tensor,
+                 Htot: torch.Tensor) -> torch.Tensor:
+    """``fused_level``'s ``[F, 2K, B]`` histogram (missing excluded) and the
+    nodes' totals ``[K]`` -> ``eval_splits``' ``[K, F, B+1, 2]``, bin B the
+    missing values: each node's total less its present sum, taken in the
+    strict left-to-right association (``seq_cumsum``)."""
+    K = Gtot.shape[0]
+    hg = histC[:, :K, :].permute(1, 0, 2)  # [K, F, B]
+    hh = histC[:, K:, :].permute(1, 0, 2)
+    cum = seq_cumsum(torch.stack([hg, hh]))[..., -1]
+    g_miss = Gtot[:, None] - cum[0]
+    h_miss = Htot[:, None] - cum[1]
+    return torch.stack([
+        torch.cat([hg, g_miss[..., None]], dim=-1),
+        torch.cat([hh, h_miss[..., None]], dim=-1),
+    ], dim=-1)
+
+
 def _level_update(st: _HeapState, histC: torch.Tensor,
                   cut_values: torch.Tensor, cfg: GrowParams, d: int,
                   tree_mask: Optional[torch.Tensor] = None,
@@ -151,16 +169,7 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
     dev = histC.device
     Gtot = st.node_g[off:off + K]
     Htot = st.node_h[off:off + K]
-    hg = histC[:, :K, :].permute(1, 0, 2)  # [K, F, B]
-    hh = histC[:, K:, :].permute(1, 0, 2)
-    # present-value totals in the strict left-to-right association
-    cum = seq_cumsum(torch.stack([hg, hh]))[..., -1]
-    g_miss = Gtot[:, None] - cum[0]
-    h_miss = Htot[:, None] - cum[1]
-    hist = torch.stack([
-        torch.cat([hg, g_miss[..., None]], dim=-1),
-        torch.cat([hh, h_miss[..., None]], dim=-1),
-    ], dim=-1)  # [K, F, B+1, 2]
+    hist = with_missing(histC, Gtot, Htot)
     mono, gmask = _constraint_consts(cfg, F, dev)
     node_lo = node_up = None
     if mono is not None:

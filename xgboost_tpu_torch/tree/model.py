@@ -19,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -125,6 +125,93 @@ class RegTree:
                    default_left=dleft, base_weights=bw, loss_changes=lchg,
                    sum_hessian=shess, split_type=stype,
                    categories=cats if any_cats else None)
+
+    @classmethod
+    def from_alloc(cls, left: np.ndarray, right: np.ndarray,
+                   feature: np.ndarray, split_cond: np.ndarray,
+                   default_left: np.ndarray, weight: np.ndarray,
+                   loss_chg: np.ndarray, sum_hess: np.ndarray, n_nodes: int,
+                   eta: float, min_split_loss: float = 0.0,
+                   split_bin: Optional[np.ndarray] = None,
+                   cat_features: Optional[np.ndarray] = None,
+                   cat_set: Optional[np.ndarray] = None
+                   ) -> Tuple["RegTree", np.ndarray]:
+        """Build from an allocation-ordered tree (the lossguide grower's
+        arrays; children always have larger ids than their parent): gamma
+        pruning at ``min_split_loss`` (updater_prune.cc), then BFS
+        compaction. Returns ``(tree, leaf value of every original id)``,
+        the second the ``[len(left)]`` cache map: the value of the leaf
+        that governs each original node after pruning (NaN where none
+        does). A categorical node's set is its row of ``cat_set``, or its
+        ``split_bin`` when that row is empty."""
+        M = len(left)
+        lp = left[:n_nodes].copy()
+        rp = right[:n_nodes].copy()
+        if min_split_loss > 0.0:
+            changed = True
+            while changed:
+                changed = False
+                for i in range(n_nodes - 1, -1, -1):
+                    li, ri = lp[i], rp[i]
+                    if li != -1 and lp[li] == -1 and lp[ri] == -1 \
+                            and loss_chg[i] < min_split_loss:
+                        lp[i] = rp[i] = -1
+                        changed = True
+        eta32 = np.float32(eta)
+        leaf_val = np.full(M, np.nan, np.float32)
+        for i in range(n_nodes):  # one ascending pass: parents come first
+            if np.isnan(leaf_val[i]) and lp[i] == -1:
+                leaf_val[i] = eta32 * weight[i]
+            if left[i] != -1 and not np.isnan(leaf_val[i]):
+                leaf_val[left[i]] = leaf_val[right[i]] = leaf_val[i]
+        order: List[int] = []
+        queue = [0]
+        while queue:
+            i = queue.pop(0)
+            order.append(i)
+            if lp[i] != -1:
+                queue.extend((int(lp[i]), int(rp[i])))
+        compact_of: Dict[int, int] = {h: k for k, h in enumerate(order)}
+        nn = len(order)
+        lc = np.full(nn, -1, np.int32)
+        rc = np.full(nn, -1, np.int32)
+        par = np.full(nn, -1, np.int32)
+        sidx = np.zeros(nn, np.int32)
+        scond = np.zeros(nn, np.float32)
+        dleft = np.zeros(nn, bool)
+        bw = np.zeros(nn, np.float32)
+        lchg = np.zeros(nn, np.float32)
+        shess = np.zeros(nn, np.float32)
+        stype = np.zeros(nn, np.int8)
+        cats = [np.empty(0, np.int32) for _ in range(nn)]
+        for idx, i in enumerate(order):
+            bw[idx] = eta32 * weight[i]
+            shess[idx] = sum_hess[i]
+            if lp[i] == -1:
+                scond[idx] = eta32 * weight[i]  # leaf value
+                continue
+            lc[idx], rc[idx] = compact_of[lp[i]], compact_of[rp[i]]
+            par[lc[idx]] = par[rc[idx]] = idx
+            sidx[idx] = feature[i]
+            scond[idx] = split_cond[i]
+            if cat_features is not None and split_bin is not None \
+                    and cat_features[feature[i]]:
+                stype[idx] = 1
+                cs = (np.flatnonzero(cat_set[i]).astype(np.int32)
+                      if cat_set is not None else np.empty(0, np.int32))
+                cats[idx] = cs if len(cs) else np.asarray([split_bin[i]],
+                                                          np.int32)
+                scond[idx] = (float(cats[idx][0]) if len(cats[idx]) == 1
+                              else 0.0)
+            dleft[idx] = bool(default_left[i])
+            lchg[idx] = loss_chg[i]
+        any_cats = bool(stype.any())
+        tree = cls(left_children=lc, right_children=rc, parents=par,
+                   split_indices=sidx, split_conditions=scond,
+                   default_left=dleft, base_weights=bw, loss_changes=lchg,
+                   sum_hessian=shess, split_type=stype,
+                   categories=cats if any_cats else None)
+        return tree, leaf_val
 
     def _categories_json(self) -> dict:
         """The categorical nodes' sets in the reference's segmented layout
