@@ -203,6 +203,35 @@ held-out rows:
 28. one round with ``sketch_eps``, ``sparse_threshold`` and ``predictor``
     set grows the same tree as without them, with a warning for each.
 
+SHAP, the linear booster and the estimators, after the categorical
+phases, back on the numerical 1M x 50 rows, max_bin 256, depth 6:
+
+29. SHAP (``phase_shap``) on a 10-round main-path model: contributions of
+    the 100k held-out rows summing to kernel B's margins within 1e-4, with
+    no kernel launched but the one walk for those margins; Saabas
+    additive; interactions on 10k rows summing to the contributions within
+    1e-6 and symmetric; the card against the CPU (the same JSON, 4k rows,
+    interactions on 1k) within 1e-9; the ms of contributions, interactions
+    and the table builds; then a 3-class model (3 rounds, ``[n, 3, F+1]``),
+    DART at its tutorial's parameters (tree weights) and the categorical
+    configuration (its ``isin``), each additive and card == CPU; and the
+    lossguide forest (255 leaves, no depth limit): additive, and with
+    ``_TABLE_MAX_D`` at 8 its longer paths through the row DP, equal to
+    the table path within 1e-8 (the path counts printed);
+30. the linear booster (``phase_gblinear``): ``reg:squarederror`` on a
+    linear target and ``binary:logistic``, 20 rounds with every updater
+    and selector: the coefficients within 0.02 of the generator's, the
+    held-out metric lower, no bins built and A = B = C = D = 0; ms a
+    round; 5 rounds on 64k rows on the card and the CPU: weights within
+    rtol 1e-6;
+31. the estimators (``phase_sklearn``): ``XGBClassifier`` (10 trees,
+    depth 6, max_bin 256, an eval set) grows ``train``'s trees with the
+    main path's launches and ``predict_proba`` equals ``Booster.predict``;
+    ``XGBRegressor(booster="gblinear").coef_``; ``XGBRanker`` on the 200k
+    all-pairs ranking data; ``XGBRFClassifier`` (100 trees of depth 5 in
+    one round); ``config_context(verbosity=0)`` silences the warnings of
+    phase 28's keys.
+
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; before that, one JSON line lists the kernels.
@@ -2530,6 +2559,386 @@ def phase_inert_keys(Xtr, ytr):
     return dict(keys=INERT_KEYS, warnings=said)
 
 
+# ---------------------------------------------------------------------------
+# SHAP, the linear booster and the estimators (phases 29-31)
+# ---------------------------------------------------------------------------
+
+#: the SHAP phase's row counts: contributions on every held-out row, the
+#: card against the CPU on 4k (interactions on 1k), interactions on 10k
+SHAP_CPU_ROWS, SHAP_CPU_INTER_ROWS, SHAP_INTER_ROWS = 4_000, 1_000, 10_000
+#: the deep-path check: paths with more unique features than this take
+#: the row DP on the lossguide forest (its deepest paths reach 12)
+SHAP_DEEP_AT, SHAP_DEEP_ROWS = 8, 10_000
+MAIN_PARAMS = {**PARAMS_DEFAULT, "max_depth": DEPTH,
+               "max_bin": DEFAULT_MAX_BIN}
+
+
+def _sync_s(fn):
+    """``(result, seconds)`` of ``fn()`` ending in a device synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _table_build_s(bst, pair: bool = False):
+    """Seconds to build every tree's mask tables (pair tables with
+    ``pair``) on the card, with the host bookkeeping of the paths."""
+    from xgboost_tpu_torch import interpret
+
+    trees = bst._gbm.model.trees
+
+    def build():
+        for t in trees:
+            plan = interpret.TreePlan(t)
+            table = plan.D <= interpret._TABLE_MAX_D
+            if table.any():
+                interpret.leaf_tables(plan.select(table), DEVICE, pair)
+    return _sync_s(build)[1]
+
+
+def _shap_additive(name, bst, X, types=None, tol=1e-4, approx=False):
+    """Contributions of ``X`` on the card against kernel B's margins (or
+    the categorical walk's): row sums within ``tol``; ``(contribs, ms,
+    max err)``."""
+    d = xgbt.DMatrix(X, feature_types=types)
+    margin = bst.predict(d, output_margin=True)
+    c, s = _sync_s(lambda: bst.predict(d, pred_contribs=True,
+                                       approx_contribs=approx))
+    err = float(np.abs(c.sum(-1) - margin).max())
+    check(np.isfinite(c).all() and err <= tol,
+          f"{name}: contributions sum to the margins ({err})")
+    return c, s * 1e3, err
+
+
+def _shap_card_vs_cpu(name, bst, X, types=None, rounds=None):
+    """The card's SHAP values against the CPU's (the same JSON model; its
+    first ``rounds`` rounds if given): contributions and Saabas on
+    ``SHAP_CPU_ROWS`` rows, interactions on ``SHAP_CPU_INTER_ROWS``, within
+    1e-9. Returns the max error."""
+    if rounds is not None:
+        bst = bst[:rounds]
+    cpu = xgbt.Booster(model_file=bst.save_raw(), device="cpu")
+    errs = []
+    for kw, rows in (({"pred_contribs": True}, SHAP_CPU_ROWS),
+                     ({"pred_contribs": True, "approx_contribs": True},
+                      SHAP_CPU_ROWS),
+                     ({"pred_interactions": True}, SHAP_CPU_INTER_ROWS)):
+        a = bst.predict(xgbt.DMatrix(X[:rows], feature_types=types), **kw)
+        b = cpu.predict(xgbt.DMatrix(X[:rows], feature_types=types,
+                                     device="cpu"), **kw)
+        errs.append(float(np.abs(a - b).max()))
+    check(max(errs) <= 1e-9, f"{name}: card vs CPU SHAP max err {errs}")
+    return max(errs)
+
+
+def phase_shap(Xtr, ytr, Xte, yte, cat):
+    """SHAP on the card (``interpret.py``) on main-path models (1M x 50,
+    max_bin 256, depth 6, 10 rounds): contributions on the 100k held-out
+    rows summing to kernel B's margins within 1e-4 with no level kernel or
+    walk launched by them; the card against the CPU within 1e-9; Saabas
+    additive; interactions on 10k rows summing to the contributions within
+    1e-6, symmetric; a 3-class model (``[n, 3, F+1]``), DART (tree
+    weights), the categorical configuration (``cat``: its ``isin``), and
+    phase 24's lossguide forest (255 leaves, no depth limit) whose longest
+    paths take the row DP at ``_TABLE_MAX_D`` = 8, equal to the table
+    path within 1e-8."""
+    from xgboost_tpu_torch import interpret
+
+    t_phase = time.perf_counter()
+    out = {}
+    dtrain = xgbt.DMatrix(Xtr, ytr)
+    reset_launches()
+    bst = xgbt.train(MAIN_PARAMS, dtrain, ROUNDS, verbose_eval=False)
+    torch.cuda.synchronize()
+    out["train_launches"] = launches()
+    reset_launches()
+    c, ms, err = _shap_additive("shap main", bst, Xte)
+    got = launches()
+    check(got == {"A": 0, "B": 1, "C": 0, "D": 0},
+          f"shap main: launches {got} (one walk for the margins)")
+    check(c.shape == (EVAL_ROWS, COLS + 1), f"shap main: shape {c.shape}")
+    _, ms_approx, err_approx = _shap_additive("shap approx", bst, Xte,
+                                              approx=True)
+    di = xgbt.DMatrix(Xte[:SHAP_INTER_ROWS])
+    inter, s_inter = _sync_s(lambda: bst.predict(di, pred_interactions=True))
+    e_rows = float(np.abs(inter.sum(-1) - c[:SHAP_INTER_ROWS]).max())
+    e_sym = float(np.abs(inter - inter.transpose(0, 2, 1)).max())
+    check(e_rows <= 1e-6 and e_sym <= 1e-12,
+          f"shap interactions: rows {e_rows}, symmetry {e_sym}")
+    del inter
+    table_ms = _table_build_s(bst) * 1e3
+    pair_ms = _table_build_s(bst, pair=True) * 1e3
+    cpu_err = _shap_card_vs_cpu("shap main", bst, Xte)
+    print(f"shap main (10 depth-6 trees): contribs {EVAL_ROWS} rows "
+          f"{ms:.1f} ms (sum vs kernel B's margins {err:.2e}), approx "
+          f"{ms_approx:.1f} ms ({err_approx:.2e}), interactions "
+          f"{SHAP_INTER_ROWS} rows {s_inter * 1e3:.1f} ms (rows {e_rows:.2e}"
+          f", symmetry {e_sym:.2e}); table build {table_ms:.1f} ms, pair "
+          f"tables {pair_ms:.1f} ms; card vs CPU {cpu_err:.2e}; launches "
+          f"{got}")
+    out["main"] = dict(contribs_ms=ms, approx_ms=ms_approx,
+                       interactions_ms=s_inter * 1e3, table_build_ms=table_ms,
+                       pair_table_build_ms=pair_ms, additivity_err=err,
+                       approx_err=err_approx, interaction_rows_err=e_rows,
+                       symmetry_err=e_sym, card_vs_cpu_err=cpu_err,
+                       launches=got)
+    del bst
+    torch.cuda.empty_cache()
+    # 3 classes, DART, categorical: additivity, shapes, card vs CPU
+    rng = np.random.RandomState(5)
+    W3 = rng.randn(COLS, 3).astype(np.float32)
+    y3 = np.argmax(np.nan_to_num(Xtr) @ W3, 1).astype(np.float32)
+    Xc, yc, Xcte, types = cat
+    for name, params, X, y, Xe, ft, rounds in (
+            ("shap 3 classes", {**MAIN_PARAMS, "objective": "multi:softprob",
+                                "num_class": 3}, Xtr, y3, Xte, None,
+             CPU_ROUNDS),
+            ("shap dart", {**DART_PARAMS, "max_bin": DEFAULT_MAX_BIN}, Xtr,
+             ytr, Xte, None, ROUNDS),
+            ("shap categorical", MAIN_PARAMS, Xc, yc, Xcte, types, ROUNDS)):
+        b = xgbt.train(params, xgbt.DMatrix(X, y, feature_types=ft), rounds,
+                       verbose_eval=False)
+        c, ms, err = _shap_additive(name, b, Xe, ft)
+        want = ((EVAL_ROWS, 3, COLS + 1) if "classes" in name
+                else (EVAL_ROWS, COLS + 1))
+        check(c.shape == want, f"{name}: shape {c.shape}")
+        cpu_err = _shap_card_vs_cpu(name, b, Xe, ft)
+        extra = ""
+        if "dart" in name:
+            wd = b._gbm.weight_drop
+            check(min(wd) < 1.0, f"{name}: some trees reweighted")
+            extra = f"; {sum(x < 1.0 for x in wd)} of {len(wd)} reweighted"
+        if "categorical" in name:
+            ncat = sum(int(t.categorical_nodes().sum())
+                       for t in b._gbm.model.trees)
+            check(ncat > 0, f"{name}: categorical nodes")
+            extra = f"; {ncat} categorical nodes"
+        print(f"{name}: contribs {c.shape} {ms:.1f} ms, sum vs margins "
+              f"{err:.2e}, card vs CPU {cpu_err:.2e}{extra}")
+        out[name.split(" ", 1)[1]] = dict(contribs_ms=ms, additivity_err=err,
+                                          card_vs_cpu_err=cpu_err)
+        del b
+        torch.cuda.empty_cache()
+    # the lossguide forest: the table path, then the row DP for paths of
+    # more than SHAP_DEEP_AT features
+    b = xgbt.train(LG_PARAMS, dtrain, ROUNDS, verbose_eval=False)
+    interpret.reset_path_counts()
+    c, ms, err = _shap_additive("shap lossguide", b, Xte)
+    counts = dict(interpret.path_counts)
+    depth = max(t.max_depth() for t in b._gbm.model.trees)
+    dd = xgbt.DMatrix(Xte[:SHAP_DEEP_ROWS])
+    old = interpret._TABLE_MAX_D
+    interpret._TABLE_MAX_D = SHAP_DEEP_AT
+    interpret.reset_path_counts()
+    try:
+        deep, s_deep = _sync_s(lambda: b.predict(dd, pred_contribs=True))
+    finally:
+        interpret._TABLE_MAX_D = old
+    forced = dict(interpret.path_counts)
+    e_deep = float(np.abs(deep - c[:SHAP_DEEP_ROWS]).max())
+    check(forced["deep"] > 0 and e_deep <= 1e-8,
+          f"shap lossguide: {forced['deep']} paths through the row DP, "
+          f"max err against the table path {e_deep}")
+    # the CPU builds the 2^D tables of 255-leaf trees slowly: two rounds
+    cpu_err = _shap_card_vs_cpu("shap lossguide", b, Xte, rounds=2)
+    print(f"shap lossguide (255 leaves, deepest leaf at depth {depth}): "
+          f"contribs {ms:.1f} ms, sum vs margins {err:.2e}; paths {counts} "
+          f"at _TABLE_MAX_D {old}; at {SHAP_DEEP_AT}: {forced} on "
+          f"{SHAP_DEEP_ROWS} rows, {s_deep * 1e3:.1f} ms, max err against "
+          f"the table path {e_deep:.2e}; card vs CPU (2 rounds) "
+          f"{cpu_err:.2e}")
+    out["lossguide"] = dict(contribs_ms=ms, additivity_err=err,
+                            depth=depth, paths=counts, forced_paths=forced,
+                            deep_ms=s_deep * 1e3, deep_err=e_deep,
+                            card_vs_cpu_err=cpu_err)
+    del b, dtrain
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"shap: {out['phase_s']:.1f} s")
+    return out
+
+
+GBL_ROUNDS, GBL_CPU_ROUNDS = 20, 5
+GBL_SELECTORS = [{"feature_selector": s} for s in
+                 ("cyclic", "shuffle", "random", "greedy", "thrifty")] + [
+    {"updater": "shotgun", "feature_selector": "cyclic"},
+    {"updater": "shotgun", "feature_selector": "shuffle"}]
+
+
+def _linear_target(X, w):
+    """``0.5 X w`` plus noise of 0.1: the generator's coefficients halved
+    (the base score 0.5 takes no intercept)."""
+    rng = np.random.RandomState(9)
+    return (np.nan_to_num(X) @ w * 0.5 + 0.5 + 0.1 * rng.randn(len(X))
+            ).astype(np.float32)
+
+
+def phase_gblinear(Xtr, ytr, Xte, yte, w):
+    """The linear booster at 1M x 50 for 20 rounds with every selector:
+    ``reg:squarederror`` on a linear target recovers the generating
+    coefficients within 0.02, ``binary:logistic`` lowers the held-out
+    logloss; no bins, no one-hot, no level kernel and no walk (A = B = C =
+    D = 0); ms a round; then 5 rounds on 64k rows on the card and the CPU:
+    weights within rtol 1e-6."""
+    t_phase = time.perf_counter()
+    ylin, ylin_te = _linear_target(Xtr, w), _linear_target(Xte, w)
+    out = {}
+    for objective, y, yv in (("reg:squarederror", ylin, ylin_te),
+                             ("binary:logistic", ytr, yte)):
+        dtrain, dtest = xgbt.DMatrix(Xtr, y), xgbt.DMatrix(Xte, yv)
+        for sel in GBL_SELECTORS:
+            name = f"{objective} {sel.get('updater', 'coord_descent')}/" \
+                   f"{sel['feature_selector']}"
+            params = {"booster": "gblinear", "objective": objective, **sel}
+            probe, res = _RoundProbe(), {}
+            reset_launches()
+            bst = xgbt.train(params, dtrain, GBL_ROUNDS,
+                             evals=[(dtest, "test")], evals_result=res,
+                             verbose_eval=False, callbacks=[probe])
+            got = launches()
+            check(got == {"A": 0, "B": 0, "C": 0, "D": 0},
+                  f"gblinear {name}: launches {got}")
+            check(not dtrain._binned, f"gblinear {name}: no bins built")
+            metric = next(iter(res["test"]))
+            hist = res["test"][metric]
+            check(hist[-1] < hist[0], f"gblinear {name}: {metric} {hist}")
+            wt = bst._gbm.host_weights()[:, 0]
+            coef_err = float(np.abs(wt[:-1] - 0.5 * w).max())
+            if objective == "reg:squarederror":
+                check(coef_err <= 0.02,
+                      f"gblinear {name}: coefficients off by {coef_err}")
+            print(f"gblinear {name}: median round {probe.median_ms():.1f} "
+                  f"ms (incl. eval); {metric} {hist[0]:.6f} -> "
+                  f"{hist[-1]:.6f}; coefficients vs 0.5 w max err "
+                  f"{coef_err:.4f}; launches {got}")
+            out[name] = dict(ms_per_round_median=probe.median_ms(),
+                             round_ms=probe.times, metric=metric,
+                             first=hist[0], last=hist[-1],
+                             coef_err=coef_err, launches=got)
+            del bst
+        del dtrain, dtest
+    errs = {}
+    for objective, y in (("reg:squarederror", ylin), ("binary:logistic",
+                                                       ytr)):
+        for sel in GBL_SELECTORS:
+            params = {"booster": "gblinear", "objective": objective, **sel}
+            wts = [xgbt.train(params, xgbt.DMatrix(
+                Xtr[:CPU_ROWS], y[:CPU_ROWS], device=dev), GBL_CPU_ROUNDS,
+                verbose_eval=False)._gbm.host_weights()
+                for dev in (DEVICE, "cpu")]
+            ok = np.allclose(wts[0], wts[1], rtol=1e-6, atol=1e-7)
+            e = float(np.abs(wts[0] - wts[1]).max())
+            check(ok, f"gblinear card vs CPU {objective} {sel}: {e}")
+            errs[f"{objective} {sel}"] = e
+    print(f"gblinear card vs CPU ({CPU_ROWS} rows, {GBL_CPU_ROUNDS} rounds, "
+          f"{len(errs)} runs): weights max abs err {max(errs.values()):.2e}")
+    out["card_vs_cpu"] = errs
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"gblinear: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_sklearn(Xtr, ytr, Xte, yte, w):
+    """The estimators on the card at the main path's width: an
+    ``XGBClassifier`` (10 trees, depth 6, max_bin 256, eval set) grows
+    ``train``'s trees with the main path's launches (C 1, D 60, A 0, B 10)
+    and ``predict_proba`` equals ``Booster.predict``; an
+    ``XGBRegressor(booster="gblinear")``'s ``coef_`` near the generator's;
+    ``XGBRanker`` on the 200k all-pairs ranking data (held-out ndcg
+    rising); an ``XGBRFClassifier`` of 100 trees at depth 5 in one round;
+    ``config_context(verbosity=0)`` silences the port's warnings."""
+    t_phase = time.perf_counter()
+    out = {}
+    kw = dict(n_estimators=ROUNDS, max_depth=DEPTH, max_bin=DEFAULT_MAX_BIN)
+    reset_launches()
+    clf, s = _sync_s(lambda: xgbt.XGBClassifier(**kw).fit(
+        Xtr, ytr, eval_set=[(Xte, yte)]))
+    got = launches()
+    want = {"A": 0, "B": ROUNDS, "C": 1, "D": ROUNDS * DEPTH}
+    check(got == want, f"XGBClassifier: launches {got}, want {want}")
+    ref = xgbt.train({"objective": "binary:logistic", "max_depth": DEPTH,
+                      "max_bin": DEFAULT_MAX_BIN}, xgbt.DMatrix(Xtr, ytr),
+                     ROUNDS, verbose_eval=False)
+    same_trees(heap_trees(clf.get_booster(), ROUNDS), heap_trees(ref, ROUNDS),
+               "XGBClassifier vs train")
+    proba = clf.predict_proba(Xte)
+    check(proba.shape == (EVAL_ROWS, 2) and np.array_equal(
+        proba[:, 1], ref.predict(xgbt.DMatrix(Xte))),
+          "XGBClassifier: predict_proba == Booster.predict")
+    acc = clf.score(Xte, yte)
+    ll = clf.evals_result()["validation_0"]["logloss"]
+    check(ll[-1] < ll[0], f"XGBClassifier: held-out logloss {ll}")
+    print(f"XGBClassifier ({ROUNDS} trees, depth {DEPTH}, max_bin "
+          f"{DEFAULT_MAX_BIN}): fit {s:.2f} s, launches {got}; the trees of "
+          f"train; predict_proba == Booster.predict; accuracy {acc:.4f}, "
+          f"logloss {ll[0]:.6f} -> {ll[-1]:.6f}")
+    out["classifier"] = dict(fit_s=s, launches=got, accuracy=acc,
+                             logloss=ll)
+    del clf, ref
+    torch.cuda.empty_cache()
+    reg, s = _sync_s(lambda: xgbt.XGBRegressor(
+        booster="gblinear", n_estimators=GBL_ROUNDS).fit(
+            Xtr, _linear_target(Xtr, w)))
+    coef_err = float(np.abs(reg.coef_ - 0.5 * w).max())
+    check(reg.coef_.shape == (COLS,) and coef_err <= 0.02,
+          f"XGBRegressor gblinear: coef_ off by {coef_err}")
+    print(f"XGBRegressor(booster='gblinear'): fit {s:.2f} s, coef_ vs 0.5 w "
+          f"max err {coef_err:.4f}, intercept_ {reg.intercept_}")
+    out["gblinear_regressor"] = dict(fit_s=s, coef_err=coef_err)
+    del reg
+    X, y, sizes = _make_rank_data(ALL_PAIRS_ROWS + ALL_PAIRS_EVAL_ROWS, 8,
+                                  32, seed=43)
+    (Xr, yr, sr), (Xv, yv, sv) = _split_queries(X, y, sizes, ALL_PAIRS_ROWS)
+    rk, s = _sync_s(lambda: xgbt.XGBRanker(
+        n_estimators=ALL_PAIRS_ROUNDS, max_depth=DEPTH, learning_rate=0.1,
+        eval_metric="ndcg@10").fit(Xr, yr, group=sr, eval_set=[(Xv, yv)],
+                                   eval_group=[sv]))
+    nd = rk.evals_result()["validation_0"]["ndcg@10"]
+    check(nd[-1] > nd[0], f"XGBRanker: held-out ndcg@10 {nd}")
+    print(f"XGBRanker ({Xr.shape[0]} rows in {len(sr)} queries, "
+          f"{ALL_PAIRS_ROUNDS} rounds): fit {s:.2f} s, held-out ndcg@10 "
+          f"{nd[0]:.6f} -> {nd[-1]:.6f}")
+    out["ranker"] = dict(fit_s=s, ndcg=nd)
+    del rk, X, Xr, Xv
+    torch.cuda.empty_cache()
+    reset_launches()
+    rf, s = _sync_s(lambda: xgbt.XGBRFClassifier(
+        n_estimators=RF_TREES, max_depth=RF_DEPTH).fit(Xtr, ytr))
+    got = launches()
+    check(rf.get_booster()._gbm.model.num_trees == RF_TREES
+          and rf.get_booster().num_boosted_rounds() == 1,
+          "XGBRFClassifier: 100 trees in one round")
+    check(got["D"] == RF_TREES * RF_DEPTH and got["A"] == 0,
+          f"XGBRFClassifier: launches {got}")
+    p = rf.predict_proba(Xte)
+    check(p.shape == (EVAL_ROWS, 2) and np.isfinite(p).all(),
+          "XGBRFClassifier: probabilities")
+    print(f"XGBRFClassifier ({RF_TREES} trees, depth {RF_DEPTH}): fit "
+          f"{s:.2f} s, launches {got}")
+    out["rf_classifier"] = dict(fit_s=s, launches=got)
+    del rf
+    torch.cuda.empty_cache()
+    d = xgbt.DMatrix(Xtr, ytr)
+    said = {}
+    for verbosity in (1, 0):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with xgbt.config_context(verbosity=verbosity):
+                xgbt.train({**PARAMS_DEFAULT, **INERT_KEYS}, d, 1,
+                           verbose_eval=False)
+        said[verbosity] = len(caught)
+    check(said == {1: len(INERT_KEYS), 0: 0},
+          f"config_context(verbosity=0): warnings {said}")
+    print(f"config_context: warnings at verbosity 1 / 0: {said[1]} / "
+          f"{said[0]}")
+    out["verbosity_warnings"] = said
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"sklearn: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2584,7 +2993,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     inert = phase_inert_keys(Xtr, ytr)
     torch.cuda.empty_cache()
-    del X, Xtr, Xte
     ranking = phase_ranking()
     torch.cuda.empty_cache()
     Xc, yc, types = _make_cat_data(ROWS + EVAL_ROWS, COLS, seed=42)
@@ -2597,6 +3005,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_card_vs_cpu(Xctr, yctr, Xcte, feature_types=types,
                       name="categorical card vs CPU")
+    torch.cuda.empty_cache()
+    shap = phase_shap(Xtr, ytr, Xte, yte, (Xctr, yctr, Xcte, types))
+    del Xc, Xctr, Xcte
+    torch.cuda.empty_cache()
+    gblinear = phase_gblinear(Xtr, ytr, Xte, yte, w_gen)
+    torch.cuda.empty_cache()
+    sklearn = phase_sklearn(Xtr, ytr, Xte, yte, w_gen)
+    torch.cuda.empty_cache()
+    del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
                    "D_bin64": d64.pop("levels"),
@@ -2611,7 +3028,13 @@ def main() -> int:
         "grower_breadth": breadth, "multiclass": multiclass,
         "objectives": objectives, "ranking": ranking,
         "lossguide": lossguide, "dart": dart, "random_forest": forest,
-        "inert_keys": inert}))
+        "inert_keys": inert, "shap": shap, "gblinear": gblinear,
+        "sklearn": sklearn}))
+    gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
+                           if isinstance(v, dict) and "launches" in v)
+                    for k in "ABCD"}
+    clf = sklearn["classifier"]["launches"]
+    rf = sklearn["rf_classifier"]["launches"]
     rank_lv = ranking["level_kernels"]
     for k in (c256, d256, rank_lv["C"], rank_lv["D"]):
         k.pop("B"), k.pop("Fh")
@@ -2635,6 +3058,9 @@ def main() -> int:
              lossguide=dict(launches=lossguide["launches"]["A"],
                             k16=lossguide["child_hist_k16"],
                             k2=lossguide["child_hist_k2"]),
+             shap=dict(launches=shap["main"]["launches"]["A"]),
+             gblinear=dict(launches=gbl_launches["A"]),
+             sklearn=dict(classifier=clf["A"], rf_classifier=rf["A"]),
              **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
@@ -2645,7 +3071,10 @@ def main() -> int:
              lossguide=dict(launches=lossguide["launches"]["B"],
                             forest=lossguide["walk"]),
              dart=dict(launches=dart["launches"]["B"]),
-             random_forest=dict(launches=forest["launches"]["B"]), **b),
+             random_forest=dict(launches=forest["launches"]["B"]),
+             shap=dict(launches=shap["main"]["launches"]["B"]),
+             gblinear=dict(launches=gbl_launches["B"]),
+             sklearn=dict(classifier=clf["B"], rf_classifier=rf["B"]), **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:378",
@@ -2653,7 +3082,11 @@ def main() -> int:
              ranking=dict(launches=ranking["launches"]["C"],
                           f136=rank_k["C"]),
              dart=dict(launches=dart["launches"]["C"]),
-             random_forest=dict(launches=forest["launches"]["C"]), **c256),
+             random_forest=dict(launches=forest["launches"]["C"]),
+             shap=dict(launches=shap["main"]["launches"]["C"]),
+             gblinear=dict(launches=gbl_launches["C"]),
+             sklearn=dict(classifier=clf["C"], rf_classifier=rf["C"]),
+             **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:645",
@@ -2665,6 +3098,9 @@ def main() -> int:
                               "kernel_D_bound_ms"], levels_f136=rank_k["D"]),
              dart=dict(launches=dart["launches"]["D"]),
              random_forest=dict(launches=forest["launches"]["D"]),
+             shap=dict(launches=shap["main"]["launches"]["D"]),
+             gblinear=dict(launches=gbl_launches["D"]),
+             sklearn=dict(classifier=clf["D"], rf_classifier=rf["D"]),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))

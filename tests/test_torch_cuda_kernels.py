@@ -39,6 +39,11 @@ just over 2^31 elements (43M rows x 50), which the wrapper walks in two
 row chunks, equal to the plain walk on rows at both sides of the chunk
 boundary and of the 2^31st element.
 
+SHAP and the linear booster (``-k "shap or gblinear"``): contributions,
+Saabas and interactions of CPU-trained models (depth 6, categorical, 3
+classes, lossguide, the row DP) on the card and the CPU within 1e-9; the
+linear booster's weights for every selector within rtol 1e-6.
+
 Categorical decision tables, ``[Kp, 5+B]`` (``-k categorical``): kernels A
 and D and both routing launches with wide tables whose nodes mix numerical
 and categorical splits, every bin id in some set and missing bins among
@@ -629,3 +634,79 @@ def test_lossguide_tree_same_on_card_and_cpu(cuda, max_leaves, kw):
         out.append([x.cpu() for x in (*tree, *fin)])
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+def _shap_model(case):
+    """A CPU-trained model's JSON, its rows and feature types (the card
+    SHAP cases)."""
+    import xgboost_tpu_torch as xgbt
+
+    rng = np.random.RandomState(7)
+    n, F = 4000, 8
+    X = rng.randn(n, F).astype(np.float32)
+    X[rng.rand(n, F) < 0.05] = np.nan
+    types = None
+    params = {"objective": "binary:logistic", "max_depth": 6, "max_bin": 64}
+    y = (np.nan_to_num(X) @ rng.randn(F) > 0).astype(np.float32)
+    if case == "categorical":
+        X[:, 2] = rng.randint(0, 3, n)
+        X[:, 5] = rng.randint(0, 20, n)
+        types = ["q", "q", "c", "q", "q", "c", "q", "q"]
+    elif case == "multiclass":
+        params.update(objective="multi:softprob", num_class=3)
+        y = np.argmax(np.nan_to_num(X) @ rng.randn(F, 3), 1)
+    elif case == "lossguide":
+        params.update(grow_policy="lossguide", max_leaves=63, max_depth=0)
+    bst = xgbt.train(params, xgbt.DMatrix(X, y, feature_types=types,
+                                          device="cpu"), 3, verbose_eval=False)
+    return bst.save_raw(), X, types
+
+
+@pytest.mark.parametrize("case,table_max_d", [
+    ("depth6", 12), ("categorical", 12), ("multiclass", 12),
+    ("lossguide", 12), ("lossguide", 4)])
+def test_shap_same_on_card_and_cpu(cuda, case, table_max_d, monkeypatch):
+    """Contributions, Saabas and interactions of one model on the card and
+    on the CPU within 1e-9 (float64 sums in other orders); at
+    ``_TABLE_MAX_D`` 4 the lossguide tree's longer paths take the row DP."""
+    import xgboost_tpu_torch as xgbt
+    from xgboost_tpu_torch import interpret
+
+    monkeypatch.setattr(interpret, "_TABLE_MAX_D", table_max_d)
+    raw, X, types = _shap_model(case)
+    out = []
+    for dev in ("cuda", "cpu"):
+        bst = xgbt.Booster(model_file=raw, device=dev)
+        d = xgbt.DMatrix(X, feature_types=types, device=dev)
+        out.append([bst.predict(d, pred_contribs=True),
+                    bst.predict(d, pred_contribs=True, approx_contribs=True),
+                    bst.predict(xgbt.DMatrix(X[:1000], feature_types=types,
+                                             device=dev),
+                                pred_interactions=True)])
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("params", [
+    {"feature_selector": s} for s in ("cyclic", "shuffle", "random",
+                                      "greedy", "thrifty")] + [
+    {"updater": "shotgun"},
+    {"objective": "multi:softprob", "num_class": 3,
+     "feature_selector": "random"}])
+def test_gblinear_same_on_card_and_cpu(cuda, params):
+    """The linear booster's weights after 5 rounds on the card and on the
+    CPU within rtol 1e-6 (each sum in float64, rounded to float32)."""
+    import xgboost_tpu_torch as xgbt
+
+    rng = np.random.RandomState(3)
+    n, F = 50_000, 20
+    X = rng.randn(n, F).astype(np.float32)
+    X[rng.rand(n, F) < 0.05] = np.nan
+    y = (np.nan_to_num(X) @ rng.randn(F)).astype(np.float32)
+    if "num_class" in params:
+        y = (y > 0).astype(np.float32) + (y > 1)
+    p = {"booster": "gblinear", **params}
+    w = [xgbt.train(p, xgbt.DMatrix(X, y, device=dev), 5,
+                    verbose_eval=False)._gbm.host_weights()
+         for dev in ("cuda", "cpu")]
+    np.testing.assert_allclose(w[0], w[1], rtol=1e-6, atol=1e-7)

@@ -26,7 +26,14 @@
   ``jax`` nor ``xgboost_tpu``; a 3-class Booster made for the card sends
   its eval walk and its training walk to kernel B's wrapper with G = 3,
   and its softmax, gradients and (for ``survival:aft``) label bounds stay
-  on the data's device; so do the ranking objectives' gradients.
+  on the data's device; so do the ranking objectives' gradients;
+- SHAP (``interpret.py``), the linear booster, the estimators, ``config``
+  and the plots import neither ``jax`` nor ``xgboost_tpu``; the SHAP
+  values (exact, Saabas, interactions; numerical and categorical trees,
+  table and row-DP paths) of rows on a device and the linear booster's
+  weights for every selector are computed there, with no host sync (the
+  stub 'meta' device has no data to read back); an estimator built without
+  ``device=`` raises where there is no card.
 """
 
 import ast
@@ -341,7 +348,12 @@ def test_categorical_forest_takes_the_categorical_walk(stub_cuda,
                                     "xgboost_tpu_torch.objective.multiclass",
                                     "xgboost_tpu_torch.objective.survival",
                                     "xgboost_tpu_torch.metric.multiclass",
-                                    "xgboost_tpu_torch.metric.survival"])
+                                    "xgboost_tpu_torch.metric.survival",
+                                    "xgboost_tpu_torch.interpret",
+                                    "xgboost_tpu_torch.gbm.gblinear",
+                                    "xgboost_tpu_torch.sklearn",
+                                    "xgboost_tpu_torch.config",
+                                    "xgboost_tpu_torch.plotting"])
 def test_training_surface_imports_no_jax(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     assert path in set((ROOT / "xgboost_tpu_torch").rglob("*.py"))
@@ -544,3 +556,65 @@ def test_lossguide_steps_reach_the_level_kernel_at_d0(stub_cuda, max_leaves):
         assert args[9:12] == (4, 0, 0) and args[13] == 0
     assert tree.positions.device.type == "meta"
     assert tuple(tree.left.shape) == (2 * max_leaves - 1,)
+
+
+def _meta_rows(X):
+    return torch.as_tensor(X).to("meta")
+
+
+@pytest.mark.parametrize("case", ["numerical", "categorical", "deep_path",
+                                  "multiclass"])
+def test_shap_values_stay_on_the_data_device(case, monkeypatch):
+    from xgboost_tpu_torch import interpret
+
+    rng = np.random.RandomState(0)
+    X = rng.randn(128, 4).astype(np.float32)
+    X[:, 1] = rng.randint(0, 5, 128)
+    y = (X[:, 0] + X[:, 1] > 2).astype(np.float32)
+    kw, params = {}, {"max_depth": 3, "max_bin": 16}
+    if case == "categorical":
+        kw["feature_types"] = ["q", "c", "q", "q"]
+    if case == "multiclass":
+        params.update(objective="multi:softprob", num_class=3)
+        y = (np.arange(128) % 3).astype(np.float32)
+    if case == "deep_path":
+        monkeypatch.setattr(interpret, "_TABLE_MAX_D", 1)
+    bst = xgbt.train(params, xgbt.DMatrix(X, y, device="cpu", **kw), 2,
+                     verbose_eval=False)
+    K = 3 if case == "multiclass" else 1
+    Xm = _meta_rows(X)
+    for approx in (False, True):
+        out = interpret.contribs(bst, Xm, approx)
+        assert out.device.type == "meta" and out.shape == (128, K, 5)
+    out = interpret.interactions(bst, Xm)
+    assert out.device.type == "meta" and out.shape == (128, K, 5, 5)
+
+
+@pytest.mark.parametrize("params", [
+    {"feature_selector": s} for s in ("cyclic", "shuffle", "random",
+                                      "greedy", "thrifty")] + [
+    {"updater": "shotgun"}])
+def test_linear_weights_stay_on_the_data_device(params):
+    from xgboost_tpu_torch.gbm import GBLinear
+
+    meta = torch.device("meta")
+    gbm = GBLinear(2, params, meta)
+    X = torch.empty((100, 5), device=meta)
+    g = torch.empty((100, 2), device=meta)
+    gbm.boost_one_round(X, g, g, 3)
+    assert gbm.weights.device == meta and gbm.weights.shape == (6, 2)
+    base = torch.empty((100, 2), device=meta)
+    assert gbm.predict(X, base).device == meta
+
+
+def test_estimators_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.zeros((8, 2), np.float32)
+    y = np.arange(8) % 2
+    for name in ("XGBClassifier", "XGBRegressor", "XGBRFClassifier"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            getattr(xgbt, name)(n_estimators=1).fit(X, y)
+    with pytest.raises(RuntimeError, match="cuda"):
+        xgbt.XGBRanker(n_estimators=1).fit(X, y, group=[8])
+    est = xgbt.XGBClassifier(n_estimators=1, device="cpu").fit(X, y)
+    assert est.get_booster().device.type == "cpu"

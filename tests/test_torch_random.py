@@ -5,7 +5,8 @@
 ``split``, ``fold_in``, 32-bit ``bits``, float32 ``uniform`` on [0, 1)
 (compared as bit patterns; another range within 1 ulp of its width),
 ``bernoulli`` and ``permutation`` at F = 6, 50 and 2,000 (2,000 takes two
-shuffle rounds). ``gumbel`` goes through two ``log``s,
+shuffle rounds), ``randint`` (the linear booster's random selector) at
+spans 1 to 65,537 and 2^31 - 1. ``gumbel`` goes through two ``log``s,
 whose last ulp may differ between torch and XLA: it is held within 4 ulps
 of ``max(1, |g|)`` (2 measured). A draw of ``[n]`` is the first ``n``
 values of a draw of ``[m > n]`` (the prefix property the port relies on
@@ -84,6 +85,26 @@ def test_permutation_bitwise(seed, n):
     np.testing.assert_array_equal(
         got, np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n)))
     assert sorted(got.tolist()) == list(range(n))
+
+
+@pytest.mark.parametrize("n", [1, 2, 6, 50, 137, 65537])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_bitwise(seed, n):
+    """``jax.random.randint(key, (n,), 0, n)`` (the linear booster's random
+    selector, keys folded per output group) and other ranges: two bit
+    streams folded through the span multiplier, whose square wraps as
+    uint32 (at n = 65537 it is 0)."""
+    for k in (0, 2):
+        jk = jax.random.fold_in(jax.random.PRNGKey(seed), k)
+        got = tf.randint(tf.fold_in(tf.prng_key(seed), k), (n,), 0, n)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jax.random.randint(jk, (n,), 0, n)))
+    for lo, hi in ((3, 10), (5, 5), (7, 2), (0, 2 ** 31 - 1)):
+        np.testing.assert_array_equal(
+            tf.randint(tf.prng_key(seed), (n,), lo, hi).numpy(),
+            np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (n,),
+                                          lo, hi)))
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -466,10 +466,16 @@ def test_predict_options_match(both, trained, kw):
 
 
 def test_predict_refuses_what_is_not_ported_and_foreign_names(both, trained):
-    _, tb, _, _ = trained
-    for kw in ({"pred_contribs": True}, {"pred_interactions": True}):
-        with pytest.raises(NotImplementedError):
-            tb.predict(both.tv, **kw)
+    """Foreign feature names raise. SHAP (which this test once checked to
+    raise, before it was ported) gives the JAX package's values for the
+    separately trained models (trees within rtol 1e-5, so 1e-5 here)."""
+    jb, tb, _, _ = trained
+    jd, td = both.fresh()
+    for kw in ({"pred_contribs": True}, {"pred_interactions": True},
+               {"pred_contribs": True, "approx_contribs": True}):
+        got, want = tb.predict(td, **kw), jb.predict(jd, **kw)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     named = xgbt.train(PARAMS, xgbt.DMatrix(both.X, both.td.get_label(),
                                             feature_names=NAMES, **CPU), 1,
                        verbose_eval=False)
@@ -581,14 +587,28 @@ def test_validate_parameters_matches(both, params, raises):
     ({"num_parallel_tree": 2}, True),
     ({"updater": "refresh"}, False),
     ({"multi_strategy": "multi_output_tree"}, False),
-    ({"booster": "gblinear"}, False)])
+    ({"booster": "gblinear"}, True),
+    ({"feature_selector": "shuffle", "top_k": 2}, True)])
 def test_unported_parameters_raise(both, params, ported):
     """A key the port has not ported raises, through ``train`` and
-    ``set_param``. ``max_leaves`` (read by the lossguide grower only) and
-    ``num_parallel_tree`` are ported: they train the JAX package's model."""
+    ``set_param``; the tree boosters' ``updater`` sequences still do.
+    ``max_leaves`` (read by the lossguide grower only),
+    ``num_parallel_tree``, the linear booster and its keys are ported: they
+    train the JAX package's model (the linear keys change no tree, and a
+    linear model's rounds count 0 in both packages)."""
     if ported:
         jb = xgb.train({**PARAMS, **params}, both.jd, 2, verbose_eval=False)
         tb = xgbt.train({**PARAMS, **params}, both.td, 2, verbose_eval=False)
+        if params.get("booster") == "gblinear":
+            np.testing.assert_allclose(tb._gbm.host_weights(),
+                                       np.asarray(jb._gbm.weights),
+                                       rtol=1e-5, atol=1e-6)
+            jx, tx = both.fresh()
+            np.testing.assert_allclose(tb.predict(tx, output_margin=True),
+                                       jb.predict(jx, output_margin=True),
+                                       rtol=1e-5, atol=1e-5)
+            assert tb.num_boosted_rounds() == jb.num_boosted_rounds() == 0
+            return
         _assert_same_model(jb, tb, both)
         assert tb.num_boosted_rounds() == jb.num_boosted_rounds() == 2
         return

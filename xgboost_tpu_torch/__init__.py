@@ -7,22 +7,43 @@ survival with censoring intervals, LambdaMART ranking and the ranking
 metrics), the forest-walk predictor and XGBoost-schema JSON model IO; the
 training surface around them: ``train`` with callbacks, early stopping,
 custom objectives and metrics and continued training, ``cv``, and the
-``Booster``'s predict options, slicing, copies, pickling, attributes,
-configuration and model inspection (dumps, importance). Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``. The four kernels of the path (the construct and
-hoisted level histograms, the one-hot build and the forest walk) are
-hand-written CUDA (``csrc/``), built at first use; on CPU tensors their
-plain PyTorch versions run.
+``Booster``'s predict options (SHAP contributions and interactions
+included), slicing, copies, pickling, attributes, configuration and model
+inspection (dumps, importance); the linear booster (``booster="gblinear"``),
+the scikit-learn estimators (imported at first use), ``set_config`` /
+``config_context`` and the plots. Entry points run on the CUDA card unless
+the caller passes ``device="cpu"``. The four kernels of the path (the
+construct and hoisted level histograms, the one-hot build and the forest
+walk) are hand-written CUDA (``csrc/``), built at first use; on CPU
+tensors their plain PyTorch versions run.
 """
 
 from . import callback
+from .config import config_context, get_config, set_config
 from .data.dmatrix import DMatrix
 from .data.quantile import HistogramCuts
 from .learner import Booster
+from .plotting import plot_importance, plot_tree, to_graphviz
 from .predictor import forest_from_numpy
 from .training import cv, train
 
 __version__ = "0.1.0"
 
 __all__ = ["DMatrix", "Booster", "train", "cv", "callback", "HistogramCuts",
-           "forest_from_numpy"]
+           "forest_from_numpy", "config_context", "set_config", "get_config",
+           "plot_importance", "plot_tree", "to_graphviz", "XGBModel",
+           "XGBRegressor", "XGBClassifier", "XGBRanker", "XGBRFRegressor",
+           "XGBRFClassifier", "__version__"]
+
+_ESTIMATORS = ("XGBModel", "XGBRegressor", "XGBClassifier", "XGBRanker",
+               "XGBRFRegressor", "XGBRFClassifier")
+
+
+def __getattr__(name):
+    # the estimators load at first use, as in the JAX package
+    if name in _ESTIMATORS:
+        import importlib
+
+        return getattr(importlib.import_module(".sklearn", __name__), name)
+    raise AttributeError(
+        f"module 'xgboost_tpu_torch' has no attribute '{name}'")

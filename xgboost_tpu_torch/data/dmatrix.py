@@ -305,6 +305,19 @@ class DMatrix:
     def num_row(self) -> int:
         return int(self.data.shape[0])
 
+    def num_nonmissing(self) -> int:
+        """The number of present (non-NaN) values."""
+        return int((~torch.isnan(self.data)).sum())
+
+    def get_data(self):
+        """The feature matrix as a scipy CSR matrix on the host, the
+        missing values left out (reference ``DMatrix.get_data``)."""
+        import scipy.sparse as sp
+
+        X = self.data.cpu().numpy()
+        mask = ~np.isnan(X)
+        return sp.csr_matrix(np.where(mask, X, 0.0) * mask)
+
     def num_col(self) -> int:
         return int(self.data.shape[1])
 

@@ -20,13 +20,13 @@ per-tree weights (no cache).
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import threefry
+from ..config import warn
 from ..params import GBTreeParam, TrainParam
 from ..predictor import (StackedForest, pack_cat_bits, predict_margin,
                          stack_forest, with_walk_tables)
@@ -352,24 +352,25 @@ class GBTree:
 
     def _warn_inert(self) -> None:
         """The JAX package's warnings for the keys that change nothing
-        (``gbm/gbtree.py:948-972``), on the same conditions."""
+        (``gbm/gbtree.py:948-972``), on the same conditions
+        (``config.warn``: silent at ``verbosity`` 0)."""
         tp, gp = self.train_param, self.gbtree_param
         if not tp.single_precision_histogram:
-            warnings.warn(
+            warn(
                 "single_precision_histogram=False (float64 histograms) is "
                 "not available on the card; the histograms sum fixed-point "
                 "integers exactly (int64)", stacklevel=3)
         if tp.is_explicit("sketch_eps"):
-            warnings.warn(
+            warn(
                 "sketch_eps is superseded by max_bin on the hist sketch "
                 "(reference hist makes the same substitution)", stacklevel=3)
         if tp.is_explicit("sparse_threshold"):
-            warnings.warn(
+            warn(
                 "sparse_threshold has no effect: the quantized matrix is "
                 "dense (missing encoded as a null bin)", stacklevel=3)
         if gp.is_explicit("predictor") \
                 and gp.predictor in ("cpu_predictor", "gpu_predictor"):
-            warnings.warn(
+            warn(
                 f"predictor={gp.predictor} requested; the stacked-forest "
                 "predictor (kernel B on the card) is always used",
                 stacklevel=3)

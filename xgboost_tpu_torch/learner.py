@@ -11,7 +11,10 @@ types, attributes, ``num_class`` and the objective included, so models
 carry across in both directions. With K output groups (``num_class``) a
 round grows K x ``num_parallel_tree`` trees and margins are ``[n, K]``.
 ``booster="dart"`` walks every forest with its tree weights and keeps no
-prediction cache.
+prediction cache; ``booster="gblinear"`` trains on the raw rows (no bins)
+and recomputes its margins, as the JAX package does. SHAP
+(``pred_contribs``, ``approx_contribs``, ``pred_interactions``) runs in
+``interpret.py`` on the data's device.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 
 from ._device import resolve_device
 from .data.dmatrix import DMatrix
-from .gbm import Dart, GBTree
+from .gbm import Dart, GBLinear, GBTree
 from .metric import create_metric
 from .objective import create_objective
 from .params import LearnerParam, check_ported, known_keys
@@ -35,7 +38,7 @@ from .predictor import StackedForest, predict_leaf, predict_margin
 __all__ = ["Booster"]
 
 _VERSION = [2, 0, 0]
-_BOOSTERS = {"gbtree": GBTree, "dart": Dart}
+_BOOSTERS = {"gbtree": GBTree, "dart": Dart, "gblinear": GBLinear}
 
 
 class _PredCache:
@@ -95,7 +98,7 @@ class Booster:
             raise NotImplementedError(
                 f"booster={params['booster']!r} is not ported yet")
         unknown = self.lparam.update(params)
-        check_ported(unknown)
+        check_ported(unknown, self.lparam.booster)
         self._extra_params.update(unknown)
         # read by the tree parameters and by count:poisson alike: the
         # learner keeps it and forwards it (the JAX package's rule)
@@ -170,6 +173,8 @@ class Booster:
         reweights old trees every round)."""
         self._configure()
         self._check_device(dmat)
+        if self._gbm.name == "gblinear":  # no cache (the JAX package's)
+            return self._gbm.predict(dmat.data, self._base_margin_for(dmat))
         model = self._gbm.model
         if self._gbm.name == "dart":
             return predict_margin(model.stacked(), dmat.data,
@@ -241,6 +246,9 @@ class Booster:
 
     def _boost(self, dtrain: DMatrix, grad: torch.Tensor,
                hess: torch.Tensor, iteration: int) -> None:
+        if self._gbm.name == "gblinear":  # the raw rows: no bins, no one-hot
+            self._gbm.boost_one_round(dtrain.data, grad, hess, iteration)
+            return
         binned = dtrain.get_binned(self._gbm.train_param.max_bin)
         self._add_cache(dtrain)
         entry = self._caches[id(dtrain)]
@@ -382,17 +390,39 @@ class Booster:
         no range is given) keeps the first ``ntree_limit // (K *
         num_parallel_tree)`` rounds. DART's walks weight every tree.
         ``training`` changes nothing (as in the JAX package: DART drops
-        trees only in ``update``). ``pred_contribs`` and
-        ``pred_interactions`` (SHAP) are not ported and raise."""
+        trees only in ``update``). ``pred_contribs`` gives the float64 SHAP
+        values ``[n, F+1]`` (``[n, K, F+1]``), bias column last; with
+        ``approx_contribs`` Saabas's; ``pred_interactions`` the ``[n, F+1,
+        F+1]`` (``[n, K, F+1, F+1]``) interaction values, computed on the
+        data's device (``interpret.py``). As in the JAX package they ignore
+        ``iteration_range`` / ``ntree_limit`` and the matrix's
+        ``base_margin``. A linear booster refuses ``pred_leaf``, gives its
+        per-feature products as contributions (float32) and zero
+        interactions."""
         self._configure()
         self._check_device(data)
-        if pred_contribs or pred_interactions:
-            raise NotImplementedError(
-                "pred_contribs / pred_interactions (SHAP, interpret.py) are "
-                "not ported yet")
         if validate_features:
             self._validate_features(data)
         K = self.n_groups
+        if self._gbm.name == "gblinear":
+            if pred_leaf:
+                raise ValueError(
+                    "gblinear does not support prediction of leaf index")
+            if pred_interactions:
+                F = self.num_features()
+                shape = ((data.num_row(), F + 1, F + 1) if K == 1
+                         else (data.num_row(), K, F + 1, F + 1))
+                return np.zeros(shape, np.float32)
+            if pred_contribs:
+                return self._gblinear_contribs(data)
+            iteration_range, ntree_limit = None, 0  # one model, no rounds
+        elif pred_contribs or pred_interactions:
+            from . import interpret
+
+            if pred_interactions:
+                return interpret.predict_interactions(self, data)
+            return interpret.predict_contribs(self, data,
+                                              approx=approx_contribs)
         if ntree_limit and iteration_range is None:
             iteration_range = (0, max(1, ntree_limit // self._per_round))
         if pred_leaf:
@@ -412,6 +442,23 @@ class Booster:
             out = out[:, 0]
         return out
 
+    def _gblinear_contribs(self, data: DMatrix) -> np.ndarray:
+        """The linear booster's contributions (reference gblinear.cc:176
+        PredictContribution; the JAX package's ``_gblinear_contribs``):
+        ``x_f * w_f`` per present value (missing: 0) and bias plus base
+        margin last, float32 ``[n, F+1]`` or ``[n, K, F+1]``, computed on
+        the data's device."""
+        w = self._gbm.weights  # [F+1, K]
+        Xz = torch.nan_to_num(data.data)
+        n, F = Xz.shape
+        K = w.shape[1]
+        out = torch.empty((n, K, F + 1), dtype=torch.float32,
+                          device=Xz.device)
+        out[:, :, :F] = Xz.unsqueeze(1) * w[:F].t().unsqueeze(0)
+        out[:, :, F] = w[F] + self._base_margin_val
+        out = out.cpu().numpy()
+        return out[:, 0, :] if K == 1 else out
+
     def inplace_predict(self, data, iteration_range=None,
                         predict_type: str = "value", missing: float = np.nan,
                         base_margin=None, strict_shape: bool = False
@@ -427,12 +474,19 @@ class Booster:
         ``[n, 1]``, as in the JAX package. The JAX package pads
         rows to power-of-two buckets to bound XLA recompiles
         (``predictor/serving.py``); eager PyTorch compiles nothing per shape,
-        so the port walks the rows as given."""
+        so the port walks the rows as given. A linear booster predicts
+        through a DMatrix of the rows, as in the JAX package."""
         self._configure()
         if predict_type not in ("value", "margin"):
             raise ValueError(
                 f"inplace_predict supports predict_type 'value' and "
                 f"'margin', got {predict_type!r}")
+        if self._gbm.name == "gblinear":
+            d = DMatrix(data, missing=missing, device=self.device)
+            if base_margin is not None:
+                d.set_base_margin(base_margin)
+            return self.predict(d, output_margin=predict_type == "margin",
+                                strict_shape=strict_shape)
         if hasattr(data, "tocsr"):
             raise NotImplementedError(
                 "inplace_predict on sparse input is not ported yet")
@@ -471,7 +525,8 @@ class Booster:
             return d.num_col()
         if self._loaded_num_feature:
             return self._loaded_num_feature
-        trees = self._gbm.model.trees if self._gbm is not None else []
+        model = getattr(self._gbm, "model", None)  # none for gblinear
+        trees = model.trees if model is not None else []
         return int(max((t.split_indices.max(initial=0) for t in trees),
                        default=-1) + 1)
 
@@ -581,7 +636,12 @@ class Booster:
         return b
 
     def num_boosted_rounds(self) -> int:
+        """Rounds in the model; 0 for the linear booster, whose rounds the
+        JAX package does not count (so continuation and ``boost`` restart
+        its random selectors' keys at round 0)."""
         self._configure()
+        if self._gbm.name == "gblinear":
+            return 0
         return self._gbm.model.num_trees // self._per_round
 
     def num_features(self) -> int:
@@ -762,6 +822,19 @@ class Booster:
             meta_names, meta_types = self._feature_meta()
             names = meta_names or None
             types = types or (meta_types or None)
+        if self._gbm.name == "gblinear":
+            # one string: the bias, then the weights (gblinear_model.h:99)
+            w = self._gbm.host_weights()
+            bias, wt = w[-1], w[:-1]
+            if dump_format == "json":
+                return [json.dumps(
+                    {"bias": [float(b) for b in bias],
+                     "weight": [float(v) for row in wt for v in row]},
+                    indent=2)]
+            lines = (["bias:"] + [f"{float(b):.6g}" for b in bias]
+                     + ["weight:"] + [f"{float(v):.6g}" for row in wt
+                                      for v in row])
+            return ["\n".join(lines) + "\n"]
         out = []
         for t in self._gbm.model.trees:
             if dump_format == "json":
@@ -792,8 +865,24 @@ class Booster:
                   ) -> Dict[str, float]:
         """Feature importance over every split (reference
         CalcFeatureScore): ``weight`` (split count), ``total_gain``,
-        ``total_cover``, and ``gain`` / ``cover`` per split."""
+        ``total_cover``, and ``gain`` / ``cover`` per split. A linear
+        booster has ``weight`` only: its coefficients (gblinear.cc:240),
+        ``f<i>_g<k>`` for K groups."""
         self._configure()
+        if self._gbm.name == "gblinear":
+            if importance_type != "weight":
+                raise ValueError("gblinear only has `weight` defined for "
+                                 "feature importance")
+            w = self._gbm.host_weights()[:-1]  # [F, K]
+            names = self._names(fmap)
+
+            def lname(f: int) -> str:
+                return names[f] if names and f < len(names) else f"f{f}"
+
+            if w.shape[1] == 1:
+                return {lname(f): float(w[f, 0]) for f in range(w.shape[0])}
+            return {f"{lname(f)}_g{g}": float(w[f, g])
+                    for f in range(w.shape[0]) for g in range(w.shape[1])}
         gain: Dict[int, float] = {}
         cover: Dict[int, float] = {}
         weight: Dict[int, float] = {}
@@ -833,6 +922,9 @@ class Booster:
         import pandas as pd
 
         self._configure()
+        if self._gbm.name not in ("gbtree", "dart"):
+            raise ValueError("This method is not defined for Booster type "
+                             f"{self._gbm.name}")
         rows = []
         for ti, t in enumerate(self._gbm.model.trees):
             for i in range(t.num_nodes):
@@ -857,7 +949,11 @@ class Booster:
 
     def __getitem__(self, val) -> "Booster":
         """The rounds ``val`` selects (an int or a slice with a step), as a
-        new Booster without caches (reference Learner::Slice)."""
+        new Booster without caches (reference Learner::Slice); a linear
+        booster refuses (gbm.h:70)."""
+        self._configure()
+        if self._gbm.name == "gblinear":
+            raise ValueError("Slice is not supported by current booster.")
         if isinstance(val, int):
             val = slice(val, val + 1)
         start = val.start or 0

@@ -13,8 +13,8 @@ import dataclasses
 import json
 from typing import Any, Callable, Dict, Optional, Tuple
 
-__all__ = ["Field", "ParamSet", "TrainParam", "GBTreeParam", "LearnerParam",
-           "NOT_PORTED", "check_ported", "known_keys"]
+__all__ = ["Field", "ParamSet", "TrainParam", "GBTreeParam", "GBLinearParam",
+           "LearnerParam", "NOT_PORTED", "check_ported", "known_keys"]
 
 
 @dataclasses.dataclass
@@ -164,6 +164,26 @@ class GBTreeParam(ParamSet):
     }
 
 
+class GBLinearParam(ParamSet):
+    """Linear booster params (reference ``src/gbm/gblinear.cc``,
+    ``src/linear/coordinate_common.h``; the JAX package's
+    ``GBLinearParam``): ``lambda`` / ``alpha`` / ``eta`` and their long
+    names reach the linear booster's own keys. ``updater`` takes
+    ``coord_descent`` (or ``gpu_coord_descent``) and anything else means
+    shotgun, as the JAX package reads it."""
+
+    FIELDS = {
+        "updater": Field("coord_descent"),
+        "feature_selector": Field("cyclic"),
+        "top_k": Field(0, lower=0),
+        "reg_lambda_linear": Field(0.0, aliases=("lambda", "reg_lambda"),
+                                   lower=0.0),
+        "reg_alpha_linear": Field(0.0, aliases=("alpha", "reg_alpha"),
+                                  lower=0.0),
+        "eta_linear": Field(0.5, aliases=("eta", "learning_rate"), lower=0.0),
+    }
+
+
 class LearnerParam(ParamSet):
     """Learner-level params (reference: ``src/learner.cc``), with the
     objectives' own parameters. ``seed`` stays here, as in the JAX package,
@@ -203,22 +223,24 @@ class LearnerParam(ParamSet):
 
 #: keys that the JAX package's parameter structs know and the port has not
 #: ported, each with the value at which it changes nothing; any other value
-#: raises NotImplementedError (``check_ported``)
+#: raises NotImplementedError (``check_ported``). ``updater`` is the tree
+#: boosters' updater sequence; the linear booster reads it as its own
+#: (``GBLinearParam``), and the learner does not check it there.
 NOT_PORTED: Dict[str, Any] = {
     # the updater sequences and the refresh (TrainParam, GBTreeParam)
     "refresh_leaf": True, "updater": "", "process_type": "default",
-    # the linear booster (GBLinearParam)
-    "feature_selector": "cyclic", "top_k": 0, "reg_lambda_linear": 0.0,
-    "reg_alpha_linear": 0.0, "eta_linear": 0.5,
     # multi-output trees (LearnerParam)
     "multi_strategy": "one_output_per_tree",
 }
 
 
-def check_ported(params: Dict[str, Any]) -> None:
+def check_ported(params: Dict[str, Any], booster: str = "gbtree") -> None:
     """Raise NotImplementedError for a key of ``NOT_PORTED`` set to a value
-    other than the one at which it changes nothing."""
+    other than the one at which it changes nothing (``updater`` belongs to
+    the linear booster when ``booster`` is ``"gblinear"``)."""
     for key, value in params.items():
+        if key == "updater" and booster == "gblinear":
+            continue
         if key in NOT_PORTED:
             default = NOT_PORTED[key]
             if _coerce(value, default, None) != default:
@@ -231,7 +253,7 @@ def known_keys() -> set:
     package knows beyond the learner's own: the set ``validate_parameters``
     checks against (the JAX package's ``Booster._validate_unknown``)."""
     known = set(NOT_PORTED)
-    for P in (GBTreeParam, TrainParam):
+    for P in (GBTreeParam, TrainParam, GBLinearParam):
         known.update(P.FIELDS)
         for f in P.FIELDS.values():
             known.update(f.aliases)

@@ -32,7 +32,7 @@ import torch
 
 __all__ = ["prng_key", "threefry_2x32", "split", "fold_in", "fold_in_many",
            "random_bits", "uniform", "uniform_rows", "bernoulli",
-           "permutation", "gumbel"]
+           "permutation", "randint", "gumbel"]
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -191,6 +191,27 @@ def permutation(key: torch.Tensor, n: int,
         order = torch.sort(random_bits(sub, (n,), device), stable=True)[1]
         x = x[order]
     return x
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int,
+            device: Optional[Union[str, torch.device]] = None
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32 (``0 <=
+    minval``, ``maxval < 2^31``): the key split in two, 32 bits from each
+    (``higher``, ``lower``), and ``minval + (higher % span * m + lower %
+    span) % span`` in uint32 arithmetic, ``m = 2^32 % span`` computed as
+    ``((2^16 % span)^2) % span``. ``maxval <= minval`` gives ``minval``."""
+    minval, maxval = int(minval), int(maxval)
+    if not 0 <= minval and maxval < 2 ** 31:
+        raise ValueError("randint takes 0 <= minval and maxval < 2^31")
+    span = max(maxval - minval, 1)
+    mult = ((((1 << 16) % span) ** 2) & _M) % span
+    k1, k2 = split(key)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    # every product and sum below stays under 2^62: exact in int64
+    off = ((((higher % span) * mult) & _M) + lower % span) & _M
+    return (minval + off % span).to(torch.int32)
 
 
 def gumbel(key: torch.Tensor, shape: Shape,
