@@ -232,6 +232,36 @@ phases, back on the numerical 1M x 50 rows, max_bin 256, depth 6:
     one round); ``config_context(verbosity=0)`` silences the warnings of
     phase 28's keys.
 
+The other tree methods and updater sequences: the refresh right after
+phase 6, the rest after phase 31 (max_bin 256 unless named):
+
+32. ``process_type="update"`` (``phase_refresh``): phase 6's 10-tree model
+    refreshed on a second 1M sample of the generator with ``refresh_leaf``
+    1 and 0, the held-out rows evaluated: A, C and D never, B for the
+    walks; still 10 trees with new statistics (and leaves with 1); the
+    cached eval margins equal to a fresh kernel B walk of the refreshed
+    forest; the same model bytes on the card and the CPU on 64k rows; a
+    standalone ``prune`` and an unknown updater raise;
+33. ``tree_method="approx"`` (``phase_approx``) for 10 rounds: a matrix
+    sketched from each round's hessians and its one-hot, so C 10, D 60
+    (or A 60 on the construct route), B 10; held-out AUC >= 0.80 and
+    rising; the sketch and its host prefix sum timed; card == CPU on 64k;
+34. ``updater="grow_local_histmaker"`` (``phase_local``) for 5 rounds:
+    per-node cuts on the card, kernel A at ``d = 0`` every level (A 30, C
+    and D never); AUC >= 0.80 and rising; card == CPU on 64k rows;
+35. ``tree_method="exact"`` (``phase_exact``) on Covertype-shaped rows
+    (``_make_covtype``: UCI Covertype's 581,012 x 54, LIBSVM's
+    ``covtype.binary`` label), B = 7,175 (int16), hoist plan 0: 5 rounds
+    A 30, C and D never, the training logloss at or below a ``hist`` run's
+    at max_bin 64; kernel A bitwise equal to plain at all 6 levels of a
+    tree at this width; on 64k rows kernels C and D (a partial hoist of 18
+    features) and A at every level (``phase_level_kernels``) and the card
+    against the CPU;
+36. kernel A's global-memory branch (``phase_wide_bins``): 1M x 8 with a
+    column of 16,000 distinct values, B = 16,001 through
+    ``compute_exact_cuts``, bitwise equal to plain at levels 0-5, timed
+    beside ``index_add_`` and its byte bound.
+
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; before that, one JSON line lists the kernels.
@@ -256,9 +286,10 @@ from xgboost_tpu_torch.gbm.gbtree import _cat_cfg
 from xgboost_tpu_torch.metric import create_metric
 from xgboost_tpu_torch.objective import create_objective
 from xgboost_tpu_torch.params import TrainParam
+from xgboost_tpu_torch.data.quantile import _sequential_cdf
 from xgboost_tpu_torch.predictor import (_predict_margin_plain,
                                          forest_from_numpy, predict_margin,
-                                         walk_row_chunks)
+                                         stack_forest, walk_row_chunks)
 from xgboost_tpu_torch.tree import grow_lossguide as glg
 from xgboost_tpu_torch.tree import hist_kernel as hk
 from xgboost_tpu_torch.tree.grow import (GrowParams, apply_row_sampling,
@@ -424,6 +455,23 @@ def level_bounds(n: int, F: int, Fh: int, B: int, bs: int, lvl: int):
             bound_ms(n * F * bs + small, 2 * n * F))
 
 
+def _index_add_ms(bins, local, grad, hess, K: int, B: int,
+                  reps: int = TIMING_REPS):
+    """The library yardstick of kernel A: one ``index_add_`` of float g and
+    h into the flat ``[F*2K*B]`` histogram at the cells of the rows at
+    local nodes ``local`` ([n], -1: none), missing excluded."""
+    F = bins.shape[1]
+    b = bins.long()
+    keep = ((local >= 0) & (local < K))[:, None] & (b < B)
+    cell = ((torch.arange(F, device=DEVICE)[None, :] * 2 * K
+             + local[:, None]) * B + b)[keep]
+    rows = torch.nonzero(keep)[:, 0]
+    idx = torch.cat([cell, cell + K * B])
+    vals = torch.cat([grad[rows], hess[rows]])
+    flat = torch.zeros(F * 2 * K * B, dtype=torch.float32, device=DEVICE)
+    return time_ms(lambda: flat.index_add_(0, idx, vals), reps=reps)
+
+
 def reset_launches() -> None:
     for fn in (hk.fused_level, hk.hoisted_level, hk.build_onehot,
                predict_margin):
@@ -511,13 +559,15 @@ def _int_mm_ms(M: int, onehot):
 
 
 def phase_level_kernels(d, max_bin: int, objective="binary:logistic",
-                        prefix="", rows_10m=False):
+                        prefix="", rows_10m=False, binned=None):
     """Kernels C, D and A at every level of a real tree, for one max_bin,
-    on ``d``'s bins and ``objective``'s gradients at margin 0 (within
-    ``d``'s query groups, if any); ``rows_10m`` adds kernel A at 10M rows
+    on ``d``'s bins (or ``binned``, a matrix of ``d`` at width
+    ``max_bin``) and ``objective``'s gradients at margin 0 (within ``d``'s
+    query groups, if any); ``rows_10m`` adds kernel A at 10M rows
     (``phase_construct_10x``)."""
     dev = DEVICE
-    binned = d.get_binned(max_bin)
+    if binned is None:
+        binned = d.get_binned(max_bin)
     bins, cuts = binned.bins, binned.cut_values
     bins_t = binned.feature_major()
     n, F = bins.shape
@@ -591,17 +641,8 @@ def phase_level_kernels(d, max_bin: int, objective="binary:logistic",
         # into the flat [F*2K*B] histogram at this level's cells for A
         M = max(32, -(-8 * K // 16) * 16)
         d_lib = _int_mm_ms(M, onehot)
-        local = pd[:, 0].long() - ((1 << lvl) - 1)
-        b = bins.long()
-        keep = ((local >= 0) & (local < K))[:, None] & (b < B)
-        cell = ((torch.arange(F, device=dev)[None, :] * 2 * K
-                 + local[:, None]) * B + b)[keep]
-        rows = torch.nonzero(keep)[:, 0]
-        idx = torch.cat([cell, cell + K * B])
-        vals = torch.cat([grad[rows], hess[rows]])
-        flat = torch.zeros(F * 2 * K * B, dtype=torch.float32, device=dev)
-        a_lib = time_ms(lambda: flat.index_add_(0, idx, vals))
-        del local, b, keep, cell, rows, idx, vals, flat
+        a_lib = _index_add_ms(bins, pd[:, 0].long() - ((1 << lvl) - 1),
+                              grad, hess, K, B)
         (d_bnd, d_by), (a_bnd, a_by) = level_bounds(n, F, Fh, B, bs, lvl)
         d_levels.append(dict(level=lvl, ms=d_ms, kernel_ms=d_kms,
                              plain_ms=d_plain, library_ms=d_lib,
@@ -2298,18 +2339,8 @@ def phase_child_histograms(binned, grad, hess, max_leaves: int):
     lane = (torch.arange(2 * K, device=DEVICE) >= K).long()[None, :, None]
     plain_ms = time_ms(lambda: gq.dequantize(hk._fused_level_plain(
         bins, seg, gq, table, **kw)[1], lane), reps=5, warmup=1)
-    local = seg[:, 0].long()
-    b = bins.long()
-    keep = (local >= 0)[:, None] & (b < B)
-    cell = ((torch.arange(F, device=DEVICE)[None, :] * 2 * K
-             + local[:, None]) * B + b)[keep]
-    rows = torch.nonzero(keep)[:, 0]
-    idx = torch.cat([cell, cell + K * B])
-    vals = torch.cat([grad[rows], hess[rows]])
-    flat = torch.zeros(F * 2 * K * B, dtype=torch.float32, device=DEVICE)
-    lib_ms = time_ms(lambda: flat.index_add_(0, idx, vals))
-    active = int((local >= 0).sum())
-    del local, b, keep, cell, rows, idx, vals, flat
+    lib_ms = _index_add_ms(bins, seg[:, 0].long(), grad, hess, K, B)
+    active = int((seg >= 0).sum())
     nbytes = (active * (F * bins.element_size() + 8) + n * 8
               + F * 2 * K * B * 8)
     bnd, by = bound_ms(nbytes, 2 * active * F)
@@ -2939,6 +2970,402 @@ def phase_sklearn(Xtr, ytr, Xte, yte, w):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The other tree methods (phases 32-36): approx, exact, kernel A's global
+# branch, the local histmaker and refresh
+# ---------------------------------------------------------------------------
+
+METHOD_ROUNDS = 5
+APPROX_PARAMS = {**PARAMS_DEFAULT, "tree_method": "approx"}
+LOCAL_PARAMS = {**PARAMS_DEFAULT, "updater": "grow_local_histmaker"}
+EXACT_PARAMS = {"objective": "binary:logistic", "tree_method": "exact",
+                "max_depth": DEPTH, "eta": 0.1,
+                "eval_metric": ["logloss", "auc"]}
+# UCI Covertype (covtype.info): 581,012 rows; its ten quantitative columns'
+# documented ranges (elevation, aspect, slope, the distances to hydrology
+# (horizontal, vertical), roadways, three hillshades, fire points), then 4
+# wilderness and 40 soil one-hot columns
+COVTYPE_ROWS = 581_012
+COVTYPE_RANGES = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601),
+                  (0, 7117), (0, 254), (0, 254), (0, 254), (0, 7173))
+WIDE_ROWS, WIDE_COLS, WIDE_VALUES = 1_000_000, 8, 16_000
+
+
+def _make_covtype(rows: int, seed: int = 42):
+    """Covertype-shaped rows, synthetic from ``seed``: the ten integer
+    columns uniform over their documented ranges, one wilderness area and
+    one soil type per row (one-hot), and LIBSVM's ``covtype.binary`` label,
+    the largest class (Lodgepole Pine, 48.8% of the rows) against the
+    rest: the top 48.8% of a score of elevation (a band around 2,950 m),
+    slope, aspect, the road distance and per-area and per-soil effects,
+    plus noise. Returns ``(X [rows, 54] float32, y)``."""
+    rng = np.random.RandomState(seed)
+    X = np.zeros((rows, 54), np.float32)
+    for c, (lo, hi) in enumerate(COVTYPE_RANGES):
+        X[:, c] = rng.randint(lo, hi + 1, rows)
+    area, soil = rng.randint(0, 4, rows), rng.randint(0, 40, rows)
+    X[np.arange(rows), 10 + area] = 1.0
+    X[np.arange(rows), 14 + soil] = 1.0
+    score = (-((X[:, 0] - 2950.0) / 300.0) ** 2 - 0.02 * X[:, 2]
+             + 0.3 * np.cos(np.radians(X[:, 1])) + X[:, 5] / 7117.0
+             + rng.randn(4)[area] + 0.7 * rng.randn(40)[soil]
+             + 0.5 * rng.randn(rows))
+    y = (score > np.quantile(score, 1.0 - 0.488)).astype(np.float32)
+    return X, y
+
+
+def phase_wide_levels(name: str, binned, label):
+    """Kernel A against its plain version, bitwise (and twice), at every
+    level of a real tree (round 0's logistic gradients) on ``binned`` at
+    its own width B, timed beside the plain version, one ``index_add_``
+    and its byte bound; the branch it takes (shared tiles, or the
+    global-memory adds where one node's ``[2, B]`` int64 tile exceeds
+    shared memory)."""
+    bins, cuts = binned.bins, binned.cut_values
+    bins_t = binned.feature_major()
+    n, F = bins.shape
+    B = binned.cuts.max_bin
+    bs = bins.element_size()
+    optin = getattr(torch.cuda.get_device_properties(DEVICE),
+                    "shared_memory_per_block_optin", None)
+    branch = ("unknown" if optin is None else
+              "global-memory" if 2 * B * 8 > optin else "shared tiles")
+    grad, hess = create_objective("binary:logistic").get_gradient(
+        torch.zeros(n, device=DEVICE), label, None)
+    gq = hk.quantize_gradients(grad, hess)
+    cfg = GrowParams(max_depth=DEPTH, split=SplitParams())
+    st = _init_state(cfg, gq.totals())
+    pos = torch.zeros((n, 1), dtype=torch.int32, device=DEVICE)
+    levels = []
+    for lvl in range(DEPTH):
+        K = 1 << lvl
+        kw = dict(K=K, Kp=K >> 1, B=B, d=lvl)
+        pa, ha = hk._fused_level_cuda(bins, pos, gq, st.ptab, bins_t=bins_t,
+                                      **kw)
+        pa2, ha2 = hk._fused_level_cuda(bins, pos, gq, st.ptab, **kw)
+        pp, hp = hk._fused_level_plain(bins, pos, gq, st.ptab, **kw)
+        torch.cuda.synchronize()
+        tag = f"{name} B={B} level {lvl}"
+        check(torch.equal(pa, pp) and torch.equal(ha, hp),
+              f"{tag}: kernel A == plain")
+        check(torch.equal(pa2, pa) and torch.equal(ha2, ha),
+              f"{tag}: kernel A twice")
+        del pa2, ha2, pp, hp
+
+        def run():
+            return hk.fused_level(bins, pos, gq, st.ptab, bins_t=bins_t,
+                                  **kw)
+
+        ms = time_ms(run, reps=10)
+        k_ms = kernel_ms(run, "A", reps=10)
+        plain_ms = time_ms(lambda: hk._fused_level_plain(
+            bins, pos, gq, st.ptab, **kw), reps=3, warmup=1)
+        lib_ms = _index_add_ms(bins, pa[:, 0].long() - (K - 1), grad, hess,
+                               K, B, reps=10)
+        bnd, by = level_bounds(n, F, 0, B, bs, lvl)[1]
+        print(f"{tag} (K={K}, {branch}): kernel A {ms:.4f} ms (alone "
+              f"{k_ms} ms)  plain {plain_ms:.4f} ms  index_add_ "
+              f"{lib_ms:.4f} ms  bound {bnd:.4f} ms ({by}) | bitwise equal")
+        levels.append(dict(level=lvl, ms=ms, kernel_ms=k_ms,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bnd, bound_by=by))
+        lane = (torch.arange(2 * K, device=DEVICE) >= K).long()[None, :, None]
+        st = _level_update(st, gq.dequantize(ha, lane), cuts, cfg, lvl)
+        pos = pa
+    kms = [x["kernel_ms"] for x in levels]
+    return dict(B=B, rows=n, features=F, branch=branch,
+                ms=_mean(levels, "ms"),
+                kernel_ms=None if None in kms else sum(kms) / len(kms),
+                plain_ms=_mean(levels, "plain_ms"),
+                library_ms=_mean(levels, "library_ms"),
+                bound_ms=_mean(levels, "bound_ms"), bound_by=by,
+                max_abs_err=0.0, levels=levels)
+
+
+def _method_run(name, params, dtrain, evals, rounds, want, metric="auc"):
+    """``train`` with ``evals`` and a round probe; the launches must equal
+    ``want`` (kernel B: at least ``want["B"]``). Returns the Booster, the
+    history of ``metric`` on the last eval set, the launches and the
+    probe."""
+    reset_launches()
+    probe, res = _RoundProbe(), {}
+    bst = xgbt.train(params, dtrain, rounds, evals=evals, evals_result=res,
+                     verbose_eval=False, callbacks=[probe])
+    torch.cuda.synchronize()
+    got = launches()
+    for k, v in want.items():
+        ok = got[k] >= v if k == "B" else got[k] == v
+        check(ok, f"{name}: kernel {k} launched {got[k]} times, want {v}")
+    return bst, res[evals[-1][1]][metric], got, probe
+
+
+def phase_approx(Xtr, ytr, Xte, yte, c256):
+    """``tree_method="approx"`` at ``bench.py``'s reference-default
+    configuration for 10 rounds: every round sketches a new matrix from
+    its hessians (the weighted CDF on the host) and builds its one-hot
+    (kernel C), so C 10, D 60 (or, where the plan gives the construct
+    route, A 60), B at least 10; held-out AUC >= 0.80 and rising; the
+    sketch timed alone (``build_binned``, and its host prefix sum); the
+    card against the CPU on 64k rows."""
+    t_phase = time.perf_counter()
+    dtrain, dtest = xgbt.DMatrix(Xtr, ytr), xgbt.DMatrix(Xte, yte)
+    reset_launches()
+    probe, res = _RoundProbe(), {}
+    bst = xgbt.train(APPROX_PARAMS, dtrain, ROUNDS, evals=[(dtest, "test")],
+                     evals_result=res, verbose_eval=False, callbacks=[probe])
+    torch.cuda.synchronize()
+    got = launches()
+    hoisted = dict(A=0, C=ROUNDS, D=ROUNDS * DEPTH)
+    route = ("hoisted" if all(got[k] == v for k, v in hoisted.items())
+             else "construct")
+    want = hoisted if route == "hoisted" else dict(A=ROUNDS * DEPTH, C=0, D=0)
+    for k, v in want.items():
+        check(got[k] == v, f"approx: kernel {k} launched {got[k]} times, "
+                           f"want {v} ({route} route)")
+    check(got["B"] >= ROUNDS, f"approx: kernel B launched {got['B']} times")
+    auc = res["test"]["auc"]
+    check(auc[-1] >= 0.80 and auc[-1] > auc[0], f"approx: AUC {auc}")
+    del bst
+    _, hess = create_objective("binary:logistic").get_gradient(
+        torch.zeros(len(ytr), device=DEVICE), dtrain.label, None)
+    sketch_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bm = dtrain.build_binned(DEFAULT_MAX_BIN, hess)
+        torch.cuda.synchronize()
+        sketch_ms.append((time.perf_counter() - t0) * 1e3)
+        del bm
+    sw = torch.rand((COLS, len(ytr)), device=DEVICE)
+    cdf_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _sequential_cdf(sw, False)
+        torch.cuda.synchronize()
+        cdf_ms.append((time.perf_counter() - t0) * 1e3)
+    del sw, hess, dtrain, dtest
+    torch.cuda.empty_cache()
+    print(f"approx (max_bin {DEFAULT_MAX_BIN}, {route} route): launches "
+          f"{got}; median round {probe.median_ms():.1f} ms (incl. eval); "
+          f"sketch (build_binned) {statistics.median(sketch_ms):.1f} ms, "
+          f"its host prefix sum [{COLS}, {len(ytr)}] "
+          f"{statistics.median(cdf_ms):.1f} ms; kernel C per round as the "
+          f"reference-default matrix's ({c256['ms']:.4f} ms); auc "
+          f"{auc[0]:.6f} -> {auc[-1]:.6f}")
+    err = phase_card_vs_cpu(Xtr, ytr, Xte, name="approx card vs CPU",
+                            params=APPROX_PARAMS)
+    cpu_launches = launches()
+    check(cpu_launches["C"] == CPU_ROUNDS,
+          f"approx card vs CPU: kernel C {cpu_launches['C']} times on the "
+          "card, once a round")
+    out = dict(route=route, launches=got, auc=auc,
+               logloss=res["test"]["logloss"],
+               ms_per_round_median=probe.median_ms(), round_ms=probe.times,
+               sketch_ms=sketch_ms, host_prefix_sum_ms=cdf_ms,
+               card_vs_cpu=err, card_vs_cpu_launches=cpu_launches,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"approx: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_exact():
+    """``tree_method="exact"`` on Covertype-shaped data (``_make_covtype``,
+    581,012 x 54): B the widest column's distinct count plus one (~7,175,
+    int16 bins) and the hoist plan 0, so 5 rounds launch A 30 times, C and
+    D never; the training logloss at or below a ``hist`` run's at max_bin
+    64 (exact has every candidate hist has); kernel A bitwise equal to its
+    plain version at all 6 levels of a tree at this width; then 64k rows:
+    kernels C and D (a partial hoist at this width) and A against their
+    plain versions at every level (``phase_level_kernels``), and the card
+    against the CPU."""
+    t_phase = time.perf_counter()
+    X, y = _make_covtype(COVTYPE_ROWS)
+    dtrain = xgbt.DMatrix(X, y)
+    t0 = time.perf_counter()
+    binned = dtrain.get_binned_exact()
+    torch.cuda.synchronize()
+    t_cuts = time.perf_counter() - t0
+    B = binned.cuts.max_bin
+    plan = hk.hoist_plan(hk.onehot_rows(COVTYPE_ROWS), 54, B, DEVICE)
+    print(f"exact: Covertype-shaped {COVTYPE_ROWS} x 54, B = {B} "
+          f"({binned.bins.dtype}), exact cuts and bins {t_cuts:.2f} s, "
+          f"hoist plan {plan}")
+    check(binned.bins.dtype == torch.int16 and 7000 < B <= 7175,
+          f"exact: B = {B}, bins {binned.bins.dtype}")
+    check(plan == 0, f"exact: hoist plan {plan}, want 0")
+    evals = [(dtrain, "train")]
+    want = dict(A=METHOD_ROUNDS * DEPTH, C=0, D=0)
+    bst, logloss, got, probe = _method_run(
+        "exact", EXACT_PARAMS, dtrain, evals, METHOD_ROUNDS, want, "logloss")
+    del bst
+    hist_params = {**EXACT_PARAMS, "tree_method": "hist", "max_bin": 64}
+    bst, hist_logloss, hist_got, _ = _method_run(
+        "hist at max_bin 64", hist_params, dtrain, evals, METHOD_ROUNDS,
+        dict(A=0, C=1, D=METHOD_ROUNDS * DEPTH), "logloss")
+    del bst
+    check(logloss[-1] <= hist_logloss[-1] and logloss[-1] < logloss[0],
+          f"exact training logloss {logloss} against hist's {hist_logloss}")
+    print(f"exact: launches {got}; median round {probe.median_ms():.1f} ms "
+          f"(incl. eval); training logloss {logloss[0]:.6f} -> "
+          f"{logloss[-1]:.6f} (hist at max_bin 64: {hist_logloss[-1]:.6f})")
+    levels = phase_wide_levels("exact", binned, dtrain.label)
+    del binned, dtrain
+    torch.cuda.empty_cache()
+    d64 = xgbt.DMatrix(X[:CPU_ROWS], y[:CPU_ROWS])
+    b64 = d64.get_binned_exact()
+    c64k, a64k, d64k = phase_level_kernels(d64, b64.cuts.max_bin,
+                                           prefix="exact 64k ", binned=b64)
+    del d64, b64
+    torch.cuda.empty_cache()
+    err = phase_card_vs_cpu(X, y, X[CPU_ROWS:CPU_ROWS + 10_000],
+                            name="exact card vs CPU", params=EXACT_PARAMS)
+    card = launches()
+    check(card["C"] == 1 and card["D"] == CPU_ROUNDS * DEPTH
+          and card["A"] == 0,
+          f"exact card vs CPU: launches {card} (a partial hoist at 64k)")
+    out = dict(B=B, rows=COVTYPE_ROWS, launches=got,
+               training_logloss=logloss, hist_bin64_logloss=hist_logloss,
+               hist_bin64_launches=hist_got,
+               ms_per_round_median=probe.median_ms(), round_ms=probe.times,
+               exact_cuts_s=t_cuts, levels_A=levels, levels_64k=dict(
+                   C=c64k, A=a64k, D=d64k), card_vs_cpu=err,
+               card_vs_cpu_launches=card,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"exact: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_wide_bins():
+    """Kernel A on its global-memory branch: 1M x 8 with one column of
+    16,000 distinct values, binned by ``compute_exact_cuts`` at B =
+    16,001, against its plain version at levels 0-5."""
+    rng = np.random.RandomState(5)
+    X = rng.randint(0, 100, (WIDE_ROWS, WIDE_COLS)).astype(np.float32)
+    X[:, 0] = rng.randint(0, WIDE_VALUES, WIDE_ROWS)
+    y = (X[:, 0] / WIDE_VALUES + X[:, 1] / 100.0
+         + 0.3 * rng.randn(WIDE_ROWS) > 1.0).astype(np.float32)
+    d = xgbt.DMatrix(X, y)
+    binned = d.get_binned_exact()
+    check(binned.cuts.max_bin == WIDE_VALUES + 1,
+          f"wide bins: B = {binned.cuts.max_bin}")
+    out = phase_wide_levels("wide bins", binned, d.label)
+    check(out["branch"] != "shared tiles",
+          f"wide bins: kernel A took the {out['branch']} branch")
+    return out
+
+
+def phase_local(Xtr, ytr, Xte, yte):
+    """``updater="grow_local_histmaker"`` at the reference-default
+    configuration for 5 rounds: every level sketches each node's cuts on
+    the card and builds its histogram through kernel A at ``d = 0``, so A
+    6 times a tree, C and D never, B at least 5; held-out AUC >= 0.80 and
+    rising; the card against the CPU on 64k rows."""
+    t_phase = time.perf_counter()
+    dtrain, dtest = xgbt.DMatrix(Xtr, ytr), xgbt.DMatrix(Xte, yte)
+    want = dict(A=METHOD_ROUNDS * DEPTH, B=METHOD_ROUNDS, C=0, D=0)
+    bst, auc, got, probe = _method_run(
+        "local histmaker", LOCAL_PARAMS, dtrain, [(dtest, "test")],
+        METHOD_ROUNDS, want)
+    check(auc[-1] >= 0.80 and auc[-1] > auc[0],
+          f"local histmaker: AUC {auc}")
+    check(not dtrain._binned, "local histmaker: no global matrix built")
+    print(f"local histmaker (max_bin {DEFAULT_MAX_BIN}): launches {got}; "
+          f"median round {probe.median_ms():.1f} ms (incl. eval); auc "
+          f"{auc[0]:.6f} -> {auc[-1]:.6f}")
+    del bst, dtrain, dtest
+    torch.cuda.empty_cache()
+    err = phase_card_vs_cpu(Xtr, ytr, Xte, name="local histmaker card vs CPU",
+                            params=LOCAL_PARAMS)
+    out = dict(launches=got, auc=auc, ms_per_round_median=probe.median_ms(),
+               round_ms=probe.times, card_vs_cpu=err,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"local histmaker: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_refresh(bst, Xte, yte, w):
+    """``process_type="update"``: the reference-default path's 10-tree
+    model refreshed on a second 1M sample of the generator, with
+    ``refresh_leaf`` 1 and 0, the held-out rows evaluated every round:
+    still 10 trees, their statistics new (and with ``refresh_leaf`` 1
+    their leaves), the eval set's cached margins equal to a fresh kernel
+    B walk of the refreshed forest (no stale cache); the card against the
+    CPU on 64k rows (the same model bytes); the standalone ``prune`` and
+    an unknown updater raising the JAX package's errors."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(7)
+    X2 = rng.randn(ROWS, COLS).astype(np.float32)
+    y2 = (X2 @ w * 0.5 + rng.randn(ROWS).astype(np.float32) > 0
+          ).astype(np.float32)
+    d2, dtest = xgbt.DMatrix(X2, y2), xgbt.DMatrix(Xte, yte)
+    Xt = torch.as_tensor(Xte, device=DEVICE)
+    old = bst._gbm.model.trees
+    out = {}
+    for leaf in (1, 0):
+        params = {**PARAMS_DEFAULT, "process_type": "update",
+                  "refresh_leaf": leaf}
+        reset_launches()
+        probe, res = _RoundProbe(), {}
+        upd = xgbt.train(params, d2, ROUNDS, xgb_model=bst,
+                         evals=[(dtest, "test")], evals_result=res,
+                         verbose_eval=False, callbacks=[probe])
+        torch.cuda.synchronize()
+        got = launches()
+        check(got["A"] == got["C"] == got["D"] == 0 and got["B"] >= ROUNDS,
+              f"refresh_leaf {leaf}: launches {got}")
+        new = upd._gbm.model.trees
+        check(len(new) == len(old) == ROUNDS,
+              f"refresh_leaf {leaf}: {len(new)} trees")
+        moved = [not np.array_equal(a.sum_hessian, b.sum_hessian)
+                 for a, b in zip(old, new)]
+        leaves_moved = [not np.array_equal(a.split_conditions,
+                                           b.split_conditions)
+                        for a, b in zip(old, new)]
+        check(all(moved) and (all(leaves_moved) if leaf
+                              else not any(leaves_moved)),
+              f"refresh_leaf {leaf}: statistics / leaves refreshed")
+        cached = upd._predict_margin(dtest)
+        base = torch.full_like(cached, upd._base_margin_val)
+        fresh = predict_margin(stack_forest(new, upd._gbm.model.tree_info, 1,
+                                            DEVICE), Xt, base)
+        torch.cuda.synchronize()
+        err = float((cached - fresh).abs().max())
+        check(err <= 1e-5, f"refresh_leaf {leaf}: the eval margins against "
+                           f"a fresh walk, max abs err {err}")
+        ll = res["test"]["logloss"]
+        print(f"refresh (refresh_leaf {leaf}, {ROUNDS} trees on a second "
+              f"1M sample): launches {got}; median round "
+              f"{probe.median_ms():.1f} ms (incl. eval); held-out logloss "
+              f"{ll[0]:.6f} -> {ll[-1]:.6f}; eval margins == a fresh kernel "
+              f"B walk (max abs err {err})")
+        out[f"refresh_leaf_{leaf}"] = dict(
+            launches=got, logloss=ll, ms_per_round_median=probe.median_ms(),
+            round_ms=probe.times, fresh_walk_max_abs_err=err)
+        del upd
+    raw = []
+    for dev in (DEVICE, torch.device("cpu")):
+        d = xgbt.DMatrix(X2[:CPU_ROWS], y2[:CPU_ROWS], device=dev)
+        base_model = xgbt.Booster(model_file=bst.save_raw(), device=dev)
+        raw.append(xgbt.train({**PARAMS_DEFAULT, "process_type": "update"},
+                              d, ROUNDS, xgb_model=base_model,
+                              verbose_eval=False).save_raw())
+    check(raw[0] == raw[1], "refresh card vs CPU: the same model bytes")
+    for params, exc in (({"updater": "prune"}, NotImplementedError),
+                        ({"updater": "grow_bogus"}, ValueError)):
+        try:
+            xgbt.train({**PARAMS_DEFAULT, **params}, d2, 1,
+                       verbose_eval=False)
+        except exc as e:
+            print(f"refresh: {params} raises {type(e).__name__}: {e}")
+        else:
+            raise RuntimeError(f"check failed: {params} did not raise")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"refresh: card == CPU on {CPU_ROWS} rows (model bytes); "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2974,6 +3401,7 @@ def main() -> int:
         {"A": 0, "B": ROUNDS, "C": 1, "D": ROUNDS * DEPTH})
     check(0 < main256["hoisted_features"] < COLS,
           "max_bin 256 at 1M x 50: a partial hoist")
+    refresh = phase_refresh(bst256, Xte, yte, w_gen)
     del bst256
     torch.cuda.empty_cache()
     phase_card_vs_cpu(Xtr, ytr, Xte)
@@ -3013,6 +3441,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     sklearn = phase_sklearn(Xtr, ytr, Xte, yte, w_gen)
     torch.cuda.empty_cache()
+    approx = phase_approx(Xtr, ytr, Xte, yte, c256)
+    torch.cuda.empty_cache()
+    local = phase_local(Xtr, ytr, Xte, yte)
+    torch.cuda.empty_cache()
+    exact = phase_exact()
+    torch.cuda.empty_cache()
+    wide = phase_wide_bins()
+    torch.cuda.empty_cache()
     del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
@@ -3029,7 +3465,8 @@ def main() -> int:
         "objectives": objectives, "ranking": ranking,
         "lossguide": lossguide, "dart": dart, "random_forest": forest,
         "inert_keys": inert, "shap": shap, "gblinear": gblinear,
-        "sklearn": sklearn}))
+        "sklearn": sklearn, "approx": approx, "exact": exact,
+        "wide_bins": wide, "local_histmaker": local, "refresh": refresh}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -3038,6 +3475,7 @@ def main() -> int:
     rank_lv = ranking["level_kernels"]
     for k in (c256, d256, rank_lv["C"], rank_lv["D"]):
         k.pop("B"), k.pop("Fh")
+    exact_a = {k: v for k, v in exact["levels_A"].items() if k != "levels"}
     # the ranking path's kernels at F = 136: the level check's numbers
     # (kernel against plain, every level of one tree) beside the profiled
     # rounds' device time per level
@@ -3061,6 +3499,14 @@ def main() -> int:
              shap=dict(launches=shap["main"]["launches"]["A"]),
              gblinear=dict(launches=gbl_launches["A"]),
              sklearn=dict(classifier=clf["A"], rf_classifier=rf["A"]),
+             approx=dict(launches=approx["launches"]["A"]),
+             exact=dict(launches=exact["launches"]["A"],
+                        covtype_levels=exact_a,
+                        levels_64k=exact["levels_64k"]["A"]),
+             wide_bins=wide,
+             local_histmaker=dict(launches=local["launches"]["A"]),
+             refresh=dict(launches=refresh["refresh_leaf_1"]["launches"][
+                 "A"]),
              **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
@@ -3074,7 +3520,11 @@ def main() -> int:
              random_forest=dict(launches=forest["launches"]["B"]),
              shap=dict(launches=shap["main"]["launches"]["B"]),
              gblinear=dict(launches=gbl_launches["B"]),
-             sklearn=dict(classifier=clf["B"], rf_classifier=rf["B"]), **b),
+             sklearn=dict(classifier=clf["B"], rf_classifier=rf["B"]),
+             approx=dict(launches=approx["launches"]["B"]),
+             local_histmaker=dict(launches=local["launches"]["B"]),
+             refresh=dict(launches=refresh["refresh_leaf_1"]["launches"][
+                 "B"]), **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:378",
@@ -3086,6 +3536,10 @@ def main() -> int:
              shap=dict(launches=shap["main"]["launches"]["C"]),
              gblinear=dict(launches=gbl_launches["C"]),
              sklearn=dict(classifier=clf["C"], rf_classifier=rf["C"]),
+             approx=dict(launches=approx["launches"]["C"],
+                         per_round="one one-hot a round, the shape above"),
+             exact=dict(launches_64k=exact["card_vs_cpu_launches"]["C"],
+                        onehot_64k=exact["levels_64k"]["C"]),
              **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
@@ -3101,6 +3555,9 @@ def main() -> int:
              shap=dict(launches=shap["main"]["launches"]["D"]),
              gblinear=dict(launches=gbl_launches["D"]),
              sklearn=dict(classifier=clf["D"], rf_classifier=rf["D"]),
+             approx=dict(launches=approx["launches"]["D"]),
+             exact=dict(launches_64k=exact["card_vs_cpu_launches"]["D"],
+                        levels_64k=exact["levels_64k"]["D"]),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))

@@ -14,11 +14,17 @@ per tree, level and node; ``PARAMS_DEFAULT`` on the categorical data of
 7 trees per round; ``RANK_PARAMS``, ``rank:ndcg`` on the MSLR-WEB10K-shaped
 rows of ``_make_rank_data``, 1M x 136 in queries of 60-180 documents, the
 sampled-pair gradient; ``DART_PARAMS``, DART at its tutorial's
-parameters, whose round walks the whole forest for its training margin),
+parameters, whose round walks the whole forest for its training margin;
+``APPROX_PARAMS``, ``tree_method="approx"``, which sketches a matrix
+and builds its one-hot every round),
 each by the hoisted route (the default plan) and by the construct route
-(``XGBTPU_HOIST_BUDGET_MB=0``), and ``LG_PARAMS`` (lossguide to 255
-leaves, every step's child histograms through kernel A whatever the
-plan) once, at its shape
+(``XGBTPU_HOIST_BUDGET_MB=0``), and once each: ``LG_PARAMS`` (lossguide
+to 255 leaves, every step's child histograms through kernel A whatever
+the plan); ``EXACT_PARAMS``, ``tree_method="exact"`` on the
+Covertype-shaped rows of ``_make_covtype`` (581,012 training rows, B =
+7,175, hoist plan 0) with 58,101 held out; ``LOCAL_PARAMS``, the local
+histmaker (kernel A at ``d = 0`` every level); and a refresh
+(``process_type="update"``) of a 10-round ``PARAMS_DEFAULT`` model, at its shape
 (``ROWS`` x ``COLS`` training rows and ``EVAL_ROWS`` held-out rows): trains ``WARMUP`` rounds, times the next
 ``TIMED_ROUNDS`` rounds (``Booster.update`` + ``eval_values``) on the host
 clock without the profiler, then profiles one more round with
@@ -48,10 +54,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import xgboost_tpu_torch as xgbt  # noqa: E402
 from xgboost_tpu_torch.tree import hist_kernel as hk  # noqa: E402
-from chip_smoke import (BREADTH_A, COLS, DART_PARAMS, EVAL_ROWS,  # noqa: E402
-                        LG_PARAMS, PARAMS, PARAMS_DEFAULT, PARAMS_MC,
-                        RANK_EVAL_ROWS,
-                        RANK_PARAMS, RANK_ROWS, ROWS, _make_cat_data,
+from chip_smoke import (APPROX_PARAMS, BREADTH_A, COLS,  # noqa: E402
+                        COVTYPE_ROWS, DART_PARAMS, EVAL_ROWS, EXACT_PARAMS,
+                        LG_PARAMS, LOCAL_PARAMS, PARAMS, PARAMS_DEFAULT,
+                        PARAMS_MC, RANK_EVAL_ROWS, RANK_PARAMS, RANK_ROWS,
+                        ROUNDS, ROWS, _make_cat_data, _make_covtype,
                         _make_data, _make_rank_data, _multiclass_labels,
                         _split_queries)
 
@@ -77,17 +84,23 @@ def _host_timed(fn, record):
     return timed
 
 
-def profile(name, params, X, y, types=None, groups=None) -> int:
+def profile(name, params, X, y, types=None, groups=None, split=ROWS,
+            base=None) -> int:
     """``groups``: the query sizes of the training and the held-out rows
-    (which then split at the training queries' row count)."""
-    split = ROWS if groups is None else int(groups[0].sum())
+    (which then split at the training queries' row count), else the rows
+    split at ``split``. ``base``: the parameters of a ``ROUNDS``-round
+    model that ``params`` continue (a refresh's model)."""
+    split = split if groups is None else int(groups[0].sum())
     gtr, gte = (None, None) if groups is None else groups
     dtrain = xgbt.DMatrix(X[:split], y[:split], feature_types=types,
                           group=gtr)
     dtest = xgbt.DMatrix(X[split:], y[split:], feature_types=types,
                          group=gte)
     evals = [(dtest, "test")]
-    bst = xgbt.train(params, dtrain, WARMUP, evals=evals, verbose_eval=False)
+    model = (None if base is None else
+             xgbt.train(base, dtrain, ROUNDS, verbose_eval=False))
+    bst = xgbt.train(params, dtrain, WARMUP, evals=evals, verbose_eval=False,
+                     xgb_model=model)
     torch.cuda.synchronize()
     it = WARMUP
     plain_ms = []
@@ -167,9 +180,20 @@ def main() -> int:
             ("7 classes, max_bin 256", PARAMS_MC,
              lambda: (X, _multiclass_labels(X))),
             ("rank:ndcg 1M x 136, max_bin 256", RANK_PARAMS, rank),
-            ("dart, max_bin 256", DART_PARAMS, lambda: (X, y)))]
-    configs.append(("lossguide 255 leaves, max_bin 256", LG_PARAMS,
-                    lambda: (X, y), (("kernel A", None),)))
+            ("dart, max_bin 256", DART_PARAMS, lambda: (X, y)),
+            ("approx, max_bin 256", APPROX_PARAMS, lambda: (X, y)))]
+    once = (("kernel A", None),)
+    covtype = COVTYPE_ROWS + COVTYPE_ROWS // 10
+    refresh = {**PARAMS_DEFAULT, "process_type": "update"}
+    configs += [
+        ("lossguide 255 leaves, max_bin 256", LG_PARAMS, lambda: (X, y),
+         once),
+        ("exact, Covertype-shaped 581,012 x 54", EXACT_PARAMS,
+         lambda: (*_make_covtype(covtype), None, None, COVTYPE_ROWS), once),
+        ("local histmaker, max_bin 256", LOCAL_PARAMS, lambda: (X, y), once),
+        ("refresh (process_type update), max_bin 256", refresh,
+         lambda: (X, y, None, None, ROWS, PARAMS_DEFAULT),
+         (("walks only", None),))]
     wanted = sys.argv[1:]
     for name, params, make_data, routes in configs:
         if wanted and not any(w in name for w in wanted):

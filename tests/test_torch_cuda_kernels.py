@@ -44,6 +44,12 @@ Saabas and interactions of CPU-trained models (depth 6, categorical, 3
 classes, lossguide, the row DP) on the card and the CPU within 1e-9; the
 linear booster's weights for every selector within rtol 1e-6.
 
+The other tree methods (``-k "exact or wide or local or method"``):
+kernel A at B = 16,001 (the global-memory branch) and 7,175, kernels C
+and D at B = 7,175 with a partial hoist, a local histmaker tree, and 3
+rounds of ``approx``, ``exact`` and the local histmaker followed by a
+refresh, each the same bits on the card and the CPU.
+
 Categorical decision tables, ``[Kp, 5+B]`` (``-k categorical``): kernels A
 and D and both routing launches with wide tables whose nodes mix numerical
 and categorical splits, every bin id in some set and missing bins among
@@ -710,3 +716,100 @@ def test_gblinear_same_on_card_and_cpu(cuda, params):
                     verbose_eval=False)._gbm.host_weights()
          for dev in ("cuda", "cpu")]
     np.testing.assert_allclose(w[0], w[1], rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the other tree methods: exact widths, the local histmaker, refresh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,F,B,d", [
+    (200_001, 3, 16_001, 0),  # exact's widest: one node's [2, B] tile
+    (200_001, 3, 16_001, 5),  # exceeds shared memory (the global branch)
+    (70_001, 4, 7_175, 5),    # Covertype's exact width: node slices
+])
+def test_level_kernel_matches_plain_at_exact_widths(cuda, n, F, B, d):
+    rng = np.random.RandomState(n + B + d)
+    bins, pos, gq, ptab, kw = _level_case(rng, n, F, B, d, cuda)
+    _fused_level_checks(bins, pos, gq, ptab, kw)
+
+
+@pytest.mark.parametrize("n,F,B,Fh,d", [
+    (20_001, 6, 7_175, 2, 0),  # a partial hoist at exact's width
+    (20_001, 6, 7_175, 2, 5),
+])
+def test_hoisted_kernel_partial_hoist_at_wide_bins(cuda, n, F, B, Fh, d):
+    """Kernel C and kernel D at B in the thousands (int16 bins), the
+    unhoisted features built per level: equal to their plain versions and
+    to kernel A."""
+    rng = np.random.RandomState(n + d)
+    bins, pos, gq, ptab, kw = _level_case(rng, n, F, B, d, cuda)
+    onehot = thk._build_onehot_cuda(bins, B=B, Fh=Fh)
+    assert torch.equal(onehot, thk._build_onehot_plain(bins, B=B, Fh=Fh))
+    pk, hk = thk._hoisted_level_cuda(bins, onehot, pos, gq, ptab, **kw)
+    pp, hp = thk._hoisted_level_plain(bins, onehot, pos, gq, ptab, **kw)
+    pa, ha = thk._fused_level_cuda(bins, pos, gq, ptab, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(pk, pa)
+    assert torch.equal(hk, hp) and torch.equal(hk, ha)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(max_depth=6),
+    dict(max_depth=4, subsample=0.8, colsample_bynode=0.7,
+         monotone=(1, 0, -1)),
+])
+def test_local_tree_same_on_card_and_cpu(cuda, kw):
+    """A ``grow_local_histmaker`` tree (per-node sketches on the device,
+    kernel A at d = 0 on the card, the plain version on the CPU) on
+    continuous gradients and hessians: every array equal bitwise."""
+    from xgboost_tpu_torch import threefry
+    from xgboost_tpu_torch.tree import grow as tgrow
+    from xgboost_tpu_torch.tree import grow_local as tgl
+
+    rng = np.random.RandomState(17)
+    n, F = 30_000, 7
+    X = rng.randn(n, F).astype(np.float32)
+    X[rng.rand(n, F) < 0.05] = np.nan
+    g = rng.randn(n).astype(np.float32)
+    h = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        tree = tgl.grow_tree_local(t(X), t(g), t(h), tgrow.GrowParams(**kw),
+                                   256, 0.3, 0.5, key=threefry.prng_key(5))
+        out.append([x.cpu() for x in tree])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("params", [
+    {"tree_method": "approx", "max_bin": 64},
+    {"tree_method": "exact"},
+    {"updater": "grow_local_histmaker", "max_bin": 64},
+])
+def test_method_trees_same_on_card_and_cpu(cuda, params):
+    """3 rounds of ``approx`` (a matrix sketched per round), ``exact``
+    (int16 bins) and the local histmaker on the card and on the CPU: the
+    same model bytes; then refreshing that model (``process_type="update"``
+    on other rows) gives the same bytes on both."""
+    import xgboost_tpu_torch as xgbt
+
+    rng = np.random.RandomState(23)
+    n, F = 20_000, 6
+    X = rng.randn(n, F).astype(np.float32)
+    X[:, 1] = np.round(X[:, 1] * 300)  # ~2,000 distinct values
+    X[rng.rand(n, F) < 0.05] = np.nan
+    y = ((np.nan_to_num(X) @ rng.randn(F) / 50 + rng.randn(n)) > 0
+         ).astype(np.float32)
+    p = {"objective": "binary:logistic", "max_depth": 5, **params}
+    raw, refreshed = [], []
+    for dev in (cuda, "cpu"):
+        d = xgbt.DMatrix(X[:15_000], y[:15_000], device=dev)
+        bst = xgbt.train(p, d, 3, verbose_eval=False)
+        raw.append(bst.save_raw())
+        d2 = xgbt.DMatrix(X[15_000:], y[15_000:], device=dev)
+        upd = xgbt.train({**p, "process_type": "update"}, d2, 3,
+                         xgb_model=bst, verbose_eval=False)
+        refreshed.append(upd.save_raw())
+    assert raw[0] == raw[1]
+    assert refreshed[0] == refreshed[1]

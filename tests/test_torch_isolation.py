@@ -27,8 +27,11 @@
   its eval walk and its training walk to kernel B's wrapper with G = 3,
   and its softmax, gradients and (for ``survival:aft``) label bounds stay
   on the data's device; so do the ranking objectives' gradients;
-- SHAP (``interpret.py``), the linear booster, the estimators, ``config``
-  and the plots import neither ``jax`` nor ``xgboost_tpu``; the SHAP
+- SHAP (``interpret.py``), the linear booster, the estimators, ``config``,
+  the plots and the local histmaker (``tree/grow_local.py``) import
+  neither ``jax`` nor ``xgboost_tpu``; a local histmaker tree on device
+  tensors sends every level's histogram to kernel A's wrapper at
+  ``d = 0``; the SHAP
   values (exact, Saabas, interactions; numerical and categorical trees,
   table and row-DP paths) of rows on a device and the linear booster's
   weights for every selector are computed there, with no host sync (the
@@ -353,7 +356,8 @@ def test_categorical_forest_takes_the_categorical_walk(stub_cuda,
                                     "xgboost_tpu_torch.gbm.gblinear",
                                     "xgboost_tpu_torch.sklearn",
                                     "xgboost_tpu_torch.config",
-                                    "xgboost_tpu_torch.plotting"])
+                                    "xgboost_tpu_torch.plotting",
+                                    "xgboost_tpu_torch.tree.grow_local"])
 def test_training_surface_imports_no_jax(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     assert path in set((ROOT / "xgboost_tpu_torch").rglob("*.py"))
@@ -556,6 +560,34 @@ def test_lossguide_steps_reach_the_level_kernel_at_d0(stub_cuda, max_leaves):
         assert args[9:12] == (4, 0, 0) and args[13] == 0
     assert tree.positions.device.type == "meta"
     assert tuple(tree.left.shape) == (2 * max_leaves - 1,)
+
+
+@pytest.mark.parametrize("max_depth", [1, 4])
+def test_local_levels_reach_the_level_kernel_at_d0(stub_cuda, max_depth):
+    """A ``grow_local_histmaker`` tree on device tensors sketches, bins and
+    routes every level on the device and builds its histogram through
+    kernel A at ``d = 0``, ``Kp = 0`` (no routing) and ``K = 2^d``, over
+    that level's int16 bins (``max_bin`` 256) and their feature-major copy;
+    never the plain version."""
+    from xgboost_tpu_torch.tree import grow as tgrow
+    from xgboost_tpu_torch.tree import grow_local as tgl
+
+    n, F, B = 300, 5, 256
+    meta = dict(device="meta")
+    X = torch.empty((n, F), **meta)
+    g, h = torch.empty(n, **meta), torch.empty(n, **meta)
+    before = thk.fused_level.launches
+    tree = tgl.grow_tree_local(X, g, h, tgrow.GrowParams(max_depth=max_depth),
+                               B, 0.3, 0.0)
+    assert thk.fused_level.launches == before + max_depth
+    names = [c[0] for c in stub_cuda.calls]
+    assert names == ["xgbt_fused_level"] * max_depth
+    # (bins, bin_bytes, n, F, B, pos, pos_out, q, ptab, W, Kp, prev_offset,
+    #  K, offset, hist, bins_t, ...)
+    for d, (_, args) in enumerate(stub_cuda.calls):
+        assert args[1:5] == (2, n, F, B)
+        assert args[9:14] == (4, 0, 0, 1 << d, 0)
+    assert tree.delta.device.type == "meta" and tuple(tree.delta.shape) == (n,)
 
 
 def _meta_rows(X):

@@ -591,11 +591,23 @@ def test_validate_parameters_matches(both, params, raises):
     ({"feature_selector": "shuffle", "top_k": 2}, True)])
 def test_unported_parameters_raise(both, params, ported):
     """A key the port has not ported raises, through ``train`` and
-    ``set_param``; the tree boosters' ``updater`` sequences still do.
-    ``max_leaves`` (read by the lossguide grower only),
+    ``set_param``. ``max_leaves`` (read by the lossguide grower only),
     ``num_parallel_tree``, the linear booster and its keys are ported: they
     train the JAX package's model (the linear keys change no tree, and a
-    linear model's rounds count 0 in both packages)."""
+    linear model's rounds count 0 in both packages). The tree boosters'
+    ``updater`` sequences are ported too: ``updater="refresh"`` with no
+    model to refresh raises the JAX package's ValueError, message for
+    message, and a trained Booster takes it through ``set_param``."""
+    if params == {"updater": "refresh"}:
+        with pytest.raises(ValueError) as je:
+            xgb.train({**PARAMS, **params}, both.jd, 1, verbose_eval=False)
+        with pytest.raises(ValueError) as te:
+            xgbt.train({**PARAMS, **params}, both.td, 1, verbose_eval=False)
+        assert str(te.value) == str(je.value)
+        bst = xgbt.train(PARAMS, both.td, 1, verbose_eval=False)
+        bst.set_param(params)
+        assert bst._gbm.is_update_process
+        return
     if ported:
         jb = xgb.train({**PARAMS, **params}, both.jd, 2, verbose_eval=False)
         tb = xgbt.train({**PARAMS, **params}, both.td, 2, verbose_eval=False)

@@ -5,7 +5,8 @@ The port of the dense part of the JAX package's ``data/dmatrix.py``
 ``python-package/xgboost/core.py:501`` DMatrix). The data lives on the
 DMatrix's device as [n, F] float32 with NaN for missing; the quantized view
 (``BinnedMatrix``, the ELLPACK analog) is built on first use and cached per
-``max_bin``. Features whose ``feature_types`` entry is ``"c"`` (or
+``max_bin`` (and once for the exact candidate set); ``build_binned`` makes
+an uncached one, as ``tree_method="approx"`` does every round. Features whose ``feature_types`` entry is ``"c"`` (or
 ``"categorical"``) hold integer category codes and are binned one bin per
 category. Ranking matrices carry query groups (``group`` sizes or ``qid``
 per row): the CSR pointer stays on the host as in the JAX package, and
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .quantile import BinnedMatrix
+from .quantile import BinnedMatrix, compute_exact_cuts
 
 __all__ = ["DMatrix", "QueryGroups"]
 
@@ -148,7 +149,8 @@ class DMatrix:
             self.set_group(group)
         if qid is not None:
             self._set_qid(qid)
-        self._binned: Dict[int, BinnedMatrix] = {}
+        # by max_bin, and "exact" for the exact candidate set
+        self._binned: Dict[Union[int, str], BinnedMatrix] = {}
 
     # ---- metadata (the JAX package's ``DMatrix.set_*`` / ``get_*``) ----
     def set_label(self, label: Any) -> None:
@@ -327,29 +329,58 @@ class DMatrix:
             return []
         return [i for i, t in enumerate(ft) if t in ("c", "categorical")]
 
-    def get_binned(self, max_bin: int = 256) -> BinnedMatrix:
-        """Build-or-fetch the quantized matrix for this ``max_bin``; the
-        sketch is weighted by the row weights, as in the JAX package.
-        With row weights (or more than 2^24 rows) the sketch's prefix sum
-        runs on the host even for a CUDA matrix (see ``compute_cuts``).
-        Categorical features are checked (``_validate_categorical``) and
-        get identity cuts. Weights that are not one per row (a ranking
-        matrix's per-group weights) raise ValueError at this first build,
-        as the JAX package's sketch does; bins built before such weights
-        were set stay cached and usable."""
+    def get_binned(self, max_bin: int = 256,
+                   sketch_weights: Optional[torch.Tensor] = None
+                   ) -> BinnedMatrix:
+        """Build-or-fetch the quantized matrix for this ``max_bin``
+        (``build_binned`` at the first call, cached by ``max_bin``); the
+        sketch is weighted by ``sketch_weights``, else by the row weights,
+        as the JAX package's learner asks for it. Weights that are not one
+        per row (a ranking matrix's per-group weights) raise ValueError at
+        this first build, as the JAX package's sketch does; bins built
+        before such weights were set stay cached and usable."""
         bm = self._binned.get(max_bin)
         if bm is None:
-            n = self.num_row()
-            if self.weight is not None and self.weight.numel() not in (0, n):
-                raise ValueError(
-                    f"the sketch takes one weight per row: "
-                    f"{self.weight.numel()} weights for {n} rows")
-            cat = self.categorical_features()
-            if cat:
-                self._validate_categorical(cat, max_bin)
-            bm = BinnedMatrix.from_dense(self.data, max_bin=max_bin,
-                                         weights=self.weight, categorical=cat)
+            bm = self.build_binned(max_bin, sketch_weights)
             self._binned[max_bin] = bm
+        return bm
+
+    def build_binned(self, max_bin: int = 256,
+                     sketch_weights: Optional[torch.Tensor] = None
+                     ) -> BinnedMatrix:
+        """An uncached quantized matrix (the JAX package's
+        ``build_binned``): ``tree_method="approx"`` builds one every round,
+        sketched with that round's hessians as ``sketch_weights`` ([n], on
+        the matrix's device; default the row weights). With weights, or
+        more than 2^24 rows, the sketch's prefix sum runs on the host even
+        for a CUDA matrix (see ``compute_cuts``). Categorical features are
+        checked (``_validate_categorical``) and get identity cuts."""
+        n = self.num_row()
+        w = self.weight if sketch_weights is None else sketch_weights
+        if w is not None and w.numel() not in (0, n):
+            raise ValueError(f"the sketch takes one weight per row: "
+                             f"{w.numel()} weights for {n} rows")
+        cat = self.categorical_features()
+        if cat:
+            self._validate_categorical(cat, max_bin)
+        return BinnedMatrix.from_dense(self.data, max_bin=max_bin, weights=w,
+                                       categorical=cat)
+
+    def get_binned_exact(self, cap: int = 16384) -> BinnedMatrix:
+        """The quantized matrix with a cut at every distinct value, the
+        candidate set ``tree_method="exact"`` trains on
+        (``quantile.compute_exact_cuts``), cached under its own key. Its
+        width is the widest feature's distinct count plus one, so its bins
+        are int16 up to 32,766 (``storage_dtype``)."""
+        bm = self._binned.get("exact")
+        if bm is None:
+            cat = self.categorical_features()
+            cuts = compute_exact_cuts(self.data, cap=cap, categorical=cat)
+            if cat:
+                self._validate_categorical(cat, cuts.max_bin)
+            bm = BinnedMatrix.from_dense(self.data, max_bin=cuts.max_bin,
+                                         cuts=cuts, categorical=cat)
+            self._binned["exact"] = bm
         return bm
 
     def _validate_categorical(self, cat: List[int], max_bin: int) -> None:

@@ -25,8 +25,9 @@ import torch
 from ..tree.hist_kernel import (build_onehot, feature_major, hoist_plan,
                                 onehot_rows)
 
-__all__ = ["HistogramCuts", "compute_cuts", "bin_matrix", "storage_dtype",
-           "BinnedMatrix", "apply_categorical_identity"]
+__all__ = ["HistogramCuts", "compute_cuts", "compute_exact_cuts",
+           "bin_matrix", "storage_dtype", "BinnedMatrix",
+           "apply_categorical_identity"]
 
 _FLT_MAX = float(np.finfo(np.float32).max)
 # unit-weight partial sums stay exact in f32 up to this many rows
@@ -117,6 +118,53 @@ def compute_cuts(X: torch.Tensor, max_bin: int = 256,
     values, min_vals = cuts.cpu().numpy(), min_val.cpu().numpy()
     if categorical:
         apply_categorical_identity(values, min_vals, categorical)
+    return HistogramCuts(values=values, min_vals=min_vals)
+
+
+def compute_exact_cuts(X, cap: int = 16384,
+                       categorical: Optional[Sequence[int]] = None
+                       ) -> HistogramCuts:
+    """Cuts at every distinct finite value of each feature, the exact-greedy
+    candidate set of ``tree_method="exact"`` (reference
+    ``updater_colmaker.cc:367``; the JAX package's ``compute_exact_cuts``):
+    the hist grower over these bins enumerates the splits the column scan
+    would. ``X`` is [n, F] (numpy, or a tensor on any device: the distinct
+    values are found on the host). The width is the widest feature's
+    distinct count plus one (at least 2; a categorical feature counts its
+    largest code plus one), shorter features padded with their sentinel
+    ``max + max(1, |max|)`` (empty bins), an all-missing feature with
+    ``1..B``. A feature of more than ``cap`` distinct values raises the
+    JAX package's ValueError."""
+    Xn = np.asarray(X.cpu() if torch.is_tensor(X) else X, np.float32)
+    cat_set = frozenset(categorical or ())
+    uniques = []
+    widest = 0
+    for f in range(Xn.shape[1]):
+        col = Xn[:, f]
+        u = np.unique(col[~np.isnan(col)])
+        if len(u) > cap:
+            raise ValueError(
+                f"tree_method='exact': feature {f} has {len(u)} distinct "
+                f"values (> cap {cap}); use tree_method='tpu_hist' for "
+                "high-cardinality continuous data")
+        if f in cat_set and len(u):
+            # identity cuts need B above the largest code
+            widest = max(widest, int(u[-1]) + 1)
+        else:
+            widest = max(widest, len(u))
+        uniques.append(u)
+    B = max(widest + 1, 2)
+    values = np.empty((Xn.shape[1], B), np.float32)
+    min_vals = np.zeros((Xn.shape[1],), np.float32)
+    for f, u in enumerate(uniques):
+        if len(u) == 0:
+            values[f] = np.arange(1, B + 1, dtype=np.float32)
+            continue
+        values[f, :len(u)] = u
+        values[f, len(u):] = u[-1] + max(1.0, abs(float(u[-1])))
+        min_vals[f] = u[0]
+    if categorical:
+        apply_categorical_identity(values, min_vals, list(categorical))
     return HistogramCuts(values=values, min_vals=min_vals)
 
 

@@ -14,7 +14,13 @@ walk. A round grows ``num_parallel_tree`` trees per output group; tree
 ``(k, p)`` of round ``iteration`` draws its row and column samples under
 ``prng_key(round_seed_py(seed, iteration, k, p))``, the JAX package's key.
 ``Dart`` drops trees at random each round and walks the whole forest with
-per-tree weights (no cache).
+per-tree weights (no cache). ``tree_method`` and the ``updater`` sequence
+pick the matrix a round grows on (the learner reads ``needs_exact_cuts``,
+``needs_iteration_sketch``, ``needs_local_sketch``): the quantile matrix,
+the exact candidate set, a matrix sketched anew from each round's
+hessians, or per-node cuts from the raw rows (``local_boost_one_round``);
+``process_type="update"`` re-stats the existing trees instead
+(``refresh_one_round``).
 """
 
 from __future__ import annotations
@@ -28,14 +34,16 @@ import torch
 from .. import threefry
 from ..config import warn
 from ..params import GBTreeParam, TrainParam
-from ..predictor import (StackedForest, pack_cat_bits, predict_margin,
-                         stack_forest, with_walk_tables)
+from ..objective.base import segment_sum
+from ..predictor import (StackedForest, pack_cat_bits, predict_leaf,
+                         predict_margin, stack_forest, with_walk_tables)
 from ..tree.grow import GrowParams
 from ..tree.grow_fused import GrownTree, grow_tree_fused
+from ..tree.grow_local import grow_tree_local
 from ..tree.grow_lossguide import (AllocTree, finalize_alloc,
                                    grow_tree_lossguide)
 from ..tree.model import RegTree
-from ..tree.param import SplitParams
+from ..tree.param import SplitParams, calc_gain, calc_weight
 
 __all__ = ["GBTreeModel", "GBTree", "Dart"]
 
@@ -334,21 +342,84 @@ class GBTree:
         rest = self.gbtree_param.update(dict(params))
         self.train_param = TrainParam()
         self.train_param.update(rest)
-        self._check_supported()
+        self._configure_method()
         self._warn_inert()
         self.model = GBTreeModel(self.n_groups, device,
                                  self.gbtree_param.num_parallel_tree)
+        # process_type="update": the trees still to refresh (None until the
+        # first refreshed round takes them)
+        self._update_queue: Optional[List[Tuple[RegTree, int]]] = None
 
-    def _check_supported(self) -> None:
+    #: updater names and their roles (the JAX package's registry,
+    #: ``gbm/gbtree.py:902``): every grower grows depthwise on the
+    #: quantized matrix, ``grow_colmaker`` on the exact candidate set,
+    #: ``grow_histmaker`` on cuts sketched anew every round and
+    #: ``grow_local_histmaker`` on cuts sketched per node (``needs_*``)
+    _KNOWN_UPDATERS = {
+        "grow_quantile_histmaker": "grow", "grow_histmaker": "grow",
+        "grow_local_histmaker": "grow", "grow_colmaker": "grow",
+        "grow_gpu_hist": "grow", "grow_fast_histmaker": "grow",
+        "distcol": "grow", "prune": "prune", "refresh": "refresh",
+        "sync": "sync",
+    }
+
+    def _configure_method(self) -> None:
+        """Check ``tree_method``, the ``updater`` sequence, the sampling
+        method, ``process_type`` and the predictor, with the JAX package's
+        errors and messages (``_configure_method``). ``prune`` in a
+        sequence with a grower is the growers' own gamma pruning; alone it
+        raises NotImplementedError; ``sync`` changes nothing."""
         tp, gp = self.train_param, self.gbtree_param
+        if gp.tree_method not in ("auto", "exact", "hist", "gpu_hist",
+                                  "tpu_hist", "approx"):
+            raise ValueError(f"Unknown tree_method: {gp.tree_method}")
+        self._updater_seq: List[str] = []
+        for name in str(gp.updater).split(",") if gp.updater else ():
+            name = name.strip()
+            if name and name not in self._KNOWN_UPDATERS:
+                raise ValueError(f"Unknown updater: {name!r}")
+            if name:
+                self._updater_seq.append(name)
+        roles = {self._KNOWN_UPDATERS[u] for u in self._updater_seq}
+        if "prune" in roles and not roles & {"grow", "refresh"}:
+            raise NotImplementedError(
+                "standalone updater='prune' is not supported; pruning "
+                "runs inside every grower (gamma)")
         if tp.sampling_method not in ("uniform", "gradient_based"):
             raise ValueError(f"Unknown sampling_method: {tp.sampling_method}")
-        if gp.tree_method not in ("auto", "hist", "gpu_hist", "tpu_hist"):
-            raise NotImplementedError(
-                f"tree_method={gp.tree_method!r} is not ported yet")
+        if gp.process_type not in ("default", "update"):
+            raise ValueError(f"Unknown process_type: {gp.process_type}")
         if gp.predictor not in ("auto", "cpu_predictor", "gpu_predictor",
                                 "tpu_predictor"):
             raise ValueError(f"Unknown predictor: {gp.predictor}")
+
+    @property
+    def is_update_process(self) -> bool:
+        """``process_type="update"`` or ``refresh`` among the updaters: a
+        round re-stats the existing trees (``refresh_one_round``)."""
+        return (self.gbtree_param.process_type == "update"
+                or "refresh" in self._updater_seq)
+
+    @property
+    def needs_exact_cuts(self) -> bool:
+        """``tree_method="exact"`` / ``grow_colmaker``: train on the exact
+        candidate set (``DMatrix.get_binned_exact``)."""
+        return (self.gbtree_param.tree_method == "exact"
+                or "grow_colmaker" in self._updater_seq)
+
+    @property
+    def needs_iteration_sketch(self) -> bool:
+        """``tree_method="approx"`` / ``grow_histmaker``: cuts sketched
+        anew every round, weighted by that round's hessians
+        (``DMatrix.build_binned``)."""
+        return (self.gbtree_param.tree_method == "approx"
+                or "grow_histmaker" in self._updater_seq)
+
+    @property
+    def needs_local_sketch(self) -> bool:
+        """``grow_local_histmaker``: cuts sketched per node at every level
+        from the raw values (``local_boost_one_round``)."""
+        return "grow_local_histmaker" in self._updater_seq
 
     def _warn_inert(self) -> None:
         """The JAX package's warnings for the keys that change nothing
@@ -379,11 +450,14 @@ class GBTree:
         """Set one parameter between rounds (the JAX package's
         ``GBTree.set_param``): the next tree grows with it; ``eta`` is
         stored with each tree as it grows. Keys of neither struct are
-        ignored here (the learner has checked them)."""
+        ignored here (the learner has checked them). ``updater``,
+        ``process_type``, ``tree_method`` and ``sampling_method`` configure
+        the method again, with its warnings."""
         rest = self.gbtree_param.update({key: value})
         self.train_param.update(rest)
-        self._check_supported()
-        if key in ("tree_method", "sampling_method"):
+        self._configure_method()
+        if key in ("updater", "process_type", "tree_method",
+                   "sampling_method"):
             self._warn_inert()
 
     def _grow_params(self) -> GrowParams:
@@ -474,6 +548,108 @@ class GBTree:
                 if margin_cache is not None:
                     margin_cache[:, k] += delta
         return new_trees, margin_cache
+
+    def local_boost_one_round(self, X: torch.Tensor, grad: torch.Tensor,
+                              hess: torch.Tensor,
+                              margin_cache: Optional[torch.Tensor],
+                              iteration: int = 0,
+                              feature_weights: Optional[torch.Tensor] = None
+                              ) -> Tuple[List[GrownTree],
+                                         Optional[torch.Tensor]]:
+        """One round of ``grow_local_histmaker`` (the JAX package's
+        ``local_boost_one_round``): ``boost_one_round``'s trees, keys and
+        cache contract, each tree grown on the raw rows ``X`` [n, F] with
+        cuts sketched per node (``tree/grow_local.py``; kernel A builds
+        every level's histogram on the card)."""
+        tp = self.train_param
+        if tp.grow_policy == "lossguide":
+            raise NotImplementedError(
+                "grow_local_histmaker is depthwise (the reference's "
+                "histmaker family has no lossguide variant)")
+        cfg = self._grow_params()
+        self.model.num_feature = X.shape[1]
+        new_trees: List[GrownTree] = []
+        if margin_cache is not None:
+            margin_cache = margin_cache.clone()
+        for k in range(self.n_groups):
+            g = grad[:, k] if grad.dim() == 2 else grad
+            h = hess[:, k] if hess.dim() == 2 else hess
+            for ptree in range(self.gbtree_param.num_parallel_tree):
+                key = threefry.prng_key(
+                    round_seed_py(tp.seed, iteration, k, ptree))
+                tree = grow_tree_local(X, g, h, cfg, tp.max_bin,
+                                       float(tp.eta), float(tp.gamma),
+                                       key=key,
+                                       feature_weights=feature_weights)
+                self.model.add_device(tree, tp.eta, k, tp.max_depth)
+                new_trees.append(tree)
+                if margin_cache is not None:
+                    margin_cache[:, k] += tree.delta
+        return new_trees, margin_cache
+
+    def refresh_one_round(self, X: torch.Tensor, grad: torch.Tensor,
+                          hess: torch.Tensor) -> List[RegTree]:
+        """``process_type="update"`` / ``updater="refresh"``: the next
+        round's trees of the existing model (the first call takes them all
+        and starts an empty model) get their node statistics recomputed on
+        ``X`` and the gradients, and their leaf values too with
+        ``refresh_leaf``; no tree is added (the JAX package's
+        ``refresh_one_round``; reference ``updater_refresh.cc:162``). Each
+        tree walks the rows to their leaves (``predict_leaf``, on the
+        rows' device); the leaves' float64 sums are taken in a fixed order
+        (``segment_sum``), pushed up to the parents on the host and
+        rounded to float32 once, then ``calc_weight`` / ``calc_gain`` give
+        the weights and the loss changes."""
+        per_round = self.n_groups * self.gbtree_param.num_parallel_tree
+        if self._update_queue is None:
+            trees = self.model.trees
+            if not trees:
+                raise ValueError(
+                    "process_type=update requires an existing model "
+                    "(pass xgb_model / load_model first)")
+            self._update_queue = list(zip(trees, self.model.tree_info))
+            num_feature = self.model.num_feature
+            self.model = GBTreeModel(self.n_groups, self.device,
+                                     self.gbtree_param.num_parallel_tree)
+            self.model.num_feature = num_feature
+        if not self._update_queue:
+            raise ValueError(
+                "num_boost_round exceeds the number of trees to update "
+                "(reference gbtree.cc process_type=update contract)")
+        batch = self._update_queue[:per_round]
+        self._update_queue = self._update_queue[per_round:]
+        tp = self.train_param
+        p = self._grow_params().split
+        eta = tp.eta
+        for tree, group in batch:
+            g = grad[:, group] if grad.dim() == 2 else grad
+            h = hess[:, group] if hess.dim() == 2 else hess
+            leaves = predict_leaf(stack_forest([tree], [group], self.n_groups,
+                                               X.device), X)[:, 0].long()
+            G, H = segment_sum(torch.stack([g, h]).double(), leaves,
+                               tree.num_nodes).cpu().numpy()
+            for i in range(tree.num_nodes - 1, 0, -1):  # parents first (BFS)
+                par = tree.parents[i]
+                G[par] += G[i]
+                H[par] += H[i]
+            G32 = torch.from_numpy(G.astype(np.float32))
+            H32 = torch.from_numpy(H.astype(np.float32))
+            w = calc_weight(G32, H32, p).numpy()
+            gains = calc_gain(G32, H32, p).numpy()
+            tree.sum_hessian = H.astype(np.float32)
+            tree.base_weights = (eta * w).astype(np.float32)
+            internal = tree.left_children != -1
+            lc = np.where(internal, tree.left_children, 0)
+            rc = np.where(internal, tree.right_children, 0)
+            tree.loss_changes = np.where(
+                internal, gains[lc] + gains[rc] - gains, 0.0
+            ).astype(np.float32)
+            if tp.refresh_leaf:
+                tree.split_conditions = np.where(
+                    ~internal, eta * w, tree.split_conditions
+                ).astype(np.float32)
+            self.model.add(tree, group)
+        return [t for t, _ in batch]
 
     def tree_weights(self) -> Optional[torch.Tensor]:
         """Per-tree weights of every walk (DART's); None: all ones."""

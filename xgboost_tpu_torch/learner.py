@@ -98,7 +98,7 @@ class Booster:
             raise NotImplementedError(
                 f"booster={params['booster']!r} is not ported yet")
         unknown = self.lparam.update(params)
-        check_ported(unknown, self.lparam.booster)
+        check_ported(unknown)
         self._extra_params.update(unknown)
         # read by the tree parameters and by count:poisson alike: the
         # learner keeps it and forwards it (the JAX package's rule)
@@ -246,17 +246,53 @@ class Booster:
 
     def _boost(self, dtrain: DMatrix, grad: torch.Tensor,
                hess: torch.Tensor, iteration: int) -> None:
-        if self._gbm.name == "gblinear":  # the raw rows: no bins, no one-hot
-            self._gbm.boost_one_round(dtrain.data, grad, hess, iteration)
+        """One round on the method's matrix (the JAX package's
+        ``_do_boost``): a refresh re-stats the existing trees and drops the
+        training margin (the leaves changed under the same tree count); the
+        local histmaker grows from the raw rows; ``approx`` sketches a new
+        matrix from this round's hessians (summed over the output groups on
+        the host, as numpy sums them); ``exact`` bins at every distinct
+        value; every other method uses the cached matrix of ``max_bin``."""
+        gbm = self._gbm
+        if gbm.name == "gblinear":  # the raw rows: no bins, no one-hot
+            gbm.boost_one_round(dtrain.data, grad, hess, iteration)
             return
-        binned = dtrain.get_binned(self._gbm.train_param.max_bin)
         self._add_cache(dtrain)
         entry = self._caches[id(dtrain)]
-        model = self._gbm.model
+        if gbm.is_update_process:
+            gbm.refresh_one_round(dtrain.data, grad, hess)
+            entry.margin = None
+            return
+        model = gbm.model
         cache = entry.margin if entry.num_trees == model.num_trees else None
-        _, entry.margin = self._gbm.boost_one_round(
+        fw = dtrain.feature_weights
+        if gbm.needs_local_sketch:
+            if gbm.name != "gbtree":
+                raise NotImplementedError(
+                    "grow_local_histmaker is a gbtree updater")
+            if dtrain.categorical_features():
+                raise NotImplementedError(
+                    "grow_local_histmaker supports numerical features "
+                    "only (the reference's local maker predates "
+                    "categorical support)")
+            _, entry.margin = gbm.local_boost_one_round(
+                dtrain.data, grad, hess, cache, iteration, fw)
+            entry.num_trees = model.num_trees
+            return
+        max_bin = gbm.train_param.max_bin
+        if gbm.needs_iteration_sketch:
+            hw = hess
+            if hess.dim() == 2:  # numpy's float32 sum, as the JAX package's
+                hw = torch.from_numpy(hess.cpu().numpy().sum(axis=1)).to(
+                    hess.device)
+            binned = dtrain.build_binned(max_bin, hw)
+        elif gbm.needs_exact_cuts:
+            binned = dtrain.get_binned_exact()
+        else:
+            binned = dtrain.get_binned(max_bin)
+        _, entry.margin = gbm.boost_one_round(
             binned, grad, hess, cache, iteration=iteration,
-            feature_weights=dtrain.feature_weights)
+            feature_weights=fw)
         entry.num_trees = model.num_trees
 
     def update_many(self, dtrain: DMatrix, start_iteration: int,

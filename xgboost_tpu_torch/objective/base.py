@@ -8,7 +8,10 @@ square roots through ``sqrt``); additions, products and quotients of
 tensors stay in float32, where both devices round exactly (IEEE), in the
 JAX package's order of operations. A quotient with a Python number goes
 through ``div``: PyTorch's CUDA kernel multiplies by the number's
-reciprocal where the CPU's divides.
+reciprocal where the CPU's divides. Prefix and segment sums that must give
+the same bits on both devices run in an order the code fixes
+(``seg_scan``, ``segment_sum``): a library scan or ``index_add_`` on the
+card adds in its own order.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Callable, Dict, Optional, Tuple, Type
 import torch
 
 __all__ = ["ObjFunction", "create_objective", "apply_weight", "register",
-           "f64", "sqrt", "div", "param"]
+           "f64", "sqrt", "div", "param", "seg_scan", "segment_sum"]
 
 _REGISTRY: Dict[str, Type["ObjFunction"]] = {}
 _ALIASES: Dict[str, str] = {}
@@ -65,6 +68,39 @@ def div(a, b) -> torch.Tensor:
     if not torch.is_tensor(b):
         b = torch.full_like(a, b)
     return a / b
+
+
+def seg_scan(x: torch.Tensor, seg_start: torch.Tensor,
+             max_len: int) -> torch.Tensor:
+    """Inclusive prefix sums along the last axis within segments: position
+    ``i`` sums ``x[..., seg_start[i]:i+1]``. Hillis-Steele steps
+    ``x[i] += x[i-d]`` for ``d = 1, 2, 4, ...`` below ``max_len`` (the
+    longest segment), each where ``i - d`` lies in ``i``'s segment: every
+    step is one elementwise add, so the order is the same on every
+    device."""
+    reach = torch.arange(x.shape[-1], device=x.device) - seg_start
+    d = 1
+    while d < max_len:
+        shifted = torch.nn.functional.pad(x[..., :-d], (d, 0))
+        x = x + torch.where(reach >= d, shifted, torch.zeros_like(shifted))
+        d *= 2
+    return x
+
+
+def segment_sum(vals: torch.Tensor, dest: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """``[..., n]`` sums of ``vals`` [..., m] by destination ``dest`` [m]
+    (int64 in ``[0, n)``) in a fixed order: stable sort by destination,
+    then ``seg_scan`` over each destination's run (0 where none)."""
+    if not dest.numel():
+        return vals.new_zeros(vals.shape[:-1] + (n,))
+    by_dest = torch.argsort(dest, stable=True)
+    counts = torch.bincount(dest, minlength=n)
+    ends = torch.cumsum(counts, 0)
+    seg_start = (ends - counts)[dest[by_dest]]
+    summed = seg_scan(vals[..., by_dest], seg_start, int(counts.max()))
+    last = summed[..., (ends - 1).clamp(min=0)]
+    return torch.where(counts > 0, last, torch.zeros_like(last))
 
 
 def param(params, name: str, default):

@@ -16,7 +16,7 @@ rounded to float32 once. Sorts are stable, so tied margins (every margin is
 the base score in round 0) keep row order, as ``jnp.argsort`` and
 ``jnp.lexsort`` do. No reduction is left to a library's order: sums run as
 pairwise trees (``_tree_sum``) and segmented prefix sums as Hillis-Steele
-steps (``_seg_scan``), each step one elementwise add whose order the code
+steps (``base.seg_scan``), each step one elementwise add whose order the code
 fixes; the sampled path's scatter of the opponent ends sorts the terms by
 destination row and sums each row's run the same way. Against the JAX
 package's float32 the gradients differ by float32 rounding.
@@ -31,7 +31,7 @@ import torch
 
 from .. import threefry
 from ..data.dmatrix import QueryGroups
-from .base import ObjFunction, div, param, register
+from .base import ObjFunction, div, param, register, seg_scan, segment_sum
 
 __all__ = ["RankPairwise", "RankNDCG", "RankMAP"]
 
@@ -53,21 +53,6 @@ def _tree_sum(x: torch.Tensor) -> torch.Tensor:
         half = x.shape[-1] // 2
         x = x[..., :half] + x[..., half:]
     return x[..., 0]
-
-
-def _seg_scan(x: torch.Tensor, seg_start: torch.Tensor,
-              max_len: int) -> torch.Tensor:
-    """Inclusive prefix sums along the last axis within segments: position
-    ``i`` sums ``x[..., seg_start[i]:i+1]``. Hillis-Steele steps
-    ``x[i] += x[i-d]`` for ``d = 1, 2, 4, ...`` below ``max_len`` (the
-    longest segment), each where ``i - d`` lies in ``i``'s segment."""
-    reach = torch.arange(x.shape[-1], device=x.device) - seg_start
-    d = 1
-    while d < max_len:
-        shifted = torch.nn.functional.pad(x[..., :-d], (d, 0))
-        x = x + torch.where(reach >= d, shifted, torch.zeros_like(shifted))
-        d *= 2
-    return x
 
 
 def _inverse(order: torch.Tensor) -> torch.Tensor:
@@ -94,12 +79,12 @@ def _map_stats(rel_sorted: torch.Tensor, local: torch.Tensor,
     """MAPStats prefix scans over a prediction-sorted layout (rank_obj.cu:474
     GetMAPStats): hits and the three AP accumulators, inclusive, per
     segment; ``local`` is each position's 0-based rank in its segment."""
-    hits = _seg_scan(rel_sorted, seg_start, max_len)  # exact integers
+    hits = seg_scan(rel_sorted, seg_start, max_len)  # exact integers
     p1 = local.to(F64) + 1.0
     terms = torch.stack([rel_sorted * hits / p1,
                          rel_sorted * (hits - 1.0) / p1,
                          rel_sorted * (hits + 1.0) / p1])
-    acc1, acc2, acc3 = _seg_scan(terms, seg_start, max_len)
+    acc1, acc2, acc3 = seg_scan(terms, seg_start, max_len)
     return hits, acc1, acc2, acc3
 
 
@@ -200,7 +185,7 @@ def _lambda_grad_sampled(margin: torch.Tensor, label: torch.Tensor,
     last = start + size - 1  # each row's group's last row
     if scheme == "ndcg":
         lrank = _inverse(groups.argsort(-y)) - start
-        ideal = _seg_scan(gains / torch.log2(lrank.to(F64) + 2.0), start, S)
+        ideal = seg_scan(gains / torch.log2(lrank.to(F64) + 2.0), start, S)
         idcg = torch.clamp(ideal[last], min=1e-10)
 
     # opponents: uniform in the own group, n_pair draws per row; the index
@@ -273,12 +258,7 @@ def _lambda_grad_sampled(margin: torch.Tensor, label: torch.Tensor,
     vals = torch.stack([torch.cat([(sign * lam).reshape(-1),
                                    (-sign * lam).reshape(-1)]),
                         torch.cat([hes.reshape(-1), hes.reshape(-1)])])
-    by_dest = torch.argsort(dest, stable=True)
-    counts = torch.bincount(dest, minlength=n)
-    ends = torch.cumsum(counts, 0)
-    seg_start = (ends - counts)[dest[by_dest]]
-    summed = _seg_scan(vals[:, by_dest], seg_start, int(counts.max()))
-    grad, hess = summed[:, ends - 1]
+    grad, hess = segment_sum(vals, dest, n)
     return grad, torch.clamp(hess, min=1e-16)
 
 

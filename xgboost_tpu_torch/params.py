@@ -143,6 +143,9 @@ class TrainParam(ParamSet):
         # gbm/gbtree.py); as in the JAX package, only set_param on a
         # configured booster sets it
         "seed": Field(0),
+        # process_type="update" / updater="refresh": also rewrite the leaf
+        # values, not only the node statistics (reference TreeRefresher)
+        "refresh_leaf": Field(True),
     }
 
 
@@ -151,7 +154,12 @@ class GBTreeParam(ParamSet):
 
     FIELDS = {
         "tree_method": Field("auto"),
+        # a comma-separated updater sequence (gbm/gbtree.py
+        # _KNOWN_UPDATERS); empty: the one tree_method implies
+        "updater": Field(""),
         "num_parallel_tree": Field(1, lower=1),
+        # "default" grows new trees; "update" re-stats the existing ones
+        "process_type": Field("default"),
         # "auto" and the names of the reference's predictors; every one
         # walks the stacked forest (a warning says so for cpu_ / gpu_)
         "predictor": Field("auto"),
@@ -223,24 +231,17 @@ class LearnerParam(ParamSet):
 
 #: keys that the JAX package's parameter structs know and the port has not
 #: ported, each with the value at which it changes nothing; any other value
-#: raises NotImplementedError (``check_ported``). ``updater`` is the tree
-#: boosters' updater sequence; the linear booster reads it as its own
-#: (``GBLinearParam``), and the learner does not check it there.
+#: raises NotImplementedError (``check_ported``).
 NOT_PORTED: Dict[str, Any] = {
-    # the updater sequences and the refresh (TrainParam, GBTreeParam)
-    "refresh_leaf": True, "updater": "", "process_type": "default",
     # multi-output trees (LearnerParam)
     "multi_strategy": "one_output_per_tree",
 }
 
 
-def check_ported(params: Dict[str, Any], booster: str = "gbtree") -> None:
+def check_ported(params: Dict[str, Any]) -> None:
     """Raise NotImplementedError for a key of ``NOT_PORTED`` set to a value
-    other than the one at which it changes nothing (``updater`` belongs to
-    the linear booster when ``booster`` is ``"gblinear"``)."""
+    other than the one at which it changes nothing."""
     for key, value in params.items():
-        if key == "updater" and booster == "gblinear":
-            continue
         if key in NOT_PORTED:
             default = NOT_PORTED[key]
             if _coerce(value, default, None) != default:

@@ -154,14 +154,18 @@ def with_missing(histC: torch.Tensor, Gtot: torch.Tensor,
 def _level_update(st: _HeapState, histC: torch.Tensor,
                   cut_values: torch.Tensor, cfg: GrowParams, d: int,
                   tree_mask: Optional[torch.Tensor] = None,
-                  k_level: Optional[torch.Tensor] = None) -> _HeapState:
+                  k_level: Optional[torch.Tensor] = None,
+                  node_rows: Optional[int] = None) -> _HeapState:
     """Evaluate level ``d``'s splits from its histogram ``histC``
     [F, 2K, B] (missing excluded) and write the heap arrays and the next
-    partition table. ``tree_mask`` ([F] bool, default all) is the tree's
-    column sample; the level's and the nodes' samples are drawn under
-    ``fold_in(k_level, d)`` and ``fold_in(fold_in(k_level, d), 1)`` when
-    ``colsample_bylevel`` / ``colsample_bynode`` are below 1."""
-    F, B = cut_values.shape
+    partition table. ``cut_values`` is [F, B], or [K, F, B] with each
+    node's own cuts (``grow_local``). ``tree_mask`` ([F] bool, default all)
+    is the tree's column sample; the level's and the nodes' samples are
+    drawn under ``fold_in(k_level, d)`` and ``fold_in(fold_in(k_level, d),
+    1)`` when ``colsample_bylevel`` / ``colsample_bynode`` are below 1, the
+    nodes' as ``node_rows`` rows (default K) of which the first K are
+    used."""
+    F, B = cut_values.shape[-2:]
     p = cfg.split
     max_nodes = cfg.max_nodes
     K = 1 << d
@@ -185,8 +189,9 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
     node_fmask = fmask[None, :].expand(K, F)
     if cfg.colsample_bynode < 1.0:
         kn = threefry.fold_in(threefry.fold_in(k_level, d), 1)
-        node_fmask = exact_k_subset(kn, node_fmask,
-                                    n_sampled(cfg.colsample_bynode, k_lvl))
+        node_fmask = exact_k_subset(
+            kn, fmask[None, :].expand(node_rows or K, F),
+            n_sampled(cfg.colsample_bynode, k_lvl))[:K]
     if gmask is not None:
         node_fmask = node_fmask & interaction_allowed(st.used[off:off + K],
                                                       gmask)
@@ -197,7 +202,8 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
     GLb, HLb = dec.GL, dec.HL
     GRb, HRb = Gtot - GLb, Htot - HLb
     fl, bl = dec.f.long(), dec.b.long()
-    cond = cut_values[fl, bl]
+    cond = (cut_values[fl, bl] if cut_values.dim() == 2
+            else cut_values[torch.arange(K, device=dev), fl, bl])
 
     slots = off + torch.arange(K, device=dev)
     is_split = st.is_split.clone()
