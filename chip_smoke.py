@@ -262,6 +262,36 @@ phase 6, the rest after phase 31 (max_bin 256 unless named):
     ``compute_exact_cuts``, bitwise equal to plain at levels 0-5, timed
     beside ``index_add_`` and its byte bound.
 
+Sparse input and external memory, after phase 36, max_bin 256, depth 6,
+eta 0.1, AUC + logloss:
+
+37. the Bosch-shaped CSR (``phase_sparse``, then ``phase_sparse_levels``:
+    kernels D and A equal at every level of a tree at F = 968 and timed,
+    the hoisted route against the construct route; Kaggle's Bosch Production
+    Line Performance ``train_numeric.csv``: 1,183,747 x 968, about 19%
+    stored, a few explicit zeros, a sparse linear label at Bosch's 0.58%
+    failure rate; ``_make_bosch``) for 5 rounds with 100k held-out CSR
+    rows: the CSR ``DMatrix`` and a dense NaN ``DMatrix`` of the same
+    values, both on the card, give identical cuts, bins, trees (JSON) and
+    predictions; the CSR matrix's dense ``data`` is never made through
+    ``train`` + ``predict``; CSR ``inplace_predict`` equals dense; AUC
+    rises; the ingest seconds, hoist plan, launches, round times and
+    device and host memory printed;
+38. the main path paged (``phase_external_memory``): the 1M x 50 rows fed
+    by a ``DataIter`` of 8 batches into an ``ExternalMemoryQuantileDMatrix``
+    in pages of 262,144 rows (4 pages, the last 213,568, 9 bits a bin, in
+    a temporary directory) for 10 rounds: a ``StreamingQuantileDMatrix``
+    of the same iterator has the same cuts and bins and grows the same
+    trees; kernel A 240 launches, C and D none; AUC >= 0.80 and rising;
+    the page-streamed margins within 1e-6 of the cached training margins;
+    a 64k-row slice paged on the card and on the CPU grows the same trees;
+    per page the read, copy and unpack ms, the prefetch wait, the bytes
+    on disk and the device's peak memory against the streaming matrix's;
+39. kernel A on every page at every level of that matrix's first tree
+    (``phase_paged_levels``): bitwise its plain version, the pages' int64
+    histograms summing to the whole matrix's, timed per page beside its
+    bound.
+
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; before that, one JSON line lists the kernels.
@@ -286,6 +316,7 @@ from xgboost_tpu_torch.gbm.gbtree import _cat_cfg
 from xgboost_tpu_torch.metric import create_metric
 from xgboost_tpu_torch.objective import create_objective
 from xgboost_tpu_torch.params import TrainParam
+from xgboost_tpu_torch.data import external as xext
 from xgboost_tpu_torch.data.quantile import _sequential_cdf
 from xgboost_tpu_torch.predictor import (_predict_margin_plain,
                                          forest_from_numpy, predict_margin,
@@ -3366,6 +3397,444 @@ def phase_refresh(bst, Xte, yte, w):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sparse input and external memory
+# ---------------------------------------------------------------------------
+
+#: Kaggle's Bosch Production Line Performance ``train_numeric.csv`` (the
+#: shape XGBoost's GPU paper trains on: Mitchell & Frank, PeerJ CS 2017):
+#: rows, numeric features, the stored share and the failure rate
+BOSCH_ROWS, BOSCH_COLS, BOSCH_DENSITY, BOSCH_POSITIVE = (1_183_747, 968, 0.19,
+                                                         0.0058)
+BOSCH_EVAL, BOSCH_ROUNDS, BOSCH_SIGNAL = 100_000, 5, 20
+SPARSE_PARAMS = {"objective": "binary:logistic", "max_depth": DEPTH,
+                 "max_bin": DEFAULT_MAX_BIN, "eta": 0.1, **METRICS}
+#: the external-memory phase: the main path's rows fed as batches, paged
+EXT_BATCHES, EXT_PAGE_ROWS = 8, 262_144
+EXT_CPU_PAGE_ROWS = 16_384
+
+
+def _make_bosch(rows: int, seed: int = 42):
+    """``(csr, y)``: a ``rows`` x 968 float32 CSR with about 19% of its
+    entries stored (each independently, in chunks of 65,536 rows), standard
+    normal values and 0.1% of them explicit zeros; the label is a linear
+    score over ``BOSCH_SIGNAL`` columns (absent entries count 0) plus
+    noise, its top ``BOSCH_POSITIVE`` share positive (Bosch's failure
+    rate)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    counts, cols = [], []
+    for lo in range(0, rows, 65_536):
+        mask = rng.random((min(65_536, rows - lo), BOSCH_COLS),
+                          dtype=np.float32) < BOSCH_DENSITY
+        counts.append(mask.sum(axis=1))
+        cols.append(np.nonzero(mask)[1].astype(np.int32))
+    indptr = np.zeros(rows + 1, np.int64)
+    np.cumsum(np.concatenate(counts), out=indptr[1:])
+    data = rng.standard_normal(int(indptr[-1]), dtype=np.float32)
+    data[rng.random(data.size, dtype=np.float32) < 0.001] = 0.0
+    m = sp.csr_matrix((data, np.concatenate(cols), indptr),
+                      shape=(rows, BOSCH_COLS))
+    w = np.zeros(BOSCH_COLS, np.float32)
+    w[rng.choice(BOSCH_COLS, BOSCH_SIGNAL, replace=False)] = rng.standard_normal(
+        BOSCH_SIGNAL, dtype=np.float32)
+    score = np.asarray(m @ w).ravel() + 0.5 * rng.standard_normal(rows)
+    y = (score > np.quantile(score, 1.0 - BOSCH_POSITIVE)).astype(np.float32)
+    return m, y
+
+
+def _dense_of(m):
+    """A CSR's values dense, NaN where absent."""
+    out = np.full(m.shape, np.nan, np.float32)
+    rows = np.repeat(np.arange(m.shape[0]), np.diff(m.indptr))
+    out[rows, m.indices] = m.data
+    return out
+
+
+def _host_rss_gb():
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def phase_sparse():
+    """The Bosch-shaped CSR (``_make_bosch``) through the entry points at
+    max_bin 256, depth 6, eta 0.1, 5 rounds, AUC + logloss on 100k held-out
+    CSR rows: the CSR matrix and a dense NaN matrix of the same values, both
+    on the card, give identical cuts, bins, trees (JSON) and predictions;
+    the CSR matrix's dense ``data`` is never made; CSR ``inplace_predict``
+    equals dense; held-out AUC rises."""
+    t0 = time.perf_counter()
+    m, y = _make_bosch(BOSCH_ROWS + BOSCH_EVAL)
+    mtr, ytr, mte, yte = (m[:BOSCH_ROWS], y[:BOSCH_ROWS], m[BOSCH_ROWS:],
+                          y[BOSCH_ROWS:])
+    del m
+    t_gen = time.perf_counter() - t0
+    stored = mtr.nnz / (BOSCH_ROWS * BOSCH_COLS)
+    print(f"sparse: Bosch-shaped CSR {BOSCH_ROWS} x {BOSCH_COLS}, {stored:.4f}"
+          f" stored ({mtr.nnz} values, {int((mtr.data == 0).sum())} explicit "
+          f"zeros), {ytr.mean():.4f} positive; made in {t_gen:.1f} s")
+    out = {"rows": BOSCH_ROWS, "cols": BOSCH_COLS, "stored": stored,
+           "positive": float(ytr.mean())}
+    runs = {}
+    for kind in ("csr", "dense"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = xgbt.DMatrix(mtr if kind == "csr" else _dense_of(mtr), ytr)
+        binned = d.get_binned(DEFAULT_MAX_BIN)
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        torch.cuda.empty_cache()  # the sketch's transients
+        dte = xgbt.DMatrix(mte, yte)
+        res = {}
+        probe = _RoundProbe()
+        bst = xgbt.train(SPARSE_PARAMS, d, BOSCH_ROUNDS,
+                         evals=[(dte, "test")], evals_result=res,
+                         callbacks=[probe], verbose_eval=False)
+        got = launches()
+        onehot = binned.fused_onehot()
+        fh = 0 if onehot is None else onehot.shape[0] // DEFAULT_MAX_BIN
+        runs[kind] = dict(d=d, bst=bst, binned=binned)
+        auc = res["test"]["auc"]
+        out[kind] = dict(ingest_s=t_ingest, hoisted_features=fh,
+                         launches=got, ms_per_round=probe.median_ms(),
+                         round_ms=probe.times, auc=auc,
+                         logloss=res["test"]["logloss"],
+                         device_peak_gb=torch.cuda.max_memory_allocated()
+                         / 2**30, host_peak_rss_gb=_host_rss_gb())
+        print(f"sparse ({kind}): ingest {t_ingest:.2f} s, hoist plan "
+              f"{fh}/{BOSCH_COLS}, launches {got}, median round "
+              f"{probe.median_ms():.1f} ms (with eval), auc {auc[0]:.6f} -> "
+              f"{auc[-1]:.6f}, device peak "
+              f"{out[kind]['device_peak_gb']:.2f} GiB, host peak RSS "
+              f"{out[kind]['host_peak_rss_gb']:.2f} GiB")
+        check(auc[-1] > auc[0], f"sparse ({kind}): held-out AUC rises {auc}")
+        check(got["C"] == (1 if fh else 0) and got["D"] == (
+            BOSCH_ROUNDS * DEPTH if fh else 0) and got["A"] == (
+            0 if fh else BOSCH_ROUNDS * DEPTH) and got["B"] >= BOSCH_ROUNDS,
+            f"sparse ({kind}): launches {got}")
+    cs, ds = runs["csr"], runs["dense"]
+    check(np.array_equal(cs["binned"].cuts.values, ds["binned"].cuts.values),
+          "sparse: CSR cuts == dense cuts")
+    check(torch.equal(cs["binned"].bins, ds["binned"].bins),
+          "sparse: CSR bins == dense bins")
+    check(cs["bst"].save_raw() == ds["bst"].save_raw(),
+          "sparse: CSR trees == dense trees (JSON)")
+    check(np.array_equal(cs["bst"].predict(cs["d"]),
+                         ds["bst"].predict(ds["d"])),
+          "sparse: training predictions equal")
+    dense_te = _dense_of(mte)
+    p_csr = cs["bst"].predict(xgbt.DMatrix(mte))
+    check(np.array_equal(p_csr, ds["bst"].predict(xgbt.DMatrix(dense_te))),
+          "sparse: held-out predict, CSR rows == dense rows")
+    check(cs["d"]._data is None, "sparse: the CSR matrix's data never made")
+    reset_launches()
+    t0 = time.perf_counter()
+    inplace = cs["bst"].inplace_predict(mte)
+    t_inplace = time.perf_counter() - t0
+    check(predict_margin.launches == -(-BOSCH_EVAL // 65_536),
+          f"sparse: CSR inplace_predict launches {predict_margin.launches}")
+    check(np.array_equal(inplace, cs["bst"].inplace_predict(dense_te)),
+          "sparse: CSR inplace_predict == dense inplace_predict")
+    check(np.array_equal(inplace, p_csr), "sparse: inplace == predict")
+    out["inplace_csr_s"] = t_inplace
+    print(f"sparse: CSR and dense: identical cuts, bins, trees and "
+          f"predictions; CSR inplace_predict of {BOSCH_EVAL} rows "
+          f"{t_inplace * 1e3:.1f} ms, equal to dense")
+    del runs, ds
+    torch.cuda.empty_cache()
+    out["levels"] = phase_sparse_levels(cs["binned"], ytr)
+    return out
+
+
+def phase_sparse_levels(binned, y):
+    """Both level routes at F = 968 (the Bosch-shaped bins, round 0's
+    logistic gradients, the tables of a real grown tree): kernel D over the
+    hoist plan's one-hot (its unhoisted features built every level) and
+    kernel A over the feature-major bins, bitwise equal to each other at
+    every level, each timed beside its bound: the route the plan picks
+    against the one it does not."""
+    B, bins = DEFAULT_MAX_BIN, binned.bins
+    n, F = bins.shape
+    onehot = binned.fused_onehot()
+    Fh = onehot.shape[0] // B
+    bins_t = hk.feature_major(bins)
+    g = torch.as_tensor(0.5 - y, device=DEVICE)
+    gq = hk.quantize_gradients(g, torch.full_like(g, 0.25))
+    cfg = GrowParams(max_depth=DEPTH)
+    st = _init_state(cfg, gq.totals(), B, F)
+    pos = torch.zeros((n, 1), dtype=torch.int32, device=DEVICE)
+    levels = []
+    for d in range(DEPTH):
+        K = 1 << d
+        kw = dict(K=K, Kp=K >> 1, B=B, d=d)
+        pD, hD = hk._hoisted_level_cuda(bins, onehot, pos, gq, st.ptab, **kw)
+        pA, hA = hk._fused_level_cuda(bins, pos, gq, st.ptab, bins_t=bins_t,
+                                      **kw)
+        check(torch.equal(pD, pA) and torch.equal(hD, hA),
+              f"sparse levels: level {d} at F = {F}: kernel D == kernel A")
+        d_ms = time_ms(lambda: hk._hoisted_level_cuda(
+            bins, onehot, pos, gq, st.ptab, **kw), reps=3, warmup=1)
+        a_ms = time_ms(lambda: hk._fused_level_cuda(
+            bins, pos, gq, st.ptab, bins_t=bins_t, **kw), reps=5, warmup=1)
+        (d_bound, d_by), (a_bound, a_by) = level_bounds(n, F, Fh, B, 2, d)
+        levels.append(dict(D_ms=d_ms, D_bound_ms=d_bound, D_bound_by=d_by,
+                           A_ms=a_ms, A_bound_ms=a_bound, A_bound_by=a_by))
+        pos = pD
+        st = _level_update(st, gq.dequantize(hD, hk.level_lanes(K, DEVICE)),
+                           binned.cut_values, cfg, d)
+    print(f"sparse levels at {n} x {F}, hoist plan {Fh}: D == A at levels "
+          f"0-5; D ms " + ", ".join(f"{x['D_ms']:.1f}" for x in levels)
+          + f" (bound {levels[0]['D_bound_ms']:.2f}); A ms " + ", ".join(
+              f"{x['A_ms']:.2f}" for x in levels)
+          + f" (bound {levels[0]['A_bound_ms']:.3f})")
+    return levels
+
+
+class _BatchIter(xgbt.DataIter):
+    """``n`` batches of the rows ``X`` (with labels ``y``), in order."""
+
+    def __init__(self, X, y, n):
+        super().__init__()
+        self.X, self.y, self.n, self.i = X, y, n, 0
+
+    def reset(self):
+        self.i = 0
+
+    def next(self, input_data):
+        if self.i >= self.n:
+            return 0
+        rows = len(self.X) // self.n
+        sl = slice(self.i * rows, len(self.X) if self.i == self.n - 1
+                   else (self.i + 1) * rows)
+        input_data(data=self.X[sl], label=self.y[sl])
+        self.i += 1
+        return 1
+
+
+def _page_ms(pg, k: int):
+    """Page ``k``'s stages on the card: the disk read (host), the copy of
+    its packed bytes to the card, their unpack there, and (for comparison)
+    the JAX package's numpy unpack on the host."""
+    t0 = time.perf_counter()
+    raw = pg._read_raw(k)
+    read = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    dev = torch.from_numpy(raw).to(DEVICE)
+    torch.cuda.synchronize()
+    copy = (time.perf_counter() - t0) * 1e3
+    rows = pg.rows_of(k)
+    unpack = time_ms(lambda: xext.unpack_symbols_torch(
+        dev, pg.bits, rows * pg.n_features, torch.int16))
+    t0 = time.perf_counter()
+    xext.unpack_symbols(raw, pg.bits, rows * pg.n_features, pg.dtype)
+    host_unpack = (time.perf_counter() - t0) * 1e3
+    return dict(rows=rows, bytes=int(raw.size), read_ms=read, copy_ms=copy,
+                unpack_ms=unpack, host_unpack_ms=host_unpack)
+
+
+def phase_paged_levels(pg, whole, ytr):
+    """Kernel A on every page at every level of the paged matrix's first
+    tree (round 0's logistic gradients, the tables of a real grown tree):
+    bitwise its plain version, the pages' int64 histograms summing to
+    kernel A's histogram of the whole matrix (the streaming matrix's
+    bins), and timed per page. Returns the per-level records and the
+    grown heap state."""
+    B = whole.cuts.max_bin
+    g = torch.as_tensor(0.5 - ytr, device=DEVICE)
+    gq = hk.quantize_gradients(g, torch.full_like(g, 0.25))
+    cfg = GrowParams(max_depth=DEPTH)
+    st = _init_state(cfg, gq.totals(), B, COLS)
+    pos = [torch.zeros((pg.rows_of(k), 1), dtype=torch.int32, device=DEVICE)
+           for k in range(pg.n_pages)]
+    pos_all = torch.zeros((pg.n_rows, 1), dtype=torch.int32, device=DEVICE)
+    levels = []
+    for d in range(DEPTH):
+        K = 1 << d
+        kw = dict(K=K, Kp=K >> 1, B=B, d=d)
+        hist, per_page = 0, []
+        for k in range(pg.n_pages):
+            lo, rows = k * pg.page_rows, pg.rows_of(k)
+            bins = pg.device_page(k, DEVICE)
+            check(torch.equal(bins, whole.bins[lo:lo + rows]),
+                  f"paged levels: page {k} bins == streaming bins")
+            bins_t = hk.feature_major(bins)
+            sub = hk.QuantizedGradients(q=gq.q[lo:lo + rows], exp=gq.exp)
+            p1, h1 = hk._fused_level_cuda(bins, pos[k], sub, st.ptab,
+                                          bins_t=bins_t, **kw)
+            p2, h2 = hk._fused_level_plain(bins, pos[k], sub, st.ptab, **kw)
+            check(torch.equal(p1, p2) and torch.equal(h1, h2),
+                  f"paged levels: level {d} page {k}: kernel A == plain")
+            ms = time_ms(lambda: hk._fused_level_cuda(
+                bins, pos[k], sub, st.ptab, bins_t=bins_t, **kw))
+            b_ms, b_by = level_bounds(rows, COLS, 0, B, 2, d)[1]
+            per_page.append(dict(rows=rows, ms=ms, bound_ms=b_ms,
+                                 bound_by=b_by))
+            pos[k], hist = p1, hist + h1
+        pos_all, want = hk._fused_level_cuda(
+            whole.bins, pos_all, gq, st.ptab, bins_t=whole.feature_major(),
+            **kw)
+        check(torch.equal(hist, want),
+              f"paged levels: level {d}: page sum == whole-matrix histogram")
+        check(torch.equal(torch.cat(pos), pos_all),
+              f"paged levels: level {d}: positions")
+        st = _level_update(st, gq.dequantize(hist, hk.level_lanes(K, DEVICE)),
+                           whole.cut_values, cfg, d)
+        levels.append(per_page)
+    print("paged levels: kernel A == plain on every page at levels 0-5, "
+          "page sums == whole-matrix histograms; ms per page (mean over "
+          "levels): " + ", ".join(
+              f"{_mean([lv[k] for lv in levels], 'ms'):.3f}"
+              for k in range(pg.n_pages)))
+    return levels, st
+
+
+def phase_external_memory(Xtr, ytr, Xte, yte):
+    """The main path paged: the 1M x 50 rows fed by a ``DataIter`` of 8
+    batches into an ``ExternalMemoryQuantileDMatrix`` (max_bin 256, pages
+    of 262,144 rows: 4 pages, the last 213,568 rows, 9 bits a symbol) in a
+    temporary directory; 10 rounds at depth 6 with AUC + logloss on the
+    held-out rows. Gates: a ``StreamingQuantileDMatrix`` of the same
+    iterator has the same cuts and bins and grows the same trees; kernel A
+    240 launches and C, D none on the paged run; AUC >= 0.80 and rising;
+    the page-streamed margins within 1e-6 of the cached training margins;
+    a 64k-row slice trained paged on the card and the CPU grows the same
+    trees; and kernel A on every page at every level of the first tree
+    (``phase_paged_levels``)."""
+    from xgboost_tpu_torch.data.iterator import StreamingQuantileDMatrix
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="xgbt_extmem_") as tmp:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp = xgbt.ExternalMemoryQuantileDMatrix(
+            _BatchIter(Xtr, ytr, EXT_BATCHES),
+            cache_prefix=os.path.join(tmp, "cache"),
+            max_bin=DEFAULT_MAX_BIN, page_rows=EXT_PAGE_ROWS)
+        t_ingest = time.perf_counter() - t0
+        pg = dp._paged
+        disk = sum(os.path.getsize(pg.page_path(k))
+                   for k in range(pg.n_pages))
+        check(pg.n_pages == 4 and pg.rows_of(3) == ROWS - 3 * EXT_PAGE_ROWS
+              and pg.bits == 9 and pg.packed,
+              f"external memory: {pg.n_pages} pages, last "
+              f"{pg.rows_of(pg.n_pages - 1)} rows, {pg.bits} bits")
+        t0 = time.perf_counter()
+        ds = StreamingQuantileDMatrix(_BatchIter(Xtr, ytr, EXT_BATCHES),
+                                      max_bin=DEFAULT_MAX_BIN)
+        torch.cuda.synchronize()
+        t_stream = time.perf_counter() - t0
+        whole = ds.get_binned(DEFAULT_MAX_BIN)
+        check(np.array_equal(pg.cuts.values, whole.cuts.values)
+              and np.array_equal(pg.cuts.min_vals, whole.cuts.min_vals),
+              "external memory: paged cuts == streaming cuts")
+        for k in range(pg.n_pages):
+            lo = k * EXT_PAGE_ROWS
+            check(np.array_equal(pg.read_page(k), whole.bins[
+                lo:lo + pg.rows_of(k)].cpu().numpy()),
+                f"external memory: page {k} == streaming bins")
+        pages = [_page_ms(pg, k) for k in range(pg.n_pages)]
+        print(f"external memory: ingest {t_ingest:.2f} s (streaming matrix "
+              f"{t_stream:.2f} s), {pg.n_pages} pages of {EXT_PAGE_ROWS} "
+              f"rows, {pg.bits} bits a bin, {disk} bytes on disk (int16 "
+              f"would be {ROWS * COLS * 2}); per page " + "; ".join(
+                  f"read {p['read_ms']:.2f} ms, copy {p['copy_ms']:.2f} ms, "
+                  f"unpack {p['unpack_ms']:.3f} ms (host "
+                  f"{p['host_unpack_ms']:.1f})" for p in pages))
+        levels, st = phase_paged_levels(pg, whole, ytr)
+        dte = xgbt.DMatrix(Xte, yte)
+        runs = {}
+        for name, dtrain in (("paged", dp), ("streaming", ds)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base_gb = torch.cuda.memory_allocated() / 2**30
+            io0 = dict(pg.io)
+            reset_launches()
+            res, probe = {}, _RoundProbe()
+            bst = xgbt.train(PARAMS_DEFAULT, dtrain, ROUNDS,
+                             evals=[(dte, "test")], evals_result=res,
+                             callbacks=[probe], verbose_eval=False)
+            got = launches()
+            runs[name] = dict(bst=bst, launches=got, auc=res["test"]["auc"],
+                              logloss=res["test"]["logloss"],
+                              ms_per_round=probe.median_ms(),
+                              round_ms=probe.times,
+                              device_peak_gb=torch.cuda.max_memory_allocated()
+                              / 2**30, device_before_gb=base_gb)
+            if name == "paged":
+                io = {k: pg.io[k] - io0[k] for k in io0}
+                runs[name]["io"] = io
+            auc = res["test"]["auc"]
+            print(f"external memory ({name}): launches {got}, median round "
+                  f"{probe.median_ms():.1f} ms (with eval), auc "
+                  f"{auc[0]:.6f} -> {auc[-1]:.6f}, device peak "
+                  f"{runs[name]['device_peak_gb']:.3f} GiB (held before: "
+                  f"{base_gb:.3f})")
+        io = runs["paged"]["io"]
+        reads = io["reads"]
+        print(f"external memory: paged training read {reads} pages "
+              f"({io['prefetched']} prefetched), read {io['read_s']:.3f} s "
+              f"in all, waited {io['wait_s']:.3f} s for prefetches")
+        want = {"A": ROUNDS * DEPTH * pg.n_pages, "C": 0, "D": 0}
+        for k, v in want.items():
+            check(runs["paged"]["launches"][k] == v,
+                  f"external memory: kernel {k} launched "
+                  f"{runs['paged']['launches'][k]} times, want {v}")
+        auc = runs["paged"]["auc"]
+        check(auc[-1] >= 0.80 and auc[-1] > auc[0],
+              f"external memory: held-out AUC {auc}")
+        bp, bs = runs["paged"]["bst"], runs["streaming"]["bst"]
+        first = heap_trees(bp, 1)[0]  # before save_raw materializes them
+        check(bp.save_raw() == bs.save_raw(),
+              "external memory: paged trees == streaming trees")
+        check(np.array_equal(first["feature"], st.feature.cpu().numpy())
+              and np.array_equal(first["split_bin"],
+                                 st.split_bin.cpu().numpy()),
+              "external memory: the level check's tree == the first tree")
+        cached = bp.predict(dp, output_margin=True)
+        bp._caches.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        walked = bp.predict(dp, output_margin=True)
+        t_walk = time.perf_counter() - t0
+        err = float(np.abs(walked - cached).max())
+        check(err <= 1e-6 and predict_margin.launches == pg.n_pages,
+              f"external memory: page-streamed margins err {err}, "
+              f"{predict_margin.launches} walks")
+        print(f"external memory: page-streamed predict of {ROWS} rows "
+              f"{t_walk * 1e3:.1f} ms ({pg.n_pages} walks), max abs err "
+              f"{err} against the cached training margins")
+        out.update(ingest_s=t_ingest, streaming_ingest_s=t_stream,
+                   disk_bytes=disk, pages=pages, levels=levels,
+                   page_walk_err=err, page_walk_s=t_walk,
+                   **{k: {x: v for x, v in r.items() if x != "bst"}
+                      for k, r in runs.items()})
+        pg.cleanup()
+        del dp, ds, whole, runs, bp, bs
+        # the 64k-row slice, paged on the card and on the CPU
+        trees = []
+        for dev in (DEVICE, torch.device("cpu")):
+            d = xgbt.ExternalMemoryQuantileDMatrix(
+                _BatchIter(Xtr[:CPU_ROWS], ytr[:CPU_ROWS], 2),
+                cache_prefix=os.path.join(tmp, f"small_{dev.type}"),
+                max_bin=DEFAULT_MAX_BIN, page_rows=EXT_CPU_PAGE_ROWS,
+                device=dev)
+            bst = xgbt.train(PARAMS_DEFAULT, d, CPU_ROUNDS,
+                             verbose_eval=False)
+            trees.append(bst.save_raw())
+            d._paged.cleanup()
+        check(trees[0] == trees[1],
+              "external memory: 64k paged card == CPU trees")
+        print(f"external memory: {CPU_ROWS} rows in pages of "
+              f"{EXT_CPU_PAGE_ROWS}, {CPU_ROUNDS} rounds: card == CPU trees")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3449,6 +3918,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide = phase_wide_bins()
     torch.cuda.empty_cache()
+    sparse = phase_sparse()
+    torch.cuda.empty_cache()
+    extmem = phase_external_memory(Xtr, ytr, Xte, yte)
+    torch.cuda.empty_cache()
     del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
@@ -3466,7 +3939,8 @@ def main() -> int:
         "lossguide": lossguide, "dart": dart, "random_forest": forest,
         "inert_keys": inert, "shap": shap, "gblinear": gblinear,
         "sklearn": sklearn, "approx": approx, "exact": exact,
-        "wide_bins": wide, "local_histmaker": local, "refresh": refresh}))
+        "wide_bins": wide, "local_histmaker": local, "refresh": refresh,
+        "sparse": sparse, "external_memory": extmem}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -3476,6 +3950,12 @@ def main() -> int:
     for k in (c256, d256, rank_lv["C"], rank_lv["D"]):
         k.pop("B"), k.pop("Fh")
     exact_a = {k: v for k, v in exact["levels_A"].items() if k != "levels"}
+    # the sparse and paged phases' launches, and kernel A per page (mean
+    # over the first tree's levels) beside its bound
+    sp_l, pg_l = sparse["csr"]["launches"], extmem["paged"]["launches"]
+    per_page = [{"rows": lv[0]["rows"], "ms": _mean(lv, "ms"),
+                 "bound_ms": _mean(lv, "bound_ms")}
+                for lv in zip(*extmem["levels"])]
     # the ranking path's kernels at F = 136: the level check's numbers
     # (kernel against plain, every level of one tree) beside the profiled
     # rounds' device time per level
@@ -3507,6 +3987,10 @@ def main() -> int:
              local_histmaker=dict(launches=local["launches"]["A"]),
              refresh=dict(launches=refresh["refresh_leaf_1"]["launches"][
                  "A"]),
+             sparse=dict(launches=sp_l["A"], levels_f968=[
+                 {k[2:]: v for k, v in lv.items() if k.startswith("A_")}
+                 for lv in sparse["levels"]]),
+             paged=dict(launches=pg_l["A"], per_page=per_page),
              **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
@@ -3524,7 +4008,8 @@ def main() -> int:
              approx=dict(launches=approx["launches"]["B"]),
              local_histmaker=dict(launches=local["launches"]["B"]),
              refresh=dict(launches=refresh["refresh_leaf_1"]["launches"][
-                 "B"]), **b),
+                 "B"]), sparse=dict(launches=sp_l["B"]),
+             paged=dict(launches=pg_l["B"]), **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:378",
@@ -3540,6 +4025,7 @@ def main() -> int:
                          per_round="one one-hot a round, the shape above"),
              exact=dict(launches_64k=exact["card_vs_cpu_launches"]["C"],
                         onehot_64k=exact["levels_64k"]["C"]),
+             sparse=dict(launches=sp_l["C"]), paged=dict(launches=pg_l["C"]),
              **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
@@ -3558,6 +4044,10 @@ def main() -> int:
              approx=dict(launches=approx["launches"]["D"]),
              exact=dict(launches_64k=exact["card_vs_cpu_launches"]["D"],
                         levels_64k=exact["levels_64k"]["D"]),
+             sparse=dict(launches=sp_l["D"], levels_f968=[
+                 {k[2:]: v for k, v in lv.items() if k.startswith("D_")}
+                 for lv in sparse["levels"]]),
+             paged=dict(launches=pg_l["D"]),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))

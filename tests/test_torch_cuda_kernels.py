@@ -50,6 +50,12 @@ and D at B = 7,175 with a partial hoist, a local histmaker tree, and 3
 rounds of ``approx``, ``exact`` and the local histmaker followed by a
 refresh, each the same bits on the card and the CPU.
 
+Sparse input and external memory (``-k "paged or csr"``): kernel A on
+every page of a paged matrix (unpacked on the card) at every level of a
+depth-6 tree, bitwise its plain version, the pages' histograms summing to
+the whole matrix's; paged trees equal to the streaming matrix's and to the
+CPU's; CSR ``inplace_predict`` and CSR training equal to dense.
+
 Categorical decision tables, ``[Kp, 5+B]`` (``-k categorical``): kernels A
 and D and both routing launches with wide tables whose nodes mix numerical
 and categorical splits, every bin id in some set and missing bins among
@@ -813,3 +819,118 @@ def test_method_trees_same_on_card_and_cpu(cuda, params):
         refreshed.append(upd.save_raw())
     assert raw[0] == raw[1]
     assert refreshed[0] == refreshed[1]
+
+
+def _paged_and_stream(dev, tmp_path, max_bin, n=150_000, F=12, pages=40_000):
+    """An external-memory matrix (pages of ``pages`` rows, the last
+    shorter) and a streaming matrix of the same 3 batches on ``dev``."""
+    import xgboost_tpu_torch as xgbt
+    from xgboost_tpu_torch.data.iterator import StreamingQuantileDMatrix
+
+    rng = np.random.RandomState(29)
+    X = rng.randn(n, F).astype(np.float32)
+    X[rng.rand(n, F) < 0.05] = np.nan
+    y = ((np.nan_to_num(X) @ rng.randn(F) + rng.randn(n)) > 0).astype(
+        np.float32)
+
+    class It(xgbt.DataIter):
+        def __init__(self):
+            super().__init__()
+            self.i = 0
+
+        def reset(self):
+            self.i = 0
+
+        def next(self, input_data):
+            if self.i >= 3:
+                return 0
+            sl = slice(self.i * n // 3, (self.i + 1) * n // 3)
+            input_data(data=X[sl], label=y[sl])
+            self.i += 1
+            return 1
+    paged = xgbt.ExternalMemoryQuantileDMatrix(
+        It(), cache_prefix=str(tmp_path / f"c{max_bin}"), max_bin=max_bin,
+        page_rows=pages, device=dev)
+    return paged, StreamingQuantileDMatrix(It(), max_bin=max_bin, device=dev)
+
+
+@pytest.mark.parametrize("max_bin", [64, 256])
+def test_paged_levels_equal_in_memory_levels(cuda, tmp_path, max_bin):
+    """At every level of a depth-6 tree, kernel A on each page (unpacked on
+    the card) equals its plain version bit for bit, and the pages' int64
+    histograms sum to kernel A's histogram of the whole matrix; then the
+    paged trees (3 rounds) equal the streaming matrix's on the card and the
+    paged trees on the CPU."""
+    import xgboost_tpu_torch as xgbt
+    from xgboost_tpu_torch.tree import grow as tgrow
+    from xgboost_tpu_torch.tree.grow_fused import (_init_state,
+                                                   _level_update)
+
+    paged, stream = _paged_and_stream(cuda, tmp_path, max_bin)
+    pg = paged._paged
+    whole = stream.get_binned(max_bin)
+    B = whole.cuts.max_bin
+    g = torch.as_tensor(np.random.RandomState(3).randn(pg.n_rows)
+                        .astype(np.float32), device=cuda)
+    gq = thk.quantize_gradients(g, torch.full_like(g, 0.25))
+    cfg = tgrow.GrowParams(max_depth=6)
+    st = _init_state(cfg, gq.totals(), B, pg.n_features)
+    pos = [torch.zeros((pg.rows_of(k), 1), dtype=torch.int32, device=cuda)
+           for k in range(pg.n_pages)]
+    pos_all = torch.zeros((pg.n_rows, 1), dtype=torch.int32, device=cuda)
+    for d in range(6):
+        K = 1 << d
+        hist = 0
+        for k in range(pg.n_pages):
+            lo = k * pg.page_rows
+            bins = pg.device_page(k, cuda)
+            assert torch.equal(bins, whole.bins[lo:lo + pg.rows_of(k)])
+            sub = thk.QuantizedGradients(q=gq.q[lo:lo + pg.rows_of(k)],
+                                         exp=gq.exp)
+            kw = dict(K=K, Kp=K >> 1, B=B, d=d)
+            p1, h1 = thk._fused_level_cuda(bins, pos[k], sub, st.ptab, **kw)
+            p2, h2 = thk._fused_level_plain(bins, pos[k], sub, st.ptab, **kw)
+            assert torch.equal(p1, p2) and torch.equal(h1, h2)
+            pos[k], hist = p1, hist + h1
+        pos_all, want = thk._fused_level_cuda(whole.bins, pos_all, gq,
+                                              st.ptab, K=K, Kp=K >> 1, B=B,
+                                              d=d)
+        assert torch.equal(hist, want)
+        assert torch.equal(torch.cat(pos), pos_all)
+        histC = gq.dequantize(hist, thk.level_lanes(K, cuda))
+        st = _level_update(st, histC, whole.cut_values, cfg, d)
+    p = {"objective": "binary:logistic", "max_depth": 6, "max_bin": max_bin}
+    raw = xgbt.train(p, paged, 3, verbose_eval=False).save_raw()
+    assert raw == xgbt.train(p, stream, 3, verbose_eval=False).save_raw()
+    (tmp_path / "cpu").mkdir()
+    cpu_paged, _ = _paged_and_stream("cpu", tmp_path / "cpu", max_bin)
+    assert raw == xgbt.train(p, cpu_paged, 3, verbose_eval=False).save_raw()
+
+
+def test_csr_inplace_predict_equals_dense_on_card(cuda):
+    """CSR ``inplace_predict`` (row blocks of 65,536 made dense on the host,
+    kernel B on each) equals the dense ``inplace_predict`` of the same rows
+    bit for bit, and a CSR matrix trained on the card grows the dense
+    matrix's trees without making its dense ``data``."""
+    import scipy.sparse as sp
+
+    import xgboost_tpu_torch as xgbt
+
+    rng = np.random.RandomState(31)
+    m = sp.random(140_000, 30, density=0.2, format="csr", random_state=rng,
+                  data_rvs=lambda k: rng.randn(k).astype(np.float32))
+    dense = np.full(m.shape, np.nan, np.float32)
+    c = m.tocoo()
+    dense[c.row, c.col] = c.data
+    y = (np.nan_to_num(dense) @ rng.randn(30) > 0).astype(np.float32)
+    p = {"objective": "binary:logistic", "max_depth": 6}
+    ds = xgbt.DMatrix(m, y, device=cuda)
+    bst = xgbt.train(p, ds, 4, verbose_eval=False)
+    assert ds._data is None
+    dd = xgbt.DMatrix(dense, y, device=cuda)
+    assert bst.save_raw() == xgbt.train(p, dd, 4,
+                                        verbose_eval=False).save_raw()
+    np.testing.assert_array_equal(bst.inplace_predict(m),
+                                  bst.inplace_predict(dense))
+    np.testing.assert_array_equal(bst.predict(ds), bst.predict(dd))
+    assert ds._data is None

@@ -36,7 +36,13 @@
   table and row-DP paths) of rows on a device and the linear booster's
   weights for every selector are computed there, with no host sync (the
   stub 'meta' device has no data to read back); an estimator built without
-  ``device=`` raises where there is no card.
+  ``device=`` raises where there is no card;
+- the sparse, adapter, sketch, streaming and external-memory modules
+  import neither ``jax`` nor ``xgboost_tpu``, and ``import
+  xgboost_tpu_torch`` loads neither ``pandas`` nor ``pyarrow``; a paged
+  tree on device tensors sends every page's level to kernel A's wrapper,
+  and CSR ``inplace_predict`` on a device sends each row block to kernel
+  B's.
 """
 
 import ast
@@ -357,7 +363,12 @@ def test_categorical_forest_takes_the_categorical_walk(stub_cuda,
                                     "xgboost_tpu_torch.sklearn",
                                     "xgboost_tpu_torch.config",
                                     "xgboost_tpu_torch.plotting",
-                                    "xgboost_tpu_torch.tree.grow_local"])
+                                    "xgboost_tpu_torch.tree.grow_local",
+                                    "xgboost_tpu_torch.data.sparse",
+                                    "xgboost_tpu_torch.data.adapters",
+                                    "xgboost_tpu_torch.data.sketch",
+                                    "xgboost_tpu_torch.data.iterator",
+                                    "xgboost_tpu_torch.data.external"])
 def test_training_surface_imports_no_jax(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     assert path in set((ROOT / "xgboost_tpu_torch").rglob("*.py"))
@@ -650,3 +661,93 @@ def test_estimators_default_to_cuda_and_raise_without_it(monkeypatch):
         xgbt.XGBRanker(n_estimators=1).fit(X, y, group=[8])
     est = xgbt.XGBClassifier(n_estimators=1, device="cpu").fit(X, y)
     assert est.get_booster().device.type == "cpu"
+
+
+def test_import_loads_no_pandas_or_pyarrow():
+    """The card's machine has neither: the adapters import them where a
+    frame or a table arrives."""
+    code = (
+        "import sys\n"
+        "import xgboost_tpu_torch\n"
+        "import xgboost_tpu_torch.data.adapters\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('pandas', 'pyarrow')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.fixture
+def cpu_paged(tmp_path):
+    """A paged matrix written on the CPU: 3 pages of at most 128 rows (the
+    last 44) of 5 features at max_bin 256 (int16, 9 bits a symbol)."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(300, 5).astype(np.float32)
+
+    class It(xgbt.DataIter):
+        def __init__(self):
+            super().__init__()
+            self.i = 0
+
+        def reset(self):
+            self.i = 0
+
+        def next(self, input_data):
+            if self.i:
+                return 0
+            input_data(data=X, label=X[:, 0] > 0)
+            self.i = 1
+            return 1
+    d = xgbt.ExternalMemoryQuantileDMatrix(
+        It(), cache_prefix=str(tmp_path / "c"), max_bin=256, page_rows=128,
+        device="cpu")
+    yield d._paged
+    d._paged.cleanup()
+
+
+@pytest.mark.parametrize("max_depth", [1, 3])
+def test_paged_levels_reach_the_level_kernel_page_by_page(stub_cuda, cpu_paged,
+                                                          max_depth):
+    """A paged tree on device tensors sends every page's level to kernel
+    A's wrapper (int16 bins of the page's rows, its feature-major copy),
+    ``max_depth`` x 3 launches in level-major order; the pages are unpacked
+    on the device and nothing comes back to the host."""
+    from xgboost_tpu_torch.tree import grow as tgrow
+    from xgboost_tpu_torch.tree import grow_fused as tgf
+
+    meta = dict(device="meta")
+    n, F, B = 300, 5, 256
+    g, h = torch.empty(n, **meta), torch.empty(n, **meta)
+    cuts = torch.empty((F, B), **meta)
+    before = thk.fused_level.launches
+    tree = tgf.grow_tree_fused_paged(cpu_paged, g, h, cuts, 0.3, 0.0,
+                                     tgrow.GrowParams(max_depth=max_depth))
+    assert thk.fused_level.launches == before + 3 * max_depth
+    assert [c[0] for c in stub_cuda.calls] == ["xgbt_fused_level"] * (
+        3 * max_depth)
+    # (bins, bin_bytes, n, F, B, pos, pos_out, q, ptab, W, Kp, prev_offset,
+    #  K, offset, ...)
+    for i, (_, args) in enumerate(stub_cuda.calls):
+        d, k = divmod(i, 3)
+        assert args[1:5] == (2, cpu_paged.rows_of(k), F, B)
+        assert args[12] == 1 << d
+    assert tree.delta.device.type == "meta" and tuple(tree.delta.shape) == (n,)
+    assert cpu_paged.io["prefetched"] > 0
+
+
+def test_csr_inplace_predict_reaches_the_walk_kernel(cpu_models, stub_cuda):
+    """CSR rows are made dense on the host a block of 65,536 rows at a time
+    and each block goes to kernel B's wrapper on the device."""
+    import scipy.sparse as sp
+
+    card, _ = _meta_case(cpu_models["mc"])
+    rows = sp.random(70_000, 4, density=0.5, format="csr", random_state=0,
+                     dtype=np.float32)
+    with pytest.raises(NotImplementedError, match="meta"):
+        card.inplace_predict(rows, predict_type="margin")  # no data to read
+    calls = stub_cuda.calls
+    assert [c[0] for c in calls] == ["xgbt_predict_margin"] * 2
+    # (X, n, F, ...)
+    assert [c[1][1:3] for c in calls] == [(65_536, 4), (4_464, 4)]

@@ -1,6 +1,11 @@
 """xgboost_tpu_torch: the PyTorch/CUDA port of ``xgboost_tpu``.
 
-Dense ``DMatrix`` construction (with query groups) and quantile binning,
+``DMatrix`` construction from numpy, torch, scipy sparse (kept sparse on
+the host), pandas, arrow, lists and libsvm / csv / binary files, with
+query groups; ``QuantileDMatrix`` (binned at construction, on a reference
+matrix's cuts where given), the ``DataIter`` protocol's streaming matrix
+and ``ExternalMemoryQuantileDMatrix`` (bins paged on disk, every level of
+training streaming the pages); quantile binning,
 the depthwise ``tpu_hist`` grower, the JAX package's objectives and
 metrics (the regression family, multiclass softmax with K trees per round,
 survival with censoring intervals, LambdaMART ranking and the ranking
@@ -20,7 +25,9 @@ tensors their plain PyTorch versions run.
 
 from . import callback
 from .config import config_context, get_config, set_config
-from .data.dmatrix import DMatrix
+from .data.dmatrix import DMatrix, QuantileDMatrix, load_row_split
+from .data.external import ExternalMemoryQuantileDMatrix
+from .data.iterator import DataIter
 from .data.quantile import HistogramCuts
 from .learner import Booster
 from .plotting import plot_importance, plot_tree, to_graphviz
@@ -29,7 +36,9 @@ from .training import cv, train
 
 __version__ = "0.1.0"
 
-__all__ = ["DMatrix", "Booster", "train", "cv", "callback", "HistogramCuts",
+__all__ = ["DMatrix", "QuantileDMatrix", "ExternalMemoryQuantileDMatrix",
+           "DataIter", "load_row_split", "Booster", "train", "cv",
+           "callback", "HistogramCuts",
            "forest_from_numpy", "config_context", "set_config", "get_config",
            "plot_importance", "plot_tree", "to_graphviz", "XGBModel",
            "XGBRegressor", "XGBClassifier", "XGBRanker", "XGBRFRegressor",

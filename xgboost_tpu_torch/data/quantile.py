@@ -17,7 +17,7 @@ row weights the sequential f32 sum runs on the host
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -261,4 +261,48 @@ class BinnedMatrix:
                                 categorical=cat)
         return cls(cuts=cuts, bins=bin_matrix(X, cuts),
                    cut_values=torch.as_tensor(cuts.values, device=X.device),
+                   categorical=cat, cat_counts=counts)
+
+    @classmethod
+    def from_sparse(cls, storage, max_bin: int = 256,
+                    weights: Optional[torch.Tensor] = None,
+                    cuts: Optional[HistogramCuts] = None,
+                    categorical: Optional[Sequence[int]] = None,
+                    col_block: int = 16,
+                    device: Union[str, torch.device] = "cpu"
+                    ) -> "BinnedMatrix":
+        """Quantize a ``CSRStorage`` without a dense float copy (the JAX
+        package's ``from_sparse``, ``data/quantile.py:640``): NaN-filled
+        column blocks of ``col_block`` features go to ``device`` and
+        through ``compute_cuts`` and ``bin_matrix``, each feature's cuts
+        and bins depending on its own column only, so both are bit for bit
+        the dense path's on the same values. ``weights`` ([n] on
+        ``device``) weight the sketch; None is unit weights (a vector of
+        ones would send the prefix sum to the host, ``_sequential_cdf``)."""
+        n, F = storage.shape
+        device = torch.device(device)
+        cat = tuple(categorical) if categorical else ()
+        blocks = [(f0, min(f0 + col_block, F)) for f0 in range(0, F, col_block)]
+
+        own = cuts is None
+        if own:
+            cuts = HistogramCuts(values=np.empty((F, max_bin), np.float32),
+                                 min_vals=np.empty((F,), np.float32))
+        bins = torch.empty((n, F), dtype=storage_dtype(cuts.max_bin),
+                           device=device)
+        for f0, f1 in blocks:
+            Xb = torch.as_tensor(storage.dense_cols(f0, f1), device=device)
+            if own:  # each feature's cuts read its own column only
+                c = compute_cuts(Xb, max_bin=max_bin, weights=weights,
+                                 categorical=[f - f0 for f in cat
+                                              if f0 <= f < f1])
+                cuts.values[f0:f1], cuts.min_vals[f0:f1] = c.values, c.min_vals
+            bins[:, f0:f1] = bin_matrix(Xb, HistogramCuts(
+                values=cuts.values[f0:f1], min_vals=cuts.min_vals[f0:f1]))
+        counts: Tuple[int, ...] = ()
+        if cat:
+            present = [v[~np.isnan(v)] for v in map(storage.column_values, cat)]
+            counts = tuple(int(v.max()) + 1 if v.size else 1 for v in present)
+        return cls(cuts=cuts, bins=bins,
+                   cut_values=torch.as_tensor(cuts.values, device=device),
                    categorical=cat, cat_counts=counts)

@@ -36,9 +36,10 @@ from ..config import warn
 from ..params import GBTreeParam, TrainParam
 from ..objective.base import segment_sum
 from ..predictor import (StackedForest, pack_cat_bits, predict_leaf,
-                         predict_margin, stack_forest, with_walk_tables)
+                         stack_forest, with_walk_tables)
 from ..tree.grow import GrowParams
-from ..tree.grow_fused import GrownTree, grow_tree_fused
+from ..tree.grow_fused import (GrownTree, grow_tree_fused,
+                               grow_tree_fused_paged)
 from ..tree.grow_local import grow_tree_local
 from ..tree.grow_lossguide import (AllocTree, finalize_alloc,
                                    grow_tree_lossguide)
@@ -502,8 +503,11 @@ class GBTree:
         Depthwise: where the hoist plan admits it, every level streams the
         matrix's resident one-hot (built at the first round; JAX
         ``gbtree.py:1421``); otherwise kernel A reads its resident
-        feature-major bins. Lossguide (``grow_tree_lossguide``): kernel A
-        builds every step's child histograms from the feature-major bins.
+        feature-major bins. A disk-paged matrix (``is_paged``) grows
+        through ``grow_tree_fused_paged``: kernel A on every page at every
+        level; lossguide and categorical features raise there, with the
+        JAX package's messages. Lossguide (``grow_tree_lossguide``): kernel
+        A builds every step's child histograms from the feature-major bins.
         Tree ``(k, p)`` samples under ``prng_key(round_seed_py(seed,
         iteration, k, p))`` (a key on the CPU: the draws themselves run on
         the bins' device), with ``feature_weights`` ([F]) weighting its
@@ -512,9 +516,21 @@ class GBTree:
         cfg, cat_mask = _cat_cfg(self._grow_params(), binned, tp)
         self.model.num_feature = binned.n_features
         lossguide = tp.grow_policy == "lossguide"
-        onehot = None if lossguide else binned.fused_onehot()
-        bins_t = (binned.feature_major() if onehot is None
-                  and binned.bins.device.type != "cpu" else None)
+        paged = getattr(binned, "is_paged", False)
+        if paged and lossguide:
+            raise NotImplementedError(
+                "external-memory matrices support depthwise numerical "
+                "training only (reference external memory has the same "
+                "hist-only restriction)")
+        if paged:  # no resident bins: the grower reads the pages
+            onehot = bins_t = None
+            cut_values = torch.as_tensor(binned.cuts.values,
+                                         device=grad.device)
+        else:
+            onehot = None if lossguide else binned.fused_onehot()
+            bins_t = (binned.feature_major() if onehot is None
+                      and binned.bins.device.type != "cpu" else None)
+            cut_values = binned.cut_values
         new_trees: List[Union[GrownTree, AllocTree]] = []
         if margin_cache is not None:
             # one copy per round (callers may hold the old cache); the
@@ -528,7 +544,7 @@ class GBTree:
                     round_seed_py(tp.seed, iteration, k, ptree))
                 if lossguide:
                     tree = grow_tree_lossguide(
-                        binned.bins, g, h, binned.cut_values, cfg,
+                        binned.bins, g, h, cut_values, cfg,
                         self._lossguide_max_leaves(), key=key,
                         feature_weights=feature_weights, bins_t=bins_t)
                     keep, leaf_value, delta = finalize_alloc(
@@ -537,10 +553,17 @@ class GBTree:
                                                 tp.eta, tp.gamma, k,
                                                 tp.max_depth, cat_mask)
                 else:
-                    tree = grow_tree_fused(
-                        binned.bins, g, h, binned.cut_values, float(tp.eta),
-                        float(tp.gamma), cfg, onehot=onehot, bins_t=bins_t,
-                        key=key, feature_weights=feature_weights)
+                    if paged:
+                        tree = grow_tree_fused_paged(
+                            binned, g, h, cut_values, float(tp.eta),
+                            float(tp.gamma), cfg, key=key,
+                            feature_weights=feature_weights)
+                    else:
+                        tree = grow_tree_fused(
+                            binned.bins, g, h, cut_values, float(tp.eta),
+                            float(tp.gamma), cfg, onehot=onehot,
+                            bins_t=bins_t, key=key,
+                            feature_weights=feature_weights)
                     self.model.add_device(tree, tp.eta, k, tp.max_depth,
                                           cat_mask)
                     delta = tree.delta
@@ -744,20 +767,19 @@ class Dart(GBTree):
         return torch.as_tensor(np.asarray(self.weight_drop, np.float32),
                                device=self.device)
 
-    def training_margin(self, X: torch.Tensor, base_margin: torch.Tensor
-                        ) -> torch.Tensor:
-        """This round's training margin: draw the drops, then walk the
-        whole forest (kernel B on the card) with the dropped trees'
-        weights at 0."""
+    def training_forest(self) -> Tuple[StackedForest,
+                                       Optional[torch.Tensor]]:
+        """This round's training walk: draw the drops, then the whole
+        forest and its tree weights with the dropped trees' at 0 (None:
+        no tree yet has a weight)."""
         self._drop_trees()
         tw = np.asarray(self.weight_drop, np.float32)
         forest = self.model.stacked()
         if not len(tw):
-            return predict_margin(forest, X, base_margin)
+            return forest, None
         tw = tw.copy()
         tw[self._idx_drop] = 0.0
-        return predict_margin(forest, X, base_margin,
-                              torch.as_tensor(tw, device=X.device))
+        return forest, torch.as_tensor(tw, device=self.device)
 
     def boost_one_round(self, binned, grad, hess, margin_cache,
                         iteration: int = 0, feature_weights=None):

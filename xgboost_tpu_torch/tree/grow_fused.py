@@ -36,11 +36,13 @@ from .. import threefry
 from .grow import (GrowParams, _sample_features_exact, apply_row_sampling,
                    child_bounds_and_weights, eval_splits, exact_k_subset,
                    interaction_allowed, n_sampled, seq_cumsum)
-from .hist_kernel import (QuantizedGradients, fused_level, leaf_delta,
+from .hist_kernel import (QuantizedGradients, feature_major, fused_level,
+                          fused_level_int, leaf_delta, level_lanes,
                           partition_apply, quantize_gradients)
 from .param import RT_EPS, calc_weight
 
-__all__ = ["GrownTree", "grow_tree_fused", "with_missing"]
+__all__ = ["GrownTree", "grow_tree_fused", "grow_tree_fused_paged",
+           "with_missing"]
 
 
 class GrownTree(NamedTuple):
@@ -359,4 +361,88 @@ def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
         node_g=st.node_g, node_h=st.node_h, node_weight=st.node_w,
         loss_chg=st.loss_chg, leaf_value=leaf_value,
         delta=leaf_delta(pos, leaf_value), cat_set=st.cat_set,
+    )
+
+
+def grow_tree_fused_paged(paged, grad: torch.Tensor, hess: torch.Tensor,
+                          cut_values: torch.Tensor, eta: float, gamma: float,
+                          cfg: GrowParams, key: Optional[torch.Tensor] = None,
+                          feature_weights: Optional[torch.Tensor] = None
+                          ) -> GrownTree:
+    """``grow_tree_fused`` over a disk-paged matrix (``data/external.py``
+    ``PagedBins``; the JAX package's ``grow_tree_fused_paged``,
+    ``tree/grow_fused.py:602``): every level reads every page, runs
+    ``fused_level`` on it (kernel A on the card: a page has no resident
+    one-hot) with the page's own positions, and sums the pages' int64
+    histograms before one ``_level_update``; after the loop each page is
+    routed to its leaves and the pages' deltas are concatenated.
+    ``grad``/``hess`` ([n]) and ``cut_values`` are on the device the pages
+    are read to. Each page samples its rows under ``fold_in(k_sub, k)``,
+    as in the JAX package; the gradients of all n rows are then quantised
+    once, so every page's cells share one scale and, without row sampling,
+    the tree is the in-memory tree of the same bins, bit for bit. The
+    next page is read in the background while a page is on the device.
+    Categorical features raise NotImplementedError."""
+    if cfg.has_categorical:
+        raise NotImplementedError(
+            "external-memory matrices support numerical training only "
+            "(reference external memory has the same restriction)")
+    dev = grad.device
+    B = cut_values.shape[1]
+    F, P = paged.n_features, paged.n_pages
+    max_depth = cfg.max_depth
+    k_sub, k_ctree, k_level = threefry.split(
+        threefry.prng_key(0) if key is None else key, 3)
+    lo = [k * paged.page_rows for k in range(P)]
+    rows = [paged.rows_of(k) for k in range(P)]
+    if cfg.subsample < 1.0:
+        parts = [apply_row_sampling(cfg, threefry.fold_in(k_sub, k),
+                                    grad[lo[k]:lo[k] + rows[k]],
+                                    hess[lo[k]:lo[k] + rows[k]])
+                 for k in range(P)]
+        grad = torch.cat([g for g, _ in parts])
+        hess = torch.cat([h for _, h in parts])
+    tree_mask = None
+    if cfg.colsample_bytree < 1.0:
+        tree_mask = _sample_features_exact(k_ctree, F, cfg.colsample_bytree,
+                                           feature_weights, device=dev)
+    gq = quantize_gradients(grad, hess)
+    gq_pages = [QuantizedGradients(q=gq.q[lo[k]:lo[k] + rows[k]], exp=gq.exp)
+                for k in range(P)]
+    st = _init_state(cfg, gq.totals(), B, F)
+    pos = [torch.zeros((rows[k], 1), dtype=torch.int32, device=dev)
+           for k in range(P)]
+
+    def page(k):
+        bins = paged.device_page(k, dev)
+        # the next reader is page k + 1, or page 0 of the next level, of
+        # the final pass or of the next tree
+        paged.start_prefetch(k + 1 if k + 1 < P else 0)
+        return bins
+
+    for d in range(max_depth):
+        K = 1 << d
+        hist = None
+        for k in range(P):
+            bins = page(k)
+            pos[k], hq = fused_level_int(
+                bins, pos[k], gq_pages[k], st.ptab, K=K, Kp=K >> 1, B=B, d=d,
+                bins_t=None if dev.type == "cpu" else feature_major(bins))
+            hist = hq if hist is None else hist + hq
+        histC = gq.dequantize(hist, level_lanes(K, dev))
+        st = _level_update(st, histC, cut_values, cfg, d, tree_mask, k_level)
+    keep, leaf_value = _finalize(st, eta, gamma, cfg)
+    deltas = []
+    for k in range(P):
+        if max_depth > 0:
+            pos[k] = partition_apply(page(k), pos[k], st.ptab,
+                                     Kp=1 << (max_depth - 1), B=B,
+                                     d=max_depth)
+        deltas.append(leaf_delta(pos[k], leaf_value))
+    return GrownTree(
+        keep=keep, feature=st.feature, split_bin=st.split_bin,
+        split_cond=st.split_cond, default_left=st.default_left,
+        node_g=st.node_g, node_h=st.node_h, node_weight=st.node_w,
+        loss_chg=st.loss_chg, leaf_value=leaf_value,
+        delta=torch.cat(deltas), cat_set=st.cat_set,
     )

@@ -46,7 +46,7 @@ import torch
 from .. import _build
 
 __all__ = ["QuantizedGradients", "quantize_gradients", "fused_level",
-           "feature_major",
+           "fused_level_int", "level_lanes", "feature_major",
            "hoisted_level", "build_onehot", "onehot_rows", "hoist_budget_bytes",
            "device_free_bytes", "hoist_plan", "can_hoist", "partition_apply",
            "leaf_delta"]
@@ -518,6 +518,30 @@ def hoisted_level(bins, onehot, pos, gq: QuantizedGradients, ptab, *, K: int,
 hoisted_level.launches = 0
 
 
+def fused_level_int(bins, pos, gq: QuantizedGradients, ptab, *, K: int,
+                    Kp: int, B: int, d: int,
+                    onehot: Optional[torch.Tensor] = None,
+                    bins_t: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_level`` before the scale: ``(new pos [n, 1] int32, hist
+    [F, 2K, B] int64)`` in the units of ``gq``. Histograms of row blocks
+    quantised with one shared scale (``QuantizedGradients`` sliced by rows)
+    add up exactly to the whole's."""
+    if onehot is not None:
+        return hoisted_level(bins, onehot, pos, gq, ptab, K=K, Kp=Kp, B=B,
+                             d=d)
+    if bins.device.type == "cpu":
+        return _fused_level_plain(bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d)
+    return _fused_level_cuda(bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d,
+                             bins_t=bins_t)
+
+
+def level_lanes(K: int, device) -> torch.Tensor:
+    """The lane of each of a level histogram's ``2K`` rows (g, then h),
+    shaped to broadcast over ``[F, 2K, B]``."""
+    return (torch.arange(2 * K, device=device) >= K).long()[None, :, None]
+
+
 def fused_level(bins, pos, gq: QuantizedGradients, ptab, *, K: int, Kp: int,
                 B: int, d: int, onehot: Optional[torch.Tensor] = None,
                 bins_t: Optional[torch.Tensor] = None
@@ -528,16 +552,9 @@ def fused_level(bins, pos, gq: QuantizedGradients, ptab, *, K: int, Kp: int,
     ``bins_t``, the bins' ``feature_major`` copy, made per call when not
     given), the plain version on a CPU tensor. ``fused_level.launches``
     counts kernel A's launches."""
-    if onehot is not None:
-        pos, hq = hoisted_level(bins, onehot, pos, gq, ptab, K=K, Kp=Kp, B=B,
-                                d=d)
-    elif bins.device.type == "cpu":
-        pos, hq = _fused_level_plain(bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d)
-    else:
-        pos, hq = _fused_level_cuda(bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d,
-                                    bins_t=bins_t)
-    lane = (torch.arange(2 * K, device=hq.device) >= K).long()
-    return pos, gq.dequantize(hq, lane[None, :, None])
+    pos, hq = fused_level_int(bins, pos, gq, ptab, K=K, Kp=Kp, B=B, d=d,
+                              onehot=onehot, bins_t=bins_t)
+    return pos, gq.dequantize(hq, level_lanes(K, hq.device))
 
 
 fused_level.launches = 0
