@@ -292,6 +292,35 @@ eta 0.1, AUC + logloss:
     histograms summing to the whole matrix's, timed per page beside its
     bound.
 
+Distributed training over ``torch.distributed`` (``phase_distributed``),
+last, on the main path's 1M x 50 training and 100k held-out rows at the
+reference-default parameters (max_bin 256, depth 6, eta 0.1, AUC and
+logloss), every rank a child process (``torch.multiprocessing``, spawn)
+that loads the kernels built above and trains inside ``mesh_context`` on
+its own rows, the level histograms all-reduced as int64:
+
+40. (1) world 2 over gloo on one card (staged through the host; not
+    NCCL) on ragged shards, 600k / 400k training and 60k / 40k held-out
+    rows, each rank binning through ``QuantileDMatrix(ref=)`` on the whole
+    matrix's cuts: 10 rounds, both ranks' model bytes equal to phase 6's
+    single-process model, per-round logloss within 1e-6 of it, AUC the
+    weighted mean of the ranks' own, launches per rank C 1, D 60, A 0, B
+    10, and 60 level all-reduces of the expected bytes; 3 rounds by the
+    construct route (``XGBTPU_HOIST_BUDGET_MB=0``): A 18 per rank, C and D
+    never, the hoisted run's first 3 trees; after each of those two runs
+    (outside the counted window), every rank grows one tree's levels on
+    its own rows and holds its route (D, then A) against the plain
+    version bit for bit at every level before the all-reduce
+    (``_dist_levels``); 10 rounds on the distributed
+    sketch (no shared cuts): both ranks' cuts the merge of the two shards'
+    summaries, held-out AUC rising and within 0.01 of the shared-cuts
+    run's; (2) world 1 over NCCL, 3 rounds: phase 6's first 3 trees, every
+    level's all-reduce an NCCL call on the card; (3) world 2 over NCCL
+    where there are two cards (else a ``{"distributed_nccl_world2": "not
+    run: 1 card"}`` line). Printed per rank: the median round, the
+    histogram all-reduce ms per level (host clock between device
+    synchronizations) and the bytes reduced per tree.
+
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; before that, one JSON line lists the kernels.
@@ -3835,6 +3864,273 @@ def phase_external_memory(Xtr, ytr, Xte, yte):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 40: distributed training over torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_TRAIN_CUT, DIST_EVAL_CUT = 600_000, 60_000
+DIST_LABEL = "gloo on one card, staged through the host; not NCCL"
+
+
+def _dist_levels(mesh, binned, label):
+    """One tree's levels over ``mesh`` as ``grow_tree_fused(group=)`` grows
+    them (gradients of round 0 at margin 0, the scale and the root totals
+    reduced over the ranks), on this rank's own rows: at every level the
+    route the synced plan picks (kernel D over the resident one-hot, or
+    kernel A over the feature-major bins) is held bit for bit against the
+    plain version on the same inputs, before its histogram is
+    all-reduced. Returns the route and each level's verdict."""
+    from xgboost_tpu_torch import collective
+
+    B, bins = DEFAULT_MAX_BIN, binned.bins
+    n, F = bins.shape
+    onehot = binned.fused_onehot(mesh)
+    bins_t = binned.feature_major() if onehot is None else None
+    g = torch.as_tensor(0.5 - label, device=DEVICE)
+    gq = hk.quantize_gradients(g, torch.full_like(g, 0.25), mesh)
+    cfg = GrowParams(max_depth=DEPTH)
+    st = _init_state(cfg, gq.totals(mesh), B, F)
+    pos = torch.zeros((n, 1), dtype=torch.int32, device=DEVICE)
+    same = []
+    for d in range(DEPTH):
+        K = 1 << d
+        kw = dict(K=K, Kp=K >> 1, B=B, d=d)
+        if onehot is not None:
+            pk, hq = hk._hoisted_level_cuda(bins, onehot, pos, gq, st.ptab,
+                                            **kw)
+        else:
+            pk, hq = hk._fused_level_cuda(bins, pos, gq, st.ptab,
+                                          bins_t=bins_t, **kw)
+        pp, hp = hk._fused_level_plain(bins, pos, gq, st.ptab, **kw)
+        same.append(bool(torch.equal(pk, pp) and torch.equal(hq, hp)))
+        del pp, hp
+        pos = pk
+        hq = collective.all_reduce(hq, mesh, site="level_check")
+        st = _level_update(st, gq.dequantize(hq, hk.level_lanes(K, DEVICE)),
+                           binned.cut_values, cfg, d)
+    route = "D" if onehot is not None else "A"
+    check(all(same), f"distributed rank {mesh.rank}: kernel {route} == "
+          f"plain at levels {same} on {n} x {F}")
+    return dict(route=route, levels_equal=same, rows=n,
+                hoisted=0 if onehot is None else onehot.shape[0] // B)
+
+
+def _dist_run(name, mesh, d, dv, rounds, out):
+    """``rounds`` rounds of the reference-default parameters over ``mesh``
+    with the held-out shard ``dv`` evaluated: the launches, per-round
+    times, the all-reduce counters and the model, written under ``out``."""
+    from xgboost_tpu_torch import collective
+    from xgboost_tpu_torch.parallel import mesh_context
+
+    reset_launches()
+    collective.reset_stats()
+    collective.timing = True
+    probe, res = _RoundProbe(), {}
+    with mesh_context(mesh):
+        bst = xgbt.train(PARAMS_DEFAULT, d, rounds, evals=[(dv, "test")],
+                         evals_result=res, verbose_eval=False,
+                         callbacks=[probe])
+    torch.cuda.synchronize()
+    collective.timing = False
+    got = launches()
+    stats = {k: list(v) for k, v in collective.stats.items()}
+    with mesh_context(mesh):
+        dist_auc = bst.eval_values([(dv, "test")])["test"]["auc"]
+    local_auc = bst.eval_values([(dv, "test")])["test"]["auc"]
+    binned = d.get_binned(DEFAULT_MAX_BIN)
+    onehot = binned.fused_onehot(mesh)
+    trees = heap_trees(bst, min(rounds, CPU_ROUNDS))
+    level_check = (_dist_levels(mesh, binned, d.get_label())
+                   if name in ("shared", "construct") else None)
+    rec = dict(launches=got, round_ms=probe.times, stats=stats,
+               level_check=level_check,
+               auc=res["test"]["auc"], logloss=res["test"]["logloss"],
+               dist_auc=dist_auc, local_auc=local_auc,
+               eval_rows=dv.num_row(), rows=d.num_row(),
+               hoisted=0 if onehot is None else onehot.shape[0] //
+               DEFAULT_MAX_BIN, cuts=binned.cuts.values.tolist(),
+               backend=mesh.backend, world=mesh.world_size)
+    with open(os.path.join(out, f"{name}_rank{mesh.rank}.pkl"), "wb") as f:
+        pickle.dump(dict(rec, raw=bst.save_raw(), trees=trees), f)
+
+
+def _dist_rank(rank, world, backend, init_file, out, modes):
+    """One rank of phase 40 (started by ``torch.multiprocessing`` with the
+    spawn method): the main path's data, this rank's rows, ``modes`` run in
+    order."""
+    from xgboost_tpu_torch.parallel import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_distributed(f"file://{init_file}", world, rank,
+                            backend=backend, device="cuda")
+    X, y, _ = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
+    Xtr, ytr, Xte, yte = X[:ROWS], y[:ROWS], X[ROWS:], y[ROWS:]
+    cut = DIST_TRAIN_CUT if world == 2 else ROWS
+    ecut = DIST_EVAL_CUT if world == 2 else EVAL_ROWS
+    lo, hi = (0, cut) if rank == 0 else (cut, ROWS)
+    vlo, vhi = (0, ecut) if rank == 0 else (ecut, EVAL_ROWS)
+    dv = xgbt.DMatrix(Xte[vlo:vhi], yte[vlo:vhi])
+    dall = xgbt.DMatrix(Xtr, ytr)  # the whole matrix's cuts, as the parent's
+    dall.get_binned(DEFAULT_MAX_BIN)
+
+    def shared():
+        return xgbt.QuantileDMatrix(Xtr[lo:hi], ytr[lo:hi],
+                                    max_bin=DEFAULT_MAX_BIN, ref=dall)
+
+    for mode in modes:
+        if mode == "shared":
+            _dist_run(mode, mesh, shared(), dv, ROUNDS, out)
+        elif mode == "construct":
+            os.environ["XGBTPU_HOIST_BUDGET_MB"] = "0"
+            _dist_run(mode, mesh, shared(), dv, CPU_ROUNDS, out)
+            del os.environ["XGBTPU_HOIST_BUDGET_MB"]
+        elif mode == "sketch":
+            _dist_run(mode, mesh, xgbt.DMatrix(Xtr[lo:hi], ytr[lo:hi]), dv,
+                      ROUNDS, out)
+        elif mode == "nccl1":
+            _dist_run(mode, mesh, shared(), dv, CPU_ROUNDS, out)
+        torch.cuda.empty_cache()
+    xgbt.collective.finalize()
+
+
+def _spawn_ranks(world, backend, modes, out):
+    """Run phase 40's ranks in child processes (spawn: CUDA is initialised
+    here); a rank that raises fails the phase. Returns {mode: [rank
+    records]}."""
+    import torch.multiprocessing as mp
+
+    init = os.path.join(out, f"pg_{backend}_{world}")
+    mp.start_processes(_dist_rank, args=(world, backend, init, out, modes),
+                       nprocs=world, join=True, start_method="spawn")
+    recs = {}
+    for mode in modes:
+        recs[mode] = []
+        for r in range(world):
+            with open(os.path.join(out, f"{mode}_rank{r}.pkl"), "rb") as f:
+                recs[mode].append(pickle.load(f))
+    return recs
+
+
+def _dist_summary(name, recs, label):
+    """Print and return a distributed run's per-rank numbers: median round,
+    the level histograms' all-reduce ms per level, bytes per tree."""
+    out = []
+    for r, rec in enumerate(recs):
+        st = rec["stats"]
+        calls, nbytes, secs = st.get("level_hist", [0, 0, 0.0])
+        trees = sum(1 for _ in rec["round_ms"])
+        per_tree = (nbytes + st["root_totals"][1] + st["grad_scale"][1]) \
+            / max(trees, 1)
+        row = dict(rank=r, rows=rec["rows"], hoisted=rec["hoisted"],
+                   level_check=rec["level_check"],
+                   median_round_ms=statistics.median(rec["round_ms"]),
+                   allreduce_ms_per_level=secs / max(calls, 1) * 1e3,
+                   allreduce_levels=calls, bytes_per_tree=per_tree,
+                   launches=rec["launches"], backend=rec["backend"])
+        print(f"{name} rank {r} ({label}): {rec['rows']} rows, hoisted "
+              f"{rec['hoisted']}/{COLS}, launches {rec['launches']}, median "
+              f"round {row['median_round_ms']:.1f} ms, histogram all_reduce "
+              f"{row['allreduce_ms_per_level']:.3f} ms/level over {calls} "
+              f"levels, {per_tree:.0f} bytes reduced per tree")
+        out.append(row)
+    return out
+
+
+def _expected_bytes_per_tree(F=COLS, B=DEFAULT_MAX_BIN, depth=DEPTH):
+    """Sum over levels of the int64 [F, 2K, B] histogram, plus the root
+    totals (2 int64) and the gradient scale (2 float32)."""
+    return sum(F * 2 * (1 << d) * B * 8 for d in range(depth)) + 16 + 8
+
+
+def phase_distributed(Xtr, raw256, logloss256, trees256):
+    """Phase 40: the main path's training over ``torch.distributed`` ranks
+    in child processes, each on its own rows, the level histograms
+    all-reduced: (1) world 2 over gloo on one card on ragged shards
+    (600k / 400k training, 60k / 40k held-out rows) with shared cuts,
+    then by the construct route, then on the distributed sketch; (2) world
+    1 over NCCL; (3) world 2 over NCCL where there are two cards."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="xgbt_dist_")
+    want_bytes = _expected_bytes_per_tree()
+    g2 = _spawn_ranks(2, "gloo", ("shared", "construct", "sketch"), out_dir)
+    sh, co, sk = g2["shared"], g2["construct"], g2["sketch"]
+    for r in range(2):
+        check(sh[r]["raw"] == raw256,
+              f"distributed rank {r}: model bytes == the single process's")
+        check(sh[r]["launches"] == {"A": 0, "B": ROUNDS, "C": 1,
+                                    "D": ROUNDS * DEPTH},
+              f"distributed rank {r}: launches {sh[r]['launches']}")
+        check(all(abs(a - b) <= 1e-6 + 1e-12 for a, b in
+                  zip(sh[r]["logloss"], logloss256)),
+              f"distributed rank {r}: logloss {sh[r]['logloss']} vs "
+              f"{logloss256}")
+        check(sh[r]["stats"]["level_hist"][0] == ROUNDS * DEPTH
+              and sh[r]["stats"]["level_hist"][1] ==
+              ROUNDS * (want_bytes - 24), "level all-reduces and bytes")
+        check(co[r]["launches"] == {"A": CPU_ROUNDS * DEPTH, "B": CPU_ROUNDS,
+                                    "C": 0, "D": 0},
+              f"distributed construct rank {r}: launches {co[r]['launches']}")
+        same_trees(co[r]["trees"], sh[r]["trees"],
+                   f"distributed construct rank {r}")
+    s, w = 0.0, 0.0
+    for rec in sh:
+        s += rec["local_auc"] * rec["eval_rows"]
+        w += rec["eval_rows"]
+    check(sh[0]["dist_auc"] == sh[1]["dist_auc"] == s / w,
+          "distributed AUC == the weighted mean of the ranks' own")
+    # the distributed sketch: the same cuts on both ranks, the merge of the
+    # two shards' summaries
+    from xgboost_tpu_torch.data.sketch import local_summary, merge_summaries
+
+    parts = [local_summary(torch.as_tensor(Xtr[lo:hi], device=DEVICE), None,
+                           DEFAULT_MAX_BIN)
+             for lo, hi in ((0, DIST_TRAIN_CUT), (DIST_TRAIN_CUT, ROWS))]
+    merged, _ = merge_summaries(*[torch.stack(p) for p in zip(*parts)],
+                                DEFAULT_MAX_BIN)
+    merged = merged.cpu().numpy()
+    del parts
+    check(sk[0]["cuts"] == sk[1]["cuts"], "distributed sketch: ranks' cuts")
+    check(np.array_equal(np.asarray(sk[0]["cuts"], np.float32), merged),
+          "distributed sketch: cuts == merge of the shards' summaries")
+    check(sk[0]["raw"] == sk[1]["raw"], "distributed sketch: ranks' models")
+    check(sk[0]["auc"][-1] > sk[0]["auc"][0]
+          and abs(sk[0]["auc"][-1] - sh[0]["auc"][-1]) <= 0.01,
+          f"distributed sketch AUC {sk[0]['auc']} vs {sh[0]['auc'][-1]}")
+    print(f"distributed world 2 ({DIST_LABEL}): models == single process, "
+          f"AUC {sh[0]['auc'][0]:.6f} -> {sh[0]['auc'][-1]:.6f} (weighted "
+          f"mean of {sh[0]['local_auc']:.6f} / {sh[1]['local_auc']:.6f}); "
+          f"distributed sketch AUC -> {sk[0]['auc'][-1]:.6f}; "
+          f"{want_bytes} bytes per tree expected")
+    rec = dict(label=DIST_LABEL, shared=_dist_summary(
+        "distributed", sh, DIST_LABEL),
+        construct=_dist_summary("distributed construct", co, DIST_LABEL),
+        sketch=_dist_summary("distributed sketch", sk, DIST_LABEL),
+        auc=sh[0]["auc"], sketch_auc=sk[0]["auc"],
+        dist_auc=sh[0]["dist_auc"],
+        local_auc=[r["local_auc"] for r in sh],
+        expected_bytes_per_tree=want_bytes)
+    n1 = _spawn_ranks(1, "nccl", ("nccl1",), out_dir)["nccl1"][0]
+    check(n1["backend"] == "nccl" and n1["world"] == 1, "NCCL world 1")
+    same_trees(n1["trees"], trees256, "NCCL world 1 vs single process")
+    check(n1["stats"]["level_hist"][0] == CPU_ROUNDS * DEPTH,
+          "NCCL world 1: every level all-reduced")
+    rec["nccl_world1"] = _dist_summary("distributed NCCL world 1", [n1],
+                                       "NCCL, one rank")[0]
+    if torch.cuda.device_count() >= 2:
+        n2 = _spawn_ranks(2, "nccl", ("shared",), out_dir)["shared"]
+        for r in range(2):
+            check(n2[r]["raw"] == raw256, f"NCCL world 2 rank {r} model")
+        rec["nccl_world2"] = _dist_summary("distributed NCCL world 2", n2,
+                                           "NCCL, one card per rank")
+    else:
+        print(json.dumps({"distributed_nccl_world2": "not run: 1 card"}))
+        rec["nccl_world2"] = "not run: 1 card"
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"distributed phase: {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3870,6 +4166,8 @@ def main() -> int:
         {"A": 0, "B": ROUNDS, "C": 1, "D": ROUNDS * DEPTH})
     check(0 < main256["hoisted_features"] < COLS,
           "max_bin 256 at 1M x 50: a partial hoist")
+    trees256 = heap_trees(bst256, CPU_ROUNDS)  # before the bytes materialize
+    raw256 = bst256.save_raw()
     refresh = phase_refresh(bst256, Xte, yte, w_gen)
     del bst256
     torch.cuda.empty_cache()
@@ -3922,6 +4220,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     extmem = phase_external_memory(Xtr, ytr, Xte, yte)
     torch.cuda.empty_cache()
+    distributed = phase_distributed(Xtr, raw256, main256["logloss"],
+                                    trees256)
     del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
@@ -3940,7 +4240,8 @@ def main() -> int:
         "inert_keys": inert, "shap": shap, "gblinear": gblinear,
         "sklearn": sklearn, "approx": approx, "exact": exact,
         "wide_bins": wide, "local_histmaker": local, "refresh": refresh,
-        "sparse": sparse, "external_memory": extmem}))
+        "sparse": sparse, "external_memory": extmem,
+        "distributed": distributed}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -3950,6 +4251,15 @@ def main() -> int:
     for k in (c256, d256, rank_lv["C"], rank_lv["D"]):
         k.pop("B"), k.pop("Fh")
     exact_a = {k: v for k, v in exact["levels_A"].items() if k != "levels"}
+
+    def dist_launches(k):
+        """Kernel ``k``'s launches per rank on phase 40's runs."""
+        return dict(
+            per_rank=[r["launches"][k] for r in distributed["shared"]],
+            construct_per_rank=[r["launches"][k]
+                                for r in distributed["construct"]],
+            sketch_per_rank=[r["launches"][k] for r in distributed["sketch"]],
+            nccl_world1=distributed["nccl_world1"]["launches"][k])
     # the sparse and paged phases' launches, and kernel A per page (mean
     # over the first tree's levels) beside its bound
     sp_l, pg_l = sparse["csr"]["launches"], extmem["paged"]["launches"]
@@ -3991,6 +4301,7 @@ def main() -> int:
                  {k[2:]: v for k, v in lv.items() if k.startswith("A_")}
                  for lv in sparse["levels"]]),
              paged=dict(launches=pg_l["A"], per_page=per_page),
+             distributed=dist_launches("A"),
              **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
@@ -4009,7 +4320,8 @@ def main() -> int:
              local_histmaker=dict(launches=local["launches"]["B"]),
              refresh=dict(launches=refresh["refresh_leaf_1"]["launches"][
                  "B"]), sparse=dict(launches=sp_l["B"]),
-             paged=dict(launches=pg_l["B"]), **b),
+             paged=dict(launches=pg_l["B"]),
+             distributed=dist_launches("B"), **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:378",
@@ -4026,6 +4338,7 @@ def main() -> int:
              exact=dict(launches_64k=exact["card_vs_cpu_launches"]["C"],
                         onehot_64k=exact["levels_64k"]["C"]),
              sparse=dict(launches=sp_l["C"]), paged=dict(launches=pg_l["C"]),
+             distributed=dist_launches("C"),
              **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
@@ -4048,6 +4361,7 @@ def main() -> int:
                  {k[2:]: v for k, v in lv.items() if k.startswith("D_")}
                  for lv in sparse["levels"]]),
              paged=dict(launches=pg_l["D"]),
+             distributed=dist_launches("D"),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))

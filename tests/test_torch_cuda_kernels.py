@@ -56,6 +56,11 @@ depth-6 tree, bitwise its plain version, the pages' histograms summing to
 the whole matrix's; paged trees equal to the streaming matrix's and to the
 CPU's; CSR ``inplace_predict`` and CSR training equal to dense.
 
+Distributed training (``-k distributed``): two ranks over gloo on the
+card and two on the CPU, 3 rounds at 64k rows in ragged shards on shared
+cuts, give the same model bytes and trees (the workers are
+``tests/test_torch_distributed.py``'s).
+
 Categorical decision tables, ``[Kp, 5+B]`` (``-k categorical``): kernels A
 and D and both routing launches with wide tables whose nodes mix numerical
 and categorical splits, every bin id in some set and missing bins among
@@ -934,3 +939,21 @@ def test_csr_inplace_predict_equals_dense_on_card(cuda):
                                   bst.inplace_predict(dense))
     np.testing.assert_array_equal(bst.predict(ds), bst.predict(dd))
     assert ds._data is None
+
+
+def test_distributed_gloo_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """Two ranks over gloo on the card (both on one card: gloo stages the
+    int64 histograms through the host) and two ranks on the CPU, 3 rounds
+    at 64k rows in ragged shards on shared cuts: the same model bytes on
+    all four ranks and the same trees."""
+    from test_torch_distributed import spawn
+
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    card = spawn(tmp_path / "card", 2, "cuda", timeout=600, mode="card")
+    cpu = spawn(tmp_path / "cpu", 2, "cpu", timeout=600, mode="card")
+    raws = [r["raw"] for r in card + cpu]
+    assert raws.count(raws[0]) == 4
+    for a, b in zip(card[0]["trees"], cpu[0]["trees"]):
+        for f in a:
+            np.testing.assert_array_equal(a[f], b[f], f)

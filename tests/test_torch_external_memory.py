@@ -11,10 +11,9 @@ levels rounded as XLA computes them, ``sketch._levels``);
 ``StreamingQuantileDMatrix`` cuts, bins and reconstructed ``data``;
 ``pack_symbols`` bytes; a cache the JAX package wrote, read by the port's
 ``PagedBins`` (host and device unpack); ``float_page``. With batch
-weights the JAX package's float32 ``jnp.cumsum`` may round its partial
-sums in another order than the port's float64 sum: the cuts there are
-held within one float32 ulp of each cut's magnitude (measured: equal at
-these seeds).
+weights the partial sums are inexact in float32; the port sums them in
+the association of XLA:CPU's ``jnp.cumsum``, so those cuts are equal
+too (and so within one float32 ulp of each cut's magnitude).
 Within the port, bit for bit: a paged tree equals the streaming matrix's
 tree on the same bins (without row sampling), page by page or whole.
 Within a stated tolerance of the JAX package (structure and split
@@ -139,6 +138,7 @@ def test_summary_sketch_weighted_within_an_ulp(max_bin):
     jc = np.asarray(jc)
     np.testing.assert_array_less(np.abs(tc.numpy() - jc),
                                  np.spacing(np.abs(jc)) + 1e-30)
+    np.testing.assert_array_equal(tc.numpy(), jc)
 
 
 def test_streaming_matrix_matches_jax_bitwise():

@@ -42,7 +42,13 @@
   xgboost_tpu_torch`` loads neither ``pandas`` nor ``pyarrow``; a paged
   tree on device tensors sends every page's level to kernel A's wrapper,
   and CSR ``inplace_predict`` on a device sends each row block to kernel
-  B's.
+  B's;
+- ``collective.py`` and ``parallel/*`` import neither ``jax`` nor
+  ``xgboost_tpu``; ``init_distributed`` without ``device="cpu"`` raises
+  where there is no card, before any rendezvous; under a row group a
+  tree's level histograms reach kernel A's or D's wrapper and the tensors
+  handed to ``torch.distributed.all_reduce`` are on that device (the int64
+  histograms among them), never CPU copies.
 """
 
 import ast
@@ -751,3 +757,88 @@ def test_csr_inplace_predict_reaches_the_walk_kernel(cpu_models, stub_cuda):
     assert [c[0] for c in calls] == ["xgbt_predict_margin"] * 2
     # (X, n, F, ...)
     assert [c[1][1:3] for c in calls] == [(65_536, 4), (4_464, 4)]
+
+
+# ---------------------------------------------------------------------------
+# distributed training (collective.py, parallel/*)
+# ---------------------------------------------------------------------------
+
+DIST_MODULES = ("xgboost_tpu_torch.collective", "xgboost_tpu_torch.parallel",
+                "xgboost_tpu_torch.parallel.mesh",
+                "xgboost_tpu_torch.parallel.grow",
+                "xgboost_tpu_torch.parallel.sketch")
+
+
+def test_distributed_modules_import_no_jax():
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in DIST_MODULES) +
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'xgboost_tpu')]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+
+
+def test_init_distributed_without_a_card_raises(monkeypatch, tmp_path):
+    """Without ``device="cpu"`` and without a card, ``init_distributed``
+    raises before any rendezvous (a world of two would otherwise wait for
+    its second rank)."""
+    import torch.distributed as dist
+
+    from xgboost_tpu_torch.parallel import init_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed(f"file://{tmp_path}/pg", 2, 0)
+    with pytest.raises(RuntimeError, match="is_available"):
+        init_distributed(f"file://{tmp_path}/pg", 2, 0, device="cuda")
+    with pytest.raises(NotImplementedError, match="elastic"):
+        init_distributed(f"file://{tmp_path}/pg", 2, 0, elastic=True)
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("route", ["construct", "hoisted"])
+def test_group_histograms_reach_the_kernels_and_reduce_on_the_device(
+        stub_cuda, monkeypatch, route):
+    """Under a row group, a tree on device tensors sends every level to
+    kernel A's (construct) or kernel D's (hoisted) wrapper, and what goes
+    to ``torch.distributed.all_reduce`` is on that device: the gradient
+    scale (float32 [2], MAX), the root totals (int64 [2], SUM) and each
+    level's int64 ``[F, 2K, B]`` histogram (SUM), never a CPU copy."""
+    import torch.distributed as dist
+
+    from xgboost_tpu_torch.parallel import RowGroup
+    from xgboost_tpu_torch.tree import grow as tgrow
+    from xgboost_tpu_torch.tree import grow_fused as tgf
+
+    seen = []
+
+    def spy(t, op=None, group=None):
+        seen.append((t.device.type, t.dtype, tuple(t.shape), op, group))
+
+    monkeypatch.setattr(dist, "all_reduce", spy)
+    group = RowGroup(group="device group", host_group="host group", rank=0,
+                     world_size=2, device=torch.device("meta"),
+                     backend="gloo")
+    meta = dict(device="meta")
+    n, F, B, depth = 300, 5, 16, 3
+    onehot = (torch.empty((F * B, thk.onehot_rows(n)), dtype=torch.int8,
+                          **meta) if route == "hoisted" else None)
+    tree = tgf.grow_tree_fused(
+        torch.empty((n, F), dtype=torch.uint8, **meta),
+        torch.empty(n, **meta), torch.empty(n, **meta),
+        torch.empty((F, B), **meta), 0.3, 0.0,
+        tgrow.GrowParams(max_depth=depth), onehot=onehot, group=group)
+    kernel = "xgbt_fused_level" if route == "construct" \
+        else "xgbt_hoisted_level"
+    assert [c[0] for c in stub_cuda.calls] == [kernel] * depth
+    assert seen[0] == ("meta", torch.float32, (2,), dist.ReduceOp.MAX,
+                       "device group")
+    assert seen[1] == ("meta", torch.int64, (2,), dist.ReduceOp.SUM,
+                       "device group")
+    assert seen[2:] == [("meta", torch.int64, (F, 2 << d, B),
+                         dist.ReduceOp.SUM, "device group")
+                        for d in range(depth)]
+    assert tree.delta.device.type == "meta"

@@ -17,13 +17,18 @@ included), slicing, copies, pickling, attributes, configuration and model
 inspection (dumps, importance); the linear booster (``booster="gblinear"``),
 the scikit-learn estimators (imported at first use), ``set_config`` /
 ``config_context`` and the plots. Entry points run on the CUDA card unless
-the caller passes ``device="cpu"``. The four kernels of the path (the
+the caller passes ``device="cpu"``. Distributed training over
+``torch.distributed`` (``parallel``: ``init_distributed``, ``make_mesh``,
+``mesh_context``; one rank per device, each on its own rows, the level
+histograms all-reduced) and the rabit shim (``collective``, alias
+``rabit``). The four kernels of the path (the
 construct and hoisted level histograms, the one-hot build and the forest
 walk) are hand-written CUDA (``csrc/``), built at first use; on CPU
 tensors their plain PyTorch versions run.
 """
 
-from . import callback
+from . import callback, collective, parallel
+from . import collective as rabit  # noqa: F401  (legacy alias)
 from .config import config_context, get_config, set_config
 from .data.dmatrix import DMatrix, QuantileDMatrix, load_row_split
 from .data.external import ExternalMemoryQuantileDMatrix
@@ -38,7 +43,7 @@ __version__ = "0.1.0"
 
 __all__ = ["DMatrix", "QuantileDMatrix", "ExternalMemoryQuantileDMatrix",
            "DataIter", "load_row_split", "Booster", "train", "cv",
-           "callback", "HistogramCuts",
+           "callback", "collective", "rabit", "parallel", "HistogramCuts",
            "forest_from_numpy", "config_context", "set_config", "get_config",
            "plot_importance", "plot_tree", "to_graphviz", "XGBModel",
            "XGBRegressor", "XGBClassifier", "XGBRanker", "XGBRFRegressor",

@@ -29,7 +29,8 @@ import torch
 
 from .._device import resolve_device
 from .adapters import dispatch_data
-from .quantile import BinnedMatrix, HistogramCuts, compute_exact_cuts
+from .quantile import (BinnedMatrix, HistogramCuts, apply_categorical_identity,
+                       compute_exact_cuts)
 from .sparse import CSRStorage
 
 __all__ = ["DMatrix", "QuantileDMatrix", "QueryGroups", "load_row_split"]
@@ -461,7 +462,13 @@ class DMatrix:
         the matrix's device; default the row weights). With weights, or
         more than 2^24 rows, the sketch's prefix sum runs on the host even
         for a CUDA matrix (see ``compute_cuts``). Categorical features are
-        checked (``_validate_categorical``) and get identity cuts."""
+        checked (``_validate_categorical``) and get identity cuts. Under an
+        active row group of several ranks (``parallel.collective_active``)
+        the cuts come from the distributed sketch over every rank's rows
+        (``parallel/sketch.py``), a CSR matrix made dense on its device
+        first (the JAX package's ``build_binned`` under a mesh)."""
+        from ..parallel.mesh import collective_active, current_mesh
+
         n = self.num_row()
         w = self.weight if sketch_weights is None else sketch_weights
         if w is not None and w.numel() not in (0, n):
@@ -470,6 +477,17 @@ class DMatrix:
         cat = self.categorical_features()
         if cat:
             self._validate_categorical(cat, max_bin)
+        if collective_active():
+            from ..parallel.sketch import distributed_compute_cuts
+
+            X = self.data
+            cuts = distributed_compute_cuts(
+                current_mesh(), X, max_bin,
+                w if w is not None and w.numel() else None)
+            if cat:
+                apply_categorical_identity(cuts.values, cuts.min_vals, cat)
+            return BinnedMatrix.from_dense(X, max_bin=max_bin, cuts=cuts,
+                                           categorical=cat)
         if self._csr_only():
             return BinnedMatrix.from_sparse(self._sparse, max_bin=max_bin,
                                             weights=w, categorical=cat,
@@ -485,6 +503,13 @@ class DMatrix:
         are int16 up to 32,766 (``storage_dtype``)."""
         bm = self._binned.get("exact")
         if bm is None:
+            from ..parallel.mesh import collective_active
+
+            if collective_active():
+                raise NotImplementedError(
+                    "tree_method='exact' is single-process only (each "
+                    "process sees only its row shard, so globally exact "
+                    "cuts cannot be built); use tpu_hist")
             cat = self.categorical_features()
             cuts = compute_exact_cuts(self.data, cap=cap, categorical=cat)
             if cat:
@@ -530,7 +555,10 @@ class QuantileDMatrix(DMatrix):
     JAX package's): its own sketch at ``max_bin``, or, with ``ref``, the
     cuts and categorical features of ``ref``'s first binned matrix, so a
     validation set shares the training matrix's bin edges. CSR input is
-    binned from column blocks and stays sparse."""
+    binned from column blocks and stays sparse. Without ``ref``, under an
+    active row group of several ranks, the cuts come from the distributed
+    sketch (``build_binned``); with ``ref``, every rank bins against
+    ``ref``'s cuts."""
 
     def __init__(self, data: Any, label: Any = None, *, max_bin: int = 256,
                  ref: Optional[DMatrix] = None, **kwargs: Any) -> None:
@@ -543,7 +571,11 @@ class QuantileDMatrix(DMatrix):
             cuts = ref_bm.cuts
             if not cat:
                 cat = list(ref_bm.categorical)
-        if self._csr_only():
+        from ..parallel.mesh import collective_active
+
+        if cuts is None and collective_active():
+            bm = self.build_binned(max_bin)
+        elif self._csr_only():
             bm = BinnedMatrix.from_sparse(
                 self._sparse, max_bin=max_bin, weights=self.weight,
                 cuts=cuts, categorical=cat, device=self.device)

@@ -17,13 +17,14 @@ row weights the sequential f32 sum runs on the host
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..tree.hist_kernel import (build_onehot, feature_major, hoist_plan,
-                                onehot_rows)
+                                hoist_plan_synced, onehot_rows)
 
 __all__ = ["HistogramCuts", "compute_cuts", "compute_exact_cuts",
            "bin_matrix", "storage_dtype", "BinnedMatrix",
@@ -51,6 +52,13 @@ class HistogramCuts:
     @property
     def max_bin(self) -> int:
         return int(self.values.shape[1])
+
+    def digest(self) -> int:
+        """A signed 64-bit hash of the thresholds and minima, by which ranks
+        check that they bin against the same cuts."""
+        h = hashlib.blake2b(self.values.tobytes(), digest_size=8)
+        h.update(self.min_vals.tobytes())
+        return int.from_bytes(h.digest(), "little", signed=True)
 
 
 def apply_categorical_identity(values: np.ndarray, min_vals: np.ndarray,
@@ -208,6 +216,7 @@ class BinnedMatrix:
     # to (None until fused_onehot first runs)
     _onehot: Optional[torch.Tensor] = None
     _hoist_fh: Optional[int] = None
+    _hoist_group: Optional[int] = None  # id() of the plan's row group
     # the construct route's feature-major bins (None until first asked for)
     _bins_t: Optional[torch.Tensor] = None
 
@@ -215,7 +224,7 @@ class BinnedMatrix:
     def n_features(self) -> int:
         return int(self.bins.shape[1])
 
-    def fused_onehot(self) -> Optional[torch.Tensor]:
+    def fused_onehot(self, group=None) -> Optional[torch.Tensor]:
         """The resident ``[Fh*B, n_pad]`` int8 one-hot of the first ``Fh``
         features for the hoisted level route, or None when the plan is 0
         (always on the CPU; ``tree/hist_kernel.py:hoist_plan``). Built once
@@ -223,15 +232,24 @@ class BinnedMatrix:
         the expansion is training-invariant, so every level of every tree
         streams the same array. The plan is frozen at the first call, so the
         resident one-hot itself never shrinks a later plan (the JAX
-        package's ``fused_onehot``, ``data/quantile.py:454``). A failed build
-        raises: there is no degrade to the construct route."""
-        if self._hoist_fh is None:
+        package's ``fused_onehot``, ``data/quantile.py:454``). Under a row
+        ``group`` the plan is the one agreed over its ranks
+        (``hoist_plan_synced``; the JAX package's ``fused_onehot_mesh``),
+        made once per (matrix, group); the same gather checks that every
+        rank's cuts are these, and raises ValueError where they differ (a
+        matrix binned on its own rank's rows, outside ``mesh_context``). A failed build raises: there is no
+        degrade to the construct route."""
+        key = None if group is None else id(group)
+        if self._hoist_fh is None or self._hoist_group != key:
             n, F = self.bins.shape
             B = self.cuts.max_bin
-            fh = hoist_plan(onehot_rows(n), F, B, self.bins.device)
-            if fh:
-                self._onehot = build_onehot(self.bins, B=B, Fh=fh)
-            self._hoist_fh = fh
+            fh = hoist_plan_synced(hoist_plan(onehot_rows(n), F, B,
+                                              self.bins.device), group,
+                                   cuts_digest=self.cuts.digest())
+            if fh != self._hoist_fh:
+                self._onehot = (build_onehot(self.bins, B=B, Fh=fh) if fh
+                                else None)
+            self._hoist_fh, self._hoist_group = fh, key
         return self._onehot
 
     def feature_major(self) -> torch.Tensor:

@@ -6,13 +6,14 @@ AllReduce``, quantile.cc:270), without the mesh: the streaming and
 external-memory matrices (``iterator.py``, ``external.py``) summarize each
 batch into ``S = OVERSAMPLE * max_bin`` weighted points per feature and
 merge the batches' summaries into the cuts, as the JAX package merges
-shards. The distributed sketch itself is not ported.
+shards; ``parallel/sketch.py`` merges the ranks' summaries the same way.
 
-The prefix sums run in float64 and are rounded to float32 once. Where
-every partial sum is exact in float32 (unit weights: integer counts, and
-multiples of ``total / S``, dyadic for a power-of-two ``max_bin``, while
-the numerators stay below 2^24), that is the JAX package's ``jnp.cumsum``
-in any association, so the cuts match it bit for bit.
+The prefix sums are float32 sums in the association of the JAX
+package's ``jnp.cumsum`` as XLA:CPU runs it (its reduce-window rewrite):
+sequential within blocks of 16, the blocks' totals scanned the same way
+recursively, and each block's exclusive prefix added once. So the cuts
+match the JAX package bit for bit with any weights, not only where every
+partial sum is exact in float32.
 """
 
 from __future__ import annotations
@@ -29,8 +30,34 @@ OVERSAMPLE = 8
 _FLT_MAX = float(np.finfo(np.float32).max)
 
 
+#: the block length of XLA:CPU's cumulative-sum rewrite
+_SCAN_BLOCK = 16
+
+
+def _sequential(x: torch.Tensor) -> torch.Tensor:
+    """Left-to-right float32 prefix sums along the last dim (torch's own
+    cumsum accumulates in double on the CPU and in parallel on the
+    card)."""
+    cols = [x[..., 0]]
+    for i in range(1, x.shape[-1]):
+        cols.append(cols[-1] + x[..., i])
+    return torch.stack(cols, dim=-1)
+
+
 def _cdf(sw: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(sw.double(), dim=1).float()
+    """[F, n] float32 prefix sums along dim 1, associated as XLA:CPU
+    associates ``jnp.cumsum`` (see the module docstring)."""
+    sw = sw.to(torch.float32)
+    F, n = sw.shape
+    if n <= _SCAN_BLOCK:
+        return _sequential(sw) if n else sw
+    blocks = torch.nn.functional.pad(sw, (0, -n % _SCAN_BLOCK)).reshape(
+        F, -1, _SCAN_BLOCK)
+    inner = _sequential(blocks)
+    prefix = _cdf(inner[:, :, -1])
+    before = torch.cat([torch.zeros_like(prefix[:, :1]), prefix[:, :-1]],
+                       dim=1)
+    return (inner + before[:, :, None]).reshape(F, -1)[:, :n]
 
 
 def _per(total: torch.Tensor, div: int) -> torch.Tensor:
@@ -44,10 +71,11 @@ def _per(total: torch.Tensor, div: int) -> torch.Tensor:
 
 def _levels(count: int, div: int, total: torch.Tensor) -> torch.Tensor:
     """``arange(1, count+1) / div * total`` in float32 as XLA computes it:
-    the division folded into the reciprocal and the product reassociated,
-    ``k * (total * (1/div))``."""
+    the division folded into a product with the float32 reciprocal,
+    ``(k * (1/div)) * total``."""
     k = torch.arange(1, count + 1, dtype=torch.float32, device=total.device)
-    return k * _per(total, div)
+    return (k * torch.tensor(1.0 / div, dtype=torch.float32,
+                             device=total.device)) * total
 
 
 def local_summary(X: torch.Tensor, weights: Optional[torch.Tensor],

@@ -20,7 +20,9 @@ pick the matrix a round grows on (the learner reads ``needs_exact_cuts``,
 the exact candidate set, a matrix sketched anew from each round's
 hessians, or per-node cuts from the raw rows (``local_boost_one_round``);
 ``process_type="update"`` re-stats the existing trees instead
-(``refresh_one_round``).
+(``refresh_one_round``). Under a row group (``parallel.RowGroup``) a round
+grows each depthwise tree over this rank's rows with its histograms
+all-reduced (``grow_tree_fused(group=)``); everything else raises there.
 """
 
 from __future__ import annotations
@@ -46,7 +48,14 @@ from ..tree.grow_lossguide import (AllocTree, finalize_alloc,
 from ..tree.model import RegTree
 from ..tree.param import SplitParams, calc_gain, calc_weight
 
-__all__ = ["GBTreeModel", "GBTree", "Dart"]
+__all__ = ["GBTreeModel", "GBTree", "Dart", "GROUP_ENVELOPE"]
+
+#: why a configuration cannot train under a row group (the JAX package's
+#: envelope message, ``learner.py:270``)
+GROUP_ENVELOPE = (
+    "this configuration is outside the multi-process scan envelope "
+    "(ranking/survival/DART/lossguide/categorical/external-memory/custom "
+    "objectives are single-process); see docs/distributed.md")
 
 
 class _PendingTree:
@@ -492,7 +501,8 @@ class GBTree:
     def boost_one_round(self, binned, grad: torch.Tensor, hess: torch.Tensor,
                         margin_cache: Optional[torch.Tensor],
                         iteration: int = 0,
-                        feature_weights: Optional[torch.Tensor] = None
+                        feature_weights: Optional[torch.Tensor] = None,
+                        group=None
                         ) -> Tuple[List[Union[GrownTree, AllocTree]],
                                    Optional[torch.Tensor]]:
         """One round: ``num_parallel_tree`` trees per output group (group
@@ -511,12 +521,25 @@ class GBTree:
         Tree ``(k, p)`` samples under ``prng_key(round_seed_py(seed,
         iteration, k, p))`` (a key on the CPU: the draws themselves run on
         the bins' device), with ``feature_weights`` ([F]) weighting its
-        column sample."""
+        column sample. Under a row ``group`` each tree grows over this
+        rank's rows through ``grow_tree_fused(group=)``, on the one-hot
+        of the plan agreed over the group; lossguide, categorical features,
+        a paged matrix and ``num_parallel_tree > 1`` raise
+        NotImplementedError there."""
         tp = self.train_param
         cfg, cat_mask = _cat_cfg(self._grow_params(), binned, tp)
         self.model.num_feature = binned.n_features
         lossguide = tp.grow_policy == "lossguide"
         paged = getattr(binned, "is_paged", False)
+        if group is not None:
+            if paged:
+                raise NotImplementedError(
+                    "external-memory + mesh training is not supported yet; "
+                    "shard rows across processes instead "
+                    "(docs/distributed.md)")
+            if (lossguide or cfg.has_categorical
+                    or self.gbtree_param.num_parallel_tree > 1):
+                raise NotImplementedError(GROUP_ENVELOPE)
         if paged and lossguide:
             raise NotImplementedError(
                 "external-memory matrices support depthwise numerical "
@@ -527,7 +550,7 @@ class GBTree:
             cut_values = torch.as_tensor(binned.cuts.values,
                                          device=grad.device)
         else:
-            onehot = None if lossguide else binned.fused_onehot()
+            onehot = None if lossguide else binned.fused_onehot(group)
             bins_t = (binned.feature_major() if onehot is None
                       and binned.bins.device.type != "cpu" else None)
             cut_values = binned.cut_values
@@ -563,7 +586,7 @@ class GBTree:
                             binned.bins, g, h, cut_values, float(tp.eta),
                             float(tp.gamma), cfg, onehot=onehot,
                             bins_t=bins_t, key=key,
-                            feature_weights=feature_weights)
+                            feature_weights=feature_weights, group=group)
                     self.model.add_device(tree, tp.eta, k, tp.max_depth,
                                           cat_mask)
                     delta = tree.delta
@@ -584,7 +607,13 @@ class GBTree:
         cache contract, each tree grown on the raw rows ``X`` [n, F] with
         cuts sketched per node (``tree/grow_local.py``; kernel A builds
         every level's histogram on the card)."""
+        from ..parallel.mesh import current_mesh
+
         tp = self.train_param
+        if current_mesh() is not None:
+            raise NotImplementedError(
+                "grow_local_histmaker is single-process/single-device; "
+                "use tree_method='tpu_hist' under a mesh")
         if tp.grow_policy == "lossguide":
             raise NotImplementedError(
                 "grow_local_histmaker is depthwise (the reference's "
@@ -623,6 +652,10 @@ class GBTree:
         (``segment_sum``), pushed up to the parents on the host and
         rounded to float32 once, then ``calc_weight`` / ``calc_gain`` give
         the weights and the loss changes."""
+        from ..parallel.mesh import current_mesh
+
+        if current_mesh() is not None:
+            raise NotImplementedError(GROUP_ENVELOPE)
         per_round = self.n_groups * self.gbtree_param.num_parallel_tree
         if self._update_queue is None:
             trees = self.model.trees
@@ -782,11 +815,13 @@ class Dart(GBTree):
         return forest, torch.as_tensor(tw, device=self.device)
 
     def boost_one_round(self, binned, grad, hess, margin_cache,
-                        iteration: int = 0, feature_weights=None):
+                        iteration: int = 0, feature_weights=None,
+                        group=None):
         # the dropout reweights old trees every round: no cache (the
         # reference disables it for DART too)
         new_trees, _ = super().boost_one_round(binned, grad, hess, None,
-                                               iteration, feature_weights)
+                                               iteration, feature_weights,
+                                               group)
         self._normalize_trees(len(new_trees))
         return new_trees, None
 

@@ -15,6 +15,14 @@ prediction cache; ``booster="gblinear"`` trains on the raw rows (no bins)
 and recomputes its margins, as the JAX package does. SHAP
 (``pred_contribs``, ``approx_contribs``, ``pred_interactions``) runs in
 ``interpret.py`` on the data's device.
+
+Inside ``parallel.mesh_context(mesh)`` each rank trains on its own rows:
+every tree grows over the row group (``parallel/grow.py``), the quantized
+matrix is sketched over it (``parallel/sketch.py``) and every metric is
+reduced over it, so the ranks hold the same model and stop at the same
+round. Only the JAX package's multi-process envelope trains there
+(``_check_group_envelope``); without a ``mesh_context`` a multi-process
+program trains and evaluates purely locally.
 """
 
 from __future__ import annotations
@@ -31,9 +39,11 @@ from ._device import resolve_device
 from .data.dmatrix import DMatrix
 from .data.sparse import CSRStorage
 from .gbm import Dart, GBLinear, GBTree
+from .gbm.gbtree import GROUP_ENVELOPE
 from .metric import create_metric
 from .objective import create_objective
 from .params import LearnerParam, check_ported, known_keys
+from .parallel.mesh import current_mesh
 from .predictor import StackedForest, predict_leaf, predict_margin
 
 __all__ = ["Booster"]
@@ -283,13 +293,37 @@ class Booster:
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
+    def _check_group_envelope(self, dtrain: DMatrix, custom: bool) -> None:
+        """Under an active row group only the JAX package's multi-process
+        envelope trains (``learner.py:268-275``, ``gbtree.py:1467``):
+        ``gbtree`` with one tree per output group a round, a scan-safe
+        objective (the regression family and multiclass), numerical
+        features, in-memory data, depthwise growth and ``hist``. Anything
+        else (a custom objective or gradients included) raises
+        NotImplementedError, on every rank alike."""
+        if current_mesh() is None:
+            return
+        gbm = self._gbm
+        inside = not custom and gbm.name == "gbtree" \
+            and self._obj.scan_safe \
+            and gbm.train_param.grow_policy != "lossguide" \
+            and gbm.gbtree_param.num_parallel_tree == 1 \
+            and not (gbm.needs_exact_cuts or gbm.needs_iteration_sketch
+                     or gbm.needs_local_sketch or gbm.is_update_process) \
+            and not dtrain.categorical_features() \
+            and getattr(dtrain, "_paged", None) is None
+        if not inside:
+            raise NotImplementedError(GROUP_ENVELOPE)
+
     def update(self, dtrain: DMatrix, iteration: int, fobj=None) -> None:
         """One boosting iteration (reference UpdateOneIter learner.cc:1060).
         With ``fobj``, ``fobj(margin, dtrain)`` gets the cached margin as
         numpy (``[n]`` for one output group) and returns ``(grad, hess)``,
-        which go through ``boost``."""
+        which go through ``boost``. Inside ``mesh_context`` the round grows
+        over the row group (``_check_group_envelope`` first)."""
         self._configure()
         self._check_device(dtrain)
+        self._check_group_envelope(dtrain, fobj is not None)
         self._add_cache(dtrain)
         if self._gbm.name == "dart":  # this round's drops, drawn here
             forest, tw = self._gbm.training_forest()
@@ -321,6 +355,7 @@ class Booster:
         round ``num_boosted_rounds()`` (its samplers' iteration)."""
         self._configure()
         self._check_device(dtrain)
+        self._check_group_envelope(dtrain, True)
 
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.float32),
@@ -387,7 +422,7 @@ class Booster:
             binned = dtrain.get_binned(max_bin)
         _, entry.margin = gbm.boost_one_round(
             binned, grad, hess, cache, iteration=iteration,
-            feature_weights=fw)
+            feature_weights=fw, group=current_mesh())
         entry.num_trees = model.num_trees
 
     def update_many(self, dtrain: DMatrix, start_iteration: int,
@@ -396,9 +431,12 @@ class Booster:
         package's signature, as a per-round loop (the same trees as calling
         ``update`` per round). The JAX package runs ``chunk`` rounds per
         device dispatch (a ``lax.scan``); the port dispatches per round
-        whatever ``chunk`` is."""
+        whatever ``chunk`` is. Inside ``mesh_context`` a configuration
+        outside the envelope raises before the first round."""
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self._configure()
+        self._check_group_envelope(dtrain, False)
         for i in range(start_iteration, start_iteration + num_rounds):
             self.update(dtrain, i)
 

@@ -5,7 +5,13 @@ sums; K classes give the plain mean of the K one-vs-rest AUCs, as the JAX
 package computes it; with query groups, the mean of the per-group AUCs of
 ``label > 0`` over the groups that hold both classes. AUC-PR walks the
 scores in descending order and evaluates precision and recall at the ends
-of tie blocks. Sums run in float64, on the predictions' device."""
+of tie blocks. Sums run in float64, on the predictions' device. Under an
+active row group of several ranks ROC AUC and AUC-PR are the weighted
+mean of the ranks' own values (each rank's ``(auc * w, w)`` summed by
+``dist_reduce``; a rank whose value is NaN adds ``(0, 0)``), as the JAX
+package and the reference's distributed AUC compute them (auc.cc:293),
+and the grouped AUC is every rank's sum of group AUCs over every rank's
+count of valid groups."""
 
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from .base import Metric, register
+from .base import Metric, dist_reduce, register
 
 __all__ = ["AUC", "AUCPR"]
 
@@ -24,6 +30,19 @@ def _weights(label: torch.Tensor, weight: Optional[torch.Tensor]
     if weight is not None and weight.numel() == n:
         return weight
     return torch.ones(n, dtype=torch.float32, device=label.device)
+
+
+def _dist_mean(local: float, local_w: float) -> float:
+    """The weighted mean of the ranks' values (``local`` itself without a
+    row group); NaN locals drop out."""
+    from ..parallel.mesh import collective_active
+
+    if not collective_active():
+        return local
+    if local != local:
+        local, local_w = 0.0, 0.0
+    s, w = dist_reduce(local * local_w, local_w)
+    return s / w if w > 0 else float("nan")
 
 
 def _binary_auc(score: torch.Tensor, label: torch.Tensor,
@@ -49,9 +68,9 @@ def _binary_auc(score: torch.Tensor, label: torch.Tensor,
 
 
 def _grouped_auc(score: torch.Tensor, label: torch.Tensor,
-                 weight: torch.Tensor, groups) -> float:
-    """The mean of the per-group ROC AUCs over the groups that hold both
-    classes (the JAX package's ``_grouped_auc``): one sort by (group,
+                 weight: torch.Tensor, groups):
+    """``(sum, count)`` of the per-group ROC AUCs over the groups that hold
+    both classes (the JAX package's ``_grouped_auc``): one sort by (group,
     score), tie blocks that stop at group boundaries, and ``_binary_auc``'s
     block sums per group."""
     n, G = score.shape[0], groups.n_groups
@@ -74,12 +93,9 @@ def _grouped_auc(score: torch.Tensor, label: torch.Tensor,
     per_group[2].index_add_(0, g, wp)
     num_g, Wp_g = per_group[1], per_group[2]
     valid = (Wp_g > 0) & (Wn_g > 0)
-    cnt = int(valid.sum())
-    if cnt == 0:
-        return float("nan")
     auc_g = num_g / torch.clamp(Wp_g * Wn_g, min=1e-30)
-    return float(torch.where(valid, auc_g, torch.zeros_like(auc_g)).sum()) \
-        / cnt
+    return (float(torch.where(valid, auc_g, torch.zeros_like(auc_g)).sum()),
+            int(valid.sum()))
 
 
 @register("auc")
@@ -89,22 +105,22 @@ class AUC(Metric):
 
     def evaluate(self, preds, label, weight=None, *, groups=None, **kw):
         w = _weights(label, weight)
-        if float(w.double().sum()) <= 0:
-            return float("nan")  # the JAX package's weighted mean
+        total = float(w.double().sum())
         if preds.dim() == 2 and preds.shape[1] > 1:
             # one-vs-rest per class, then the unweighted mean (the JAX
             # package's; NaN when some class has no rows or all of them)
             aucs = [_binary_auc(preds[:, k], (label == k).to(torch.float32), w)
                     for k in range(preds.shape[1])]
-            return float(sum(aucs) / len(aucs))
+            return _dist_mean(float(sum(aucs) / len(aucs)), total)
         if preds.dim() == 2:
             preds = preds[:, 0]
         if groups is not None and groups.n_groups > 1:
             # ranking: relevant (label > 0) against not, within each query
             groups.check_rows(preds.shape[0])
-            return _grouped_auc(preds, (label > 0).to(torch.float32), w,
-                                groups)
-        return _binary_auc(preds, label, w)
+            s, c = dist_reduce(*_grouped_auc(
+                preds, (label > 0).to(torch.float32), w, groups))
+            return s / c if c > 0 else float("nan")
+        return _dist_mean(_binary_auc(preds, label, w), total)
 
 
 @register("aucpr")
@@ -121,6 +137,10 @@ class AUCPR(Metric):
             raise ValueError("aucpr takes one score per row; K-class "
                              "predictions are not supported")
         w = _weights(label, weight).double()
+        return _dist_mean(self._local(p, y, w), float(w.sum()))
+
+    @staticmethod
+    def _local(p: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> float:
         if y.shape[0] == 0:
             return float("nan")
         order = torch.argsort(-p, stable=True)

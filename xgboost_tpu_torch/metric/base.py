@@ -1,15 +1,19 @@
 """Metric base (reference ``include/xgboost/metric.h``; every elementwise
 metric is sum(w * loss) / sum(w), ``elementwise_metric.cu``). Metrics run
-on the predictions' device; their sums run in float64."""
+on the predictions' device; their sums run in float64. Under an active row
+group of several ranks each metric's (sum, weight) pair is summed over the
+ranks (``dist_reduce``) before the final divide, the reference's
+AllReduce in every ``GetFinal``."""
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple, Type
 
+import numpy as np
 import torch
 
 __all__ = ["Metric", "ElementwiseMetric", "create_metric", "register",
-           "weighted_sum"]
+           "weighted_sum", "dist_reduce"]
 
 _REGISTRY: Dict[str, Type["Metric"]] = {}
 
@@ -57,6 +61,30 @@ def weighted_sum(loss: torch.Tensor, weight: Optional[torch.Tensor]
     return float(loss.sum()), float(loss.shape[0])
 
 
+def dist_reduce(s: float, w: float) -> Tuple[float, float]:
+    """A metric's (residue, weight) pair summed over every rank of an
+    active row group (the JAX package's ``dist_reduce``): the pairs are
+    gathered as float64 over the gloo group and summed in rank order on
+    the host, so every rank finalises the same bits and early stopping
+    stops at the same round everywhere. The identity unless
+    ``parallel.collective_active()``: a rank evaluating outside a
+    ``mesh_context`` never enters a gather the others do not."""
+    from ..parallel.mesh import collective_active, current_mesh
+
+    if not collective_active():
+        return s, w
+    from .. import collective
+
+    arr = collective.process_allgather(np.asarray([s, w], np.float64),
+                                       site="metric_reduce",
+                                       mesh=current_mesh())
+    s_all, w_all = 0.0, 0.0
+    for rs, rw in arr:
+        s_all += float(rs)
+        w_all += float(rw)
+    return s_all, w_all
+
+
 class ElementwiseMetric(Metric):
     """sum(w * loss(pred, y)) / sum(w); losses in f32, sums in float64."""
 
@@ -70,7 +98,8 @@ class ElementwiseMetric(Metric):
     def evaluate(self, preds, label, weight=None, **kw):
         if preds.dim() == 2 and preds.shape[1] == 1:
             preds = preds[:, 0]
-        return self.finalize(*weighted_sum(self.loss(preds, label), weight))
+        return self.finalize(*dist_reduce(
+            *weighted_sum(self.loss(preds, label), weight)))
 
 
 def create_metric(name: str) -> Metric:

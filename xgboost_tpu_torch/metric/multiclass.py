@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from .base import Metric, register, weighted_sum
+from .base import Metric, dist_reduce, register, weighted_sum
 
 __all__ = ["MultiError", "MultiLogLoss"]
 
@@ -27,7 +27,7 @@ class MultiError(Metric):
         yhat = preds if preds.dim() == 1 else torch.argmax(preds, dim=-1)
         wrong = (yhat.to(torch.int32) != label.to(torch.int32)).to(
             torch.float32)
-        return _final(*weighted_sum(wrong, weight))
+        return _final(*dist_reduce(*weighted_sum(wrong, weight)))
 
 
 @register("mlogloss")
@@ -37,4 +37,4 @@ class MultiLogLoss(Metric):
     def evaluate(self, preds, label, weight=None, **kw):
         picked = torch.gather(preds, 1, label.long()[:, None])[:, 0]
         loss = -torch.log(torch.clamp(picked, _EPS, 1.0))
-        return _final(*weighted_sum(loss, weight))
+        return _final(*dist_reduce(*weighted_sum(loss, weight)))

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..data.dmatrix import QueryGroups
-from .base import Metric, register
+from .base import Metric, dist_reduce, register
 
 __all__ = ["NDCG", "MAP", "PrecisionAt", "AMS"]
 
@@ -61,9 +61,10 @@ class _PerGroupMetric(Metric):
         k = self.topn if self.topn > 0 else int(sizes.max(initial=0))
         scores = self.group_scores(ys, groups, local, k)
         scores = scores[torch.as_tensor(sizes > 0, device=p.device)]
-        if scores.numel() == 0:
-            return float("nan")
-        return float(scores.sum()) / scores.numel()
+        # under a row group: every rank's score sum over every rank's
+        # group count (rank_metric.cc GetFinal)
+        s, c = dist_reduce(float(scores.sum()), float(scores.numel()))
+        return s / c if c > 0 else float("nan")
 
     def _empty_score(self) -> float:
         return 0.0 if self.minus else 1.0
@@ -130,6 +131,13 @@ class AMS(Metric):
         self.name = full_name or f"ams@{arg}"
 
     def evaluate(self, preds, label, weight=None, **kw):
+        from ..parallel.mesh import collective_active
+
+        if collective_active():
+            # the global top-ratio cut cannot be formed from local sorts;
+            # the reference refuses too (rank_metric.cc:107)
+            raise ValueError(
+                "metric AMS does not support distributed evaluation")
         p = preds.reshape(-1)
         n = label.shape[0]
         w = (weight.to(F64) if weight is not None and weight.numel() == n

@@ -61,6 +61,13 @@ class CoxNLogLik(Metric):
     name = "cox-nloglik"
 
     def evaluate(self, preds, label, weight=None, **kw):
+        from ..parallel.mesh import collective_active
+
+        if collective_active():
+            # risk-set sums need the globally time-ordered cohort; the
+            # reference refuses too (rank_metric.cc:348)
+            raise ValueError(
+                "Cox metric does not support distributed evaluation")
         # rows sorted by time ascending; preds are exp(margin)
         e = preds.reshape(-1).double()
         y = label.double()

@@ -113,6 +113,10 @@ class ObjFunction:
     """Gradient/hessian provider. Shapes: margin [n] or [n, n_targets]."""
 
     name: str = ""
+    #: rowwise gradients from the margin, label and weight alone: the
+    #: objectives the JAX package runs in its scanned rounds, and the ones
+    #: training under a row group takes (``learner.py``)
+    scan_safe: bool = False
 
     def __init__(self, params=None):
         self.params = params

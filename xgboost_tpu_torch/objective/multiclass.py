@@ -23,6 +23,7 @@ def softmax(margin: torch.Tensor) -> torch.Tensor:
 
 
 class _SoftmaxBase(ObjFunction):
+    scan_safe = True
     def n_targets(self) -> int:
         nc = param(self.params, "num_class", 0)
         if nc < 2:

@@ -210,3 +210,10 @@ class Tweedie(ObjFunction):
 
     def default_metric(self):
         return f"tweedie-nloglik@{self._rho()}"
+
+
+# every objective here is elementwise (the JAX package's scan-safe set)
+for _cls in (SquaredError, SquaredLogError, PseudoHuber, BinaryLogistic,
+             RegLogistic, LogitRaw, Hinge, Poisson, GammaDeviance, Tweedie):
+    _cls.scan_safe = True
+del _cls

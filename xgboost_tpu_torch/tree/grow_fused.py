@@ -32,7 +32,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import threefry
+from .. import collective, threefry
 from .grow import (GrowParams, _sample_features_exact, apply_row_sampling,
                    child_bounds_and_weights, eval_splits, exact_k_subset,
                    interaction_allowed, n_sampled, seq_cumsum)
@@ -319,8 +319,8 @@ def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
                     onehot: Optional[torch.Tensor] = None,
                     bins_t: Optional[torch.Tensor] = None,
                     key: Optional[torch.Tensor] = None,
-                    feature_weights: Optional[torch.Tensor] = None
-                    ) -> GrownTree:
+                    feature_weights: Optional[torch.Tensor] = None,
+                    group=None) -> GrownTree:
     """Grow one depthwise tree on ``bins`` [n, F] (missing == B) with
     gradients ``grad``/``hess`` [n]; every tensor on one device. ``onehot``
     (``build_onehot`` of ``bins``) sends every level down the hoisted route;
@@ -330,7 +330,16 @@ def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
     and the grown tree carries each node's right-going set. ``key`` (a
     ``threefry`` key, default ``prng_key(0)``) seeds the row and column
     samples; ``feature_weights`` ([F], on the bins' device) weight the
-    per-tree column sample."""
+    per-tree column sample.
+
+    Under a row ``group`` (``parallel.RowGroup``; the JAX package's
+    ``axis_name``) the rows are this rank's: the gradient scale (a MAX), the
+    root totals and every level's int64 histogram (SUMs) are all-reduced
+    over the group before they are read, so every rank evaluates the same
+    splits from the same numbers and grows the tree one process would grow
+    on all the ranks' rows, bit for bit, with its own rows' ``delta``. Row
+    samples are drawn per rank under the same key, as the JAX package's
+    shards draw them."""
     B = cut_values.shape[1]
     F = bins.shape[1]
     max_depth = cfg.max_depth
@@ -342,13 +351,15 @@ def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
         tree_mask = _sample_features_exact(k_ctree, F, cfg.colsample_bytree,
                                            feature_weights,
                                            device=bins.device)
-    gq: QuantizedGradients = quantize_gradients(grad, hess)
-    st = _init_state(cfg, gq.totals(), B, F)
+    gq: QuantizedGradients = quantize_gradients(grad, hess, group)
+    st = _init_state(cfg, gq.totals(group), B, F)
     pos = torch.zeros((bins.shape[0], 1), dtype=torch.int32, device=bins.device)
     for d in range(max_depth):
         K = 1 << d
-        pos, histC = fused_level(bins, pos, gq, st.ptab, K=K, Kp=K >> 1, B=B,
-                                 d=d, onehot=onehot, bins_t=bins_t)
+        pos, hq = fused_level_int(bins, pos, gq, st.ptab, K=K, Kp=K >> 1,
+                                  B=B, d=d, onehot=onehot, bins_t=bins_t)
+        hq = collective.all_reduce(hq, group, site="level_hist")
+        histC = gq.dequantize(hq, level_lanes(K, hq.device))
         st = _level_update(st, histC, cut_values, cfg, d, tree_mask, k_level)
     # route rows through the last level's splits to their leaves
     if max_depth > 0:

@@ -41,14 +41,16 @@ from __future__ import annotations
 import os
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, collective
 
 __all__ = ["QuantizedGradients", "quantize_gradients", "fused_level",
            "fused_level_int", "level_lanes", "feature_major",
            "hoisted_level", "build_onehot", "onehot_rows", "hoist_budget_bytes",
-           "device_free_bytes", "hoist_plan", "can_hoist", "partition_apply",
+           "device_free_bytes", "hoist_plan", "hoist_plan_synced",
+           "can_hoist", "partition_apply",
            "leaf_delta"]
 
 # |q| <= 2^_QBITS, so n <= 2^32 rows cannot overflow the int64 sums
@@ -91,19 +93,29 @@ class QuantizedGradients(NamedTuple):
         exact, so the only rounding is the final cast)."""
         return (sums.double() * _pow2(-self.exp)[lane]).float()
 
-    def totals(self) -> torch.Tensor:
+    def totals(self, group=None) -> torch.Tensor:
         """[2] float32 (G, H) over all rows, from the same integers the
-        histograms sum, so node totals and bin sums agree exactly."""
+        histograms sum, so node totals and bin sums agree exactly. Under a
+        row ``group`` (``parallel.RowGroup``) the int64 sums are
+        all-reduced first: the totals over every rank's rows."""
         lanes = torch.arange(2, device=self.q.device)
-        return self.dequantize(self.q.sum(dim=0, dtype=torch.int64), lanes)
+        sums = collective.all_reduce(self.q.sum(dim=0, dtype=torch.int64),
+                                     group, site="root_totals")
+        return self.dequantize(sums, lanes)
 
 
-def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor
+def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor, group=None
                        ) -> QuantizedGradients:
     """Per-lane power-of-two quantiser, computed on the device with no host
-    sync: ``E = 30 - frexp_exponent(max|x|)``, ``q = rint(x * 2^E)``."""
+    sync: ``E = 30 - frexp_exponent(max|x|)``, ``q = rint(x * 2^E)``. Under
+    a row ``group`` the ``max|x|`` is the largest over every rank (an
+    all-reduce MAX), so all ranks quantise on one scale and their int64
+    sums add up to the sums of one process over all the rows."""
     gh = torch.stack([grad, hess], dim=1).to(torch.float32)
-    _, e = torch.frexp(gh.abs().amax(dim=0))
+    amax = (gh.abs().amax(dim=0) if gh.shape[0]
+            else gh.new_zeros(2))
+    _, e = torch.frexp(collective.all_reduce(amax, group, collective.Op.MAX,
+                                             site="grad_scale"))
     exp = (_QBITS - e).to(torch.int32)
     scaled = gh.double() * _pow2(exp)
     return QuantizedGradients(q=torch.round(scaled).to(torch.int32), exp=exp)
@@ -322,6 +334,28 @@ def hoist_plan(n_pad: int, F: int, B: int, device) -> int:
     if fh < F and fh < _MIN_HOIST_FEATURES:
         return 0
     return int(fh)
+
+
+def hoist_plan_synced(fh: int, group=None, cuts_digest: int = 0) -> int:
+    """This rank's plan ``fh`` (``hoist_plan``) agreed over a row ``group``:
+    the smallest plan of any rank (the JAX package's
+    ``hoist_plan_synced``), so every rank takes one route. Ranks sharing a
+    card read different free memory. ``fh`` itself without a group. The
+    same gather carries each rank's ``cuts_digest``
+    (``HistogramCuts.digest``): ranks whose bins mean different values
+    would sum histograms of different splits, so unequal digests raise
+    ValueError."""
+    if group is None:
+        return fh
+    got = collective.process_allgather(
+        np.asarray([fh, cuts_digest], np.int64), site="hoist_plan",
+        mesh=group)
+    if (got[:, 1] != got[0, 1]).any():
+        raise ValueError(
+            "the ranks bin against different cuts: build each rank's "
+            "matrix inside mesh_context (the distributed sketch), or bin "
+            "every rank against shared cuts with QuantileDMatrix(ref=)")
+    return int(got[:, 0].min())
 
 
 def can_hoist(n_pad: int, F: int, B: int, device) -> bool:
