@@ -321,6 +321,29 @@ its own rows, the level histograms all-reduced as int64:
     histogram all-reduce ms per level (host clock between device
     synchronizations) and the bytes reduced per tree.
 
+After phase 40 (max_bin 256 unless named):
+
+41. the rounding repairs (``phase_rounding``): ``compute_cuts`` at max_bin
+    100 and 1000 on 999,963 rows x 10 features with unit weights and on
+    64k rows with hessian-like weights, the card's cuts bitwise the CPU's;
+    the local histmaker's node totals at the main path's width (the 50
+    features' 1M sorted weights, one node and 32), card == CPU bitwise,
+    with their ms; the local histmaker at max_bin 100, 3 rounds on 64k
+    rows, card == CPU trees, kernel A 6 times a tree;
+42. lossguide under a row group (``phase_dist_lossguide``; its ranks run
+    in phase 40's spawn): 255 leaves, no depth limit, 3 rounds over world
+    2 (gloo, one card, 600k / 400k rows on shared cuts): both ranks' model
+    bytes the single process's, kernel A 36 times a tree on each rank, B 3,
+    C and D never, the recorded all-reduces and bytes per site a tree;
+43. the main path traced (``phase_traced``): 10 rounds untraced, traced
+    into a temporary directory (span trace and flight recorder), untraced,
+    traced: the same trees and the same launches round by round, the JAX
+    package's span names, 10 flight records; the median round traced and
+    untraced and the last record printed. Then tracing's cost a round: 40
+    pairs of adjacent rounds of one training run, one traced and one not,
+    the median of the paired differences with its quartiles, beside the
+    spans and records a round times their measured host cost.
+
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; before that, one JSON line lists the kernels.
@@ -1074,9 +1097,10 @@ def phase_card_vs_cpu(Xtr, ytr, Xte, feature_types=None,
                       name="card vs CPU", params=PARAMS_DEFAULT, group=None,
                       group_weights=None, hoist_budget_mb=None,
                       want_launches=None, rounds=CPU_ROUNDS, **info):
-    """``rounds`` (3) rounds at max_bin 256 on the card and on the CPU: same
-    trees (and category sets; K x ``num_parallel_tree`` per round for K
-    output groups; DART's ``weight_drop``), same predictions.
+    """``rounds`` (3) rounds of ``params`` (max_bin 256 unless they set it)
+    on the card and on the CPU: same trees (and category sets; K x
+    ``num_parallel_tree`` per round for K output groups; DART's
+    ``weight_drop``), same predictions.
     ``info`` holds per-row arrays for the DMatrix (the label bounds).
     With query sizes ``group`` the rows are taken whole (at most
     ``CPU_ROWS``); ``group_weights`` are then set after the first
@@ -1123,7 +1147,8 @@ def phase_card_vs_cpu(Xtr, ytr, Xte, feature_types=None,
     check(err <= 1e-5, f"{name} predictions max abs err {err}")
     route = "" if hoist_budget_mb is None else (
         f", card hoisted {fh}/{X.shape[1]} features, launches {got}")
-    print(f"{name} (max_bin {DEFAULT_MAX_BIN}{route}): {len(card_trees)} "
+    print(f"{name} (max_bin {params.get('max_bin', DEFAULT_MAX_BIN)}"
+          f"{route}): {len(card_trees)} "
           f"trees identical, predictions max abs err {err} "
           f"({time.perf_counter() - t0:.1f} s)")
     return err
@@ -2345,9 +2370,9 @@ INERT_KEYS = {"sketch_eps": 0.1, "sparse_threshold": 0.5,
 def _capture_step(binned, grad, hess, max_leaves: int, step: int):
     """``(child slots, quantised gradients, K)`` that expansion step
     ``step`` of a real lossguide tree on ``binned`` gives kernel A (its
-    ``fused_level`` call; call 0 is the root's)."""
+    ``fused_level_int`` call; call 0 is the root's)."""
     seen = []
-    real = glg.fused_level
+    real = glg.fused_level_int
 
     def record(bins, pos, gq, ptab, **kw):
         if len(seen) == step:
@@ -2356,13 +2381,13 @@ def _capture_step(binned, grad, hess, max_leaves: int, step: int):
             seen.append(None)
         return real(bins, pos, gq, ptab, **kw)
 
-    glg.fused_level = record
+    glg.fused_level_int = record
     try:
         glg.grow_tree_lossguide(binned.bins, grad, hess, binned.cut_values,
                                 GrowParams(max_depth=0, split=SplitParams()),
                                 max_leaves, bins_t=binned.feature_major())
     finally:
-        glg.fused_level = real
+        glg.fused_level_int = real
     return seen[step]
 
 
@@ -3915,25 +3940,36 @@ def _dist_levels(mesh, binned, label):
                 hoisted=0 if onehot is None else onehot.shape[0] // B)
 
 
-def _dist_run(name, mesh, d, dv, rounds, out):
-    """``rounds`` rounds of the reference-default parameters over ``mesh``
-    with the held-out shard ``dv`` evaluated: the launches, per-round
-    times, the all-reduce counters and the model, written under ``out``."""
+def _dist_run(name, mesh, d, dv, rounds, out, params=PARAMS_DEFAULT):
+    """``rounds`` rounds of ``params`` (the reference-default parameters)
+    over ``mesh`` with the held-out shard ``dv`` evaluated: the launches,
+    per-round times, the collectives' operations, bytes and (device
+    all-reduces, timed) seconds per site and per kind
+    (``observability.comms``' deltas) and the model, written under
+    ``out``."""
     from xgboost_tpu_torch import collective
+    from xgboost_tpu_torch.observability import comms
     from xgboost_tpu_torch.parallel import mesh_context
 
+    def delta(by, was):
+        now = comms.snapshot(by)
+        return {k: {f: v - was.get(k, {}).get(f, 0.0) for f, v in
+                    now[k].items()} for k in now}
+
     reset_launches()
-    collective.reset_stats()
     collective.timing = True
+    before = {by: comms.snapshot(by) for by in ("site", "op")}
     probe, res = _RoundProbe(), {}
-    with mesh_context(mesh):
-        bst = xgbt.train(PARAMS_DEFAULT, d, rounds, evals=[(dv, "test")],
-                         evals_result=res, verbose_eval=False,
-                         callbacks=[probe])
-    torch.cuda.synchronize()
-    collective.timing = False
+    try:
+        with mesh_context(mesh):
+            bst = xgbt.train(params, d, rounds, evals=[(dv, "test")],
+                             evals_result=res, verbose_eval=False,
+                             callbacks=[probe])
+        torch.cuda.synchronize()
+    finally:
+        collective.timing = False
     got = launches()
-    stats = {k: list(v) for k, v in collective.stats.items()}
+    stats, comms_delta = (delta(by, before[by]) for by in ("site", "op"))
     with mesh_context(mesh):
         dist_auc = bst.eval_values([(dv, "test")])["test"]["auc"]
     local_auc = bst.eval_values([(dv, "test")])["test"]["auc"]
@@ -3943,7 +3979,7 @@ def _dist_run(name, mesh, d, dv, rounds, out):
     level_check = (_dist_levels(mesh, binned, d.get_label())
                    if name in ("shared", "construct") else None)
     rec = dict(launches=got, round_ms=probe.times, stats=stats,
-               level_check=level_check,
+               level_check=level_check, comms=comms_delta,
                auc=res["test"]["auc"], logloss=res["test"]["logloss"],
                dist_auc=dist_auc, local_auc=local_auc,
                eval_rows=dv.num_row(), rows=d.num_row(),
@@ -3989,6 +4025,9 @@ def _dist_rank(rank, world, backend, init_file, out, modes):
                       ROUNDS, out)
         elif mode == "nccl1":
             _dist_run(mode, mesh, shared(), dv, CPU_ROUNDS, out)
+        elif mode == "lossguide":
+            _dist_run(mode, mesh, shared(), dv, LG_DIST_ROUNDS, out,
+                      params=LG_PARAMS)
         torch.cuda.empty_cache()
     xgbt.collective.finalize()
 
@@ -4017,9 +4056,11 @@ def _dist_summary(name, recs, label):
     out = []
     for r, rec in enumerate(recs):
         st = rec["stats"]
-        calls, nbytes, secs = st.get("level_hist", [0, 0, 0.0])
+        lv = st.get("level_hist", {})
+        calls, secs = lv.get("ops", 0), lv.get("seconds", 0.0)
         trees = sum(1 for _ in rec["round_ms"])
-        per_tree = (nbytes + st["root_totals"][1] + st["grad_scale"][1]) \
+        per_tree = sum(st[k]["bytes"] for k in ("level_hist", "root_totals",
+                                                "grad_scale") if k in st) \
             / max(trees, 1)
         row = dict(rank=r, rows=rec["rows"], hoisted=rec["hoisted"],
                    level_check=rec["level_check"],
@@ -4036,13 +4077,7 @@ def _dist_summary(name, recs, label):
     return out
 
 
-def _expected_bytes_per_tree(F=COLS, B=DEFAULT_MAX_BIN, depth=DEPTH):
-    """Sum over levels of the int64 [F, 2K, B] histogram, plus the root
-    totals (2 int64) and the gradient scale (2 float32)."""
-    return sum(F * 2 * (1 << d) * B * 8 for d in range(depth)) + 16 + 8
-
-
-def phase_distributed(Xtr, raw256, logloss256, trees256):
+def phase_distributed(Xtr, ytr, raw256, logloss256, trees256):
     """Phase 40: the main path's training over ``torch.distributed`` ranks
     in child processes, each on its own rows, the level histograms
     all-reduced: (1) world 2 over gloo on one card on ragged shards
@@ -4052,8 +4087,15 @@ def phase_distributed(Xtr, raw256, logloss256, trees256):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     out_dir = tempfile.mkdtemp(prefix="xgbt_dist_")
-    want_bytes = _expected_bytes_per_tree()
-    g2 = _spawn_ranks(2, "gloo", ("shared", "construct", "sketch"), out_dir)
+    from xgboost_tpu_torch.observability.comms import grow_psum_bytes
+
+    want_bytes = grow_psum_bytes(DEPTH, COLS, DEFAULT_MAX_BIN)
+    # phase 42's single process: 3 lossguide rounds on all the rows
+    raw_lg = xgbt.train(LG_PARAMS, xgbt.DMatrix(Xtr, ytr), LG_DIST_ROUNDS,
+                        verbose_eval=False).save_raw()
+    torch.cuda.empty_cache()
+    g2 = _spawn_ranks(2, "gloo", ("shared", "construct", "sketch",
+                                  "lossguide"), out_dir)
     sh, co, sk = g2["shared"], g2["construct"], g2["sketch"]
     for r in range(2):
         check(sh[r]["raw"] == raw256,
@@ -4065,9 +4107,12 @@ def phase_distributed(Xtr, raw256, logloss256, trees256):
                   zip(sh[r]["logloss"], logloss256)),
               f"distributed rank {r}: logloss {sh[r]['logloss']} vs "
               f"{logloss256}")
-        check(sh[r]["stats"]["level_hist"][0] == ROUNDS * DEPTH
-              and sh[r]["stats"]["level_hist"][1] ==
-              ROUNDS * (want_bytes - 24), "level all-reduces and bytes")
+        st = sh[r]["stats"]
+        check(st["level_hist"]["ops"] == ROUNDS * DEPTH
+              and st["level_hist"]["bytes"] + st["root_totals"]["bytes"]
+              + st["grad_scale"]["bytes"] == ROUNDS * want_bytes,
+              f"distributed rank {r}: level all-reduces and bytes == "
+              f"comms.grow_psum_bytes")
         check(co[r]["launches"] == {"A": CPU_ROUNDS * DEPTH, "B": CPU_ROUNDS,
                                     "C": 0, "D": 0},
               f"distributed construct rank {r}: launches {co[r]['launches']}")
@@ -4113,7 +4158,7 @@ def phase_distributed(Xtr, raw256, logloss256, trees256):
     n1 = _spawn_ranks(1, "nccl", ("nccl1",), out_dir)["nccl1"][0]
     check(n1["backend"] == "nccl" and n1["world"] == 1, "NCCL world 1")
     same_trees(n1["trees"], trees256, "NCCL world 1 vs single process")
-    check(n1["stats"]["level_hist"][0] == CPU_ROUNDS * DEPTH,
+    check(n1["stats"]["level_hist"]["ops"] == CPU_ROUNDS * DEPTH,
           "NCCL world 1: every level all-reduced")
     rec["nccl_world1"] = _dist_summary("distributed NCCL world 1", [n1],
                                        "NCCL, one rank")[0]
@@ -4126,9 +4171,412 @@ def phase_distributed(Xtr, raw256, logloss256, trees256):
     else:
         print(json.dumps({"distributed_nccl_world2": "not run: 1 card"}))
         rec["nccl_world2"] = "not run: 1 card"
+    rec["lossguide"] = phase_dist_lossguide(g2["lossguide"], raw_lg)
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"distributed phase: {rec['phase_s']:.1f} s")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phases 41-43: lossguide under a row group, the rounding repairs, tracing
+# ---------------------------------------------------------------------------
+
+LG_DIST_ROUNDS = 3
+
+
+def _lossguide_sites_per_tree(F=COLS, B=DEFAULT_MAX_BIN):
+    """A lossguide tree's device all-reduces over a row group per site,
+    as {site: (operations, bytes)}: the gradient scale (float32 [2]), the
+    root totals (int64 [2]), and the root's int64 ``[F, 2, B]`` histogram
+    with one ``[F, 4 K_EXP, B]`` histogram (its ``2 K_EXP`` children's) a
+    step."""
+    cell = F * B * 8
+    hist = 2 * cell + LG_STEPS * 4 * glg.expansions_per_step(LG_LEAVES) * cell
+    return {"grad_scale": (1, 8), "root_totals": (1, 16),
+            "lossguide_hist": (1 + LG_STEPS, hist)}
+
+
+def phase_dist_lossguide(lg, raw_lg):
+    """Phase 42 (its ranks ran in phase 40's spawn): lossguide at
+    LightGBM's 255 leaves over world 2 (gloo, one card, 600k / 400k rows,
+    shared cuts), 3 rounds: both ranks' model bytes equal the single
+    process's; kernel A on each rank 1 + 35 times a tree (every step's
+    child histograms on the rank's own rows), B once a round, C and D
+    never; ``observability.comms``' record of the run, per site, equal to
+    every step's all-reduce (``_lossguide_sites_per_tree``), and per kind
+    the sum of its sites. Printed per rank: the launches, the median round
+    and the child histograms' all-reduce ms per step (host clock between
+    device synchronizations, the slower rank's wait included)."""
+    want = {"A": LG_DIST_ROUNDS * (1 + LG_STEPS), "B": LG_DIST_ROUNDS,
+            "C": 0, "D": 0}
+    per_tree = _lossguide_sites_per_tree()
+    want_bytes = sum(b for _, b in per_tree.values())
+    out = []
+    for r, rec in enumerate(lg):
+        check(rec["raw"] == raw_lg,
+              f"distributed lossguide rank {r}: model bytes == the single "
+              f"process's")
+        check(rec["launches"] == want,
+              f"distributed lossguide rank {r}: launches {rec['launches']}, "
+              f"want {want}")
+        st = rec["stats"]
+        check(all(st[k]["ops"] == LG_DIST_ROUNDS * n
+                  and st[k]["bytes"] == LG_DIST_ROUNDS * b
+                  for k, (n, b) in per_tree.items()),
+              f"distributed lossguide rank {r}: all-reduces per site {st}")
+        c = rec["comms"]
+        check(c["pmax"]["bytes"] == st["grad_scale"]["bytes"]
+              and c["psum_hist"]["bytes"] == st["root_totals"]["bytes"]
+              + st["lossguide_hist"]["bytes"]
+              and c["psum_hist"]["ops"] == LG_DIST_ROUNDS * (2 + LG_STEPS),
+              f"distributed lossguide rank {r}: comms {c}")
+        calls = st["lossguide_hist"]["ops"]
+        secs = st["lossguide_hist"]["seconds"]
+        row = dict(rank=r, rows=rec["rows"], launches=rec["launches"],
+                   A_per_tree=rec["launches"]["A"] / LG_DIST_ROUNDS,
+                   median_round_ms=statistics.median(rec["round_ms"]),
+                   round_ms=rec["round_ms"],
+                   allreduce_ms_per_step=secs / max(calls, 1) * 1e3,
+                   allreduce_steps=calls, bytes_per_tree=want_bytes,
+                   auc=rec["auc"], comms=c)
+        print(f"distributed lossguide rank {r} ({DIST_LABEL}): "
+              f"{rec['rows']} rows, {LG_LEAVES} leaves, launches "
+              f"{rec['launches']} (A {row['A_per_tree']:.0f} a tree), median "
+              f"round {row['median_round_ms']:.1f} ms, child histogram "
+              f"all_reduce {row['allreduce_ms_per_step']:.3f} ms/step over "
+              f"{calls:.0f} steps, {want_bytes} bytes a tree, auc "
+              f"{rec['auc']}")
+        out.append(row)
+    return out
+
+
+def _node_totals_case(Xtr):
+    """The local histmaker's node totals (``grow_local._segment_totals``)
+    at the main path's width: hessian-like weights of the 1M training rows
+    in each of the 50 features' value order, as one node (level 0) and as
+    32 (level 5, split at random sorted positions): the card's totals equal
+    the CPU's bit for bit; ms on the card (CUDA events)."""
+    from xgboost_tpu_torch.tree.grow_local import _segment_totals
+
+    rng = np.random.RandomState(11)
+    p = 1.0 / (1.0 + np.exp(-rng.randn(ROWS)))
+    hw = torch.as_tensor((p * (1.0 - p)).astype(np.float32), device=DEVICE)
+    order = torch.argsort(torch.as_tensor(Xtr, device=DEVICE).t(), dim=1,
+                          stable=True)
+    w_s = hw[order].contiguous()  # [F, n]
+    del order
+    out = {}
+    for K in (1, 32):
+        b = np.sort(rng.randint(0, ROWS, (COLS, K + 1)), axis=1)
+        b[:, 0], b[:, -1] = 0, ROWS
+        lo, hi = (torch.as_tensor(x, device=DEVICE) for x in (b[:, :-1],
+                                                             b[:, 1:]))
+        card = _segment_totals(w_s, lo, hi).cpu()
+        cpu = _segment_totals(w_s.cpu(), lo.cpu(), hi.cpu())
+        check(torch.equal(card, cpu),
+              f"node totals {COLS} x {ROWS}, {K} nodes: card == CPU bitwise")
+        ms = time_ms(lambda: _segment_totals(w_s, lo, hi), reps=5, warmup=1)
+        out[f"nodes_{K}"] = dict(ms=ms, rows=ROWS, features=COLS)
+        print(f"local histmaker node totals ({COLS} x {ROWS}, {K} nodes): "
+              f"card == CPU bitwise, {ms:.3f} ms on the card")
+    return out
+
+
+def phase_rounding(Xtr, ytr, Xte):
+    """Phase 41: the two rounding repairs on the card. ``compute_cuts`` at
+    max_bin 100 and 1000 on 999,963 of the main path's rows (10 of its
+    features, to keep the CPU's sort short) with unit weights, and on 64k
+    rows with hessian-like weights ``p (1 - p)``: the card's cuts equal the
+    CPU's bit for bit (the levels' explicit reciprocal). The local
+    histmaker's node totals at the main path's width (``_node_totals_case``).
+    Then the local histmaker at max_bin 100 for 3 rounds on 64k rows, card
+    against CPU: the same trees (float32 node totals in row order,
+    ``_cdf`` prefix sums, fused targets), kernel A 6 times a tree on the
+    card."""
+    from xgboost_tpu_torch.data.quantile import compute_cuts
+
+    t_phase = time.perf_counter()
+    out = {}
+    rng = np.random.RandomState(7)
+    p = 1.0 / (1.0 + np.exp(-rng.randn(CPU_ROWS)))
+    hw = (p * (1.0 - p)).astype(np.float32)
+    cases = [("unit", Xtr[:ROWS - 37, :10], None),
+             ("hessian", Xtr[:CPU_ROWS], hw)]
+    for kind, X, w in cases:
+        for B in (100, 1000):
+            got = []
+            for dev in (DEVICE, torch.device("cpu")):
+                Xd = torch.as_tensor(X, device=dev)
+                wd = None if w is None else torch.as_tensor(w, device=dev)
+                t0 = time.perf_counter()
+                c = compute_cuts(Xd, B, wd)
+                got.append((c, time.perf_counter() - t0))
+                del Xd
+            (card, card_s), (cpu, cpu_s) = got
+            same = (np.array_equal(card.values, cpu.values)
+                    and np.array_equal(card.min_vals, cpu.min_vals))
+            check(same, f"cuts {kind} max_bin {B}: card == CPU bitwise")
+            out[f"cuts_{kind}_{B}"] = dict(rows=X.shape[0],
+                                           features=X.shape[1],
+                                           card_s=card_s, cpu_s=cpu_s)
+            print(f"cuts ({kind} weights, {X.shape[0]} x {X.shape[1]}, "
+                  f"max_bin {B}): card == CPU bitwise (card {card_s:.3f} "
+                  f"s, CPU {cpu_s:.3f} s)")
+    out["node_totals"] = _node_totals_case(Xtr)
+    reset_launches()
+    params = {**LOCAL_PARAMS, "max_bin": 100}
+    out["local_100_card_vs_cpu"] = phase_card_vs_cpu(
+        Xtr, ytr, Xte, name="local histmaker max_bin 100 card vs CPU",
+        params=params)
+    got = launches()
+    check(got["A"] == CPU_ROUNDS * DEPTH and got["C"] == got["D"] == 0,
+          f"local histmaker max_bin 100: launches {got}")
+    out["local_100_launches"] = got
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"rounding repairs: launches {got}; {out['phase_s']:.1f} s")
+    return out
+
+
+class _LaunchProbe(_RoundProbe):
+    """``_RoundProbe``'s round times and each round's kernel launches."""
+
+    def __init__(self):
+        super().__init__()
+        self.per_round, self._l0 = [], None
+
+    def before_iteration(self, model, epoch, evals_log):
+        stop = super().before_iteration(model, epoch, evals_log)
+        self._l0 = launches()
+        return stop
+
+    def after_iteration(self, model, epoch, evals_log):
+        stop = super().after_iteration(model, epoch, evals_log)
+        now = launches()
+        self.per_round.append({k: now[k] - self._l0[k] for k in now})
+        return stop
+
+
+TRACE_PAIRS = 40
+
+
+class _TraceToggle(xgbt.callback.TrainingCallback):
+    """Turns tracing on or off before each round (after a device
+    synchronize, outside the timed period): on is the span trace and the
+    flight recorder's files in ``run_dir`` (``flight.configure``), off is
+    neither (the recorder's in-memory ring, as untraced runs keep it).
+    Times every round from its start to the next round's start, so the
+    recorder's end-of-round writes fall in the round that made them."""
+
+    def __init__(self, traced, run_dir):
+        self.traced, self.run_dir = traced, run_dir
+        self.period_ms, self._t0 = [], None
+
+    def _mark(self):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if self._t0 is not None:
+            self.period_ms.append((now - self._t0) * 1e3)
+        return now
+
+    def before_iteration(self, model, epoch, evals_log):
+        from xgboost_tpu_torch.observability import RECORDER, flight
+
+        self._mark()
+        RECORDER.reset()
+        if self.traced[epoch]:
+            flight.configure(self.run_dir, rank=0)
+        torch.cuda.synchronize()
+        self._t0 = time.perf_counter()
+        return False
+
+    def after_training(self, model):
+        self._mark()
+        return model
+
+
+def _host_cost_us(fn, n):
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter_ns() - t0) / n / 1e3
+
+
+def _trace_cost(Xtr, ytr, Xte, yte, spans_per_round):
+    """Tracing's cost a round, two ways. (1) Paired rounds: 2 warm-up
+    rounds, then ``TRACE_PAIRS`` pairs of adjacent rounds of one training
+    run (the main path at max_bin 256, held-out eval), one traced and one
+    not, the traced one first in every other pair; the median of the
+    paired differences (traced minus untraced) with its quartiles. (2)
+    Counted: the spans a round (from the traced runs' trace) times a
+    span's host cost on and off, plus a round record's cost with the
+    recorder's files on and off, each timed over many calls."""
+    from xgboost_tpu_torch.observability import RECORDER, flight, trace
+
+    tmp = tempfile.mkdtemp(prefix="xgbt_trace_pairs_")
+    traced = [False, False]
+    for j in range(TRACE_PAIRS):
+        traced += [j % 2 == 1, j % 2 == 0]
+    toggle = _TraceToggle(traced, tmp)
+    dtrain, dtest = xgbt.DMatrix(Xtr, ytr), xgbt.DMatrix(Xte, yte)
+    bst = xgbt.train(PARAMS_DEFAULT, dtrain, len(traced),
+                     evals=[(dtest, "test")], verbose_eval=False,
+                     callbacks=[toggle])
+    RECORDER.reset()
+    trace.reset()
+    per = toggle.period_ms
+    check(len(per) == len(traced), f"trace pairs: {len(per)} periods")
+    diffs = []
+    for j in range(TRACE_PAIRS):
+        a, b = 2 + 2 * j, 3 + 2 * j
+        on, off = (a, b) if traced[a] else (b, a)
+        diffs.append(per[on] - per[off])
+    q = statistics.quantiles(diffs, n=4)
+    del bst, dtrain, dtest
+    torch.cuda.empty_cache()
+
+    def empty_span():
+        with trace.span("cost", i=1):
+            pass
+
+    n = 20_000
+    span_off = _host_cost_us(empty_span, n)
+    trace.set_sink(os.path.join(tmp, "cost.jsonl"))
+    span_on = _host_cost_us(empty_span, n)
+    trace.reset()
+    trace.set_sink(None)
+
+    def round_record():
+        RECORDER.begin_round(0)
+        flight.note("grow", 0.1)
+        RECORDER.end_round()
+
+    rec_off = _host_cost_us(round_record, 200)
+    flight.configure(tmp, rank=0)
+    rec_on = _host_cost_us(round_record, 200)
+    RECORDER.reset()
+    trace.reset()
+    counted_ms = (spans_per_round * (span_on - span_off)
+                  + rec_on - rec_off) / 1e3
+    out = dict(pairs=TRACE_PAIRS, diffs_ms=diffs,
+               median_diff_ms=statistics.median(diffs),
+               q1_ms=q[0], q3_ms=q[2], mean_diff_ms=statistics.fmean(diffs),
+               stdev_diff_ms=statistics.stdev(diffs),
+               median_round_ms_traced=statistics.median(
+                   [p for p, t in zip(per[2:], traced[2:]) if t]),
+               median_round_ms_untraced=statistics.median(
+                   [p for p, t in zip(per[2:], traced[2:]) if not t]),
+               spans_per_round=spans_per_round, span_us_on=span_on,
+               span_us_off=span_off, record_us_on=rec_on,
+               record_us_off=rec_off, counted_ms_per_round=counted_ms)
+    print(f"tracing's cost a round (max_bin {DEFAULT_MAX_BIN}, "
+          f"{TRACE_PAIRS} pairs of rounds): median traced - untraced "
+          f"{out['median_diff_ms']:.3f} ms (quartiles {q[0]:.3f} / "
+          f"{q[2]:.3f}, mean {out['mean_diff_ms']:.3f} +- "
+          f"{out['stdev_diff_ms']:.3f}); median round traced "
+          f"{out['median_round_ms_traced']:.2f}, untraced "
+          f"{out['median_round_ms_untraced']:.2f} ms")
+    print(f"tracing's cost a round, counted: {spans_per_round:.1f} spans x "
+          f"({span_on:.3f} - {span_off:.3f}) us + a record {rec_on:.1f} - "
+          f"{rec_off:.1f} us = {counted_ms:.4f} ms")
+    return out
+
+
+def phase_traced(Xtr, ytr, Xte, yte):
+    """Phase 43: the reference-default main path (max_bin 256, 10 rounds,
+    held-out AUC and logloss) four times in turn, untraced, traced,
+    untraced, traced; each traced run records the span trace and the
+    flight recorder into a temporary directory
+    (``flight.configure``: ``obs/rank0/{trace.jsonl, flight.jsonl,
+    metrics.json, clock.json}``). The trees of every run are the first
+    run's bit for bit, and so are the kernel launches of every round
+    (C 1 in round 0, D 6 and B 1 every round, A never); the trace loads
+    back with the JAX package's span names (``train`` > ``round`` >
+    ``update`` > ``GetGradient`` / ``GetBinned`` > ``dmatrix_build`` >
+    ``sketch`` / ``quantize`` / ``BoostOneRound`` > ``build_tree`` >
+    ``grow_tree``, ``eval``), 10 round records with ``grow`` and ``eval``
+    stages and the card's allocator peak. Printed: the span names and
+    counts, the median round traced and untraced, the last round's record;
+    then tracing's cost a round (``_trace_cost``)."""
+    from xgboost_tpu_torch.observability import RECORDER, flight, trace
+
+    t_phase = time.perf_counter()
+    runs = []
+    for traced in (False, True, False, True):
+        tmp = tempfile.mkdtemp(prefix="xgbt_trace_") if traced else None
+        RECORDER.reset()
+        trace.reset()
+        if traced:
+            flight.configure(tmp, rank=0)
+        dtrain, dtest = xgbt.DMatrix(Xtr, ytr), xgbt.DMatrix(Xte, yte)
+        torch.cuda.synchronize()
+        probe = _LaunchProbe()
+        reset_launches()
+        bst = xgbt.train(PARAMS_DEFAULT, dtrain, ROUNDS,
+                         evals=[(dtest, "test")], verbose_eval=False,
+                         callbacks=[probe])
+        torch.cuda.synchronize()
+        rec = dict(traced=traced, launches=launches(),
+                   per_round=probe.per_round, round_ms=probe.times,
+                   median_ms=probe.median_ms(),
+                   trees=heap_trees(bst, ROUNDS))
+        if traced:
+            trace.flush()
+            d = os.path.join(tmp, "obs", "rank0")
+            rec["events"] = [e for e in trace.load_trace(
+                os.path.join(d, "trace.jsonl")) if e.get("ph") == "X"]
+            with open(os.path.join(d, "flight.jsonl")) as f:
+                rec["flight"] = [json.loads(ln) for ln in f]
+            rec["files"] = sorted(os.listdir(d))
+        RECORDER.reset()
+        trace.reset()
+        runs.append(rec)
+        del bst, dtrain, dtest
+        torch.cuda.empty_cache()
+    first = runs[0]
+    check(first["per_round"][0] == {"A": 0, "B": 1, "C": 1, "D": DEPTH}
+          and all(r == {"A": 0, "B": 1, "C": 0, "D": DEPTH}
+                  for r in first["per_round"][1:]),
+          f"traced phase: untraced launches a round {first['per_round']}")
+    for k, r in enumerate(runs[1:], 1):
+        same_trees(r["trees"], first["trees"], f"traced phase run {k}")
+        check(r["per_round"] == first["per_round"],
+              f"traced phase run {k}: launches a round {r['per_round']}")
+    names = {}
+    for e in runs[1]["events"]:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    want = {"train": 1, "round": ROUNDS, "update": ROUNDS,
+            "GetGradient": ROUNDS, "GetBinned": ROUNDS, "dmatrix_build": 1,
+            "sketch": 1, "quantize": 1, "BoostOneRound": ROUNDS,
+            "build_tree": ROUNDS, "grow_tree": ROUNDS, "eval": ROUNDS}
+    check(all(names.get(k) == v for k, v in want.items()),
+          f"traced phase: span counts {names}")
+    rounds = [r for r in runs[1]["flight"] if r["t"] == "round"]
+    check(runs[1]["flight"][0]["t"] == "meta" and len(rounds) == ROUNDS
+          and all({"grow", "eval"} <= set(r["stages"]) for r in rounds)
+          and all(r.get("dev_peak_mb", 0) > 0 for r in rounds),
+          "traced phase: flight records")
+    check({"trace.jsonl", "flight.jsonl", "metrics.json", "clock.json"}
+          <= set(runs[1]["files"]), f"traced phase: files {runs[1]['files']}")
+    on = [r["median_ms"] for r in runs if r["traced"]]
+    off = [r["median_ms"] for r in runs if not r["traced"]]
+    out = dict(span_counts=names, median_ms_traced=on,
+               median_ms_untraced=off,
+               round_ms={("traced" if r["traced"] else "untraced") + str(i):
+                         r["round_ms"] for i, r in enumerate(runs)},
+               launches_per_round=first["per_round"],
+               launches=first["launches"], last_record=rounds[-1],
+               files=runs[1]["files"])
+    out["cost"] = _trace_cost(Xtr, ytr, Xte, yte,
+                              len(runs[1]["events"]) / ROUNDS)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"traced main path (max_bin {DEFAULT_MAX_BIN}, {ROUNDS} rounds): "
+          f"spans {names}")
+    print(f"traced main path: median round traced {on} ms, untraced {off} "
+          f"ms (whole runs); launches a "
+          f"round identical {first['per_round'][:2]}...; trees identical")
+    print("traced main path: last flight record " + json.dumps(rounds[-1]))
+    print(f"traced main path: {out['phase_s']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -4220,8 +4668,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     extmem = phase_external_memory(Xtr, ytr, Xte, yte)
     torch.cuda.empty_cache()
-    distributed = phase_distributed(Xtr, raw256, main256["logloss"],
+    distributed = phase_distributed(Xtr, ytr, raw256, main256["logloss"],
                                     trees256)
+    torch.cuda.empty_cache()
+    rounding = phase_rounding(Xtr, ytr, Xte)
+    torch.cuda.empty_cache()
+    traced = phase_traced(Xtr, ytr, Xte, yte)
     del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
@@ -4241,7 +4693,8 @@ def main() -> int:
         "sklearn": sklearn, "approx": approx, "exact": exact,
         "wide_bins": wide, "local_histmaker": local, "refresh": refresh,
         "sparse": sparse, "external_memory": extmem,
-        "distributed": distributed}))
+        "distributed": distributed, "rounding": rounding,
+        "traced": traced}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -4259,7 +4712,15 @@ def main() -> int:
             construct_per_rank=[r["launches"][k]
                                 for r in distributed["construct"]],
             sketch_per_rank=[r["launches"][k] for r in distributed["sketch"]],
+            lossguide_per_rank=[r["launches"][k]
+                                for r in distributed["lossguide"]],
             nccl_world1=distributed["nccl_world1"]["launches"][k])
+
+    def traced_launches(k):
+        """Kernel ``k``'s launches on phase 43's runs (each run's, the same
+        round by round, traced or not)."""
+        return dict(launches=traced["launches"][k],
+                    per_round=[r[k] for r in traced["launches_per_round"]])
     # the sparse and paged phases' launches, and kernel A per page (mean
     # over the first tree's levels) beside its bound
     sp_l, pg_l = sparse["csr"]["launches"], extmem["paged"]["launches"]
@@ -4294,7 +4755,9 @@ def main() -> int:
                         covtype_levels=exact_a,
                         levels_64k=exact["levels_64k"]["A"]),
              wide_bins=wide,
-             local_histmaker=dict(launches=local["launches"]["A"]),
+             local_histmaker=dict(launches=local["launches"]["A"],
+                                  max_bin_100=rounding[
+                                      "local_100_launches"]["A"]),
              refresh=dict(launches=refresh["refresh_leaf_1"]["launches"][
                  "A"]),
              sparse=dict(launches=sp_l["A"], levels_f968=[
@@ -4321,7 +4784,8 @@ def main() -> int:
              refresh=dict(launches=refresh["refresh_leaf_1"]["launches"][
                  "B"]), sparse=dict(launches=sp_l["B"]),
              paged=dict(launches=pg_l["B"]),
-             distributed=dist_launches("B"), **b),
+             distributed=dist_launches("B"), traced=traced_launches("B"),
+             **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
              replaces="xgboost_tpu/tree/hist_kernel.py:378",
@@ -4338,7 +4802,7 @@ def main() -> int:
              exact=dict(launches_64k=exact["card_vs_cpu_launches"]["C"],
                         onehot_64k=exact["levels_64k"]["C"]),
              sparse=dict(launches=sp_l["C"]), paged=dict(launches=pg_l["C"]),
-             distributed=dist_launches("C"),
+             distributed=dist_launches("C"), traced=traced_launches("C"),
              **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
@@ -4361,7 +4825,7 @@ def main() -> int:
                  {k[2:]: v for k, v in lv.items() if k.startswith("D_")}
                  for lv in sparse["levels"]]),
              paged=dict(launches=pg_l["D"]),
-             distributed=dist_launches("D"),
+             distributed=dist_launches("D"), traced=traced_launches("D"),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))

@@ -48,6 +48,7 @@ def payload(kind: str, rank: int) -> np.ndarray:
 def run_worker(rank: int, world: int, init_file: str, out: str) -> None:
     import xgboost_tpu_torch as xgbt
     from xgboost_tpu_torch import collective as coll
+    from xgboost_tpu_torch.observability import comms
     from xgboost_tpu_torch.parallel import init_distributed
 
     torch.set_num_threads(1)
@@ -75,7 +76,7 @@ def run_worker(rank: int, world: int, init_file: str, out: str) -> None:
         torch.arange(3, dtype=torch.int64) * (rank + 1), mesh,
         coll.Op.MIN).numpy()
     res["dev_gather"] = coll.all_gather(t, mesh).numpy()
-    res["stats"] = {k: list(v) for k, v in coll.stats.items()}
+    res["stats"] = comms.snapshot(by="site")
     coll.finalize()
     res["after_finalize"] = (coll.get_rank(), coll.get_world_size())
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
@@ -177,7 +178,8 @@ def test_device_helpers(worlds):
         np.testing.assert_array_equal(res["dev_min"], [0, 1, 2])
         np.testing.assert_array_equal(res["dev_gather"],
                                       [[1.0] * 3, [2.0] * 3])
-        assert res["stats"]["all_reduce"][:2] == [3, 3 * 4 + 3 * 4 + 3 * 8]
+        assert res["stats"]["all_reduce"] == {"ops": 3, "bytes": 3 * 4 +
+                                              3 * 4 + 3 * 8}
 
 
 def test_device_helpers_are_the_identity_without_a_group():

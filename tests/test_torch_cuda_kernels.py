@@ -48,7 +48,11 @@ The other tree methods (``-k "exact or wide or local or method"``):
 kernel A at B = 16,001 (the global-memory branch) and 7,175, kernels C
 and D at B = 7,175 with a partial hoist, a local histmaker tree, and 3
 rounds of ``approx``, ``exact`` and the local histmaker followed by a
-refresh, each the same bits on the card and the CPU.
+refresh, each the same bits on the card and the CPU. The rounding repairs
+(``-k "cuts or off_power or node_totals"``): ``compute_cuts`` at max_bin
+37, 100 and 1000 with unit and hessian-like weights, local histmaker trees
+at max_bin 37 and 100 on continuous hessians, and the local histmaker's
+node totals (up to 1M rows a node), card == CPU bitwise.
 
 Sparse input and external memory (``-k "paged or csr"``): kernel A on
 every page of a paged matrix (unpacked on the card) at every level of a
@@ -793,6 +797,89 @@ def test_local_tree_same_on_card_and_cpu(cuda, kw):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("max_bin", [37, 100, 1000])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_cuts_same_on_card_and_cpu(cuda, max_bin, weighted):
+    """``compute_cuts`` at a ``max_bin`` that is not a power of two, with
+    unit weights (the prefix sum on the card) and hessian-like weights (on
+    the host): the levels' explicit reciprocal rounds alike on both, so
+    the cuts are equal bit for bit."""
+    from xgboost_tpu_torch.data.quantile import compute_cuts
+
+    rng = np.random.RandomState(max_bin)
+    n, F = 100_037, 8
+    X = rng.randn(n, F).astype(np.float32)
+    X[:, 1] = np.round(X[:, 1] * 20)
+    X[rng.rand(n, F) < 0.05] = np.nan
+    p = 1.0 / (1.0 + np.exp(-rng.randn(n)))
+    w = (p * (1.0 - p)).astype(np.float32) if weighted else None
+    got = [compute_cuts(torch.as_tensor(X, device=dev), max_bin,
+                        None if w is None else torch.as_tensor(w, device=dev))
+           for dev in (cuda, "cpu")]
+    np.testing.assert_array_equal(got[0].values, got[1].values)
+    np.testing.assert_array_equal(got[0].min_vals, got[1].min_vals)
+
+
+@pytest.mark.parametrize("max_bin", [37, 100])
+def test_local_tree_same_on_card_and_cpu_off_power_of_two(cuda, max_bin):
+    """A local histmaker tree at a ``max_bin`` that is not a power of two on
+    continuous hessians: the per-node targets (reciprocal levels, fused
+    multiply-add) and node totals (row order) round alike on the card and
+    on the CPU, so every array is equal bitwise."""
+    from xgboost_tpu_torch import threefry
+    from xgboost_tpu_torch.tree import grow as tgrow
+    from xgboost_tpu_torch.tree import grow_local as tgl
+
+    rng = np.random.RandomState(19)
+    n, F = 30_011, 7
+    X = rng.randn(n, F).astype(np.float32)
+    X[rng.rand(n, F) < 0.05] = np.nan
+    g = rng.randn(n).astype(np.float32)
+    p = 1.0 / (1.0 + np.exp(-rng.randn(n)))
+    h = (p * (1.0 - p)).astype(np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        tree = tgl.grow_tree_local(t(X), t(g), t(h),
+                                   tgrow.GrowParams(max_depth=6), max_bin,
+                                   0.3, 0.0, key=threefry.prng_key(5))
+        out.append([x.cpu() for x in tree])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("F,n,K", [
+    (1, 1_000_003, 1),   # one feature: still one thread a segment
+    (50, 200_003, 1),    # the root of a 50-feature level
+    (7, 300_007, 64),    # a depth-6 level, a tail of left-out rows
+])
+def test_local_node_totals_in_row_order_on_card(cuda, F, n, K):
+    """``grow_local._segment_totals`` on weights over six orders of
+    magnitude: every (feature, node) total on the card equals the CPU's
+    and numpy's left-to-right float32 sum bit for bit (a tree reduction
+    or an atomic scatter rounds otherwise)."""
+    from xgboost_tpu_torch.tree.grow_local import _segment_totals
+
+    rng = np.random.RandomState(n + K)
+    w = (rng.rand(F, n) ** 3 * 10.0 ** rng.randint(-3, 3, (F, n))
+         ).astype(np.float32)
+    bounds = np.sort(rng.randint(0, n, (F, K + 1)), axis=1)
+    bounds[:, 0] = 0
+    want = np.zeros((F, K), np.float32)
+    for f in range(F):
+        for k in range(K):
+            seg = w[f, bounds[f, k]:bounds[f, k + 1]]
+            if seg.size:
+                want[f, k] = np.add.accumulate(seg)[-1]
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        got.append(_segment_totals(t(w), t(bounds[:, :-1]),
+                                   t(bounds[:, 1:])).cpu().numpy())
+    np.testing.assert_array_equal(got[1], want)
+    np.testing.assert_array_equal(got[0], want)
+
+
 @pytest.mark.parametrize("params", [
     {"tree_method": "approx", "max_bin": 64},
     {"tree_method": "exact"},
@@ -945,7 +1032,7 @@ def test_distributed_gloo_on_the_card_equals_the_cpu(cuda, tmp_path):
     """Two ranks over gloo on the card (both on one card: gloo stages the
     int64 histograms through the host) and two ranks on the CPU, 3 rounds
     at 64k rows in ragged shards on shared cuts: the same model bytes on
-    all four ranks and the same trees."""
+    all four ranks and the same trees, depthwise and lossguide."""
     from test_torch_distributed import spawn
 
     (tmp_path / "card").mkdir()
@@ -957,3 +1044,5 @@ def test_distributed_gloo_on_the_card_equals_the_cpu(cuda, tmp_path):
     for a, b in zip(card[0]["trees"], cpu[0]["trees"]):
         for f in a:
             np.testing.assert_array_equal(a[f], b[f], f)
+    raws = [r["lossguide_raw"] for r in card + cpu]
+    assert raws.count(raws[0]) == 4

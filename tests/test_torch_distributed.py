@@ -24,6 +24,14 @@ the conftest's 8 virtual CPU devices with ``make_mesh(2)``.
   Booster's trees; training on the distributed sketch holds the merge of
   the two shards' summaries on both ranks; matrices binned on each rank's
   own rows outside ``mesh_context`` raise ValueError on both ranks;
+- lossguide at world 2 (``max_leaves`` 31 and 255, ``max_depth`` 0 and 6,
+  3 rounds on shared cuts) gives both ranks the single process's model
+  bytes; one lossguide tree (1/64-grid gradients, 31 leaves) at world 2
+  equals the port's single process bitwise, the positions in rank order,
+  and JAX ``distributed_grow_tree_lossguide`` on a 2-device mesh (the
+  allocation arrays and positions exactly, weights and loss changes
+  within rtol 1e-6); a lossguide run on cuts of each rank's own rows
+  raises ValueError on both ranks;
 - every configuration outside the envelope raises NotImplementedError on
   both ranks, and a mesh-less two-process program trains DART and
   evaluates a different number of times per rank without hanging.
@@ -31,6 +39,7 @@ the conftest's 8 virtual CPU devices with ``make_mesh(2)``.
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 import subprocess
@@ -61,12 +70,18 @@ PENDING = ("keep", "feature", "split_bin", "split_cond", "default_left",
            "node_weight", "loss_chg", "node_h", "leaf_value")
 #: matrices binned on a rank's own rows before ``mesh_context``
 CUT_MISMATCH = ("quantile", "dmatrix")
+#: lossguide at world 2: (max_leaves, max_depth), rounds, the one tree's
+#: leaf budget
+LOSSGUIDE = [(31, 0), (31, 6), (255, 0), (255, 6)]
+LG_ROUNDS, LG_TREE_LEAVES = 3, 31
+#: the allocation arrays compared exactly with the JAX package's
+LG_EXACT = ("left", "right", "feature", "split_bin", "split_cond", "depth",
+            "node_g", "node_h", "n_nodes")
 #: configurations outside the envelope: name -> (params, matrix kind)
 ENVELOPE = {
     "ranking": ({"objective": "rank:ndcg"}, "grouped"),
     "survival": ({"objective": "survival:cox"}, "dense"),
     "dart": ({"booster": "dart"}, "dense"),
-    "lossguide": ({"grow_policy": "lossguide", "max_leaves": 8}, "dense"),
     "categorical": ({}, "categorical"),
     "external_memory": ({}, "paged"),
     "custom_objective": ({}, "fobj"),
@@ -106,6 +121,15 @@ def tree_data(scale: bool):
     if scale:
         g[TREE_N // 2:] *= np.float32(1024.0)
     return X, g, h
+
+
+def lossguide_tree_data():
+    """Rows and gradients of the one lossguide tree: g and h on a 1/64
+    grid, so every float32 sum of them is exact and the JAX package's
+    psum'd float histograms hold the port's values."""
+    X, rng = _rows(TREE_N, 5)
+    return (X, rng.randint(-128, 129, TREE_N).astype(np.float32) / 64,
+            rng.randint(6, 65, TREE_N).astype(np.float32) / 64)
 
 
 def sketch_data(max_bin):
@@ -195,6 +219,7 @@ def run_worker(rank: int, world: int, init_file: str, out: str,
                                             distributed_grow_tree_fused,
                                             init_distributed, mesh_context)
     from xgboost_tpu_torch.tree.grow import GrowParams
+    from xgboost_tpu_torch.tree.grow_lossguide import grow_tree_lossguide
 
     torch.set_num_threads(1)
     backend = "gloo"
@@ -258,6 +283,34 @@ def run_worker(rank: int, world: int, init_file: str, out: str,
                          local=bst.eval_values([(dv, "v")])["v"],
                          eval_rows=vhi - vlo)
 
+    # lossguide over the group, with the collective accounting of each run
+    from xgboost_tpu_torch.observability import comms
+
+    for leaves, depth in LOSSGUIDE:
+        p = {**PARAMS, "grow_policy": "lossguide", "max_leaves": leaves,
+             "max_depth": depth}
+        d, dv = shared(y), ev(y)
+        before = {by: comms.snapshot(by) for by in ("op", "site")}
+        with mesh_context(mesh):
+            bst = xgbt.train(p, d, LG_ROUNDS, evals=[(dv, "v")],
+                             verbose_eval=False)
+        res[f"lossguide_{leaves}_{depth}"] = bst.save_raw()
+        for by, was in before.items():
+            now = comms.snapshot(by)
+            res[f"lossguide_{leaves}_{depth}_{by}"] = {
+                k: {f: now[k][f] - was.get(k, {}).get(f, 0.0)
+                    for f in ("ops", "bytes")} for k in now}
+    Xl, g, h = lossguide_tree_data()
+    Xt = torch.as_tensor(Xl, device=dev)
+    cuts = compute_cuts(Xt, TREE_BIN)
+    a, b = shard(rank, TREE_N, TREE_N // 2)
+    t = grow_tree_lossguide(
+        bin_matrix(Xt, cuts)[a:b], torch.as_tensor(g[a:b], device=dev),
+        torch.as_tensor(h[a:b], device=dev),
+        torch.as_tensor(cuts.values, device=dev), GrowParams(max_depth=0),
+        LG_TREE_LEAVES, group=mesh)
+    res["lg_tree"] = {f: getattr(t, f).cpu().numpy() for f in t._fields}
+
     # early stopping on held-out rows whose labels are permuted
     d, dv = shared(y), ev(y[np.random.RandomState(3).permutation(len(y))])
     with mesh_context(mesh):
@@ -305,6 +358,15 @@ def run_worker(rank: int, world: int, init_file: str, out: str,
             res["cut_mismatch"][kind] = None
         except ValueError as e:
             res["cut_mismatch"][kind] = str(e)
+    d = xgbt.DMatrix(Xtr[lo:hi], y[lo:hi], device=dev)
+    d.get_binned(32)
+    try:
+        with mesh_context(mesh):
+            xgbt.train({"grow_policy": "lossguide", "max_leaves": 8,
+                        "max_bin": 32}, d, 1, verbose_eval=False)
+        res["cut_mismatch_lossguide"] = None
+    except ValueError as e:
+        res["cut_mismatch_lossguide"] = str(e)
 
     # -- the envelope --------------------------------------------------------
     tmp = Path(out) / f"env{rank}"
@@ -335,7 +397,8 @@ CARD_PARAMS = {"objective": "binary:logistic", "max_depth": 6,
 def run_card_worker(rank: int, world: int, init_file: str, out: str,
                     device: str = "cpu") -> None:
     """3 rounds over gloo at ``CARD_ROWS`` rows on ``device``: the model
-    bytes and the trees' heap arrays."""
+    bytes and the trees' heap arrays, and a lossguide model's bytes (63
+    leaves)."""
     import xgboost_tpu_torch as xgbt
     from xgboost_tpu_torch.parallel import init_distributed, mesh_context
 
@@ -353,6 +416,11 @@ def run_card_worker(rank: int, world: int, init_file: str, out: str,
                          verbose_eval=False)
     trees = [_heap(e, PENDING) for e in bst._gbm.model._entries]
     res = dict(trees=trees, raw=bst.save_raw())
+    with mesh_context(mesh):
+        bst = xgbt.train({**CARD_PARAMS, "grow_policy": "lossguide",
+                          "max_leaves": 63, "max_depth": 0}, d,
+                         CARD_ROUNDS, verbose_eval=False)
+    res["lossguide_raw"] = bst.save_raw()
     xgbt.collective.finalize()
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
@@ -589,6 +657,135 @@ def test_ranks_binned_on_their_own_cuts_raise(ranks, kind):
         msg = r["cut_mismatch"][kind]
         assert msg is not None and "different cuts" in msg
         assert "mesh_context" in msg and "ref=" in msg
+
+
+@pytest.mark.parametrize("leaves,depth", LOSSGUIDE)
+def test_lossguide_bitwise_single_process(ranks, leaves, depth):
+    """Lossguide over the group: every step's int64 child histograms
+    all-reduced, the same queue on both ranks, the single process's model
+    bytes on both."""
+    p = {**PARAMS, "grow_policy": "lossguide", "max_leaves": leaves,
+         "max_depth": depth}
+    bst, _ = _single(p, train_data()[1], rounds=LG_ROUNDS)
+    raw = bst.save_raw()
+    assert ranks[0][f"lossguide_{leaves}_{depth}"] == raw
+    assert ranks[1][f"lossguide_{leaves}_{depth}"] == raw
+    trees = json.loads(raw)["learner"]["gradient_booster"]["model"]["trees"]
+    n_leaves = [(len(t["left_children"]) + 1) // 2 for t in trees]
+    assert max(n_leaves) <= leaves and max(n_leaves) > min(leaves, 31) // 2
+    if depth:
+        assert all(max(_depths(t)) <= depth for t in trees)
+
+
+@pytest.mark.parametrize("leaves", [31, 255])
+def test_lossguide_collectives_are_accounted(ranks, leaves):
+    """``observability.comms`` counts, per site, the scale, the root
+    totals and every step's int64 child histograms of each tree: the
+    root's ``[F, 2, B]`` and one ``[F, 4 K_EXP, B]`` a step, 8 bytes a
+    cell; per kind, the same under ``pmax`` / ``psum_hist``, and the host
+    gathers under ``process_allgather``."""
+    from xgboost_tpu_torch.tree.grow_lossguide import (expansions_per_step,
+                                                       lossguide_steps)
+
+    steps, cell = lossguide_steps(leaves), F * 32 * 8
+    hist = 2 * cell + steps * 4 * expansions_per_step(leaves) * cell
+    for r in ranks:
+        site = r[f"lossguide_{leaves}_0_site"]
+        assert site["grad_scale"] == {"ops": LG_ROUNDS, "bytes": 8 * LG_ROUNDS}
+        assert site["root_totals"] == {"ops": LG_ROUNDS,
+                                       "bytes": 16 * LG_ROUNDS}
+        assert site["lossguide_hist"] == {"ops": LG_ROUNDS * (1 + steps),
+                                          "bytes": LG_ROUNDS * hist}
+        kind = r[f"lossguide_{leaves}_0_op"]
+        assert kind["pmax"] == site["grad_scale"]
+        assert kind["psum_hist"] == {
+            "ops": LG_ROUNDS * (2 + steps),
+            "bytes": LG_ROUNDS * (16 + hist)}
+        assert kind["process_allgather"]["ops"] > 0
+
+
+def _depths(tree):
+    depth = [0] * len(tree["left_children"])
+    for i, (lc, rc) in enumerate(zip(tree["left_children"],
+                                     tree["right_children"])):
+        if lc >= 0:
+            depth[lc] = depth[rc] = depth[i] + 1
+    return depth
+
+
+def test_lossguide_tree_bitwise_single_process(ranks):
+    from xgboost_tpu_torch.data.quantile import bin_matrix, compute_cuts
+    from xgboost_tpu_torch.tree.grow import GrowParams
+    from xgboost_tpu_torch.tree.grow_lossguide import grow_tree_lossguide
+
+    X, g, h = lossguide_tree_data()
+    Xt = torch.as_tensor(X)
+    cuts = compute_cuts(Xt, TREE_BIN)
+    want = grow_tree_lossguide(bin_matrix(Xt, cuts), torch.as_tensor(g),
+                               torch.as_tensor(h),
+                               torch.as_tensor(cuts.values),
+                               GrowParams(max_depth=0), LG_TREE_LEAVES)
+    for r in ranks:
+        for f, v in r["lg_tree"].items():
+            if f != "positions":
+                np.testing.assert_array_equal(v, getattr(want, f).numpy(), f)
+    np.testing.assert_array_equal(
+        np.concatenate([r["lg_tree"]["positions"] for r in ranks]),
+        want.positions.numpy())
+    assert int(want.n_nodes) == 2 * LG_TREE_LEAVES - 1
+
+
+def test_lossguide_tree_matches_jax_distributed_grower(ranks):
+    import jax
+    import jax.numpy as jnp
+    from xgboost_tpu.data.quantile import bin_matrix as jbin
+    from xgboost_tpu.data.quantile import HistogramCuts as JCuts
+    from xgboost_tpu.parallel import (distributed_grow_tree_lossguide,
+                                      make_mesh, shard_rows)
+    from xgboost_tpu.tree.grow import GrowParams
+
+    from xgboost_tpu_torch.data.quantile import compute_cuts
+
+    X, g, h = lossguide_tree_data()
+    cuts = compute_cuts(torch.as_tensor(X), TREE_BIN)
+    bins = np.asarray(jbin(jnp.asarray(X), JCuts(cuts.values, cuts.min_vals)))
+    mesh = make_mesh(2)
+    jt = distributed_grow_tree_lossguide(
+        mesh, shard_rows(jnp.asarray(bins, jnp.int32), mesh),
+        shard_rows(jnp.asarray(g), mesh), shard_rows(jnp.asarray(h), mesh),
+        jnp.asarray(cuts.values), jax.random.PRNGKey(0),
+        GrowParams(max_depth=0), LG_TREE_LEAVES)
+    got = ranks[0]["lg_tree"]
+    for f in LG_EXACT:
+        np.testing.assert_array_equal(got[f], np.asarray(getattr(jt, f)), f)
+    for f in ("node_weight", "loss_chg"):
+        np.testing.assert_allclose(got[f], np.asarray(getattr(jt, f)),
+                                   rtol=1e-6, err_msg=f)
+    positions = np.asarray(jt.positions)[:TREE_N]
+    np.testing.assert_array_equal(
+        np.concatenate([r["lg_tree"]["positions"] for r in ranks]),
+        positions)
+    # default_left where a row with a missing split value reached the node
+    # (elsewhere both directions score the same: a tie)
+    left, right = got["left"], got["right"]
+    parent = np.full(left.shape[0], -1)
+    for i in np.flatnonzero(left >= 0):
+        parent[left[i]] = parent[right[i]] = i
+    seen = np.zeros(left.shape[0], bool)
+    for r, leaf in enumerate(positions):
+        i = parent[leaf]
+        while i >= 0:
+            seen[i] |= bins[r, got["feature"][i]] == TREE_BIN
+            i = parent[i]
+    assert seen.any()
+    np.testing.assert_array_equal(got["default_left"][seen],
+                                  np.asarray(jt.default_left)[seen])
+
+
+def test_lossguide_on_each_ranks_own_cuts_raises(ranks):
+    for r in ranks:
+        msg = r["cut_mismatch_lossguide"]
+        assert msg is not None and "different cuts" in msg
 
 
 @pytest.mark.parametrize("name", sorted(ENVELOPE))

@@ -582,10 +582,11 @@ def test_lossguide_steps_reach_the_level_kernel_at_d0(stub_cuda, max_leaves):
 @pytest.mark.parametrize("max_depth", [1, 4])
 def test_local_levels_reach_the_level_kernel_at_d0(stub_cuda, max_depth):
     """A ``grow_local_histmaker`` tree on device tensors sketches, bins and
-    routes every level on the device and builds its histogram through
-    kernel A at ``d = 0``, ``Kp = 0`` (no routing) and ``K = 2^d``, over
-    that level's int16 bins (``max_bin`` 256) and their feature-major copy;
-    never the plain version."""
+    routes every level on the device, its node totals included (nothing
+    is read back: ``meta`` tensors cannot be), and builds its histogram
+    through kernel A at ``d = 0``, ``Kp = 0`` (no routing) and
+    ``K = 2^d``, over that level's int16 bins (``max_bin`` 256) and their
+    feature-major copy; never the plain version."""
     from xgboost_tpu_torch.tree import grow as tgrow
     from xgboost_tpu_torch.tree import grow_local as tgl
 
@@ -779,6 +780,77 @@ def test_distributed_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
+
+
+OBS_MODULES = ("xgboost_tpu_torch.observability",
+               "xgboost_tpu_torch.observability.metrics",
+               "xgboost_tpu_torch.observability.trace",
+               "xgboost_tpu_torch.observability.flight",
+               "xgboost_tpu_torch.observability.comms",
+               "xgboost_tpu_torch.utils", "xgboost_tpu_torch.utils.log",
+               "xgboost_tpu_torch.utils.timer",
+               "xgboost_tpu_torch.utils.fault")
+
+
+def test_observability_modules_import_no_jax():
+    """The telemetry layer (its own copy of the registry included) imports
+    neither ``jax`` nor ``xgboost_tpu``, and importing it initialises no
+    CUDA context."""
+    for m in OBS_MODULES:
+        path = ROOT / (m.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / m.replace(".", "/") / "__init__.py"
+        assert path in set((ROOT / "xgboost_tpu_torch").rglob("*.py")), m
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in OBS_MODULES) +
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'xgboost_tpu')]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+
+
+def test_spans_and_records_read_no_tensor(stub_cuda, monkeypatch, tmp_path):
+    """A traced, flight-recorded tree on device tensors (``meta``: nothing
+    can be read back) goes through the same kernel wrapper calls as an
+    untraced one: a span or a record never reads a tensor, synchronises
+    or launches."""
+    from xgboost_tpu_torch.observability import RECORDER, trace
+    from xgboost_tpu_torch.tree import grow as tgrow
+    from xgboost_tpu_torch.tree import grow_fused as tgf
+
+    def synchronize(*a, **k):
+        raise AssertionError("a span synchronised the device")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", synchronize)
+    n, F, B, depth = 300, 5, 16, 3
+    meta = dict(device="meta")
+
+    def grow():
+        RECORDER.begin_round(0)
+        tgf.grow_tree_fused(
+            torch.empty((n, F), dtype=torch.uint8, **meta),
+            torch.empty(n, **meta), torch.empty(n, **meta),
+            torch.empty((F, B), **meta), 0.3, 0.0,
+            tgrow.GrowParams(max_depth=depth))
+        RECORDER.end_round()
+
+    grow()
+    untraced = list(stub_cuda.calls)
+    stub_cuda.calls.clear()
+    monkeypatch.setenv("XGBTPU_TRACE", str(tmp_path / "t.json"))
+    trace.reset()
+    grow()
+    assert stub_cuda.calls == untraced and len(untraced) == depth
+    trace.flush()
+    assert [e["name"] for e in trace.load_trace(str(tmp_path / "t.json"))
+            if e.get("ph") == "X"] == ["grow_tree"]
+    trace.reset()
+    RECORDER.reset()
 
 
 def test_init_distributed_without_a_card_raises(monkeypatch, tmp_path):

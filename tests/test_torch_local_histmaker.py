@@ -4,9 +4,11 @@ The per-node sketch. ``segmented_weighted_cuts`` on one column (8%
 missing, rows outside every segment, an empty segment) and
 ``_level_cuts_and_bins`` on a whole level (2048 x 6 rows, nodes of a real
 tree) against the JAX functions, with hessians on a 1/64 grid: every
-prefix sum of them is exact in float32, so the JAX package's ``jnp.cumsum``
-and the port's float64 scan find the same quantiles. Cuts and bins equal
-exactly.
+prefix sum of them is exact in float32. Cuts and bins equal exactly.
+With continuous (``binary:logistic``) hessians, every level of 2 rounds on
+six seeds at ``max_bin`` 37, 64, 100 and 256: the cuts and bins are the
+JAX package's bit for bit (float32 sums rounded as XLA:CPU rounds them),
+and the trees equal its trees but for one tie in gain.
 
 The grower. ``grow_tree_local`` of both packages on the same raw rows, the
 same 1/64-grid gradients (so the JAX package's float histograms and the
@@ -195,3 +197,116 @@ def test_refusals_match_jax(extra, types):
         xgbt.train(p, xgbt.DMatrix(X, y, feature_types=types, device="cpu"),
                    1, verbose_eval=False)
     assert str(te.value) == str(je.value)
+
+
+# ---------------------------------------------------------------------------
+# continuous hessians: the per-node sketch's float32 sums
+# ---------------------------------------------------------------------------
+
+LOCAL_N = 2574
+LOCAL_BINS = [37, 64, 100, 256]
+LOCAL_P = {"objective": "binary:logistic", "max_depth": 4, "eta": 0.3,
+           "updater": "grow_local_histmaker"}
+
+
+def _local_set(seed):
+    X = _rows(seed, LOCAL_N)
+    rng = np.random.RandomState(100 + seed)
+    y = ((np.nan_to_num(X) @ rng.randn(F) + 0.5 * rng.randn(LOCAL_N)) > 0
+         ).astype(np.float32)
+    return X, y
+
+
+@pytest.mark.parametrize("max_bin", LOCAL_BINS)
+def test_level_cuts_bitwise_jax_along_training(max_bin, monkeypatch):
+    """The witness of the per-node sketch's rounding. ``binary:logistic``'s
+    hessians are continuous, so the prefix sums, the node totals and the
+    quantile targets are inexact in float32; the cuts are the JAX
+    package's only where each rounds as XLA:CPU rounds it (the ``_cdf``
+    association, node totals in row order, reciprocal levels, the target's
+    fused multiply-add). Every level of 2 rounds at depth 4 on 2574 rows,
+    seeds 0-5: the port's cuts and bins equal the JAX package's
+    ``_level_cuts_and_bins`` (jitted, at its fixed level width) on the
+    same inputs."""
+    seen = []
+    orig = tgl._level_cuts_and_bins
+
+    def spy(X, hess, seg, K, B):
+        out = orig(X, hess, seg, K, B)
+        seen.append((X.numpy(), hess.numpy(), seg.numpy(), K, B) + tuple(
+            o.numpy() for o in out))
+        return out
+
+    monkeypatch.setattr(tgl, "_level_cuts_and_bins", spy)
+    p = {**LOCAL_P, "max_bin": max_bin}
+    for seed in range(6):
+        X, y = _local_set(seed)
+        xgbt.train(p, xgbt.DMatrix(X, y, device="cpu"), 2,
+                   verbose_eval=False)
+    assert len(seen) == 6 * 2 * 4
+    width = 1 << (LOCAL_P["max_depth"] - 1)
+    jlevel = jax.jit(jgl._level_cuts_and_bins, static_argnums=(3, 4))
+    for X, h, seg, K, B, cuts, bins in seen:
+        jc, jb = jlevel(jnp.asarray(X), jnp.asarray(h),
+                        jnp.asarray(seg.astype(np.int32)), width, B)
+        np.testing.assert_array_equal(cuts, np.asarray(jc)[:K])
+        inside = (seg >= 0) & (seg < K)
+        np.testing.assert_array_equal(bins[inside], np.asarray(jb)[inside])
+
+
+@pytest.mark.parametrize("max_bin", LOCAL_BINS)
+def test_train_matches_jax_with_continuous_hessians(max_bin):
+    """The same training end to end: trees and margins with the lossguide
+    tests' tolerances. The histograms differ in their float rounding (the
+    JAX package's float32 ``segment_sum``, the port's exact fixed-point
+    sums), so two candidates of equal gain can split either way: seed 5
+    at ``max_bin`` 256 picks another condition on the same feature at
+    node 14 of tree 1 (loss changes 4.348700 and 4.348671) on cuts that
+    are equal bit for bit. Where a split differs, the two packages' loss
+    changes must agree within rtol 1e-5 (a tie), and that tree and the
+    seed's later trees are not compared further."""
+    p = {**LOCAL_P, "max_bin": max_bin}
+    for seed in range(6):
+        X, y = _local_set(seed)
+        jb = xgb.train(p, xgb.DMatrix(X, label=y), 2, verbose_eval=False)
+        tb = xgbt.train(p, xgbt.DMatrix(X, y, device="cpu"), 2,
+                        verbose_eval=False)
+        jt, tt = _trees(json.loads(jb.save_raw())), _trees(tb.save_json())
+        tie = None
+        for k, (a, b) in enumerate(zip(jt, tt)):
+            ca = np.asarray(a["split_conditions"], np.float32)
+            cb = np.asarray(b["split_conditions"], np.float32)
+            inner = np.asarray(a["left_children"]) >= 0
+            moved = np.nonzero(inner & ((ca != cb) | (
+                np.asarray(a["split_indices"]) !=
+                np.asarray(b["split_indices"]))))[0]
+            if len(moved):
+                i = moved[0]
+                np.testing.assert_allclose(b["loss_changes"][i],
+                                           a["loss_changes"][i], rtol=1e-5)
+                tie = k
+                break
+        if tie is None:
+            _assert_same_trees(jt, tt, X)
+            np.testing.assert_allclose(_margins(tb, X), _margins(jb, X),
+                                       rtol=1e-5, atol=TOL)
+        else:
+            assert (seed, max_bin) == (5, 256), (seed, max_bin, tie)
+            _assert_same_trees(jt[:tie], tt[:tie], X)
+
+
+def test_segmented_weighted_cuts_match_jax_with_continuous_weights():
+    """One column, hessian-like weights, 8 segments (rows outside every
+    segment, 8% missing), against the JAX function jitted as the grower
+    compiles it."""
+    rng = np.random.RandomState(12)
+    col = rng.randn(LOCAL_N).astype(np.float32)
+    col[rng.rand(LOCAL_N) < 0.08] = np.nan
+    p = 1.0 / (1.0 + np.exp(-rng.randn(LOCAL_N)))
+    h = (p * (1.0 - p)).astype(np.float32)
+    seg = rng.randint(-1, 9, LOCAL_N).astype(np.int32)
+    jsw = jax.jit(jgl.segmented_weighted_cuts, static_argnums=(3, 4))
+    for K, B in ((8, 37), (8, 100), (8, 256)):
+        want = jsw(jnp.asarray(col), jnp.asarray(h), jnp.asarray(seg), K, B)
+        got = tgl.segmented_weighted_cuts(_t(col), _t(h), _t(seg), K, B)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -721,5 +721,42 @@ def test_cv_folds_and_results_match(data, both, stratified):
         np.testing.assert_allclose(tr[k], jr[k], rtol=0, atol=1e-6)
     df = xgbt.cv(PARAMS, both.td, 2, nfold=3, seed=5)
     assert list(df.columns) == list(jr)
-    with pytest.raises(NotImplementedError):
-        xgbt.cv(PARAMS, both.td, 1, callbacks=[TScheduler([0.1])])
+    # callbacks are accepted and none runs (the JAX package's cv): a
+    # learning-rate schedule changes nothing
+    kw = dict(nfold=3, seed=5, as_pandas=False)
+    jc = xgb.cv(PARAMS, both.jd, 2, callbacks=[JScheduler([0.9, 0.9])], **kw)
+    tc = xgbt.cv(PARAMS, both.td, 2, callbacks=[TScheduler([0.9, 0.9])],
+                 **kw)
+    assert tc == xgbt.cv(PARAMS, both.td, 2, **kw)
+    assert jc == xgb.cv(PARAMS, both.jd, 2, **kw)
+
+
+class _Recorder:
+    """A callback that records every call it gets."""
+
+    def __init__(self, base):
+        self.calls = []
+        self.base = base
+
+    def __getattr__(self, name):
+        def call(*args, **kw):
+            self.calls.append(name)
+            return getattr(self.base, name)(*args, **kw)
+        return call
+
+
+def test_cv_accepts_callbacks_and_runs_none(both):
+    """``cv(callbacks=...)``: both packages take the list and call none of
+    its methods; the histories equal the calls without it."""
+    from xgboost_tpu.callback import TrainingCallback as JCallback
+    from xgboost_tpu_torch.callback import TrainingCallback as TCallback
+
+    kw = dict(nfold=3, seed=1, as_pandas=False)
+    jrec, trec = _Recorder(JCallback()), _Recorder(TCallback())
+    jr = xgb.cv(PARAMS, both.jd, 3, callbacks=[jrec], **kw)
+    tr = xgbt.cv(PARAMS, both.td, 3, callbacks=[trec], **kw)
+    assert jrec.calls == trec.calls == []
+    assert tr == xgbt.cv(PARAMS, both.td, 3, **kw)
+    assert list(tr) == list(jr)
+    for k in jr:
+        np.testing.assert_allclose(tr[k], jr[k], rtol=0, atol=1e-6)

@@ -21,13 +21,17 @@ the caller passes ``device="cpu"``. Distributed training over
 ``torch.distributed`` (``parallel``: ``init_distributed``, ``make_mesh``,
 ``mesh_context``; one rank per device, each on its own rows, the level
 histograms all-reduced) and the rabit shim (``collective``, alias
-``rabit``). The four kernels of the path (the
+``rabit``). Telemetry (``observability``): span tracing to Chrome
+trace-event files (``XGBTPU_TRACE`` or ``set_config(trace_path=...)``),
+the metrics registry, collective accounting and the per-round flight
+recorder (``observability.flight.configure(run_dir)``);
+``profiler_context`` wraps ``torch.profiler``. The four kernels of the path (the
 construct and hoisted level histograms, the one-hot build and the forest
 walk) are hand-written CUDA (``csrc/``), built at first use; on CPU
 tensors their plain PyTorch versions run.
 """
 
-from . import callback, collective, parallel
+from . import callback, collective, observability, parallel
 from . import collective as rabit  # noqa: F401  (legacy alias)
 from .config import config_context, get_config, set_config
 from .data.dmatrix import DMatrix, QuantileDMatrix, load_row_split
@@ -38,12 +42,14 @@ from .learner import Booster
 from .plotting import plot_importance, plot_tree, to_graphviz
 from .predictor import forest_from_numpy
 from .training import cv, train
+from .utils.timer import profiler_context
 
 __version__ = "0.1.0"
 
 __all__ = ["DMatrix", "QuantileDMatrix", "ExternalMemoryQuantileDMatrix",
            "DataIter", "load_row_split", "Booster", "train", "cv",
-           "callback", "collective", "rabit", "parallel", "HistogramCuts",
+           "callback", "collective", "rabit", "parallel", "observability",
+           "profiler_context", "HistogramCuts",
            "forest_from_numpy", "config_context", "set_config", "get_config",
            "plot_importance", "plot_tree", "to_graphviz", "XGBModel",
            "XGBRegressor", "XGBClassifier", "XGBRanker", "XGBRFRegressor",

@@ -14,7 +14,10 @@ from __future__ import annotations
 import collections
 import os
 import pickle
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Union
+
+import numpy as np
 
 __all__ = [
     "TrainingCallback",
@@ -23,6 +26,8 @@ __all__ = [
     "EarlyStopping",
     "EvaluationMonitor",
     "TrainingCheckPoint",
+    "TrainingTelemetry",
+    "FlightRecorderMonitor",
     "is_maximize",
 ]
 
@@ -77,7 +82,12 @@ class CallbackContainer:
 
     def after_iteration(self, model, epoch, dtrain, evals, feval=None) -> bool:
         if evals:
-            self._update_history(model.eval_set(evals, epoch, feval))
+            from .observability import flight
+
+            t0 = time.perf_counter()
+            msg = model.eval_set(evals, epoch, feval)
+            flight.note("eval", time.perf_counter() - t0)
+            self._update_history(msg)
         return any(cb.after_iteration(model, epoch, self.history)
                    for cb in self.callbacks)
 
@@ -204,6 +214,121 @@ class EvaluationMonitor(TrainingCallback):
         if self._latest is not None:
             print(self._latest, flush=True)
         return model
+
+
+class TrainingTelemetry(TrainingCallback):
+    """Record per-round training telemetry into the metrics registry
+    (``observability.REGISTRY`` unless one is passed; the JAX package's
+    ``TrainingTelemetry``). Per round:
+
+    - ``round_seconds`` (histogram): wall time of update and eval;
+    - ``trees_total`` (gauge): trees in the model so far;
+    - ``tree_depth`` / ``tree_leaves`` (gauges): the shape of the round's
+      last tree, and ``split_gain`` (histogram): the loss change of each of
+      its splits. This copies the last tree to the host (a device
+      synchronization): that is this callback's cost, and why it is opt-in
+      rather than built into ``train``;
+    - ``eval_score{data=,metric=}`` (gauges): the latest eval values;
+
+    plus a ``round`` instant on the active trace. Telemetry never breaks
+    training: a failed introspection (a linear model has no trees) is
+    swallowed."""
+
+    def __init__(self, registry=None):
+        from .observability import REGISTRY
+
+        self.registry = registry if registry is not None else REGISTRY
+        self._t0: Optional[float] = None
+
+    def before_iteration(self, model, epoch: int, evals_log) -> bool:
+        self._t0 = time.perf_counter()
+        return False
+
+    def _record_tree_stats(self, model) -> None:
+        gbm = getattr(model, "_gbm", None)
+        last = gbm.model.last_tree()
+        if last is None:
+            return
+        reg = self.registry
+        reg.gauge("trees_total", "Trees committed to the model").set(
+            gbm.model.num_trees)
+        reg.gauge("tree_depth", "Depth of the last committed tree").set(
+            last.max_depth())
+        reg.gauge("tree_leaves", "Leaves of the last committed tree").set(
+            int(np.count_nonzero(last.left_children == -1)))
+        gain = reg.histogram(
+            "split_gain", "Loss change of committed splits",
+            buckets=(0.1, 0.5, 1.0, 5.0, 10.0, 50.0, 100.0, 500.0, 1000.0,
+                     10000.0))
+        internal = last.left_children != -1
+        for g in last.loss_changes[internal]:
+            gain.observe(float(g))
+
+    def after_iteration(self, model, epoch: int, evals_log) -> bool:
+        from .observability import trace
+
+        reg = self.registry
+        if self._t0 is not None:
+            reg.histogram(
+                "round_seconds", "Wall time per boosting round",
+            ).observe(time.perf_counter() - self._t0)
+            self._t0 = None
+        try:
+            self._record_tree_stats(model)
+        except Exception:  # introspection must never fail training
+            pass
+        for dname, metrics in (evals_log or {}).items():
+            for mname, vals in metrics.items():
+                if vals:
+                    v = vals[-1]
+                    if isinstance(v, tuple):  # cv: (mean, std)
+                        v = v[0]
+                    reg.gauge(
+                        "eval_score", "Latest eval metric value",
+                    ).labels(data=dname, metric=mname).set(float(v))
+        trace.instant("round", epoch=epoch)
+        return False
+
+
+class FlightRecorderMonitor(TrainingCallback):
+    """A live window onto the flight recorder (the JAX package's
+    ``FlightRecorderMonitor``): after every round the latest completed
+    record (wall time, ``grow`` / ``eval`` stage seconds, collective
+    deltas, memory peaks; ``observability/flight.py``) lands in
+    ``self.latest`` and goes to ``on_record`` if given. The recorder is
+    always on; this callback only reads it::
+
+        mon = FlightRecorderMonitor(
+            on_record=lambda r: print(r["round"], r["wall_s"]))
+        train(params, dtrain, 100, callbacks=[mon])
+        mon.records()   # every record still in the ring
+    """
+
+    def __init__(self, on_record: Optional[Callable[[dict], None]] = None):
+        self.on_record = on_record
+        self.latest: Optional[dict] = None
+
+    def after_iteration(self, model, epoch: int, evals_log) -> bool:
+        from .observability import flight
+
+        # the loop's end_round() runs after the callbacks: the freshest
+        # complete record is the previous round's; after_training picks
+        # up the last one
+        rec = flight.RECORDER.last()
+        if rec is not None and rec is not self.latest:
+            self.latest = rec
+            if self.on_record is not None:
+                self.on_record(rec)
+        return False
+
+    def after_training(self, model):
+        self.after_iteration(model, -1, None)
+        return model
+
+    def records(self) -> List[dict]:
+        from .observability import flight
+
+        return flight.RECORDER.records()
 
 
 class TrainingCheckPoint(TrainingCallback):

@@ -18,35 +18,36 @@ package's traced ``psum`` / ``all_gather``. Every collective runs under
 ``CollectiveError``; the JAX package's chaos sites, watchdog and retry
 policy there are not ported yet (each call site keeps its name for them).
 
-``all_reduce`` counts calls and bytes per site in ``stats``; with
-``timing`` on it also synchronises the device around each call and adds
-the host-clock seconds.
+Every collective counts its operations and payload bytes in the metrics
+registry under its site and the JAX package's kind of it
+(``observability.comms``; ``comms.snapshot(by="site")`` reads them per
+site); with ``timing`` on, ``all_reduce`` also synchronises the device
+around each call and adds the host-clock seconds. ``all_reduce``,
+``allreduce`` and
+``broadcast`` record an ``allreduce`` / ``broadcast`` span on the active
+trace (host clock only: a span does not synchronise the device).
 """
 
 from __future__ import annotations
 
 import time
 from enum import IntEnum
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .observability import comms, trace
+
 __all__ = ["Op", "init", "finalize", "get_rank", "get_world_size",
            "is_distributed", "allreduce", "broadcast", "communicator_print",
            "get_processor_name", "tracker_print", "version_number",
            "CollectiveError", "guarded", "process_allgather", "all_reduce",
-           "all_gather", "reduce_histogram", "stats", "reset_stats"]
+           "all_gather", "reduce_histogram"]
 
-#: per ``all_reduce`` site: [calls, bytes, seconds] (seconds only while
-#: ``timing`` is on)
-stats: Dict[str, List[float]] = {}
+#: time each ``all_reduce`` between two device synchronizations
 timing = False
-
-
-def reset_stats() -> None:
-    stats.clear()
 
 
 class CollectiveError(RuntimeError):
@@ -121,20 +122,21 @@ def all_reduce(t: torch.Tensor, mesh, op: Op = Op.SUM, *,
     world size or the backend's reduction order."""
     if mesh is None:
         return t
-    t0 = 0.0
+    t0 = seconds = None
     if timing:
         if t.device.type == "cuda":
             torch.cuda.synchronize(t.device)
         t0 = time.perf_counter()
-    guarded(site, dist.all_reduce, t,
-            op=getattr(dist.ReduceOp, _TORCH_OPS[Op(op)]), group=mesh.group)
-    rec = stats.setdefault(site, [0, 0, 0.0])
-    rec[0] += 1
-    rec[1] += t.numel() * t.element_size()
-    if timing:
+    nbytes = t.numel() * t.element_size()
+    with trace.span("allreduce", site=site, bytes=nbytes, op=int(op)):
+        guarded(site, dist.all_reduce, t,
+                op=getattr(dist.ReduceOp, _TORCH_OPS[Op(op)]),
+                group=mesh.group)
+    if t0 is not None:
         if t.device.type == "cuda":
             torch.cuda.synchronize(t.device)
-        rec[2] += time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+    comms.record(site, nbytes, seconds=seconds)
     return t
 
 
@@ -166,6 +168,7 @@ def process_allgather(data, *, site: str, mesh=None) -> np.ndarray:
     group = mesh.host_group if mesh is not None else _host_group()
     if get_world_size() == 1:
         return arr[None].copy()
+    comms.record(site, arr.nbytes, op="process_allgather")
     # as raw bytes: gloo gathers no int16 or bool
     t = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy())
     out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
@@ -292,8 +295,11 @@ def allreduce(data: np.ndarray, op: int = Op.SUM) -> np.ndarray:
     if get_world_size() == 1:
         return arr
     if Op(op) == Op.SUM and arr.dtype.kind in "iuf" and arr.nbytes >= 1024:
-        return reduce_histogram(arr, site="allreduce")
-    gathered = process_allgather(arr, site="allreduce")
+        with trace.span("allreduce", bytes=int(arr.nbytes), op=int(op),
+                        quantized=True):
+            return reduce_histogram(arr, site="allreduce")
+    with trace.span("allreduce", bytes=int(arr.nbytes), op=int(op)):
+        gathered = process_allgather(arr, site="allreduce")
     red = {Op.SUM: np.sum, Op.MAX: np.max, Op.MIN: np.min}[Op(op)]
     return red(gathered, axis=0)
 
@@ -308,11 +314,12 @@ def broadcast(data, root: int):
     import pickle
 
     payload = np.frombuffer(pickle.dumps(data), dtype=np.uint8)
-    sizes = process_allgather(np.asarray([payload.size], np.int64),
-                              site="broadcast")
-    buf = np.zeros(int(sizes.max()), np.uint8)
-    buf[:payload.size] = payload
-    gathered = process_allgather(buf, site="broadcast")
+    with trace.span("broadcast", bytes=int(payload.size), root=root):
+        sizes = process_allgather(np.asarray([payload.size], np.int64),
+                                  site="broadcast")
+        buf = np.zeros(int(sizes.max()), np.uint8)
+        buf[:payload.size] = payload
+        gathered = process_allgather(buf, site="broadcast")
     return pickle.loads(gathered[root, :int(sizes[root, 0])].tobytes())
 
 

@@ -3,14 +3,15 @@ reference ``include/xgboost/global_config.h:17`` and
 ``python-package/xgboost/config.py``): ``set_config``, ``get_config`` and
 ``config_context``, per thread, with the JAX package's keys and defaults.
 
-``verbosity`` governs the port's own warnings (``warn``): 0 silences them.
-Three keys change nothing on the card and say so once when set away from
-their defaults: ``use_x64`` (the histograms are exact int64 sums and the
-objectives' transcendentals run in float64 whatever it says),
-``deterministic_histogram`` (always true: fixed-point int64 histograms) and
-``trace_path`` (span tracing is not ported). The JAX package's
-``apply_debug_env`` maps environment variables onto ``jax.config`` flags
-and has no counterpart here.
+``verbosity`` governs the port's own warnings (``warn``) and the console
+logger (``utils.log``): 0 silences them. ``trace_path`` turns span tracing
+on (``observability.trace``; the ``XGBTPU_TRACE`` environment variable
+wins over it). Two keys change nothing on the card and say so once when
+set away from their defaults: ``use_x64`` (the histograms are exact int64
+sums and the objectives' transcendentals run in float64 whatever it says)
+and ``deterministic_histogram`` (always true: fixed-point int64
+histograms). The JAX package's ``apply_debug_env`` maps environment
+variables onto ``jax.config`` flags and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ _INERT = {
                "transcendentals run in float64 on every device",
     "deterministic_histogram": "histograms are always deterministic "
                                "(fixed-point int64 sums)",
-    "trace_path": "span tracing is not ported; nothing is written",
 }
 _said: set = set()
 _local = threading.local()

@@ -449,7 +449,13 @@ class DMatrix:
         before such weights were set stay cached and usable."""
         bm = self._binned.get(max_bin)
         if bm is None:
-            bm = self.build_binned(max_bin, sketch_weights)
+            from ..observability import trace
+
+            # one span per cold construction (sketch + quantize): the data
+            # plane's ingest cost; a cache hit pays nothing
+            with trace.span("dmatrix_build", rows=self.num_row(),
+                            features=self.num_col(), max_bin=max_bin):
+                bm = self.build_binned(max_bin, sketch_weights)
             self._binned[max_bin] = bm
         return bm
 

@@ -18,13 +18,16 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..observability import flight, trace
 from ..tree.hist_kernel import (build_onehot, feature_major, hoist_plan,
                                 hoist_plan_synced, onehot_rows)
+from .sketch import _levels
 
 __all__ = ["HistogramCuts", "compute_cuts", "compute_exact_cuts",
            "bin_matrix", "storage_dtype", "BinnedMatrix",
@@ -95,7 +98,29 @@ def compute_cuts(X: torch.Tensor, max_bin: int = 256,
     ``[F, n]`` weights to the host, accumulates them there and copies the
     result back. A parallel scan on the card would reassociate the sum and
     move near-tie cuts away from the JAX package's. Unit weights at up to
-    2^24 rows (the main path) stay on the device."""
+    2^24 rows (the main path) stay on the device.
+
+    The levels are ``(k * f32(1/B)) * total`` with the reciprocal formed
+    explicitly (``sketch._levels``): XLA folds the JAX package's division
+    by the constant ``max_bin`` into that product, so the cuts match it
+    at every ``max_bin``, and the card and the CPU round alike.
+
+    Traced as a ``sketch`` span, and charged to the flight recorder's
+    ``sketch`` stage."""
+    t0 = time.perf_counter()
+    with trace.span("sketch", rows=int(X.shape[0]),
+                    features=int(X.shape[1]), max_bin=max_bin):
+        values, min_vals = _cuts(X, max_bin, weights)
+    flight.note("sketch", time.perf_counter() - t0)
+    if categorical:
+        apply_categorical_identity(values, min_vals, categorical)
+    return HistogramCuts(values=values, min_vals=min_vals)
+
+
+def _cuts(X: torch.Tensor, max_bin: int, weights: Optional[torch.Tensor]
+          ) -> Tuple[np.ndarray, np.ndarray]:
+    """``compute_cuts``' host ``(values [F, max_bin], min_vals [F])``
+    before the categorical identity."""
     n = X.shape[0]
     unit = weights is None or weights.numel() == 0
     if unit:
@@ -109,8 +134,7 @@ def compute_cuts(X: torch.Tensor, max_bin: int = 256,
     sw = torch.gather(w, 1, order)
     cdf = _sequential_cdf(sw, unit).contiguous()
     total = cdf[:, -1:]
-    levels = (torch.arange(1, max_bin, dtype=torch.float32, device=X.device)
-              / max_bin) * total  # [F, B-1]
+    levels = _levels(max_bin - 1, max_bin, total)  # [F, B-1]
     idx = torch.searchsorted(cdf, levels.contiguous(), side="left")
     idx = idx.clamp(0, n - 1)
     interior = torch.gather(svals, 1, idx)
@@ -123,10 +147,7 @@ def compute_cuts(X: torch.Tensor, max_bin: int = 256,
     sentinel = max_val + torch.clamp(torch.abs(max_val), min=1.0)
     interior = torch.where(has[:, None], interior, torch.zeros_like(interior))
     cuts = torch.cat([interior, sentinel[:, None]], dim=1)
-    values, min_vals = cuts.cpu().numpy(), min_val.cpu().numpy()
-    if categorical:
-        apply_categorical_identity(values, min_vals, categorical)
-    return HistogramCuts(values=values, min_vals=min_vals)
+    return cuts.cpu().numpy(), min_val.cpu().numpy()
 
 
 def compute_exact_cuts(X, cap: int = 16384,
@@ -188,7 +209,13 @@ def storage_dtype(max_bin: int) -> torch.dtype:
 
 def bin_matrix(X: torch.Tensor, cuts: HistogramCuts) -> torch.Tensor:
     """[n, F] f32 -> [n, F] narrow-int bins on ``X``'s device:
-    searchsorted-right, clipped to ``B - 1``, NaN -> ``B``."""
+    searchsorted-right, clipped to ``B - 1``, NaN -> ``B``. Traced as a
+    ``quantize`` span."""
+    with trace.span("quantize", rows=int(X.shape[0]), max_bin=cuts.max_bin):
+        return _bins(X, cuts)
+
+
+def _bins(X: torch.Tensor, cuts: HistogramCuts) -> torch.Tensor:
     B = cuts.max_bin
     cv = torch.as_tensor(cuts.values, device=X.device)
     Xt = X.t().contiguous()
@@ -219,6 +246,16 @@ class BinnedMatrix:
     _hoist_group: Optional[int] = None  # id() of the plan's row group
     # the construct route's feature-major bins (None until first asked for)
     _bins_t: Optional[torch.Tensor] = None
+    _cuts_group: Optional[int] = None  # id() of the group check_cuts passed
+
+    def check_cuts(self, group) -> None:
+        """Under a row ``group``: that every rank bins against these cuts,
+        by ``hoist_plan_synced``'s digest gather (ValueError where they
+        differ), once per (matrix, group). The lossguide grower's check;
+        the depthwise grower's is ``fused_onehot``'s plan gather."""
+        if group is not None and self._cuts_group != id(group):
+            hoist_plan_synced(0, group, cuts_digest=self.cuts.digest())
+            self._cuts_group = id(group)
 
     @property
     def n_features(self) -> int:
@@ -266,6 +303,7 @@ class BinnedMatrix:
                    cuts: Optional[HistogramCuts] = None,
                    categorical: Optional[Sequence[int]] = None
                    ) -> "BinnedMatrix":
+        t_ing = time.perf_counter()
         cat = tuple(categorical) if categorical else ()
         counts: Tuple[int, ...] = ()
         if cat:
@@ -277,9 +315,12 @@ class BinnedMatrix:
         if cuts is None:
             cuts = compute_cuts(X, max_bin=max_bin, weights=weights,
                                 categorical=cat)
-        return cls(cuts=cuts, bins=bin_matrix(X, cuts),
-                   cut_values=torch.as_tensor(cuts.values, device=X.device),
-                   categorical=cat, cat_counts=counts)
+        out = cls(cuts=cuts, bins=bin_matrix(X, cuts),
+                  cut_values=torch.as_tensor(cuts.values, device=X.device),
+                  categorical=cat, cat_counts=counts)
+        # the matrix's construction time: the flight recorder's `ingest`
+        flight.note("ingest", time.perf_counter() - t_ing)
+        return out
 
     @classmethod
     def from_sparse(cls, storage, max_bin: int = 256,
@@ -297,6 +338,7 @@ class BinnedMatrix:
         the dense path's on the same values. ``weights`` ([n] on
         ``device``) weight the sketch; None is unit weights (a vector of
         ones would send the prefix sum to the host, ``_sequential_cdf``)."""
+        t_ing = time.perf_counter()
         n, F = storage.shape
         device = torch.device(device)
         cat = tuple(categorical) if categorical else ()
@@ -321,6 +363,8 @@ class BinnedMatrix:
         if cat:
             present = [v[~np.isnan(v)] for v in map(storage.column_values, cat)]
             counts = tuple(int(v.max()) + 1 if v.size else 1 for v in present)
-        return cls(cuts=cuts, bins=bins,
-                   cut_values=torch.as_tensor(cuts.values, device=device),
-                   categorical=cat, cat_counts=counts)
+        out = cls(cuts=cuts, bins=bins,
+                  cut_values=torch.as_tensor(cuts.values, device=device),
+                  categorical=cat, cat_counts=counts)
+        flight.note("ingest", time.perf_counter() - t_ing)
+        return out

@@ -21,13 +21,15 @@ the exact candidate set, a matrix sketched anew from each round's
 hessians, or per-node cuts from the raw rows (``local_boost_one_round``);
 ``process_type="update"`` re-stats the existing trees instead
 (``refresh_one_round``). Under a row group (``parallel.RowGroup``) a round
-grows each depthwise tree over this rank's rows with its histograms
-all-reduced (``grow_tree_fused(group=)``); everything else raises there.
+grows each depthwise or lossguide tree over this rank's rows with its
+histograms all-reduced (``grow_tree_fused(group=)``,
+``grow_tree_lossguide(group=)``); everything else raises there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -35,6 +37,8 @@ import torch
 
 from .. import threefry
 from ..config import warn
+from ..observability import REGISTRY as _REGISTRY
+from ..observability import trace as _trace
 from ..params import GBTreeParam, TrainParam
 from ..objective.base import segment_sum
 from ..predictor import (StackedForest, pack_cat_bits, predict_leaf,
@@ -51,11 +55,19 @@ from ..tree.param import SplitParams, calc_gain, calc_weight
 __all__ = ["GBTreeModel", "GBTree", "Dart", "GROUP_ENVELOPE"]
 
 #: why a configuration cannot train under a row group (the JAX package's
-#: envelope message, ``learner.py:270``)
+#: envelope message, ``learner.py:270``, less lossguide, which the port
+#: grows over a row group as the JAX package's 2-device mesh does)
 GROUP_ENVELOPE = (
     "this configuration is outside the multi-process scan envelope "
-    "(ranking/survival/DART/lossguide/categorical/external-memory/custom "
+    "(ranking/survival/DART/categorical/external-memory/custom "
     "objectives are single-process); see docs/distributed.md")
+
+
+def _hist_seconds():
+    return _REGISTRY.histogram(
+        "hist_build_seconds",
+        "Host-side wall time of one tree build dispatch "
+        "(hist + split + partition)")
 
 
 class _PendingTree:
@@ -277,6 +289,19 @@ class GBTreeModel:
                 for i, t in zip(pending, host):
                     self._entries[i] = t
         return self._entries
+
+    def last_tree(self) -> Optional[RegTree]:
+        """The last tree as a host ``RegTree`` (None without trees), read
+        alone: the model keeps its device entry."""
+        if not self._entries:
+            return None
+        last = self._entries[-1]
+        for kind, convert in ((_PendingTree, _materialize_pending),
+                              (_PendingAllocTree,
+                               _materialize_pending_alloc)):
+            if isinstance(last, kind):
+                return convert([last])[0]
+        return last
 
     @property
     def num_trees(self) -> int:
@@ -523,8 +548,10 @@ class GBTree:
         the bins' device), with ``feature_weights`` ([F]) weighting its
         column sample. Under a row ``group`` each tree grows over this
         rank's rows through ``grow_tree_fused(group=)``, on the one-hot
-        of the plan agreed over the group; lossguide, categorical features,
-        a paged matrix and ``num_parallel_tree > 1`` raise
+        of the plan agreed over the group, or through
+        ``grow_tree_lossguide(group=)`` (kernel A on each rank, every
+        step's child histograms all-reduced); categorical features, a
+        paged matrix and ``num_parallel_tree > 1`` raise
         NotImplementedError there."""
         tp = self.train_param
         cfg, cat_mask = _cat_cfg(self._grow_params(), binned, tp)
@@ -537,7 +564,7 @@ class GBTree:
                     "external-memory + mesh training is not supported yet; "
                     "shard rows across processes instead "
                     "(docs/distributed.md)")
-            if (lossguide or cfg.has_categorical
+            if (cfg.has_categorical
                     or self.gbtree_param.num_parallel_tree > 1):
                 raise NotImplementedError(GROUP_ENVELOPE)
         if paged and lossguide:
@@ -550,6 +577,8 @@ class GBTree:
             cut_values = torch.as_tensor(binned.cuts.values,
                                          device=grad.device)
         else:
+            if lossguide:
+                binned.check_cuts(group)
             onehot = None if lossguide else binned.fused_onehot(group)
             bins_t = (binned.feature_major() if onehot is None
                       and binned.bins.device.type != "cpu" else None)
@@ -565,18 +594,19 @@ class GBTree:
             for ptree in range(self.gbtree_param.num_parallel_tree):
                 key = threefry.prng_key(
                     round_seed_py(tp.seed, iteration, k, ptree))
-                if lossguide:
-                    tree = grow_tree_lossguide(
-                        binned.bins, g, h, cut_values, cfg,
-                        self._lossguide_max_leaves(), key=key,
-                        feature_weights=feature_weights, bins_t=bins_t)
-                    keep, leaf_value, delta = finalize_alloc(
-                        tree, float(tp.eta), float(tp.gamma))
-                    self.model.add_device_alloc(tree, keep, leaf_value,
-                                                tp.eta, tp.gamma, k,
-                                                tp.max_depth, cat_mask)
-                else:
-                    if paged:
+                t0 = time.perf_counter()
+                policy = {"policy": "lossguide"} if lossguide else {}
+                with _trace.span("build_tree", iteration=iteration, group=k,
+                                 ptree=ptree, **policy):
+                    if lossguide:
+                        tree = grow_tree_lossguide(
+                            binned.bins, g, h, cut_values, cfg,
+                            self._lossguide_max_leaves(), key=key,
+                            feature_weights=feature_weights, bins_t=bins_t,
+                            group=group)
+                        keep, leaf_value, delta = finalize_alloc(
+                            tree, float(tp.eta), float(tp.gamma))
+                    elif paged:
                         tree = grow_tree_fused_paged(
                             binned, g, h, cut_values, float(tp.eta),
                             float(tp.gamma), cfg, key=key,
@@ -587,6 +617,12 @@ class GBTree:
                             float(tp.gamma), cfg, onehot=onehot,
                             bins_t=bins_t, key=key,
                             feature_weights=feature_weights, group=group)
+                _hist_seconds().observe(time.perf_counter() - t0)
+                if lossguide:
+                    self.model.add_device_alloc(tree, keep, leaf_value,
+                                                tp.eta, tp.gamma, k,
+                                                tp.max_depth, cat_mask)
+                else:
                     self.model.add_device(tree, tp.eta, k, tp.max_depth,
                                           cat_mask)
                     delta = tree.delta
@@ -629,10 +665,14 @@ class GBTree:
             for ptree in range(self.gbtree_param.num_parallel_tree):
                 key = threefry.prng_key(
                     round_seed_py(tp.seed, iteration, k, ptree))
-                tree = grow_tree_local(X, g, h, cfg, tp.max_bin,
-                                       float(tp.eta), float(tp.gamma),
-                                       key=key,
-                                       feature_weights=feature_weights)
+                t0 = time.perf_counter()
+                with _trace.span("build_tree", iteration=iteration,
+                                 group=k, ptree=ptree, policy="local"):
+                    tree = grow_tree_local(X, g, h, cfg, tp.max_bin,
+                                           float(tp.eta), float(tp.gamma),
+                                           key=key,
+                                           feature_weights=feature_weights)
+                _hist_seconds().observe(time.perf_counter() - t0)
                 self.model.add_device(tree, tp.eta, k, tp.max_depth)
                 new_trees.append(tree)
                 if margin_cache is not None:

@@ -30,6 +30,7 @@ from __future__ import annotations
 import copy as _copy
 import json
 import os
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -42,9 +43,13 @@ from .gbm import Dart, GBLinear, GBTree
 from .gbm.gbtree import GROUP_ENVELOPE
 from .metric import create_metric
 from .objective import create_objective
+from .observability import REGISTRY as _REGISTRY
+from .observability import flight as _flight
+from .observability import trace as _trace
 from .params import LearnerParam, check_ported, known_keys
 from .parallel.mesh import current_mesh
 from .predictor import StackedForest, predict_leaf, predict_margin
+from .utils import Monitor, fault
 
 __all__ = ["Booster"]
 
@@ -93,6 +98,7 @@ class Booster:
         self._loaded_feature_names: List[str] = []
         self._loaded_feature_types: List[str] = []
         self.attributes_: Dict[str, str] = {}
+        self.monitor = Monitor("Booster")
         if params:
             self._apply_params(params)
         for d in cache:
@@ -298,15 +304,16 @@ class Booster:
         envelope trains (``learner.py:268-275``, ``gbtree.py:1467``):
         ``gbtree`` with one tree per output group a round, a scan-safe
         objective (the regression family and multiclass), numerical
-        features, in-memory data, depthwise growth and ``hist``. Anything
-        else (a custom objective or gradients included) raises
-        NotImplementedError, on every rank alike."""
+        features, in-memory data and ``hist``, depthwise, or lossguide (the
+        JAX package's ``distributed_grow_tree_lossguide``, which its
+        multi-process envelope refuses). Anything else (a custom objective
+        or gradients included) raises NotImplementedError, on every rank
+        alike."""
         if current_mesh() is None:
             return
         gbm = self._gbm
         inside = not custom and gbm.name == "gbtree" \
             and self._obj.scan_safe \
-            and gbm.train_param.grow_policy != "lossguide" \
             and gbm.gbtree_param.num_parallel_tree == 1 \
             and not (gbm.needs_exact_cuts or gbm.needs_iteration_sketch
                      or gbm.needs_local_sketch or gbm.is_update_process) \
@@ -320,29 +327,46 @@ class Booster:
         With ``fobj``, ``fobj(margin, dtrain)`` gets the cached margin as
         numpy (``[n]`` for one output group) and returns ``(grad, hess)``,
         which go through ``boost``. Inside ``mesh_context`` the round grows
-        over the row group (``_check_group_envelope`` first)."""
+        over the row group (``_check_group_envelope`` first). Traced as an
+        ``update`` span holding the ``GetGradient``, ``GetBinned`` and
+        ``BoostOneRound`` sections (``self.monitor``), as in the JAX
+        package."""
+        with _trace.span("update", iteration=iteration):
+            self._update(dtrain, iteration, fobj)
+        _REGISTRY.counter(
+            "rounds_total", "Boosting rounds dispatched").inc()
+
+    def _update(self, dtrain: DMatrix, iteration: int, fobj) -> None:
         self._configure()
         self._check_device(dtrain)
         self._check_group_envelope(dtrain, fobj is not None)
         self._add_cache(dtrain)
-        if self._gbm.name == "dart":  # this round's drops, drawn here
-            forest, tw = self._gbm.training_forest()
-            margin = self._walk(forest, dtrain, self._base_margin_for(dtrain),
-                                tw)
-        else:
-            margin = self._predict_margin(dtrain)
+        fault.begin_version(iteration)
+        fault.inject("gradient")
         if fobj is not None:
-            pred = margin.cpu().numpy()
+            pred = self._training_margin(dtrain).cpu().numpy()
             grad, hess = fobj(pred[:, 0] if pred.shape[1] == 1 else pred,
                               dtrain)
             self.boost(dtrain, grad, hess)
             return
-        m = margin[:, 0] if self.n_groups == 1 else margin
-        grad, hess = self._obj.get_gradient(
-            m, self._label(dtrain), dtrain.weight, iteration,
-            label_lower=dtrain.label_lower_bound,
-            label_upper=dtrain.label_upper_bound, groups=dtrain.groups)
+        with self.monitor.section("GetGradient"):
+            margin = self._training_margin(dtrain)
+            m = margin[:, 0] if self.n_groups == 1 else margin
+            grad, hess = self._obj.get_gradient(
+                m, self._label(dtrain), dtrain.weight, iteration,
+                label_lower=dtrain.label_lower_bound,
+                label_upper=dtrain.label_upper_bound, groups=dtrain.groups)
         self._boost(dtrain, grad, hess, iteration)
+        self.monitor.maybe_print()
+
+    def _training_margin(self, dtrain: DMatrix) -> torch.Tensor:
+        """The margin the round's gradients are taken at: the cache, or
+        for DART a walk with this round's drops (drawn here)."""
+        if self._gbm.name == "dart":
+            forest, tw = self._gbm.training_forest()
+            return self._walk(forest, dtrain, self._base_margin_for(dtrain),
+                              tw)
+        return self._predict_margin(dtrain)
 
     def _label(self, dmat: DMatrix) -> torch.Tensor:
         return (dmat.label if dmat.label is not None
@@ -372,6 +396,7 @@ class Booster:
         matrix from this round's hessians (summed over the output groups on
         the host, as numpy sums them); ``exact`` bins at every distinct
         value; every other method uses the cached matrix of ``max_bin``."""
+        fault.inject("grow")
         gbm = self._gbm
         if gbm.name == "gblinear":  # the raw rows: no bins, no one-hot
             gbm.boost_one_round(dtrain.data, grad, hess, iteration)
@@ -379,7 +404,8 @@ class Booster:
         self._add_cache(dtrain)
         entry = self._caches[id(dtrain)]
         if gbm.is_update_process:
-            gbm.refresh_one_round(dtrain.data, grad, hess)
+            with self.monitor.section("Refresh"):
+                gbm.refresh_one_round(dtrain.data, grad, hess)
             entry.margin = None
             return
         model = gbm.model
@@ -405,24 +431,27 @@ class Booster:
                     "grow_local_histmaker supports numerical features "
                     "only (the reference's local maker predates "
                     "categorical support)")
-            _, entry.margin = gbm.local_boost_one_round(
-                X_raw, grad, hess, cache, iteration, fw)
+            with self.monitor.section("BoostOneRound"):
+                _, entry.margin = gbm.local_boost_one_round(
+                    X_raw, grad, hess, cache, iteration, fw)
             entry.num_trees = model.num_trees
             return
         max_bin = gbm.train_param.max_bin
-        if gbm.needs_iteration_sketch:
-            hw = hess
-            if hess.dim() == 2:  # numpy's float32 sum, as the JAX package's
-                hw = torch.from_numpy(hess.cpu().numpy().sum(axis=1)).to(
-                    hess.device)
-            binned = dtrain.build_binned(max_bin, hw)
-        elif gbm.needs_exact_cuts:
-            binned = dtrain.get_binned_exact()
-        else:
-            binned = dtrain.get_binned(max_bin)
-        _, entry.margin = gbm.boost_one_round(
-            binned, grad, hess, cache, iteration=iteration,
-            feature_weights=fw, group=current_mesh())
+        with self.monitor.section("GetBinned"):
+            if gbm.needs_iteration_sketch:
+                hw = hess
+                if hess.dim() == 2:  # numpy's float32 sum, as the JAX's
+                    hw = torch.from_numpy(hess.cpu().numpy().sum(axis=1)
+                                          ).to(hess.device)
+                binned = dtrain.build_binned(max_bin, hw)
+            elif gbm.needs_exact_cuts:
+                binned = dtrain.get_binned_exact()
+            else:
+                binned = dtrain.get_binned(max_bin)
+        with self.monitor.section("BoostOneRound"):
+            _, entry.margin = gbm.boost_one_round(
+                binned, grad, hess, cache, iteration=iteration,
+                feature_weights=fw, group=current_mesh())
         entry.num_trees = model.num_trees
 
     def update_many(self, dtrain: DMatrix, start_iteration: int,
@@ -432,13 +461,30 @@ class Booster:
         ``update`` per round). The JAX package runs ``chunk`` rounds per
         device dispatch (a ``lax.scan``); the port dispatches per round
         whatever ``chunk`` is. Inside ``mesh_context`` a configuration
-        outside the envelope raises before the first round."""
+        outside the envelope raises before the first round. The flight
+        recorder keeps one record per chunk of ``chunk`` rounds, as the
+        JAX package's does (nested in ``train``'s round record, it adds
+        none)."""
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self._configure()
         self._check_group_envelope(dtrain, False)
-        for i in range(start_iteration, start_iteration + num_rounds):
-            self.update(dtrain, i)
+        done = 0
+        while done < num_rounds:
+            k = min(chunk, num_rounds - done)
+            first = start_iteration + done
+            owned = _flight.RECORDER.begin_round(first, rounds=k)
+            if owned or not _flight.enabled():
+                _flight.profile_tick(first)
+            try:
+                t0 = time.perf_counter()
+                for i in range(first, first + k):
+                    self.update(dtrain, i)
+                if owned:
+                    _flight.note("grow", time.perf_counter() - t0)
+                done += k
+            finally:
+                _flight.RECORDER.end_round()
 
     # ------------------------------------------------------------------
     # evaluation
@@ -491,8 +537,15 @@ class Booster:
         followed by ``feval(preds, dmat)``'s ``(name, value)``. ``feval``
         gets the margin as numpy (``[n]`` for one group), or with
         ``output_margin=False`` the transformed prediction (the reference's
-        rule; the JAX package always passes the margin)."""
+        rule; the JAX package always passes the margin). Traced as an
+        ``eval`` span."""
+        fault.inject("eval")
         evals = list(evals)
+        with _trace.span("eval", iteration=iteration, n_sets=len(evals)):
+            return self._eval_set(evals, iteration, feval, output_margin)
+
+    def _eval_set(self, evals, iteration: int, feval,
+                  output_margin: bool) -> str:
         parts = [f"[{iteration}]"]
         for dmat, name in evals:
             vals = self.eval_values([(dmat, name)], iteration)[name]
@@ -567,7 +620,18 @@ class Booster:
         ``iteration_range`` / ``ntree_limit`` and the matrix's
         ``base_margin``. A linear booster refuses ``pred_leaf``, gives its
         per-feature products as contributions (float32) and zero
-        interactions."""
+        interactions. Traced as a ``predict`` span."""
+        with _trace.span("predict", rows=data.num_row()):
+            return self._predict(
+                data, output_margin, pred_leaf, pred_contribs,
+                approx_contribs, pred_interactions, validate_features,
+                iteration_range, strict_shape, ntree_limit)
+
+    def _predict(self, data: DMatrix, output_margin: bool, pred_leaf: bool,
+                 pred_contribs: bool, approx_contribs: bool,
+                 pred_interactions: bool, validate_features: bool,
+                 iteration_range, strict_shape: bool,
+                 ntree_limit: int) -> np.ndarray:
         self._configure()
         self._check_device(data)
         if validate_features:

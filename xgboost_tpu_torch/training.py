@@ -7,6 +7,7 @@ asked for."""
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -15,6 +16,8 @@ from .callback import (CallbackContainer, EarlyStopping, EvaluationMonitor,
                        TrainingCallback, is_maximize)
 from .data.dmatrix import DMatrix
 from .learner import Booster
+from .observability import flight as _flight
+from .observability import trace as _trace
 
 __all__ = ["train", "cv"]
 
@@ -42,7 +45,13 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
     every round (True) or every ``verbose_eval`` rounds. ``xgb_model`` (a
     Booster, a model path or its bytes) continues that model: a copy, with
     ``params`` set, fresh prediction caches, from its
-    ``num_boosted_rounds()``."""
+    ``num_boosted_rounds()``.
+
+    The loop is traced as the JAX package's: a ``train`` span holding one
+    ``round`` span a round, and the flight recorder keeps one record a
+    round (its ``grow`` and ``eval`` stages); an exception dumps the
+    recorder's black box before it propagates (``abort_dump``), and
+    ``XGBTPU_PROFILE`` opens the profiling window at the first round."""
     if resume_mode not in ("total", "append"):
         raise ValueError(
             f"resume_mode must be 'total' or 'append', got {resume_mode!r}")
@@ -77,12 +86,29 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
 
     container = CallbackContainer(callbacks)
     bst = container.before_training(bst)
-    for i in range(start_round, start_round + num_boost_round):
-        if container.before_iteration(bst, i, dtrain, evals):
-            break
-        bst.update(dtrain, i, fobj=obj)
-        if container.after_iteration(bst, i, dtrain, evals, feval=feval):
-            break
+    try:
+        with _trace.span("train", rounds=num_boost_round, path="per_round"):
+            for i in range(start_round, start_round + num_boost_round):
+                if container.before_iteration(bst, i, dtrain, evals):
+                    break
+                _flight.profile_tick(i)
+                _flight.RECORDER.begin_round(i)
+                try:
+                    with _trace.span("round", iteration=i):
+                        t0 = time.perf_counter()
+                        bst.update(dtrain, i, fobj=obj)
+                        _flight.note("grow", time.perf_counter() - t0)
+                        stop = container.after_iteration(
+                            bst, i, dtrain, evals, feval=feval)
+                finally:
+                    _flight.RECORDER.end_round()
+                if stop:
+                    break
+    except BaseException as e:
+        _flight.RECORDER.abort_dump(e)  # the black box: ring + metrics
+        raise
+    finally:
+        _flight.profile_stop()
     bst = container.after_training(bst)
 
     if evals_result is not None:
@@ -135,11 +161,8 @@ def cv(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
     into ``{"<set>-<metric>-mean": [...], "<set>-<metric>-std": [...]}``.
     With ``early_stopping_rounds`` the last test metric decides the stop
     and the history is cut after the best round. A pandas DataFrame when
-    ``as_pandas`` and pandas is present, else the dict. ``callbacks``
-    raise NotImplementedError: the JAX package accepts them and runs
-    none."""
-    if callbacks:
-        raise NotImplementedError("cv callbacks are not ported yet")
+    ``as_pandas`` and pandas is present, else the dict. ``callbacks`` are
+    accepted and none is run, as in the JAX package."""
     params = dict(params)
     if isinstance(metrics, str):
         metrics = [metrics]

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import collective, threefry
+from ..observability import trace as _trace
 from .grow import (GrowParams, _sample_features_exact, apply_row_sampling,
                    child_bounds_and_weights, eval_splits, exact_k_subset,
                    interaction_allowed, n_sampled, seq_cumsum)
@@ -340,6 +341,14 @@ def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
     on all the ranks' rows, bit for bit, with its own rows' ``delta``. Row
     samples are drawn per rank under the same key, as the JAX package's
     shards draw them."""
+    with _trace.span("grow_tree", fused=True, depth=cfg.max_depth,
+                     features=int(bins.shape[1])):
+        return _grow_tree_fused(bins, grad, hess, cut_values, eta, gamma, cfg,
+                                onehot, bins_t, key, feature_weights, group)
+
+
+def _grow_tree_fused(bins, grad, hess, cut_values, eta, gamma, cfg, onehot,
+                     bins_t, key, feature_weights, group) -> GrownTree:
     B = cut_values.shape[1]
     F = bins.shape[1]
     max_depth = cfg.max_depth
@@ -394,6 +403,14 @@ def grow_tree_fused_paged(paged, grad: torch.Tensor, hess: torch.Tensor,
     the tree is the in-memory tree of the same bins, bit for bit. The
     next page is read in the background while a page is on the device.
     Categorical features raise NotImplementedError."""
+    with _trace.span("grow_tree_paged", depth=cfg.max_depth,
+                     pages=paged.n_pages):
+        return _grow_tree_fused_paged(paged, grad, hess, cut_values, eta,
+                                      gamma, cfg, key, feature_weights)
+
+
+def _grow_tree_fused_paged(paged, grad, hess, cut_values, eta, gamma, cfg,
+                           key, feature_weights) -> GrownTree:
     if cfg.has_categorical:
         raise NotImplementedError(
             "external-memory matrices support numerical training only "

@@ -19,11 +19,17 @@ Each level, for all features at once:
    equals the JAX package's ``#{cut <= x}`` over the row's gathered cut row,
    without its ``[n, B]`` gather per feature.
 
-The prefix sum runs in float64 in an order the code fixes
-(``objective.base.seg_scan``) and is rounded once, so the card and the CPU
-find the same cuts; the JAX package's ``jnp.cumsum`` associates in its
-backend's order, so the two agree exactly where every partial sum is exact
-(hessians on a 1/64 grid, as the parity tests use).
+The sums round as the JAX package's do on XLA:CPU, so the cuts are its
+bits with any hessians, on the card as on the CPU: the prefix sum is the
+float32 ``jnp.cumsum`` association (``data/sketch.py:_cdf``); each node's
+total is the float32 sum of its rows in row order (``segment_sum``'s
+scatter-add), each (feature, node) added left to right by one thread of
+``torch.segment_reduce`` on the device (``_segment_totals``: an
+unordered atomic scatter would round otherwise); the node's
+start is the ``_cdf`` of those totals, and its targets are
+``start + (k * f32(1/B)) * total``, the division folded into a product
+with the reciprocal and the product and sum fused into one rounding
+(``_fma``), as XLA:CPU compiles them.
 
 The level histogram is the JAX package's float ``blocked_histogram`` (XLA);
 here it goes through ``hist_kernel.fused_level`` at ``d = 0``, ``Kp = 0``,
@@ -49,7 +55,7 @@ import torch
 
 from .. import threefry
 from ..data.quantile import storage_dtype
-from ..objective.base import div, seg_scan
+from ..data.sketch import _cdf
 from .grow import GrowParams, _sample_features_exact, apply_row_sampling
 from .grow_fused import GrownTree, _finalize, _init_state, _level_update
 from .hist_kernel import (feature_major, fused_level, leaf_delta,
@@ -68,6 +74,45 @@ def _order_keys(v: torch.Tensor) -> torch.Tensor:
     bits = v.view(torch.int32)
     bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
     return bits.long() + _HALF
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: XLA:CPU
+    contracts the JAX package's ``cstart + levels * Wseg`` into one. The
+    product is exact in float64; TwoSum gives the float64 sum's rounding
+    error, and rounding the sum to odd (stepping an even result one ulp
+    toward the exact value) makes the float32 cast round the exact value,
+    on every device."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    toward = torch.where((err > 0) == (s > 0), bits + 1, bits - 1)
+    bits = torch.where((err != 0) & (bits & 1 == 0), toward, bits)
+    return bits.view(torch.float64).float()
+
+
+def _segment_totals(w_s: torch.Tensor, istart: torch.Tensor,
+                    iend: torch.Tensor) -> torch.Tensor:
+    """``[F, K]`` float32 totals of the sorted weights ``w_s`` [F, n] over
+    each segment's rows ``[istart, iend)``, each added left to right in
+    row order, as XLA:CPU's scatter-add computes the JAX package's
+    ``segment_sum``.
+
+    The segments tile each feature's sorted rows, and the rows after the
+    last one (missing values, rows outside the level) form one more. With
+    lengths per feature (``axis=1``), ``torch.segment_reduce`` gives each
+    (feature, segment) to one thread that adds its rows in order from 0,
+    in float32, on the card as on the CPU (only a 1-D input goes to a
+    tree reduction). ``unsafe`` skips its checks of the lengths, which
+    would read them back to the host."""
+    F, n = w_s.shape
+    lengths = torch.cat([iend - istart, n - iend[:, -1:]], dim=1)
+    tot = torch.segment_reduce(w_s, "sum", lengths=lengths, axis=1,
+                               unsafe=True)
+    return tot[:, :-1] + 0.0  # -0.0 as 0.0, as segment_sum's totals
 
 
 def segmented_weighted_cuts(col: torch.Tensor, weight: torch.Tensor,
@@ -93,19 +138,17 @@ def segmented_weighted_cuts(col: torch.Tensor, weight: torch.Tensor,
     s_key, order = torch.sort((s << 32) + _order_keys(v), dim=1, stable=True)
     s_s = s_key >> 32
     v_s = torch.gather(v, 1, order)
-    c64 = seg_scan(torch.gather(w, 1, order).double(),
-                   torch.zeros(n, dtype=torch.long, device=dev), n)
-    c = c64.float()
+    w_s = torch.gather(w, 1, order)
+    c = _cdf(w_s).contiguous()
     ks = torch.arange(K, device=dev)[None].expand(F, K).contiguous()
     istart = torch.searchsorted(s_s, ks)
     iend = torch.searchsorted(s_s, ks, right=True)
     has = iend > istart
-    c_ext = torch.cat([c64.new_zeros((F, 1)), c64], dim=1)
-    c_lo = torch.gather(c_ext, 1, istart)
-    w_seg = (torch.gather(c_ext, 1, iend) - c_lo).float()
-    levels = div(torch.arange(1, B, dtype=torch.float32, device=dev),
-                 float(B))
-    tgt = c_lo.float()[..., None] + levels * w_seg[..., None]  # [F, K, B-1]
+    w_seg = _segment_totals(w_s, istart, iend)
+    c_lo = torch.cat([w_seg.new_zeros((F, 1)), _cdf(w_seg)[:, :-1]], dim=1)
+    levels = torch.arange(1, B, dtype=torch.float32, device=dev) * \
+        torch.tensor(1.0 / B, dtype=torch.float32, device=dev)
+    tgt = _fma(levels, w_seg[..., None], c_lo[..., None])  # [F, K, B-1]
     idx = torch.searchsorted(c, tgt.reshape(F, -1)).reshape(F, K, B - 1)
     lo = istart[..., None]
     idx = torch.minimum(torch.maximum(idx, lo),

@@ -13,9 +13,11 @@ reference's one-at-a-time queue; 8 above, with ramp steps so the first
 steps' short queue still builds the whole budget), partitions their rows,
 histograms all ``2 * K_EXP`` children in one pass and evaluates them.
 
-The children's histograms go through ``hist_kernel.fused_level`` at
+The children's histograms go through ``hist_kernel.fused_level_int`` at
 ``d = 0`` and ``Kp = 0`` with the row's child slot as its position (-1:
-no child): kernel A on the card, the plain version on the CPU. The JAX
+no child): kernel A on the card, the plain version on the CPU; under a
+row group each rank's int64 histograms are all-reduced before they are
+read. The JAX
 package sums them in float32 with XLA's ``segment_sum``
 (``blocked_histogram``); here they are fixed-point integers, the same bits
 on every device, and missing is each child's total less its present sum
@@ -29,12 +31,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import threefry
+from .. import collective, threefry
 from .grow import (GrowParams, _sample_features_exact, apply_row_sampling,
                    child_bounds_and_weights, eval_splits,
                    exact_k_from_uniform, interaction_allowed, n_sampled)
 from .grow_fused import _constraint_consts, with_missing
-from .hist_kernel import fused_level, leaf_delta, quantize_gradients
+from .hist_kernel import (fused_level_int, leaf_delta, level_lanes,
+                          quantize_gradients)
 from .param import RT_EPS, calc_weight
 
 __all__ = ["AllocTree", "expansions_per_step", "lossguide_steps",
@@ -90,14 +93,23 @@ def grow_tree_lossguide(bins: torch.Tensor, grad: torch.Tensor,
                         cfg: GrowParams, max_leaves: int,
                         key: Optional[torch.Tensor] = None,
                         feature_weights: Optional[torch.Tensor] = None,
-                        bins_t: Optional[torch.Tensor] = None) -> AllocTree:
+                        bins_t: Optional[torch.Tensor] = None,
+                        group=None) -> AllocTree:
     """Grow one best-first tree of at most ``max_leaves`` leaves on ``bins``
     [n, F] (missing == B) with gradients ``grad``/``hess`` [n]; every
     tensor on one device. ``cfg.max_depth`` 0 leaves the depth unbounded.
     ``key`` (default ``prng_key(0)``) splits into the row, tree-column and
     node keys as in the JAX package; ``feature_weights`` weight the
     per-tree column sample; ``bins_t`` is the bins' ``feature_major`` copy
-    that kernel A reads on the card."""
+    that kernel A reads on the card.
+
+    Under a row ``group`` (``parallel.RowGroup``; the JAX package's
+    ``distributed_grow_tree_lossguide``) the rows are this rank's, as in
+    ``grow_tree_fused(group=)``: the gradient scale (a MAX), the root
+    totals and every step's int64 child histograms (SUMs) are all-reduced
+    before they are read. The queue reads only reduced numbers, so every
+    rank pops the same leaves and grows the tree one process would grow on
+    all the ranks' rows, bit for bit, with its own rows' positions."""
     n, F = bins.shape
     B = cut_values.shape[1]
     p = cfg.split
@@ -115,14 +127,18 @@ def grow_tree_lossguide(bins: torch.Tensor, grad: torch.Tensor,
     cat_feats, cat_part = cfg.cat_masks(F, dev)
     cat_any = (torch.as_tensor(cfg.cat_mask_np(F), device=dev)
                if cfg.has_categorical else None)
-    gq = quantize_gradients(grad, hess)
+    gq = quantize_gradients(grad, hess, group)
     no_routing = torch.zeros((1, 4), dtype=torch.float32, device=dev)
 
     def child_hist(seg, Gtot, Htot):
-        """[K, F, B+1, 2] of the rows at child slots ``seg`` (-1: none)."""
-        _, h = fused_level(bins, seg[:, None], gq, no_routing,
-                           K=Gtot.shape[0], Kp=0, B=B, d=0, bins_t=bins_t)
-        return with_missing(h, Gtot, Htot)
+        """[K, F, B+1, 2] of the rows at child slots ``seg`` (-1: none),
+        summed over the group."""
+        K = Gtot.shape[0]
+        _, hq = fused_level_int(bins, seg[:, None], gq, no_routing, K=K,
+                                Kp=0, B=B, d=0, bins_t=bins_t)
+        hq = collective.all_reduce(hq, group, site="lossguide_hist")
+        return with_missing(gq.dequantize(hq, level_lanes(K, hq.device)),
+                            Gtot, Htot)
 
     k_tree = (n_sampled(cfg.colsample_bytree, F)
               if cfg.colsample_bytree < 1.0 else F)
@@ -173,7 +189,7 @@ def grow_tree_lossguide(bins: torch.Tensor, grad: torch.Tensor,
 
     # ---- root ----
     pos = torch.zeros(n, dtype=i32, device=dev)
-    tot = gq.totals()
+    tot = gq.totals(group)
     G0, H0 = tot[0:1], tot[1:2]
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     mb = mono is not None
