@@ -117,8 +117,9 @@ Objectives and metrics, on the same numerical rows (after phase 14):
     ``merror`` below 1 minus the largest class share, probabilities summing
     to 1 within 1e-5, ``multi:softmax`` on the same model their argmax,
     ``inplace_predict`` equal to ``predict``, the median round time; 3
-    rounds by the construct route (A 126 times, the same 21 trees) and on
-    64k rows on the card and on the CPU (the same trees);
+    rounds by the construct route (A 126 times, the same 21 trees) and 2
+    rounds on 64k rows on the card and on the CPU (the same trees; 3
+    rounds until phase 44 joined);
 16. kernel B at G = 7 (``phase_walk_groups``): on the 7-class model's own
     forest (interleaved ``tree_info``) and on a random 70-tree forest with
     the same groups over 100k rows, against its plain version within
@@ -164,7 +165,8 @@ LTR demo's parameters (depth 6, eta 0.1, max_bin 256):
     ``rank:pairwise``/``ndcg``/``map`` for 5 rounds each with the default
     metric, the grouped ``auc``, ``pre@5`` and ``ndcg-`` (the default
     metric rising on the training queries);
-23. 3 rounds on the card and on the CPU, the same trees: ``rank:ndcg`` on a
+23. 2 rounds (3 until phase 44 joined) on the card and on the CPU, the
+    same trees: ``rank:ndcg`` on a
     partial hoist of about 33 features and ``rank:map`` on the construct
     route, both on 64k rows in queries of 400-1000 (sampled pairs); all
     three on 64k rows of phase 22's data with per-group weights set after
@@ -256,7 +258,7 @@ phase 6, the rest after phase 31 (max_bin 256 unless named):
     at max_bin 64; kernel A bitwise equal to plain at all 6 levels of a
     tree at this width; on 64k rows kernels C and D (a partial hoist of 18
     features) and A at every level (``phase_level_kernels``) and the card
-    against the CPU;
+    against the CPU (2 rounds; 3 until phase 44 joined);
 36. kernel A's global-memory branch (``phase_wide_bins``): 1M x 8 with a
     column of 16,000 distinct values, B = 16,001 through
     ``compute_exact_cuts``, bitwise equal to plain at levels 0-5, timed
@@ -290,7 +292,8 @@ eta 0.1, AUC + logloss:
 39. kernel A on every page at every level of that matrix's first tree
     (``phase_paged_levels``): bitwise its plain version, the pages' int64
     histograms summing to the whole matrix's, timed per page beside its
-    bound.
+    bound, its plain version and one ``index_add_`` of the page's float
+    gradients into the level's histogram.
 
 Distributed training over ``torch.distributed`` (``phase_distributed``),
 last, on the main path's 1M x 50 training and 100k held-out rows at the
@@ -342,16 +345,36 @@ After phase 40 (max_bin 256 unless named):
     untraced and the last record printed. Then tracing's cost a round: 40
     pairs of adjacent rounds of one training run, one traced and one not,
     the median of the paired differences with its quartiles, beside the
-    spans and records a round times their measured host cost.
+    spans and records a round times their measured host cost;
+44. crash-safe checkpoints and the resilience layer (``phase_resilience``):
+    the main path at 12 rounds with ``resume_from``, one checkpoint a
+    round. A straight run's bytes S; a worker process (this script with
+    ``--resilience-worker``) SIGKILLed after round 5's ``after_iteration``
+    (exit -9, its newest verified checkpoint 4 or 5 rounds) and the same
+    command again: S, its launches C 1, D 6 a trained round, B an eval
+    walk a trained round plus a fill walk a checkpointed round for each
+    of its two caches; ``checkpoint_write`` chaos absorbed by the retry
+    (``faults_total`` in the exposition), S; a ``pallas`` chaos hit at
+    kernel B's wrapper (round 8's eval walk) raising out of ``train`` in a
+    worker (a nonzero exit), its abort commit holding 8 rounds and a rerun
+    giving S; a ``round_dispatch`` watchdog deadline of 2 ms from round 6
+    on raising ``WatchdogTimeout``, the abort commit holding the rounds
+    before it and a resume giving S. Printed: the checkpoint's cost a
+    round, the payload bytes, the resume's load + verify, parse and fill
+    ms, the median round with and without ``resume_from``.
 
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; before that, one JSON line lists the kernels.
 """
 
+import contextlib
+import hashlib
 import json
 import os
 import pickle
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -385,6 +408,9 @@ DEVICE = torch.device("cuda")
 ROWS, COLS, EVAL_ROWS, MAX_BIN, DEPTH, ROUNDS = 1_000_000, 50, 100_000, 64, 6, 10
 DEFAULT_MAX_BIN = 256
 CPU_ROWS, CPU_ROUNDS = 65_536, 3
+# the card-vs-CPU runs of the ranking, 7-class and exact phases, cut from
+# CPU_ROUNDS to keep the script's length as phase 44 joined it
+CUT_CPU_ROUNDS = 2
 TIMING_REPS = 20
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor 32-bit op/s,
 # dense int8 tensor-core op/s
@@ -1885,7 +1911,7 @@ def phase_multiclass(X):
         name="multiclass construct route")[0]
     torch.cuda.empty_cache()
     phase_card_vs_cpu(Xtr, ytr, Xte, name="multiclass card vs CPU",
-                      params=PARAMS_MC)
+                      params=PARAMS_MC, rounds=CUT_CPU_ROUNDS)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"multiclass: {out['phase_s']:.1f} s")
     return out
@@ -2279,7 +2305,7 @@ def phase_rank_all_pairs():
 
 def phase_rank_card_vs_cpu(all_pairs_train):
     """The ranking gradients on the card and the CPU grow the same trees:
-    3 rounds on cuts of whole queries at 136 features, ``rank:ndcg`` (on a
+    ``CUT_CPU_ROUNDS`` (2) rounds on cuts of whole queries at 136 features, ``rank:ndcg`` (on a
     partial hoist) and ``rank:map`` (on the construct route) on 64k rows
     in queries of 400-1000 documents (the sampled path) and all three
     objectives (full hoist) on the first 64k rows of the all-pairs data
@@ -2300,7 +2326,7 @@ def phase_rank_card_vs_cpu(all_pairs_train):
     # rest each level, as at 1M rows), rank:map on the construct route
     n_pad = hk.onehot_rows(len(sampled[1]))
     part_mb = 33 * DEFAULT_MAX_BIN * n_pad // (1 << 20) + 1
-    levels = CPU_ROUNDS * DEPTH
+    levels = CUT_CPU_ROUNDS * DEPTH
     routes = {"rank:ndcg": (part_mb, {"A": 0, "C": 1, "D": levels}),
               "rank:map": (0, {"A": levels, "C": 0, "D": 0})}
     for obj, (mb, want) in routes.items():
@@ -2308,14 +2334,15 @@ def phase_rank_card_vs_cpu(all_pairs_train):
         errs[f"{obj} sampled"] = phase_card_vs_cpu(
             X, y, X, name=f"{obj} sampled card vs CPU", group=sizes,
             params={"objective": obj, "eta": 0.1}, hoist_budget_mb=mb,
-            want_launches=want)
+            want_launches=want, rounds=CUT_CPU_ROUNDS)
     for obj in RANK_OBJECTIVES:
         X, y, sizes = cut
         errs[f"{obj} all pairs"] = phase_card_vs_cpu(
             X, y, X, name=f"{obj} all pairs card vs CPU", group=sizes,
-            params={"objective": obj, "eta": 0.1}, group_weights=w)
+            params={"objective": obj, "eta": 0.1}, group_weights=w,
+            rounds=CUT_CPU_ROUNDS)
     t = time.perf_counter() - t0
-    print(f"ranking card vs CPU: {len(errs)} runs of {CPU_ROUNDS} rounds, "
+    print(f"ranking card vs CPU: {len(errs)} runs of {CUT_CPU_ROUNDS} rounds, "
           f"trees identical, predictions max abs err "
           f"{max(errs.values())} ({t:.1f} s)")
     return dict(max_abs_err=errs, phase_s=t)
@@ -3304,9 +3331,10 @@ def phase_exact():
     del d64, b64
     torch.cuda.empty_cache()
     err = phase_card_vs_cpu(X, y, X[CPU_ROWS:CPU_ROWS + 10_000],
-                            name="exact card vs CPU", params=EXACT_PARAMS)
+                            name="exact card vs CPU", params=EXACT_PARAMS,
+                            rounds=CUT_CPU_ROUNDS)
     card = launches()
-    check(card["C"] == 1 and card["D"] == CPU_ROUNDS * DEPTH
+    check(card["C"] == 1 and card["D"] == CUT_CPU_ROUNDS * DEPTH
           and card["A"] == 0,
           f"exact card vs CPU: launches {card} (a partial hoist at 64k)")
     out = dict(B=B, rows=COVTYPE_ROWS, launches=got,
@@ -3696,11 +3724,13 @@ def phase_paged_levels(pg, whole, ytr):
     tree (round 0's logistic gradients, the tables of a real grown tree):
     bitwise its plain version, the pages' int64 histograms summing to
     kernel A's histogram of the whole matrix (the streaming matrix's
-    bins), and timed per page. Returns the per-level records and the
-    grown heap state."""
+    bins), and timed per page beside its plain version and one
+    ``index_add_`` of the page's float gradients. Returns the per-level
+    records and the grown heap state."""
     B = whole.cuts.max_bin
     g = torch.as_tensor(0.5 - ytr, device=DEVICE)
-    gq = hk.quantize_gradients(g, torch.full_like(g, 0.25))
+    h = torch.full_like(g, 0.25)
+    gq = hk.quantize_gradients(g, h)
     cfg = GrowParams(max_depth=DEPTH)
     st = _init_state(cfg, gq.totals(), B, COLS)
     pos = [torch.zeros((pg.rows_of(k), 1), dtype=torch.int32, device=DEVICE)
@@ -3725,8 +3755,15 @@ def phase_paged_levels(pg, whole, ytr):
                   f"paged levels: level {d} page {k}: kernel A == plain")
             ms = time_ms(lambda: hk._fused_level_cuda(
                 bins, pos[k], sub, st.ptab, bins_t=bins_t, **kw))
+            # the plain version and the library yardstick on this page
+            plain_ms = time_ms(lambda: hk._fused_level_plain(
+                bins, pos[k], sub, st.ptab, **kw), reps=3, warmup=1)
+            lib_ms = _index_add_ms(bins, p1[:, 0].long() - (K - 1),
+                                   g[lo:lo + rows], h[lo:lo + rows], K, B,
+                                   reps=10)
             b_ms, b_by = level_bounds(rows, COLS, 0, B, 2, d)[1]
-            per_page.append(dict(rows=rows, ms=ms, bound_ms=b_ms,
+            per_page.append(dict(rows=rows, ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=b_ms,
                                  bound_by=b_by))
             pos[k], hist = p1, hist + h1
         pos_all, want = hk._fused_level_cuda(
@@ -3741,8 +3778,10 @@ def phase_paged_levels(pg, whole, ytr):
         levels.append(per_page)
     print("paged levels: kernel A == plain on every page at levels 0-5, "
           "page sums == whole-matrix histograms; ms per page (mean over "
-          "levels): " + ", ".join(
-              f"{_mean([lv[k] for lv in levels], 'ms'):.3f}"
+          "levels; plain, index_add_): " + ", ".join(
+              f"{_mean([lv[k] for lv in levels], 'ms'):.3f} ("
+              f"{_mean([lv[k] for lv in levels], 'plain_ms'):.3f}, "
+              f"{_mean([lv[k] for lv in levels], 'library_ms'):.3f})"
               for k in range(pg.n_pages)))
     return levels, st
 
@@ -4579,6 +4618,328 @@ def phase_traced(Xtr, ytr, Xte, yte):
     return out
 
 
+
+# Phase 44: crash-safe checkpoints and the resilience layer on the main path
+RES_ROUNDS = 12
+RES_PARAMS = {**PARAMS_DEFAULT, "max_depth": DEPTH}
+RES_KILL_EPOCH = 5      # SIGKILL after round index 5's after_iteration
+RES_PALLAS_HIT = 9      # hit 1 the hoist plan, then one eval walk a round
+RES_WATCHDOG_FROM = 6   # the round_dispatch deadline armed from round 6
+RES_WATCHDOG_S = 0.002  # far below one round's update (~70-150 ms)
+
+
+class _Killer(xgbt.callback.TrainingCallback):
+    """SIGKILLs this process after round ``epoch``'s ``after_iteration``:
+    user callbacks run before the checkpoint's, so that round is never
+    committed (the JAX package's ``tests/test_crash_resume.py`` Killer)."""
+
+    def __init__(self, epoch):
+        self.epoch = epoch
+
+    def after_iteration(self, model, epoch, evals_log):
+        if epoch == self.epoch:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return False
+
+
+class _ArmWatchdog(xgbt.callback.TrainingCallback):
+    """Sets the ``round_dispatch`` deadline from round ``epoch`` on (the
+    watchdog reads ``XGBTPU_WATCHDOG`` as each round's update starts)."""
+
+    def __init__(self, epoch, seconds):
+        self.epoch, self.seconds = epoch, seconds
+
+    def before_iteration(self, model, epoch, evals_log):
+        if epoch == self.epoch:
+            os.environ["XGBTPU_WATCHDOG"] = f"round_dispatch={self.seconds}"
+        return False
+
+
+class _ResumeClock:
+    """Host clocks (device synchronised) around the three steps of a
+    resume inside ``train``: ``checkpoint.load_latest`` (the file read and
+    its sha256 check), ``Booster.load_model`` (the JSON parse) and
+    ``Booster._fill_caches_by_round`` (the fill walks, kernel B); and,
+    without a device synchronisation (the runs without checkpoints have
+    none there either), every checkpoint (``_AtomicCheckpoint._save``: the
+    trees' copy off the card, the JSON, sha256, write and fsync). Patches
+    the four for the block's duration."""
+
+    def __enter__(self):
+        from xgboost_tpu_torch import training as tr
+        from xgboost_tpu_torch.resilience import checkpoint as ck
+
+        self.ms = {"load_verify": [], "parse": [], "fill": [], "save": []}
+        self._undo = []
+        for owner, name, key, sync in (
+                (ck, "load_latest", "load_verify", True),
+                (xgbt.Booster, "load_model", "parse", True),
+                (xgbt.Booster, "_fill_caches_by_round", "fill", True),
+                (tr._AtomicCheckpoint, "_save", "save", False)):
+            orig = getattr(owner, name)
+            setattr(owner, name, self._timed(orig, key, sync))
+            self._undo.append((owner, name, orig))
+        return self
+
+    def _timed(self, fn, key, sync):
+        def run(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            self.ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for owner, name, orig in self._undo:
+            setattr(owner, name, orig)
+        return False
+
+
+def _res_train(d, dv, ckdir, callbacks=()):
+    """One 12-round run of phase 44 (``resume_from=ckdir`` when given,
+    one checkpoint a round): ``(booster, launches, flight round records,
+    resume clocks, held-out AUC a trained round)``; the flight recorder is
+    reset first."""
+    from xgboost_tpu_torch.observability import RECORDER
+
+    RECORDER.reset()
+    kw = {} if ckdir is None else dict(resume_from=ckdir,
+                                       checkpoint_interval=1)
+    hist = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    with _ResumeClock() as clock:
+        bst = xgbt.train(RES_PARAMS, d, RES_ROUNDS, evals=[(dv, "eval")],
+                         evals_result=hist, verbose_eval=False,
+                         callbacks=list(callbacks), **kw)
+    torch.cuda.synchronize()
+    recs = [r for r in RECORDER.records() if r.get("t") == "round"]
+    return bst, launches(), recs, clock.ms, hist["eval"]["auc"]
+
+
+def _resilience_worker(args) -> int:
+    """One process of phase 44: the main-path data from ``args["data"]``,
+    a 12-round run with ``resume_from=args["ckpt"]`` (killed after round
+    ``args["kill"]`` when given; ``XGBTPU_CHAOS`` from the parent), its
+    model bytes, launches, round records and resume clocks pickled to
+    ``args["out"]``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arr = {k: np.load(os.path.join(args["data"], f"{k}.npy"))
+           for k in ("Xtr", "ytr", "Xte", "yte")}
+    d = xgbt.DMatrix(arr["Xtr"], arr["ytr"])
+    dv = xgbt.DMatrix(arr["Xte"], arr["yte"])
+    cbs = [] if args.get("kill") is None else [_Killer(args["kill"])]
+    start = xgbt.resilience.checkpoint.load_latest(args["ckpt"])
+    bst, got, recs, ms, _ = _res_train(d, dv, args["ckpt"], cbs)
+    with open(args["out"], "wb") as f:
+        pickle.dump(dict(raw=bst.save_raw(), launches=got, records=recs,
+                         clocks=ms, start=start[1] if start else 0), f)
+    return 0
+
+
+def _res_spawn(args, env=None):
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--resilience-worker",
+         json.dumps(args)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, **(env or {})), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _res_wait(procs, timeout=300):
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:  # stop every process this phase started
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, o) for p, o in zip(procs, outs)]
+
+
+def _median_wall(recs):
+    return statistics.median(r["wall_s"] * 1e3 for r in recs)
+
+
+def _ckpt_faults():
+    """``faults_total`` at the ``checkpoint_write`` site, every kind."""
+    from xgboost_tpu_torch.observability import REGISTRY
+
+    fam = REGISTRY.get("faults_total")
+    return sum(c.value for lab, c in fam.series()
+               if lab.get("site") == "checkpoint_write") if fam else 0.0
+
+
+def phase_resilience(Xtr, ytr, Xte, yte):
+    """Phase 44: crash-safe checkpoints and the resilience layer on the
+    reference-default main path (1M x 50 and 100k held out, max_bin 256,
+    depth 6, eta 0.1, AUC + logloss, 12 rounds, one checkpoint a round).
+    (a) A straight run with ``resume_from`` a fresh directory: its bytes
+    S. (b) A worker process SIGKILLed after round 5's ``after_iteration``
+    (exit -9, the newest verified checkpoint 4 or 5 rounds) and the same
+    command again: S; the resumed process's launches printed (C 1, D 6 a
+    trained round, B an eval walk a trained round plus a fill walk a
+    checkpointed round for each of the two caches). (c) Chaos:
+    ``checkpoint_write:transient:1`` under ``XGBTPU_RETRY`` absorbed, with
+    ``faults_total`` in the exposition, S; ``pallas:permanent:9`` (kernel
+    B's wrapper, round 8's eval walk) raises out of ``train`` in a worker
+    with a nonzero exit, its abort commit holding 8 rounds, and a rerun
+    gives S. (d) A ``round_dispatch`` deadline of 2 ms from round 6 on
+    raises ``WatchdogTimeout``, the abort commit holds the rounds before
+    it, and an in-process resume gives S. (e) Costs, from eight more runs
+    in turns (without ``resume_from``, with a checkpoint a round, with,
+    without, and again; each grows S; the chaos of (c) on the first run
+    with checkpoints): the checkpoint's ms a round, the payload bytes,
+    the resume's load + verify, parse and fill ms, and the median round of
+    each run (flight records' wall time). Workers (b, c) run two at a time; the in-process
+    timings run alone after them."""
+    from xgboost_tpu_torch.observability import REGISTRY
+    from xgboost_tpu_torch.resilience import chaos, checkpoint
+    from xgboost_tpu_torch.resilience.watchdog import WatchdogTimeout
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="xgbt_resilience_")
+    for k, v in (("Xtr", Xtr), ("ytr", ytr), ("Xte", Xte), ("yte", yte)):
+        np.save(os.path.join(tmp, f"{k}.npy"), v)
+    ck = {k: os.path.join(tmp, f"ck_{k}") for k in ("a", "b", "c", "d")}
+
+    def work(tag, ckdir, kill=None):
+        return dict(data=tmp, ckpt=ckdir, kill=kill,
+                    out=os.path.join(tmp, f"{tag}.pkl"))
+
+    def result(tag):
+        with open(os.path.join(tmp, f"{tag}.pkl"), "rb") as f:
+            return pickle.load(f)
+
+    # (b) and (c): the killed run and the chaos abort side by side
+    t0 = time.perf_counter()
+    killed, aborted = _res_wait([
+        _res_spawn(work("killed", ck["b"], RES_KILL_EPOCH)),
+        _res_spawn(work("aborted", ck["c"]),
+                   {"XGBTPU_CHAOS": f"pallas:permanent:{RES_PALLAS_HIT}"})])
+    check(killed[0] == -9, f"resilience: killed worker exit {killed[0]}: "
+          f"{killed[1][-2000:]}")
+    check(aborted[0] not in (0, -9) and "ChaosPermanent" in aborted[1],
+          f"resilience: chaos worker exit {aborted[0]}: {aborted[1][-2000:]}")
+    at_kill = checkpoint.load_latest(ck["b"])[1]
+    at_abort = checkpoint.load_latest(ck["c"])[1]
+    check(at_kill in (RES_KILL_EPOCH - 1, RES_KILL_EPOCH),
+          f"resilience: newest checkpoint after the kill {at_kill}")
+    check(at_abort == RES_PALLAS_HIT - 1,
+          f"resilience: the chaos abort committed {at_abort} rounds")
+    for rc, out in _res_wait([_res_spawn(work("resumed", ck["b"])),
+                              _res_spawn(work("rerun", ck["c"]))]):
+        check(rc == 0, f"resilience: resumed worker exit {rc}: {out[-3000:]}")
+    workers_s = time.perf_counter() - t0
+    resumed, rerun = result("resumed"), result("rerun")
+
+    # (a), then the costs: runs without resume_from and with a checkpoint a
+    # round (the first under checkpoint_write chaos), in turns
+    d, dv = xgbt.DMatrix(Xtr, ytr), xgbt.DMatrix(Xte, yte)
+    bst, straight_l, recs_a, ms_a, auc = _res_train(d, dv, ck["a"])
+    S = bst.save_raw()
+    check(auc[-1] >= 0.80 and auc[-1] > auc[0],
+          f"resilience: held-out AUC {auc}")
+    del bst
+    turns = ("none", "ckpt", "ckpt", "none") * 2
+    round_ms = {m: [] for m in turns}
+    save_ms, stage_ms = [], []
+    before = _ckpt_faults()
+    os.environ["XGBTPU_RETRY"] = "checkpoint_write=3"
+    try:
+        for i, mode in enumerate(turns):
+            ckdir = None if mode == "none" else os.path.join(tmp, f"ck_e{i}")
+            with (chaos.configure("checkpoint_write:transient:1")
+                  if i == 1 else contextlib.nullcontext()) as plan:
+                bst, _, recs, ms, _ = _res_train(d, dv, ckdir)
+            check(bst.save_raw() == S and (ckdir is None or checkpoint
+                  .load_latest(ckdir) == (S, RES_ROUNDS)),
+                  f"resilience: run {i} ({mode}) grows S")
+            del bst
+            round_ms[mode].append(_median_wall(recs))
+            if mode != "none":
+                save_ms.append(statistics.median(ms["save"]))
+                stage_ms.append(statistics.median(
+                    r["stages"].get("checkpoint", 0.0) * 1e3 for r in recs))
+            if i == 1:
+                faults = _ckpt_faults() - before
+                shown = [ln for ln in REGISTRY.exposition().splitlines()
+                         if ln.startswith("faults_total{")
+                         and 'site="checkpoint_write"' in ln]
+                check(plan.fired == [("checkpoint_write", 1, "transient")]
+                      and faults == 1 and shown,
+                      f"resilience: checkpoint_write chaos absorbed "
+                      f"({plan.fired}, faults {faults}, exposition {shown})")
+    finally:
+        del os.environ["XGBTPU_RETRY"]
+
+    # (d) the watchdog, then the resume in this process
+    try:
+        _res_train(d, dv, ck["d"], [_ArmWatchdog(RES_WATCHDOG_FROM,
+                                                 RES_WATCHDOG_S)])
+        check(False, "resilience: the round_dispatch deadline never fired")
+    except WatchdogTimeout as e:
+        check(e.site == "round_dispatch", f"resilience: watchdog {e}")
+    finally:
+        del os.environ["XGBTPU_WATCHDOG"]
+    at_watchdog = checkpoint.load_latest(ck["d"])[1]
+    check(at_watchdog >= RES_WATCHDOG_FROM,
+          f"resilience: the watchdog abort committed {at_watchdog} rounds")
+    bst, resumed_here, _, ms_d, _ = _res_train(d, dv, ck["d"])
+    check(bst.save_raw() == S, "resilience: resumed after the watchdog: S")
+    del bst, d, dv
+    torch.cuda.empty_cache()
+
+    check(resumed["raw"] == S, "resilience: killed and resumed == straight")
+    check(rerun["raw"] == S, "resilience: chaos abort and rerun == straight")
+    trained = RES_ROUNDS - resumed["start"]
+    want = {"A": 0, "C": 1, "D": DEPTH * trained,
+            "B": trained + 2 * resumed["start"]}
+    check(resumed["launches"] == want,
+          f"resilience: resumed process launches {resumed['launches']}, "
+          f"want {want}")
+    check(straight_l == {"A": 0, "B": RES_ROUNDS, "C": 1,
+                         "D": DEPTH * RES_ROUNDS},
+          f"resilience: straight run launches {straight_l}")
+    t0 = time.perf_counter()
+    digest = hashlib.sha256(S).hexdigest()
+    sha_ms = (time.perf_counter() - t0) * 1e3
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    out = dict(
+        payload_bytes=len(S), sha256=digest, auc=auc,
+        launches_straight=straight_l, launches_resumed=resumed["launches"],
+        launches_rerun=rerun["launches"], launches_resumed_here=resumed_here,
+        resumed_from=resumed["start"], rerun_from=rerun["start"],
+        at_kill=at_kill, at_abort=at_abort, at_watchdog=at_watchdog,
+        median_round_ms=dict(straight=_median_wall(recs_a), **round_ms),
+        checkpoint_ms=dict(save=save_ms, write_stage=stage_ms),
+        resume_ms=dict(load_verify=ms_d["load_verify"],
+                       sha256=sha_ms, parse=ms_d["parse"], fill=ms_d["fill"],
+                       worker_load_verify=resumed["clocks"]["load_verify"],
+                       worker_parse=resumed["clocks"]["parse"],
+                       worker_fill=resumed["clocks"]["fill"]),
+        workers_s=workers_s)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"resilience: killed after round {RES_KILL_EPOCH} (exit -9, newest "
+          f"checkpoint {at_kill} rounds), resumed in a new process: bytes == "
+          f"straight ({len(S)} bytes); resumed launches {resumed['launches']}"
+          f" (straight {straight_l})")
+    print(f"resilience: chaos pallas hit {RES_PALLAS_HIT} raised (exit "
+          f"{aborted[0]}), committed {at_abort} rounds, rerun == straight; "
+          f"checkpoint_write chaos absorbed; watchdog at round "
+          f"{RES_WATCHDOG_FROM} committed {at_watchdog}, resumed == straight")
+    print("resilience: costs " + json.dumps(
+        {k: out[k] for k in ("median_round_ms", "checkpoint_ms",
+                             "resume_ms", "payload_bytes")}))
+    print(f"resilience: workers {workers_s:.1f} s, phase "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4674,6 +5035,8 @@ def main() -> int:
     rounding = phase_rounding(Xtr, ytr, Xte)
     torch.cuda.empty_cache()
     traced = phase_traced(Xtr, ytr, Xte, yte)
+    torch.cuda.empty_cache()
+    resilience = phase_resilience(Xtr, ytr, Xte, yte)
     del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
@@ -4694,7 +5057,7 @@ def main() -> int:
         "wide_bins": wide, "local_histmaker": local, "refresh": refresh,
         "sparse": sparse, "external_memory": extmem,
         "distributed": distributed, "rounding": rounding,
-        "traced": traced}))
+        "traced": traced, "resilience": resilience}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -4721,10 +5084,23 @@ def main() -> int:
         round by round, traced or not)."""
         return dict(launches=traced["launches"][k],
                     per_round=[r[k] for r in traced["launches_per_round"]])
+
+    def resilience_launches(k):
+        """Kernel ``k``'s launches on phase 44's runs: the straight run,
+        the process resumed after the SIGKILL (a fresh one-hot, the fill
+        walks), the rerun after the chaos abort, and the resume in this
+        process after the watchdog abort (the one-hot cached)."""
+        return dict(straight=resilience["launches_straight"][k],
+                    resumed_process=resilience["launches_resumed"][k],
+                    rerun_after_chaos=resilience["launches_rerun"][k],
+                    resumed_in_process=resilience[
+                        "launches_resumed_here"][k])
     # the sparse and paged phases' launches, and kernel A per page (mean
     # over the first tree's levels) beside its bound
     sp_l, pg_l = sparse["csr"]["launches"], extmem["paged"]["launches"]
     per_page = [{"rows": lv[0]["rows"], "ms": _mean(lv, "ms"),
+                 "plain_ms": _mean(lv, "plain_ms"),
+                 "library_ms": _mean(lv, "library_ms"),
                  "bound_ms": _mean(lv, "bound_ms")}
                 for lv in zip(*extmem["levels"])]
     # the ranking path's kernels at F = 136: the level check's numbers
@@ -4765,6 +5141,7 @@ def main() -> int:
                  for lv in sparse["levels"]]),
              paged=dict(launches=pg_l["A"], per_page=per_page),
              distributed=dist_launches("A"),
+             resilience=resilience_launches("A"),
              **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
@@ -4785,6 +5162,7 @@ def main() -> int:
                  "B"]), sparse=dict(launches=sp_l["B"]),
              paged=dict(launches=pg_l["B"]),
              distributed=dist_launches("B"), traced=traced_launches("B"),
+             resilience=resilience_launches("B"),
              **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
@@ -4803,6 +5181,7 @@ def main() -> int:
                         onehot_64k=exact["levels_64k"]["C"]),
              sparse=dict(launches=sp_l["C"]), paged=dict(launches=pg_l["C"]),
              distributed=dist_launches("C"), traced=traced_launches("C"),
+             resilience=resilience_launches("C"),
              **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
@@ -4826,6 +5205,7 @@ def main() -> int:
                  for lv in sparse["levels"]]),
              paged=dict(launches=pg_l["D"]),
              distributed=dist_launches("D"), traced=traced_launches("D"),
+             resilience=resilience_launches("D"),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -4841,4 +5221,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--resilience-worker":
+        sys.exit(_resilience_worker(json.loads(sys.argv[2])))
     sys.exit(main())

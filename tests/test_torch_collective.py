@@ -223,21 +223,35 @@ def test_world1_reduce_histogram_matches_jax(kind):
 
 
 def test_failures_are_typed():
+    """``guarded`` types a failure as the JAX package's ``guarded`` does:
+    ``resilience.policy``'s kind and worker-loss verdict, the same on the
+    same failures."""
+    from xgboost_tpu import collective as jcoll
+
     from xgboost_tpu_torch import collective as coll
 
-    def lost():
-        raise RuntimeError("Connection reset by peer")
+    failures = [RuntimeError("Connection reset by peer"),
+                RuntimeError("operation timed out after 600 s"),
+                RuntimeError("[gloo] Gloo all-reduce failed: socket closed"),
+                RuntimeError("CUDA out of memory. Tried to allocate 2 GiB"),
+                NotImplementedError("no such collective"),
+                ConnectionError("broken pipe")]
+    kinds = []
+    for exc in failures:
+        def fail(exc=exc):
+            raise exc
 
-    def slow():
-        raise RuntimeError("operation timed out after 600 s")
-
-    with pytest.raises(coll.CollectiveError) as e:
-        coll.guarded("level_hist", lost)
-    assert (e.value.site, e.value.kind, e.value.worker_lost) == (
-        "level_hist", "connection", True)
-    with pytest.raises(coll.CollectiveError) as e:
-        coll.guarded("metric_reduce", slow)
-    assert (e.value.kind, e.value.worker_lost) == ("timeout", False)
+        got = []
+        for mod in (coll, jcoll):
+            with pytest.raises(mod.CollectiveError) as e:
+                mod.guarded("level_hist", fail)
+            got.append((e.value.site, e.value.kind, e.value.worker_lost,
+                        e.value.cause is exc))
+        assert got[0] == got[1], (exc, got)
+        kinds.append(got[0][1:3])
+    assert kinds == [("transient", True), ("transient", False),
+                     ("transient", True), ("resource", False),
+                     ("permanent", False), ("transient", True)]
     with pytest.raises(TypeError):
         coll.reduce_histogram(np.zeros(3, np.float32), site="t", scale=1.0)
 

@@ -1046,3 +1046,38 @@ def test_distributed_gloo_on_the_card_equals_the_cpu(cuda, tmp_path):
             np.testing.assert_array_equal(a[f], b[f], f)
     raws = [r["lossguide_raw"] for r in card + cpu]
     assert raws.count(raws[0]) == 4
+
+
+def test_resume_on_the_card_equals_straight_and_cpu(cuda, tmp_path):
+    """A 64k-row run on the card (depth 6, max_bin 256), SIGKILLed after
+    round 3's ``after_iteration`` and run again, gives the uninterrupted
+    card run's bytes, and its trees are the CPU's (the workers are
+    ``tests/test_torch_crash_resume.py``'s)."""
+    import json
+    import signal
+
+    import xgboost_tpu_torch as xgbt
+    from test_torch_crash_resume import (CARD_PARAMS, CARD_SHAPE, KILL_AFTER,
+                                         ROUNDS, _run, _wait, data)
+    from xgboost_tpu_torch.resilience import checkpoint
+
+    ck = tmp_path / "ck"
+    (rc, out), = _wait([_run(["single", "card", ck, tmp_path / "r.bin"],
+                             KILL_AFTER)], timeout=600)
+    assert rc == -signal.SIGKILL, out[-3000:]
+    assert 1 <= checkpoint.load_latest(str(ck))[1] <= KILL_AFTER - 1
+    for rc, out in _wait([_run(["single", "card", ck, tmp_path / "r.bin"]),
+                          _run(["single", "card", tmp_path / "ck_ref",
+                                tmp_path / "s.bin"])], timeout=600):
+        assert rc == 0, out[-3000:]
+    resumed = (tmp_path / "r.bin").read_bytes()
+    assert resumed == (tmp_path / "s.bin").read_bytes()
+    X, y = data(*CARD_SHAPE)
+    cpu = xgbt.train(CARD_PARAMS, xgbt.DMatrix(X, y, device="cpu"), ROUNDS,
+                     verbose_eval=False)
+
+    def trees(raw):
+        return json.loads(raw)["learner"]["gradient_booster"]["model"][
+            "trees"]
+
+    assert trees(resumed) == trees(cpu.save_raw())

@@ -48,7 +48,11 @@
   where there is no card, before any rendezvous; under a row group a
   tree's level histograms reach kernel A's or D's wrapper and the tensors
   handed to ``torch.distributed.all_reduce`` are on that device (the int64
-  histograms among them), never CPU copies.
+  histograms among them), never CPU copies;
+- the resilience layer (``resilience/*``) imports neither ``jax`` nor
+  ``xgboost_tpu``, nor does a run with ``resume_from`` under chaos, and a
+  ``pallas`` chaos hit on a device tensor raises before kernel B's wrapper
+  launches anything or reaches the plain walk.
 """
 
 import ast
@@ -914,3 +918,54 @@ def test_group_histograms_reach_the_kernels_and_reduce_on_the_device(
                          dist.ReduceOp.SUM, "device group")
                         for d in range(depth)]
     assert tree.delta.device.type == "meta"
+
+
+RESILIENCE_MODULES = ("xgboost_tpu_torch.resilience",
+                      "xgboost_tpu_torch.resilience.policy",
+                      "xgboost_tpu_torch.resilience.chaos",
+                      "xgboost_tpu_torch.resilience.watchdog",
+                      "xgboost_tpu_torch.resilience.checkpoint")
+
+
+def test_resilience_modules_and_resume_import_no_jax(tmp_path):
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in RESILIENCE_MODULES) +
+        "import numpy as np\n"
+        "import xgboost_tpu_torch as xgbt\n"
+        "from xgboost_tpu_torch.resilience import chaos\n"
+        "X = np.random.RandomState(0).randn(200, 3).astype(np.float32)\n"
+        "d = xgbt.DMatrix(X, (X[:, 0] > 0).astype(np.float32), device='cpu')\n"
+        "with chaos.configure('checkpoint_write:transient:1'):\n"
+        f"    xgbt.train({{'max_depth': 2}}, d, 2, resume_from={str(tmp_path)!r})\n"
+        f"bst = xgbt.train({{'max_depth': 2}}, d, 3, resume_from={str(tmp_path)!r})\n"
+        "assert bst.num_boosted_rounds() == 3\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'xgboost_tpu')]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_pallas_chaos_on_a_device_tensor_raises_before_any_launch(
+        stub_cuda):
+    from xgboost_tpu_torch.resilience import chaos
+
+    n, F, T, N = 50, 4, 3, 7
+    meta = dict(device="meta")
+    forest = tpred.StackedForest(
+        left=torch.empty((T, N), dtype=torch.int32, **meta),
+        right=torch.empty((T, N), dtype=torch.int32, **meta),
+        feature=torch.empty((T, N), dtype=torch.int32, **meta),
+        cond=torch.empty((T, N), dtype=torch.float32, **meta),
+        default_left=torch.empty((T, N), dtype=torch.bool, **meta),
+        tree_group=torch.empty(T, dtype=torch.int32, **meta),
+        max_depth=2, n_groups=1, num_feature=F)
+    X = torch.empty((n, F), dtype=torch.float32, **meta)
+    before = tpred.predict_margin.launches
+    with chaos.configure("pallas:permanent:1"):
+        with pytest.raises(chaos.ChaosPermanent):
+            tpred.predict_margin(forest, X, torch.empty((n, 1), **meta))
+    assert tpred.predict_margin.launches == before
+    assert stub_cuda.calls == []

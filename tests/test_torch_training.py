@@ -635,9 +635,20 @@ def test_unported_parameters_raise(both, params, ported):
                                 {"checkpoint_interval": 5},
                                 {"checkpoint_shared": True},
                                 {"resume_mode": "append"}])
-def test_train_refuses_checkpoint_options(both, kw):
-    with pytest.raises(NotImplementedError):
-        xgbt.train(PARAMS, both.td, 1, verbose_eval=False, **kw)
+def test_train_refuses_checkpoint_options(both, kw, tmp_path):
+    """The checkpoint options are ported: each trains as the JAX package's
+    ``train`` does with it (a directory each for ``resume_from``), and an
+    unknown ``resume_mode`` raises ValueError in both."""
+    jkw, tkw = dict(kw), dict(kw)
+    if "resume_from" in kw:
+        jkw["resume_from"] = str(tmp_path / "jax")
+        tkw["resume_from"] = str(tmp_path / "port")
+    jb = xgb.train(PARAMS, both.jd, 2, verbose_eval=False, **jkw)
+    tb = xgbt.train(PARAMS, both.td, 2, verbose_eval=False, **tkw)
+    _assert_same_model(jb, tb, both)
+    for train, d in ((xgb.train, both.jd), (xgbt.train, both.td)):
+        with pytest.raises(ValueError, match="resume_mode"):
+            train(PARAMS, d, 1, verbose_eval=False, resume_mode="bogus")
 
 
 def test_update_many_equals_per_round_update(both):

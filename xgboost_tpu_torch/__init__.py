@@ -25,13 +25,15 @@ histograms all-reduced) and the rabit shim (``collective``, alias
 trace-event files (``XGBTPU_TRACE`` or ``set_config(trace_path=...)``),
 the metrics registry, collective accounting and the per-round flight
 recorder (``observability.flight.configure(run_dir)``);
-``profiler_context`` wraps ``torch.profiler``. The four kernels of the path (the
+``profiler_context`` wraps ``torch.profiler``. The failure-handling layer
+(``resilience``): retry policy, chaos sites, the watchdog and crash-safe
+checkpoints behind ``train(resume_from=...)``. The four kernels of the path (the
 construct and hoisted level histograms, the one-hot build and the forest
 walk) are hand-written CUDA (``csrc/``), built at first use; on CPU
 tensors their plain PyTorch versions run.
 """
 
-from . import callback, collective, observability, parallel
+from . import callback, collective, observability, parallel, resilience
 from . import collective as rabit  # noqa: F401  (legacy alias)
 from .config import config_context, get_config, set_config
 from .data.dmatrix import DMatrix, QuantileDMatrix, load_row_split
@@ -49,6 +51,7 @@ __version__ = "0.1.0"
 __all__ = ["DMatrix", "QuantileDMatrix", "ExternalMemoryQuantileDMatrix",
            "DataIter", "load_row_split", "Booster", "train", "cv",
            "callback", "collective", "rabit", "parallel", "observability",
+           "resilience",
            "profiler_context", "HistogramCuts",
            "forest_from_numpy", "config_context", "set_config", "get_config",
            "plot_importance", "plot_tree", "to_graphviz", "XGBModel",

@@ -14,9 +14,16 @@ one contribution per process, stacked ``[P, ...]`` in rank order. Device
 tensors go through ``all_reduce`` / ``all_gather`` over the row group's
 device group, the identity when no group is given; they replace the JAX
 package's traced ``psum`` / ``all_gather``. Every collective runs under
-``guarded``, which names its ``site`` and turns a failure into a typed
-``CollectiveError``; the JAX package's chaos sites, watchdog and retry
-policy there are not ported yet (each call site keeps its name for them).
+``guarded`` (the JAX package's, ``collective.py:64-110``), which applies in
+order: the ``collective_timeout`` chaos site; a per-site deadline
+(``XGBTPU_WATCHDOG="collective_<site>=S"`` or the ``collective=S``
+wildcard, ``DEFAULT_DEADLINE`` otherwise for host collectives, none for
+device ones); the retry policy
+(``XGBTPU_RETRY="collective_<site>=N"``, default 0: a one-sided retry of a
+cross-process operation desyncs the ranks); and on failure a typed
+``CollectiveError`` with ``resilience.policy``'s kind and worker-loss
+verdict. The ``collective`` chaos site is ``comms.record``, which every
+accounted collective passes.
 
 Every collective counts its operations and payload bytes in the metrics
 registry under its site and the JAX package's kind of it
@@ -49,11 +56,16 @@ __all__ = ["Op", "init", "finalize", "get_rank", "get_world_size",
 #: time each ``all_reduce`` between two device synchronizations
 timing = False
 
+#: default deadline (seconds) of one guarded collective: a healthy one
+#: takes milliseconds to seconds, so ten minutes means wedged
+DEFAULT_DEADLINE = 600.0
+
 
 class CollectiveError(RuntimeError):
-    """A collective failed. ``kind`` classifies the failure (``timeout``,
-    ``connection`` or ``error``); ``worker_lost`` is True when it reads as
-    a dead peer (a closed or reset connection, a broken pipe)."""
+    """A guarded collective failed. ``kind`` is ``resilience.policy``'s
+    classification of the failure (``transient``, ``resource`` or
+    ``permanent``); ``worker_lost`` is True when it reads as a dead peer
+    (a closed or reset connection, a broken pipe, a gloo ring break)."""
 
     def __init__(self, site: str, kind: str, cause: BaseException,
                  worker_lost: bool = False):
@@ -67,27 +79,42 @@ class CollectiveError(RuntimeError):
         self.worker_lost = worker_lost
 
 
-_PEER_LOSS = ("connection reset", "connection closed", "closed by peer",
-              "broken pipe", "connection refused", "socket closed")
-
-
-def _classify(e: BaseException):
-    msg = str(e).lower()
-    if any(s in msg for s in _PEER_LOSS):
-        return "connection", True
-    if "timed out" in msg or "timeout" in msg:
-        return "timeout", False
-    return "error", False
-
-
 def guarded(site: str, fn: Callable, *args, **kwargs):
-    """Run the collective ``fn(*args, **kwargs)``; a failure raises
+    """Run the host collective ``fn(*args, **kwargs)`` under the
+    ``collective_timeout`` chaos site, the deadline of
+    ``collective_<site>`` (``DEFAULT_DEADLINE`` unless
+    ``XGBTPU_WATCHDOG`` names one) and its retry policy; a failure raises
     ``CollectiveError`` naming ``site``."""
+    return _guarded(site, DEFAULT_DEADLINE, fn, args, kwargs)
+
+
+def _guarded(site: str, default: Optional[float], fn: Callable, args,
+             kwargs):
+    """``guarded`` with the deadline ``default`` when ``XGBTPU_WATCHDOG``
+    names none for the site. The device collectives pass None: like the
+    JAX package's in-jit ``psum`` they take no deadline of their own (a
+    timer thread per level's all-reduce), and the round's
+    ``round_dispatch`` deadline covers them."""
+    from .resilience import chaos, policy
+    from .resilience.chaos import ChaosError
+    from .resilience.watchdog import deadline_for, watchdog
+
+    qsite = f"collective_{site}"
+    deadline = deadline_for(qsite, deadline_for("collective", default))
+
+    def attempt():
+        chaos.hit("collective_timeout")
+        with watchdog(qsite, seconds=deadline or 0):
+            return fn(*args, **kwargs)
+
     try:
-        return fn(*args, **kwargs)
+        return policy.RetryPolicy(qsite, retries=0).run(attempt)
+    except ChaosError as e:
+        raise CollectiveError(site, e.chaos_kind, e,
+                              policy.is_worker_loss(e)) from e
     except Exception as e:
-        kind, lost = _classify(e)
-        raise CollectiveError(site, kind, e, lost) from e
+        raise CollectiveError(site, policy.classify(e), e,
+                              policy.is_worker_loss(e)) from e
 
 
 class Op(IntEnum):
@@ -129,9 +156,9 @@ def all_reduce(t: torch.Tensor, mesh, op: Op = Op.SUM, *,
         t0 = time.perf_counter()
     nbytes = t.numel() * t.element_size()
     with trace.span("allreduce", site=site, bytes=nbytes, op=int(op)):
-        guarded(site, dist.all_reduce, t,
-                op=getattr(dist.ReduceOp, _TORCH_OPS[Op(op)]),
-                group=mesh.group)
+        _guarded(site, None, dist.all_reduce, (t,),
+                 dict(op=getattr(dist.ReduceOp, _TORCH_OPS[Op(op)]),
+                      group=mesh.group))
     if t0 is not None:
         if t.device.type == "cuda":
             torch.cuda.synchronize(t.device)
@@ -151,7 +178,8 @@ def all_gather(t: torch.Tensor, mesh, *, site: str = "all_gather"
         host = process_allgather(t.cpu().numpy(), site=site, mesh=mesh)
         return torch.as_tensor(host, device=t.device)
     out = [torch.empty_like(t) for _ in range(mesh.world_size)]
-    guarded(site, dist.all_gather, out, t.contiguous(), group=mesh.group)
+    _guarded(site, None, dist.all_gather, (out, t.contiguous()),
+             dict(group=mesh.group))
     return torch.stack(out)
 
 

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..resilience import chaos, policy
 from .dmatrix import DMatrix
 from .iterator import DataIter, bin_batches, set_batch_meta, sketch_batches
 from .quantile import HistogramCuts, storage_dtype
@@ -134,11 +135,26 @@ class PagedBins:
         return n_sym * self.dtype.itemsize
 
     def write_page(self, k: int, bins: np.ndarray) -> None:
+        """Write page ``k``: the ``pager_io`` site, its transient failures
+        retried (``RetryPolicy("pager_io", retries=2)``, ``XGBTPU_RETRY``)
+        as the JAX package's spill does."""
         arr = np.ascontiguousarray(bins, self.dtype)
-        (pack_symbols(arr, self.bits) if self.packed else arr).tofile(
-            self.page_path(k))
+        out = pack_symbols(arr, self.bits) if self.packed else arr
+
+        def write_once() -> None:
+            chaos.hit("pager_io")
+            out.tofile(self.page_path(k))
+
+        policy.RetryPolicy("pager_io", retries=2).run(write_once)
 
     def _read_raw(self, k: int) -> np.ndarray:
+        """Page ``k``'s bytes read from disk under the ``pager_io`` retry
+        policy (on the caller's thread or the prefetch worker alike)."""
+        return policy.RetryPolicy("pager_io", retries=2).run(
+            self._read_once, k)
+
+    def _read_once(self, k: int) -> np.ndarray:
+        chaos.hit("pager_io")
         t0 = time.perf_counter()
         raw = np.fromfile(self.page_path(k), dtype=np.uint8)
         self.io["read_s"] += time.perf_counter() - t0
@@ -162,11 +178,17 @@ class PagedBins:
 
     def _raw(self, k: int) -> np.ndarray:
         """Page ``k``'s bytes: the prefetched read when it is page ``k``
-        (a read for another page is dropped), else a read here."""
+        (a read for another page is dropped), else a read here. A
+        prefetched read's failure (its retries spent) surfaces here, with
+        ``page = k`` set on the exception."""
         pf, self._pf = self._pf, None
         if pf is not None and pf[0] == k:
             t0 = time.perf_counter()
-            raw = pf[1].result()
+            try:
+                raw = pf[1].result()
+            except Exception as e:
+                e.page = k
+                raise
             self.io["wait_s"] += time.perf_counter() - t0
             self.io["prefetched"] += 1
             return raw

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..observability import flight, trace
+from ..resilience import chaos
 from ..tree.hist_kernel import (build_onehot, feature_major, hoist_plan,
                                 hoist_plan_synced, onehot_rows)
 from .sketch import _levels
@@ -275,9 +276,13 @@ class BinnedMatrix:
         made once per (matrix, group); the same gather checks that every
         rank's cuts are these, and raises ValueError where they differ (a
         matrix binned on its own rank's rows, outside ``mesh_context``). A failed build raises: there is no
-        degrade to the construct route."""
+        degrade to the construct route. Making the plan passes the
+        ``pallas`` chaos site (the kernel-launch site, on either device),
+        where the JAX package hits it before its one-hot build; a fired hit
+        raises."""
         key = None if group is None else id(group)
         if self._hoist_fh is None or self._hoist_group != key:
+            chaos.hit("pallas")
             n, F = self.bins.shape
             B = self.cuts.max_bin
             fh = hoist_plan_synced(hoist_plan(onehot_rows(n), F, B,

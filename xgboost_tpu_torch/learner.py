@@ -296,6 +296,40 @@ class Booster:
             entry.margin, entry.num_trees = margin, cur
         return margin
 
+    def _fill_caches_by_round(self, dtrain: DMatrix,
+                              others: Sequence[DMatrix] = ()) -> None:
+        """Fill a resumed booster's caches as an uninterrupted run filled
+        them, so the next round's gradients (and the eval history) keep
+        its bits: from the base margin, one round at a time, each step's
+        walk from zeros added to the margin (``0 + leaf`` is exact). The
+        training cache adds tree by tree where a group holds several trees
+        a round (``num_parallel_tree > 1``), as ``boost_one_round`` does;
+        an eval cache adds a round's walk, as ``_predict_margin`` does
+        after each round. One walk of the whole forest (the caches'
+        fill otherwise) sums the trees before adding the base, which can
+        differ in the last bit. DART and refresh cache nothing across
+        rounds, so they take the usual path."""
+        self._configure()
+        gbm = self._gbm
+        if gbm.name != "gbtree" or gbm.is_update_process:
+            return
+        model = gbm.model
+        per = self._per_round
+        total = model.num_trees // per * per
+        seen = set()
+        for d in [dtrain, *others]:
+            if id(d) in seen:
+                continue
+            seen.add(id(d))
+            self._add_cache(d)
+            step = 1 if d is dtrain and per != self.n_groups else per
+            m = self._base_margin_for(d)
+            for lo in range(0, total, step):
+                m = m + self._walk(model.stacked_slice(lo, lo + step), d,
+                                   torch.zeros_like(m))
+            entry = self._caches[id(d)]
+            entry.margin, entry.num_trees = m, total
+
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------

@@ -68,9 +68,13 @@ def record(site: str, nbytes: int, n_ops: int = 1, *,
            seconds: Optional[float] = None) -> None:
     """Account ``n_ops`` collective operations at ``site`` moving
     ``nbytes`` payload bytes in all, under the kind ``op`` (default
-    ``kind_of(site)``), and ``seconds`` of host time when given."""
-    # the JAX package's `collective` chaos site goes here with the
-    # resilience layer
+    ``kind_of(site)``), and ``seconds`` of host time when given. Doubles
+    as the ``collective`` chaos site: every accounted collective passes
+    here, so ``XGBTPU_CHAOS="collective:..."`` scripts a failing reduction
+    (lazy import: the resilience layer depends on this package)."""
+    from ..resilience import chaos
+
+    chaos.hit("collective")
     labels = dict(op=op or kind_of(site), site=site)
     REGISTRY.counter("collective_ops_total", _OPS_HELP).labels(
         **labels).inc(n_ops)

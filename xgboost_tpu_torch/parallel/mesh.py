@@ -32,6 +32,8 @@ from typing import Iterator, Optional, Union
 import torch
 import torch.distributed as dist
 
+from ..resilience import watchdog as _wd
+
 __all__ = ["ROW_AXIS", "RowGroup", "make_mesh", "current_mesh",
            "collective_active", "mesh_context", "init_distributed",
            "RENDEZVOUS_DEADLINE", "COLLECTIVE_DEADLINE"]
@@ -203,14 +205,21 @@ def init_distributed(coordinator_address: Optional[str] = None,
         url = coordinator_address or "env://"
         if "://" not in url:
             url = f"tcp://{url}"
-        store, rank, world = next(dist.rendezvous(
-            url, -1 if process_id is None else process_id,
-            -1 if num_processes is None else num_processes,
-            timeout=datetime.timedelta(seconds=RENDEZVOUS_DEADLINE)))
-        store.set_timeout(datetime.timedelta(seconds=RENDEZVOUS_DEADLINE))
-        dist.init_process_group(
-            "gloo", store=store, rank=rank, world_size=world,
-            timeout=datetime.timedelta(seconds=COLLECTIVE_DEADLINE))
+        # the JAX package's deadline around the rendezvous: a clean
+        # WatchdogTimeout instead of a hang (XGBTPU_WATCHDOG=
+        # "collective_init=S"; it lands when the store's wait returns)
+        with _wd.watchdog("collective_init",
+                          seconds=_wd.deadline_for("collective_init",
+                                                   RENDEZVOUS_DEADLINE)):
+            store, rank, world = next(dist.rendezvous(
+                url, -1 if process_id is None else process_id,
+                -1 if num_processes is None else num_processes,
+                timeout=datetime.timedelta(seconds=RENDEZVOUS_DEADLINE)))
+            store.set_timeout(
+                datetime.timedelta(seconds=RENDEZVOUS_DEADLINE))
+            dist.init_process_group(
+                "gloo", store=store, rank=rank, world_size=world,
+                timeout=datetime.timedelta(seconds=COLLECTIVE_DEADLINE))
     try:
         return make_mesh(backend, dev)
     except ValueError:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..resilience import chaos
 
 __all__ = ["StackedForest", "stack_forest", "forest_from_numpy",
            "pack_cat_bits", "walk_row_chunks", "predict_margin",
@@ -326,9 +327,13 @@ def predict_margin(forest: StackedForest, X: torch.Tensor,
     times its weight in ``tree_weights``, one per tree; default 1): for a
     numerical forest kernel B on a CUDA tensor, the plain version on a CPU
     tensor (``predict_margin.launches`` counts kernel B's launches); for a
-    forest with categorical nodes the categorical walk on either."""
+    forest with categorical nodes the categorical walk on either. Every
+    call with trees passes the ``pallas`` chaos site (the kernel-launch
+    site) first, on either device: a fired hit raises, and nothing
+    retries the walk or gives way to the plain version."""
     if forest.num_trees == 0:
         return base_margin
+    chaos.hit("pallas")
     if X.shape[1] < forest.num_feature:
         raise ValueError(
             f"feature count mismatch: model needs >= {forest.num_feature} "

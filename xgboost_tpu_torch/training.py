@@ -1,9 +1,7 @@
 """``train()`` and ``cv()`` (the port of the JAX package's ``training.py``:
-``train`` :72-335 and ``cv`` with ``_make_folds`` :736-872; reference
-``python-package/xgboost/training.py`` :49 and :189-459). Crash-safe
-checkpoints (``resume_from``, ``checkpoint_*``, ``resume_mode``) and elastic
-training are not ported: ``train`` raises NotImplementedError when one is
-asked for."""
+``_AtomicCheckpoint`` :26-66, ``train`` :72-335 and ``cv`` with
+``_make_folds`` :736-872; reference ``python-package/xgboost/training.py``
+:49 and :189-459). Elastic training (``elastic_train``) is not ported."""
 
 from __future__ import annotations
 
@@ -18,8 +16,92 @@ from .data.dmatrix import DMatrix
 from .learner import Booster
 from .observability import flight as _flight
 from .observability import trace as _trace
+from .resilience import checkpoint as _ckpt
+from .resilience.watchdog import watchdog as _watchdog
 
 __all__ = ["train", "cv"]
+
+
+class _AtomicCheckpoint(TrainingCallback):
+    """Crash-safe checkpoints for ``train(resume_from=...)`` every
+    ``interval`` rounds (``resilience/checkpoint.py``: atomic, checksummed,
+    the 2 newest kept), written on this thread; ``after_training`` writes
+    the final round. A round already on disk (a resumed run's first) is
+    not written again."""
+
+    def __init__(self, directory: str, interval: int = 1):
+        self.directory = directory
+        self.interval = max(1, int(interval))
+
+    def _save(self, model) -> None:
+        rounds = model.num_boosted_rounds()
+        if rounds and _ckpt.read_checkpoint(
+                _ckpt.checkpoint_path(self.directory, rounds)) is None:
+            _ckpt.save_checkpoint(self.directory, model, rounds)
+
+    def after_iteration(self, model, epoch, evals_log) -> bool:
+        if (epoch + 1) % self.interval == 0:
+            self._save(model)
+        return False
+
+    def after_training(self, model):
+        self._save(model)  # the final round is always durable
+        return model
+
+
+#: verified checkpoints of each rank compared when a row group resumes
+_RESUME_CANDIDATES = 8
+
+
+def _agreed_checkpoint(ckpt_dir: str) -> Optional[Tuple[bytes, int]]:
+    """The newest verified checkpoint of ``ckpt_dir``; under an active row
+    group of several ranks, the newest round that every rank still holds
+    verified (a kill can land while one rank's write is in flight or after
+    its file was damaged, and ranks resuming from different rounds would
+    desync), or None when they share none. The JAX package resumes each
+    rank from its own newest."""
+    from .parallel.mesh import collective_active
+
+    if not collective_active():
+        return _ckpt.load_latest(ckpt_dir)
+    from .collective import process_allgather
+
+    verified: Dict[int, Tuple[bytes, int]] = {}
+    for path in reversed(_ckpt.list_checkpoints(ckpt_dir)):
+        got = _ckpt.read_checkpoint(path)
+        if got is not None:
+            verified.setdefault(got[1], got)
+            if len(verified) == _RESUME_CANDIDATES:
+                break
+    mine = np.full(_RESUME_CANDIDATES, -1, np.int64)
+    mine[:len(verified)] = sorted(verified, reverse=True)
+    every = process_allgather(mine, site="resume_rounds")
+    common = set.intersection(*(set(r) for r in every.tolist())) - {-1}
+    if not common:
+        if (every >= 0).any():
+            from .utils import console_logger
+
+            console_logger.warning(
+                f"resume_from: the ranks hold no verified round in common "
+                f"({ckpt_dir}); training from the start")
+        return None
+    return verified[max(common)]
+
+
+def _commit_on_abort(bst: Booster, ckpt_dir: Optional[str]) -> None:
+    """An abort mid-loop (a watchdog expiry, a failed collective, a fault
+    at a kernel's launch site) keeps the finished rounds: write the
+    model's whole rounds. Best effort: the abort itself must still
+    surface."""
+    if ckpt_dir is None:
+        return
+    try:
+        rounds = bst.num_boosted_rounds()  # 0 for gblinear: nothing to keep
+        # never a round cut between its trees
+        if rounds and bst._gbm.model.num_trees == rounds * bst._per_round:
+            _ckpt.save_checkpoint(ckpt_dir, bst, rounds)
+    except Exception:
+        pass
 
 
 def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
@@ -51,18 +133,41 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
     ``round`` span a round, and the flight recorder keeps one record a
     round (its ``grow`` and ``eval`` stages); an exception dumps the
     recorder's black box before it propagates (``abort_dump``), and
-    ``XGBTPU_PROFILE`` opens the profiling window at the first round."""
+    ``XGBTPU_PROFILE`` opens the profiling window at the first round.
+
+    ``resume_from`` is a directory of crash-safe checkpoints
+    (``resilience/checkpoint.py``; ``rank<r>`` subdirectories in a world of
+    several ranks unless ``checkpoint_shared``). Training resumes from the
+    newest verified checkpoint there (when no ``xgb_model`` is given) and
+    commits one every ``checkpoint_interval`` rounds, and on any abort the
+    finished rounds. With ``resume_mode="total"`` ``num_boost_round`` is
+    the total: a run resumed at round r trains the remaining
+    ``num_boost_round - r``, so rerunning a killed command finishes it;
+    ``"append"`` trains ``num_boost_round`` more. A resumed booster fills
+    its caches round by round (``Booster._fill_caches_by_round``), so the
+    resumed model's bytes are an uninterrupted run's. Each round's
+    ``update`` runs under the ``round_dispatch`` watchdog
+    (``XGBTPU_WATCHDOG``; none by default). No counterpart here: the JAX
+    package's scan path and its ``train_dispatch`` deadline (TPU only),
+    the ``native_dispatch`` retry (the CPU native kernels have no
+    counterpart by design), ``RoundPipeline`` and ``kernelprof``."""
     if resume_mode not in ("total", "append"):
         raise ValueError(
             f"resume_mode must be 'total' or 'append', got {resume_mode!r}")
-    if (resume_from is not None or checkpoint_interval != 1
-            or checkpoint_shared or resume_mode != "total"):
-        raise NotImplementedError(
-            "crash-safe checkpoints (resume_from, checkpoint_interval, "
-            "checkpoint_shared, resume_mode) are not ported yet")
     callbacks = list(callbacks) if callbacks else []
     evals = list(evals) if evals else []
     feval = custom_metric if custom_metric is not None else feval
+    ckpt_dir: Optional[str] = None
+    resumed = False
+    if resume_from is not None:
+        ckpt_dir = _ckpt.process_dir(resume_from, shared=checkpoint_shared)
+        loaded = _agreed_checkpoint(ckpt_dir)
+        if loaded is not None and xgb_model is None:
+            xgb_model, done_rounds = bytes(loaded[0]), loaded[1]
+            resumed = True
+            if resume_mode == "total":
+                num_boost_round = max(0, num_boost_round - done_rounds)
+        callbacks.append(_AtomicCheckpoint(ckpt_dir, checkpoint_interval))
     if verbose_eval:
         period = (verbose_eval if isinstance(verbose_eval, int)
                   and not isinstance(verbose_eval, bool) else 1)
@@ -78,6 +183,8 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
         bst.set_param(params)
         for d in [dtrain] + [d for d, _ in evals]:
             bst._add_cache(d)
+        if resumed:
+            bst._fill_caches_by_round(dtrain, [d for d, _ in evals])
         start_round = bst.num_boosted_rounds()
     else:
         bst = Booster(params, cache=[dtrain] + [d for d, _ in evals],
@@ -96,7 +203,8 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
                 try:
                     with _trace.span("round", iteration=i):
                         t0 = time.perf_counter()
-                        bst.update(dtrain, i, fobj=obj)
+                        with _watchdog("round_dispatch"):
+                            bst.update(dtrain, i, fobj=obj)
                         _flight.note("grow", time.perf_counter() - t0)
                         stop = container.after_iteration(
                             bst, i, dtrain, evals, feval=feval)
@@ -105,6 +213,7 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
                 if stop:
                     break
     except BaseException as e:
+        _commit_on_abort(bst, ckpt_dir)
         _flight.RECORDER.abort_dump(e)  # the black box: ring + metrics
         raise
     finally:

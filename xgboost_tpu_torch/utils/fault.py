@@ -85,9 +85,12 @@ def inject(site: str) -> None:
     """Injection site: no-op unless a spec is armed and the current
     (version, seqno) has remaining trials. Sites are the per-round host
     boundaries (gradient/grow/eval), the places the reference mock
-    intercepts collectives."""
-    # the JAX package's chaos sites of the same names go here with the
-    # resilience layer
+    intercepts collectives. They double as chaos sites of the same names,
+    so ``XGBTPU_CHAOS="grow:transient:3"`` fails a round's dispatch
+    without a fault spec."""
+    from ..resilience import chaos
+
+    chaos.hit(site)
     spec = getattr(_state, "spec", None)
     if spec is None:
         return
