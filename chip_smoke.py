@@ -361,7 +361,31 @@ After phase 40 (max_bin 256 unless named):
     on raising ``WatchdogTimeout``, the abort commit holding the rounds
     before it and a resume giving S. Printed: the checkpoint's cost a
     round, the payload bytes, the resume's load + verify, parse and fill
-    ms, the median round with and without ``resume_from``.
+    ms, the median round with and without ``resume_from``;
+45. elastic training (``phase_elastic``): the main path (1M x 50, max_bin
+    256, depth 6, eta 0.1, 10 rounds, a checkpoint a round, heartbeats
+    every 0.25 s) through ``elastic_train``, each rank this script with
+    ``--elastic-worker`` on the one card over gloo. (a) 2 -> 1: blocks of
+    500,000 rows, rank 1 SIGKILLed at its 5th round boundary, the
+    survivor shrinking to one in its process; (b) 3 -> 2: blocks of
+    333,334 / 333,333 / 333,333, rank 2 killed, both survivors restarting
+    their process images. Every survivor's model bytes == a straight
+    single-process run on the card; each generation's hoist plan and the
+    survivors' launches printed (a: C 2, B a fill walk a resumed round, D
+    60 and the levels of the round in flight), with the seconds from the
+    SIGKILL to the survivor's raise and to its heartbeat verdict beside
+    ``hb_deadline()``, from the raise to the first replayed round, the
+    rounds replayed, the median round at world 2 and at world 1, and in
+    (b) the seconds from the resize to the restarted image's first flight
+    line and first round;
+46. the command line (``phase_cli``): ``python -m xgboost_tpu_torch`` with
+    config files on the card: ``train`` (10 rounds on the first 200,000
+    main-path rows written as libsvm), ``pred`` (the 100,000 held-out
+    rows) and ``dump``, the predictions == ``Booster.predict`` on the card
+    digit for digit and the dump == ``get_dump()``; ``obs-report`` on
+    phase 45 (a)'s run directory (2 ranks, the elastic events, its
+    replayed rounds) and ``checkpoint-inspect`` on its checkpoints (the
+    newest verified, 10 rounds, marked).
 
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
@@ -4940,6 +4964,382 @@ def phase_resilience(Xtr, ytr, Xte, yte):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 45: elastic training; phase 46: the command line
+# ---------------------------------------------------------------------------
+
+ELASTIC_ROUNDS = 10
+ELASTIC_PARAMS = {**PARAMS_DEFAULT, "max_depth": DEPTH}
+ELASTIC_KILL_HIT = 5    # the killed rank dies at its 5th round boundary
+ELASTIC_HEARTBEAT = "0.25"
+CLI_ROWS = 200_000
+
+
+def _elastic_block(n: int, r: int, world: int):
+    """Rank ``r``'s contiguous block of ``n`` rows in order, the larger
+    blocks first (333,334 / 333,333 / 333,333 of 1M at world 3)."""
+    sizes = [n // world + (1 if k < n % world else 0) for k in range(world)]
+    lo = sum(sizes[:r])
+    return lo, lo + sizes[r]
+
+
+def _elastic_worker(args) -> int:
+    """One rank of phase 45: ``elastic_train`` on the main-path rows of
+    ``args["data"]`` (the rank's block at each world size, on the card),
+    gloo, one checkpoint a round; its model bytes, launches (counted from
+    this process image's start) and each hoist plan pickled to
+    ``args["out"]``. A re-executed image runs this again with the same
+    arguments."""
+    from xgboost_tpu_torch.data.quantile import BinnedMatrix
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X = np.load(os.path.join(args["data"], "Xtr.npy"), mmap_mode="r")
+    y = np.load(os.path.join(args["data"], "ytr.npy"))
+
+    def data_fn(r, world):
+        lo, hi = _elastic_block(len(X), r, world)
+        return xgbt.DMatrix(np.ascontiguousarray(X[lo:hi]), y[lo:hi])
+
+    plans = []
+    orig = BinnedMatrix.fused_onehot
+
+    def fused_onehot(self, group=None):
+        out = orig(self, group)
+        plan = (int(self.bins.shape[0]), int(self._hoist_fh))
+        if plan not in plans:
+            plans.append(plan)
+            print(f"elastic worker {args['rank']}: hoist plan Fh "
+                  f"{plan[1]}/{COLS} on {plan[0]} rows", flush=True)
+        return out
+
+    BinnedMatrix.fused_onehot = fused_onehot
+    kill = os.kill
+
+    def logged_kill(pid, sig):
+        """The victim's SIGKILL (the ``worker_kill`` chaos site), its
+        instant written first."""
+        if pid == os.getpid() and sig == signal.SIGKILL:
+            with open(args["out"] + ".killed", "w") as f:
+                f.write(repr(time.time()))
+        kill(pid, sig)
+
+    os.kill = logged_kill
+    reset_launches()
+    bst = xgbt.elastic_train(
+        ELASTIC_PARAMS, data_fn, ELASTIC_ROUNDS, run_dir=args["run"],
+        world=args["world"], rank=args["rank"],
+        coordinator=f"localhost:{args['port']}", backend="gloo")
+    torch.cuda.synchronize()
+    with open(args["out"], "wb") as f:
+        pickle.dump(dict(raw=bytes(bst.save_raw()), launches=launches(),
+                         plans=plans), f)
+    xgbt.elastic_exit(0)
+    return 0
+
+
+def _free_port_pair() -> int:
+    """A base port whose successor is free too (generation 1 meets
+    there)."""
+    import socket
+
+    while True:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        try:
+            with socket.socket() as s:
+                s.bind(("localhost", port + 1))
+            return port
+        except OSError:
+            continue
+
+
+def _elastic_world(tmp, tag, world, victim):
+    """Run one world of phase 45 (``victim`` armed with ``worker_kill``) to
+    its end: ``(run_dir, [(exit code, output)], results of the survivors by
+    rank)``. Every process it starts is stopped."""
+    import threading
+
+    run = os.path.join(tmp, f"run_{tag}")
+    port = _free_port_pair()
+    procs = []
+    for r in range(world):
+        args = dict(data=tmp, run=run, rank=r, world=world, port=port,
+                    out=os.path.join(tmp, f"{tag}_rank{r}.pkl"))
+        env = dict(os.environ, XGBTPU_HEARTBEAT=ELASTIC_HEARTBEAT)
+        env.pop("XGBTPU_CHAOS", None)
+        if r == victim:
+            env["XGBTPU_CHAOS"] = f"worker_kill:permanent:{ELASTIC_KILL_HIT}"
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--elastic-worker",
+             json.dumps(args)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    ends = [None] * world
+
+    def wait(r):
+        out = procs[r].communicate(timeout=400)[0]
+        ends[r] = (procs[r].returncode, out)
+
+    threads = [threading.Thread(target=wait, args=(r,)) for r in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=420)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, end in enumerate(ends):
+        check(end is not None, f"elastic {tag}: rank {r} did not end")
+    survivors = {}
+    for r, (rc, out) in enumerate(ends):
+        if r == victim:
+            check(rc == -signal.SIGKILL,
+                  f"elastic {tag}: rank {r} exit {rc}: {out[-3000:]}")
+            continue
+        check(rc == 0, f"elastic {tag}: rank {r} exit {rc}: {out[-3000:]}")
+        for ln in out.splitlines():
+            if "hoist plan" in ln or "re-executing" in ln:
+                print(ln.split("] ", 1)[-1])
+        with open(os.path.join(tmp, f"{tag}_rank{r}.pkl"), "rb") as f:
+            survivors[r] = pickle.load(f)
+    return run, ends, survivors
+
+
+def _flight_records(run, rank):
+    recs = []
+    with open(os.path.join(run, "obs", f"rank{rank}", "flight.jsonl")) as f:
+        for ln in f:
+            try:
+                recs.append(json.loads(ln))
+            except ValueError:
+                pass  # a torn last line
+    return recs
+
+
+def _first(recs, t, name=None, gen=None):
+    for rec in recs:
+        if rec.get("t") == t and (name is None or rec.get("name") == name) \
+                and (gen is None or rec.get("gen") == gen):
+            return rec
+    return None
+
+
+def phase_elastic(Xtr, ytr):
+    """Phase 45: elastic training on the main path (1M x 50, max_bin 256,
+    depth 6, eta 0.1, 10 rounds, a checkpoint every round, heartbeats every
+    0.25 s), each rank a process running this script with
+    ``--elastic-worker`` on the card, two or three ranks on the one card
+    over gloo. (a) 2 -> 1: blocks of 500,000 rows, rank 1 SIGKILLed at its
+    5th round boundary; the survivor shrinks to one in its process and
+    replays from the newest verified checkpoint on all 1M rows. (b) 3 -> 2:
+    blocks of 333,334 / 333,333 / 333,333, rank 2 killed the same way; both
+    survivors restart their process images (``os.execv``) for generation
+    1. Every survivor's model bytes equal a straight single-process run on
+    the card. Printed: each generation's hoist plan (Fh), the survivors'
+    launches, the seconds from the SIGKILL (the victim writes its instant
+    just before) to the survivor's raise (its ``train_abort`` flight
+    event) and to its heartbeat verdict (``worker_lost``) beside
+    ``hb_deadline()``, from the raise to the first replayed round, the
+    rounds replayed, the survivor's median round before and after the
+    resize, and in (b) the seconds from the resize to the restarted
+    image's flight meta line and to its first round."""
+    from xgboost_tpu_torch.parallel.membership import hb_deadline
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="xgbt_elastic_")
+    np.save(os.path.join(tmp, "Xtr.npy"), Xtr)
+    np.save(os.path.join(tmp, "ytr.npy"), ytr)
+    reset_launches()
+    bst = xgbt.train(ELASTIC_PARAMS, xgbt.DMatrix(Xtr, ytr), ELASTIC_ROUNDS,
+                     verbose_eval=False)
+    straight = bytes(bst.save_raw())
+    straight_l = launches()
+    del bst
+    torch.cuda.empty_cache()
+    os.environ["XGBTPU_HEARTBEAT"] = ELASTIC_HEARTBEAT
+    deadline = hb_deadline()
+    del os.environ["XGBTPU_HEARTBEAT"]
+
+    run_a, ends_a, surv_a = _elastic_world(tmp, "a", 2, victim=1)
+    check(surv_a[0]["raw"] == straight,
+          "elastic (a): the survivor's model == the straight run's bytes")
+    recs = _flight_records(run_a, 0)
+    with open(os.path.join(tmp, "a_rank1.pkl.killed")) as f:
+        kill_t = float(f.read())
+    abort = _first(recs, "event", "train_abort")
+    lost = _first(recs, "event", "worker_lost")
+    replay = _first(recs, "event", "elastic_replay")
+    first = _first(recs, "round", gen=1)
+    check(None not in (abort, lost, replay, first),
+          "elastic (a): abort, worker_lost, replay and a generation-1 round "
+          "in the survivor's flight records")
+    gen_wall = {g: [r["wall_s"] * 1e3 for r in recs
+                    if r.get("t") == "round" and r.get("gen") == g]
+                for g in (0, 1)}
+    a = dict(
+        launches=surv_a[0]["launches"], plans=surv_a[0]["plans"],
+        hb_deadline_s=deadline,
+        kill_to_raise_s=abort["unix_ms"] / 1e3 - kill_t,
+        kill_to_declared_dead_s=lost["unix_ms"] / 1e3 - kill_t,
+        raise_to_first_replayed_round_s=(first["unix_ms"] - abort["unix_ms"])
+        / 1e3,
+        raise_to_first_replayed_round_end_s=(
+            first["unix_ms"] / 1e3 + first["wall_s"] - abort["unix_ms"] / 1e3),
+        rounds_replayed=replay["args"]["replayed"],
+        resumed_from=replay["args"]["resumed"],
+        median_round_ms_world2=statistics.median(gen_wall[0]),
+        median_round_ms_world1=statistics.median(gen_wall[1]),
+        abort_error=abort.get("args", {}).get("detail", ""))
+    resumed = a["resumed_from"]
+    got = a["launches"]
+    # one one-hot a generation, a fill walk a resumed round, six levels a
+    # finished round of either generation (and the levels of the round in
+    # flight at the kill)
+    check(got["A"] == 0 and got["C"] == 2 and got["B"] == resumed
+          and DEPTH * ELASTIC_ROUNDS <= got["D"]
+          < DEPTH * (ELASTIC_ROUNDS + 1),
+          f"elastic (a): survivor launches {got}, resumed from {resumed}")
+    print(f"elastic (a) 2 -> 1: survivor bytes == straight ({len(straight)} "
+          f"bytes); launches {got} (straight run {straight_l}); SIGKILL -> "
+          f"raise {a['kill_to_raise_s']:.3f} s ({a['abort_error'][:90]}), "
+          f"-> declared dead {a['kill_to_declared_dead_s']:.3f} s "
+          f"(hb_deadline {deadline:g} s); raise -> first replayed round "
+          f"{a['raise_to_first_replayed_round_s']:.3f} s (its end "
+          f"{a['raise_to_first_replayed_round_end_s']:.3f} s); rounds "
+          f"replayed {a['rounds_replayed']} (resumed from {resumed}); median "
+          f"round world 2 {a['median_round_ms_world2']:.1f} ms, world 1 "
+          f"{a['median_round_ms_world1']:.1f} ms")
+
+    run_b, ends_b, surv_b = _elastic_world(tmp, "b", 3, victim=2)
+    b = dict(launches={}, plans={}, resize_to_restart_s={},
+             resize_to_first_round_s={})
+    for r in (0, 1):
+        check(surv_b[r]["raw"] == straight,
+              f"elastic (b): survivor {r}'s model == the straight run's")
+        check("re-executing worker for generation 1" in ends_b[r][1],
+              f"elastic (b): survivor {r} restarted its process image")
+        recs = _flight_records(run_b, r)
+        resize = _first(recs, "event", "elastic_resize")
+        metas = [m for m in recs if m.get("t") == "meta"]
+        first = _first(recs, "round", gen=1)
+        check(resize is not None and len(metas) == 2 and first is not None,
+              f"elastic (b): survivor {r}'s resize, restart and first round")
+        b["launches"][r] = got = surv_b[r]["launches"]
+        check(got["A"] == 0 and got["C"] == 1
+              and got["D"] % DEPTH == 0 and got["D"] > 0,
+              f"elastic (b): restarted survivor {r}'s launches {got}")
+        b["plans"][r] = surv_b[r]["plans"]
+        b["resize_to_restart_s"][r] = (metas[1]["unix_ms"]
+                                       - resize["unix_ms"]) / 1e3
+        b["resize_to_first_round_s"][r] = (first["unix_ms"]
+                                           - resize["unix_ms"]) / 1e3
+    print(f"elastic (b) 3 -> 2 by re-exec: both survivors' bytes == "
+          f"straight; launches of the restarted images {b['launches']}; "
+          f"resize -> restarted image's first flight line "
+          f"{b['resize_to_restart_s']} s, -> its first round "
+          f"{b['resize_to_first_round_s']} s")
+    out = dict(a=a, b=b, straight_launches=straight_l,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"elastic: phase {out['phase_s']:.1f} s")
+    return out, tmp, run_a
+
+
+def _cli(args, cwd):
+    """``python -m xgboost_tpu_torch <args>`` from this checkout: its exit
+    code and output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-m", "xgboost_tpu_torch", *args],
+                         cwd=cwd, env=env, capture_output=True, text=True,
+                         timeout=600)
+    return out.returncode, out.stdout + out.stderr
+
+
+def _write_libsvm(path, X, y):
+    fmt = ["%d"] + [f"{j}:%.9g" for j in range(X.shape[1])]
+    np.savetxt(path, np.column_stack([y, X]), fmt=fmt, delimiter=" ")
+
+
+def phase_cli(Xtr, ytr, Xte, yte, elastic, tmp, run_a):
+    """Phase 46: the command line on the card. The first 200,000 main-path
+    rows and the 100,000 held-out rows as libsvm files; ``python -m
+    xgboost_tpu_torch`` with a config file (no ``device`` line: the card)
+    for ``train`` (10 rounds, the main path's parameters), ``pred`` and
+    ``dump``; the predictions equal ``Booster.predict`` on the card to the
+    printed digits, the dump equals ``get_dump()``. ``obs-report`` on phase
+    45 (a)'s run directory shows its 2 ranks, the worker_lost /
+    elastic_quiesce / elastic_resize / elastic_replay events and its
+    replayed rounds; ``checkpoint-inspect`` on its checkpoints marks the
+    newest verified one."""
+    t_phase = time.perf_counter()
+    cdir = os.path.join(tmp, "cli")
+    os.makedirs(cdir)
+    t0 = time.perf_counter()
+    _write_libsvm(os.path.join(cdir, "train.libsvm"), Xtr[:CLI_ROWS],
+                  ytr[:CLI_ROWS])
+    _write_libsvm(os.path.join(cdir, "test.libsvm"), Xte, yte)
+    write_s = time.perf_counter() - t0
+    params = "".join(f"{k}={v}\n" for k, v in ELASTIC_PARAMS.items()
+                     if k != "eval_metric")
+    confs = {
+        "train": f"task=train\ndata=train.libsvm\nnum_round="
+                 f"{ELASTIC_ROUNDS}\nmodel_out=model.json\nsilent=1\n",
+        "pred": "task=pred\nmodel_in=model.json\ntest:data=test.libsvm\n"
+                "name_pred=pred.txt\n",
+        "dump": "task=dump\nmodel_in=model.json\nname_dump=dump.txt\n"}
+    secs = {}
+    for task, body in confs.items():
+        with open(os.path.join(cdir, f"{task}.conf"), "w") as f:
+            f.write(body + params)
+        t0 = time.perf_counter()
+        rc, text = _cli([f"{task}.conf"], cdir)
+        secs[task] = time.perf_counter() - t0
+        check(rc == 0, f"cli {task}: exit {rc}: {text[-3000:]}")
+    bst = xgbt.Booster(model_file=os.path.join(cdir, "model.json"))
+    check(bst.device.type == "cuda" and bst.num_boosted_rounds()
+          == ELASTIC_ROUNDS, "cli: the model loads on the card, 10 rounds")
+    preds = bst.predict(xgbt.DMatrix(Xte))
+    with open(os.path.join(cdir, "pred.txt")) as f:
+        lines = f.read().split()
+    check(lines == ["%.9g" % v for v in preds],
+          "cli: pred.txt == Booster.predict on the card, digit for digit")
+    with open(os.path.join(cdir, "dump.txt")) as f:
+        dumped = f.read()
+    check(dumped == "".join(f"booster[{i}]:\n{d}\n"
+                            for i, d in enumerate(bst.get_dump())),
+          "cli: dump.txt == get_dump()")
+    del bst
+    rc, report = _cli(["obs-report", run_a], cdir)
+    a = elastic["a"]
+    check(rc == 0 and "obs-report: 2 rank(s)" in report
+          and all(f"  {ev}: " in report for ev in
+                  ("worker_lost", "elastic_quiesce", "elastic_resize",
+                   "elastic_replay"))
+          and f"{a['rounds_replayed']} replayed" in report,
+          f"cli: obs-report on the elastic run: {report[-3000:]}")
+    rc, inspect = _cli(["checkpoint-inspect",
+                        os.path.join(run_a, "checkpoints")], cdir)
+    marked = [ln for ln in inspect.splitlines() if ln.startswith("*")]
+    check(rc == 0 and len(marked) == 1 and "verified" in marked[0]
+          and f"ckpt_{ELASTIC_ROUNDS:08d}" in marked[0],
+          f"cli: checkpoint-inspect: {inspect[-2000:]}")
+    print("cli: " + " ".join(ln for ln in report.splitlines()
+                             if "per-round fleet table" in ln))
+    print(f"cli: train / pred / dump {secs['train']:.1f} / "
+          f"{secs['pred']:.1f} / {secs['dump']:.1f} s (process start, "
+          f"libsvm parse and the task), libsvm write {write_s:.1f} s; "
+          f"predictions and dump == the Booster's on the card; "
+          f"checkpoint-inspect marks {marked[0].split()[-1]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return dict(task_s=secs, write_s=write_s,
+                phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5037,6 +5437,9 @@ def main() -> int:
     traced = phase_traced(Xtr, ytr, Xte, yte)
     torch.cuda.empty_cache()
     resilience = phase_resilience(Xtr, ytr, Xte, yte)
+    torch.cuda.empty_cache()
+    elastic, el_tmp, el_run = phase_elastic(Xtr, ytr)
+    cli = phase_cli(Xtr, ytr, Xte, yte, elastic, el_tmp, el_run)
     del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
@@ -5057,7 +5460,8 @@ def main() -> int:
         "wide_bins": wide, "local_histmaker": local, "refresh": refresh,
         "sparse": sparse, "external_memory": extmem,
         "distributed": distributed, "rounding": rounding,
-        "traced": traced, "resilience": resilience}))
+        "traced": traced, "resilience": resilience, "elastic": elastic,
+        "cli": cli}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -5095,6 +5499,13 @@ def main() -> int:
                     rerun_after_chaos=resilience["launches_rerun"][k],
                     resumed_in_process=resilience[
                         "launches_resumed_here"][k])
+    def elastic_launches(k):
+        """Kernel ``k``'s launches on phase 45's survivors: (a)'s, one
+        process over both generations; (b)'s restarted images (generation
+        1 alone)."""
+        return dict(survivor_a=elastic["a"]["launches"][k],
+                    survivors_b=[elastic["b"]["launches"][r][k]
+                                 for r in (0, 1)])
     # the sparse and paged phases' launches, and kernel A per page (mean
     # over the first tree's levels) beside its bound
     sp_l, pg_l = sparse["csr"]["launches"], extmem["paged"]["launches"]
@@ -5142,6 +5553,7 @@ def main() -> int:
              paged=dict(launches=pg_l["A"], per_page=per_page),
              distributed=dist_launches("A"),
              resilience=resilience_launches("A"),
+             elastic=elastic_launches("A"),
              **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
@@ -5163,6 +5575,7 @@ def main() -> int:
              paged=dict(launches=pg_l["B"]),
              distributed=dist_launches("B"), traced=traced_launches("B"),
              resilience=resilience_launches("B"),
+             elastic=elastic_launches("B"),
              **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
@@ -5182,6 +5595,7 @@ def main() -> int:
              sparse=dict(launches=sp_l["C"]), paged=dict(launches=pg_l["C"]),
              distributed=dist_launches("C"), traced=traced_launches("C"),
              resilience=resilience_launches("C"),
+             elastic=elastic_launches("C"),
              **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
@@ -5206,6 +5620,7 @@ def main() -> int:
              paged=dict(launches=pg_l["D"]),
              distributed=dist_launches("D"), traced=traced_launches("D"),
              resilience=resilience_launches("D"),
+             elastic=elastic_launches("D"),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -5223,4 +5638,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--resilience-worker":
         sys.exit(_resilience_worker(json.loads(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--elastic-worker":
+        sys.exit(_elastic_worker(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -52,7 +52,14 @@
 - the resilience layer (``resilience/*``) imports neither ``jax`` nor
   ``xgboost_tpu``, nor does a run with ``resume_from`` under chaos, and a
   ``pallas`` chaos hit on a device tensor raises before kernel B's wrapper
-  launches anything or reaches the plain walk.
+  launches anything or reaches the plain walk;
+- elastic training (``parallel/membership.py``, ``elastic_train``) and the
+  command line (``cli.py``, ``__main__.py``, ``observability/fleet.py`` and
+  ``report.py``) import neither ``jax`` nor ``xgboost_tpu``, the heartbeat
+  agent's source imports only the standard library, and ``elastic_train``
+  with a ``data_fn`` that does not ask for the CPU, the command line's
+  ``train`` task without ``device=cpu`` and ``init_distributed(elastic=
+  True)`` raise where there is no card.
 """
 
 import ast
@@ -129,6 +136,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     d = xgbt.DMatrix(X, np.zeros(4), device="cpu")
     assert d.data.device.type == "cpu"
     assert xgbt.Booster(device="cpu").device.type == "cpu"
+
+
+def test_elastic_and_cli_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    """``elastic_train`` with a ``data_fn`` that does not ask for the CPU,
+    and the command line's ``train`` task without a ``device=cpu`` line,
+    raise where there is no card."""
+    from xgboost_tpu_torch import cli
+    from xgboost_tpu_torch.observability import RECORDER
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.zeros((4, 2), np.float32)
+    try:
+        with pytest.raises(RuntimeError, match="cuda"):
+            xgbt.elastic_train({}, lambda r, w: xgbt.DMatrix(X, np.zeros(4)),
+                               2, run_dir=str(tmp_path / "run"), world=1,
+                               rank=0)
+    finally:
+        RECORDER.reset()
+    data = tmp_path / "d.libsvm"
+    data.write_text("1 0:1.5\n0 1:2\n")
+    conf = tmp_path / "train.conf"
+    conf.write_text(f"task=train\ndata={data}\nnum_round=1\n"
+                    f"model_out={tmp_path}/m.json\n")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.cli_main([str(conf)])
+    assert not (tmp_path / "m.json").exists()
 
 
 class _StubLib:
@@ -860,7 +894,7 @@ def test_spans_and_records_read_no_tensor(stub_cuda, monkeypatch, tmp_path):
 def test_init_distributed_without_a_card_raises(monkeypatch, tmp_path):
     """Without ``device="cpu"`` and without a card, ``init_distributed``
     raises before any rendezvous (a world of two would otherwise wait for
-    its second rank)."""
+    its second rank), the elastic route (``form_world``) included."""
     import torch.distributed as dist
 
     from xgboost_tpu_torch.parallel import init_distributed
@@ -870,8 +904,8 @@ def test_init_distributed_without_a_card_raises(monkeypatch, tmp_path):
         init_distributed(f"file://{tmp_path}/pg", 2, 0)
     with pytest.raises(RuntimeError, match="is_available"):
         init_distributed(f"file://{tmp_path}/pg", 2, 0, device="cuda")
-    with pytest.raises(NotImplementedError, match="elastic"):
-        init_distributed(f"file://{tmp_path}/pg", 2, 0, elastic=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed("localhost:1", 2, 0, elastic=True)
     assert not dist.is_initialized()
 
 
@@ -969,3 +1003,45 @@ def test_pallas_chaos_on_a_device_tensor_raises_before_any_launch(
             tpred.predict_margin(forest, X, torch.empty((n, 1), **meta))
     assert tpred.predict_margin.launches == before
     assert stub_cuda.calls == []
+
+
+# ---------------------------------------------------------------------------
+# elastic training and the command line
+# ---------------------------------------------------------------------------
+
+ELASTIC_MODULES = ("xgboost_tpu_torch.parallel.membership",
+                   "xgboost_tpu_torch.cli",
+                   "xgboost_tpu_torch.observability.fleet",
+                   "xgboost_tpu_torch.observability.report")
+
+
+def test_elastic_and_cli_modules_import_no_jax():
+    for m in ELASTIC_MODULES + ("xgboost_tpu_torch.__main__",):
+        path = ROOT / (m.replace(".", "/") + ".py")
+        assert path in set((ROOT / "xgboost_tpu_torch").rglob("*.py")), m
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in ELASTIC_MODULES) +
+        "from xgboost_tpu_torch import elastic_exit, elastic_train\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'xgboost_tpu')]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_heartbeat_agent_imports_only_the_standard_library():
+    """The agent subprocess carries its own chaos predicate: it imports
+    neither the package nor torch (nor jax)."""
+    from xgboost_tpu_torch.parallel.membership import _AGENT_SRC
+
+    names = set()
+    for node in ast.walk(ast.parse(_AGENT_SRC)):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add((node.module or "").split(".")[0])
+    assert names == {"json", "os", "sys", "time", "zlib"}, names

@@ -20,9 +20,15 @@ the scikit-learn estimators (imported at first use), ``set_config`` /
 the caller passes ``device="cpu"``. Distributed training over
 ``torch.distributed`` (``parallel``: ``init_distributed``, ``make_mesh``,
 ``mesh_context``; one rank per device, each on its own rows, the level
-histograms all-reduced) and the rabit shim (``collective``, alias
-``rabit``). Telemetry (``observability``): span tracing to Chrome
-trace-event files (``XGBTPU_TRACE`` or ``set_config(trace_path=...)``),
+histograms all-reduced), the rabit shim (``collective``, alias
+``rabit``), and elastic training (``elastic_train``, ``elastic_exit``:
+heartbeat membership in a shared directory, ``parallel.membership``; a
+lost worker shrinks the world, which replays from the newest verified
+checkpoint). ``python -m xgboost_tpu_torch`` is the command line
+(``cli.py``: the config-file ``train`` / ``dump`` / ``pred`` tasks,
+``trace-report``, ``obs-report`` and ``checkpoint-inspect``). Telemetry
+(``observability``): span tracing to Chrome trace-event files
+(``XGBTPU_TRACE`` or ``set_config(trace_path=...)``),
 the metrics registry, collective accounting and the per-round flight
 recorder (``observability.flight.configure(run_dir)``);
 ``profiler_context`` wraps ``torch.profiler``. The failure-handling layer
@@ -43,13 +49,14 @@ from .data.quantile import HistogramCuts
 from .learner import Booster
 from .plotting import plot_importance, plot_tree, to_graphviz
 from .predictor import forest_from_numpy
-from .training import cv, train
+from .training import cv, elastic_exit, elastic_train, train
 from .utils.timer import profiler_context
 
 __version__ = "0.1.0"
 
 __all__ = ["DMatrix", "QuantileDMatrix", "ExternalMemoryQuantileDMatrix",
            "DataIter", "load_row_split", "Booster", "train", "cv",
+           "elastic_train", "elastic_exit",
            "callback", "collective", "rabit", "parallel", "observability",
            "resilience",
            "profiler_context", "HistogramCuts",

@@ -1,0 +1,216 @@
+"""The command line: config-file tasks ``train`` | ``dump`` | ``pred`` and
+the telemetry tools (the port of the JAX package's ``cli.py``; reference
+``src/cli_main.cc``, CLITask :30-35, CLIParam :37, and the key=value
+parser of ``src/common/config.h``). Usage:
+
+    python -m xgboost_tpu_torch <config> [key=value ...]
+    python -m xgboost_tpu_torch trace-report <trace-file|glob> ... [--top N]
+    python -m xgboost_tpu_torch obs-report <run_dir> ... [--top-rounds N]
+    python -m xgboost_tpu_torch checkpoint-inspect <dir> [--json]
+
+Config keys are the reference's: task, data, test:data, model_in,
+model_out, model_dir, num_round, save_period, eval[name]=path,
+dump_format, name_pred, name_dump, name_fmap / fmap, with_stats,
+iteration_begin, iteration_end, silent; every other key is a booster or
+learner parameter. ``device=cpu`` builds the matrices and the booster on
+the CPU; without it they go on the CUDA card, and without a card the task
+raises. ``trace-report`` summarizes Chrome trace-event files
+(``observability/report.py``); ``obs-report`` merges a run's per-rank
+telemetry (``run_dir/obs/rank<k>/``) into one clock-aligned trace, a
+metrics rollup and a per-round fleet table (``observability/fleet.py``);
+``checkpoint-inspect`` lists a resume directory's checkpoints (round,
+bytes, checksum status) and marks the newest verified one, the snapshot
+``train(resume_from=...)`` and an elastic replay load; its exit status is
+1 when nothing verifies.
+
+The JAX package's ``serve``, ``serve-report``, ``serve-fleet``,
+``deliver``, ``perf-report``, ``grow-report``, ``lint`` and
+``dispatch-report`` are not in the port: each prints so and returns 1.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+
+from .data.dmatrix import DMatrix
+from .learner import Booster
+from .training import train
+from .utils import console_logger
+
+__all__ = ["parse_config_file", "cli_main", "checkpoint_inspect_main",
+           "main"]
+
+#: the JAX package's subcommands that have no counterpart in the port
+NOT_PORTED = ("serve", "serve-report", "serve-fleet", "deliver",
+              "perf-report", "grow-report", "lint", "dispatch-report")
+
+
+def parse_config_file(path: str) -> List[Tuple[str, str]]:
+    """key=value lines; '#' starts a comment (reference
+    ``src/common/config.h``)."""
+    out: List[Tuple[str, str]] = []
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            if "=" not in line:
+                raise ValueError(f"bad config line: {line!r}")
+            k, _, v = line.partition("=")
+            out.append((k.strip(), v.strip().strip('"')))
+    return out
+
+
+_CLI_KEYS = {
+    "task", "data", "test:data", "model_in", "model_out", "model_dir",
+    "num_round", "save_period", "dump_format", "name_pred", "name_fmap",
+    "name_dump", "fmap", "with_stats", "iteration_begin", "iteration_end",
+    "silent",
+}
+
+
+def _split_params(pairs: List[Tuple[str, str]]):
+    """``(cli keys, booster parameters, [(eval name, path)])``."""
+    cli: Dict[str, str] = {}
+    params: Dict[str, Any] = {}
+    evals: List[Tuple[str, str]] = []
+    for k, v in pairs:
+        if k.startswith("eval[") and k.endswith("]"):
+            evals.append((k[5:-1], v))
+        elif k in _CLI_KEYS:
+            cli[k] = v
+        else:
+            params[k] = v
+    return cli, params, evals
+
+
+def cli_main(argv: List[str]) -> int:
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 1
+    if argv[0] == "trace-report":
+        from .observability.report import main as report_main
+
+        return report_main(argv[1:])
+    if argv[0] == "obs-report":
+        from .observability.fleet import main as fleet_main
+
+        return fleet_main(argv[1:])
+    if argv[0] == "checkpoint-inspect":
+        return checkpoint_inspect_main(argv[1:])
+    if argv[0] in NOT_PORTED:
+        print(f"{argv[0]}: not in the PyTorch port (the JAX package's "
+              "xgboost_tpu has it)", file=sys.stderr)
+        return 1
+    pairs = parse_config_file(argv[0])
+    for extra in argv[1:]:
+        k, _, v = extra.partition("=")
+        pairs.append((k, v))
+    cli, params, eval_specs = _split_params(pairs)
+    task = cli.get("task", "train")
+    # the matrices' device: the card unless the config asks for the CPU
+    device = params.get("device") or None
+
+    if task == "train":
+        dtrain = DMatrix(cli["data"], device=device)
+        evals = [(DMatrix(p, device=device), name) for name, p in eval_specs]
+        evals.append((dtrain, "train"))
+        num_round = int(cli.get("num_round", 10))
+        save_period = int(cli.get("save_period", 0))
+        model_dir = cli.get("model_dir", "")
+        callbacks = []
+        if save_period > 0:
+            from .callback import TrainingCheckPoint
+
+            callbacks.append(TrainingCheckPoint(
+                model_dir or ".", name="", interval=save_period))
+        xgb_model = None
+        if cli.get("model_in"):
+            xgb_model = Booster(params, model_file=cli["model_in"],
+                                device=dtrain.device)
+        bst = train(params, dtrain, num_boost_round=num_round, evals=evals,
+                    verbose_eval=not int(cli.get("silent", 0)),
+                    xgb_model=xgb_model, callbacks=callbacks)
+        out = cli.get("model_out", os.path.join(
+            model_dir, f"{num_round:04d}.model") if model_dir
+            else f"{num_round:04d}.model.json")
+        bst.save_model(out)
+        console_logger.info(f"model saved to {out}")
+    elif task == "dump":
+        bst = Booster(params, model_file=cli["model_in"], device=device)
+        fmap = cli.get("name_fmap", cli.get("fmap", ""))
+        out = cli.get("name_dump", "dump.txt")
+        bst.dump_model(out, fmap=fmap,
+                       with_stats=bool(int(cli.get("with_stats", 0))),
+                       dump_format=cli.get("dump_format", "text"))
+        console_logger.info(f"dump saved to {out}")
+    elif task == "pred":
+        bst = Booster(params, model_file=cli["model_in"], device=device)
+        dtest = DMatrix(cli["test:data"], device=device)
+        begin = int(cli.get("iteration_begin", 0))
+        end = int(cli.get("iteration_end", 0))
+        it_range = (begin, end) if (begin, end) != (0, 0) else None
+        preds = bst.predict(dtest, iteration_range=it_range)
+        out = cli.get("name_pred", "pred.txt")
+        np.savetxt(out, np.asarray(preds), fmt="%.9g")
+        console_logger.info(f"predictions saved to {out}")
+    else:
+        print(f"unknown task: {task}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def checkpoint_inspect_main(argv: List[str]) -> int:
+    """``checkpoint-inspect <dir> [--json]``: what a resume directory
+    holds, what verifies, and what a resume would load
+    (``resilience.checkpoint.inspect_dir``). ``--json`` prints one
+    document: the records and the newest verified path. Exit status 1 when
+    nothing verifies."""
+    import json
+
+    from .resilience.checkpoint import inspect_dir
+
+    as_json = "--json" in argv
+    argv = [a for a in argv if a != "--json"]
+    if not argv or argv[0].startswith("-"):
+        print("usage: python -m xgboost_tpu_torch checkpoint-inspect <dir> "
+              "[--json]", file=sys.stderr)
+        return 1
+    directory = argv[0]
+    records = inspect_dir(directory)
+    if as_json:
+        newest = [r for r in records if r["newest_verified"]]
+        # a directory with rank<r>/ subdirectories marks one newest
+        # verified snapshot in each: the answer is the most advanced
+        best = max(newest, key=lambda r: r["rounds"]) if newest else None
+        print(json.dumps({
+            "dir": directory,
+            "records": records,
+            "newest_verified": best["path"] if best else None,
+            "newest_verified_rounds": best["rounds"] if best else None,
+        }, indent=2))
+        return 0 if best else 1
+    if not records:
+        print(f"{directory}: no checkpoints found")
+        return 1
+    print(f"{'':2} {'round':>8} {'bytes':>12} {'status':<40} path")
+    any_ok = False
+    for rec in records:
+        mark = "*" if rec["newest_verified"] else " "
+        status = ("verified" if rec["verified"]
+                  else f"CORRUPT: {rec['detail']}")
+        any_ok = any_ok or rec["verified"]
+        print(f"{mark:2} {rec['rounds']:>8} {rec['bytes']:>12} "
+              f"{status:<40} {rec['path']}")
+    print("\n'*' = newest verified (what train(resume_from=...) / "
+          "elastic replay loads)")
+    return 0 if any_ok else 1
+
+
+def main() -> None:
+    """The console entry point."""
+    sys.exit(cli_main(sys.argv[1:]))

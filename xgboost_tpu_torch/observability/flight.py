@@ -132,6 +132,7 @@ class FlightRecorder:
         self._ring: "deque[Dict[str, Any]]" = deque(maxlen=max(maxlen, 16))
         self._open: Optional[Dict[str, Any]] = None
         self._depth = 0  # nested begin_round (update_many under train)
+        self._generation = 0  # the elastic generation (set_generation)
         self._t0 = 0.0
         # cumulative per-stage seconds of the whole process, stage time
         # outside any round (the first sketch) included
@@ -160,12 +161,18 @@ class FlightRecorder:
     # ------------------------------------------------------------------
     # the round's lifecycle (the training loop's three calls)
     # ------------------------------------------------------------------
+    def set_generation(self, generation: int) -> None:
+        """The elastic generation stamped in ``gen`` on every later round
+        record and event (``elastic_train`` sets it at every resize, so
+        the fleet table keys replayed rounds as (gen, round))."""
+        with self._lock:
+            self._generation = int(generation)
+
     def begin_round(self, round_idx: int, rounds: int = 1) -> bool:
         """Open a round record. Returns True when this call owns the
         record; a nested begin (``update_many`` inside ``train``'s loop)
         returns False, and its caller then skips its own stage notes for
-        work the owner already times. ``gen`` is the JAX package's elastic
-        generation, always 0 here (elastic training is not ported)."""
+        work the owner already times."""
         if not _enabled():
             return False
         with self._lock:
@@ -179,7 +186,7 @@ class FlightRecorder:
             self._t0 = time.perf_counter()
             self._open = {
                 "t": "round", "round": int(round_idx), "rounds": int(rounds),
-                "gen": 0,
+                "gen": self._generation,
                 "unix_ms": time.time() * 1e3,
                 "stages": {},
             }
@@ -247,6 +254,7 @@ class FlightRecorder:
         if args:
             rec["args"] = dict(args)
         with self._lock:
+            rec["gen"] = self._generation
             self._ring.append(rec)
             self._write_line(rec)
 
@@ -390,6 +398,7 @@ class FlightRecorder:
             self._ring.clear()
             self._open = None
             self._depth = 0
+            self._generation = 0
             self._stage_totals.clear()
             self._last_coll = (0.0, 0.0)
             if self._file is not None:

@@ -36,7 +36,7 @@ from ..resilience import watchdog as _wd
 
 __all__ = ["ROW_AXIS", "RowGroup", "make_mesh", "current_mesh",
            "collective_active", "mesh_context", "init_distributed",
-           "RENDEZVOUS_DEADLINE", "COLLECTIVE_DEADLINE"]
+           "form_world", "RENDEZVOUS_DEADLINE", "COLLECTIVE_DEADLINE"]
 
 ROW_AXIS = "data"  # the one parallel axis of GBDT training: rows
 
@@ -192,14 +192,15 @@ def init_distributed(coordinator_address: Optional[str] = None,
     resolved first: without ``device="cpu"`` and without a card this raises
     before any rendezvous. ``backend`` as in ``make_mesh``. Call once per
     process, then train inside ``mesh_context(mesh)`` with each rank's own
-    rows."""
-    if elastic:
-        raise NotImplementedError(
-            "elastic=True (peer-loss-tolerant worlds, parallel/membership) "
-            "is not ported yet")
+    rows. ``elastic=True`` forms the world with ``form_world`` (a world
+    whose survivors outlive a peer's death; ``parallel.membership`` owns
+    liveness)."""
     dev = _resolve_device(device, _local_index(
         process_id if process_id is not None
         else int(os.environ.get("RANK", 0))))
+    if elastic:
+        return form_world(coordinator_address, num_processes, process_id,
+                          backend=backend, device=dev)
     own = not dist.is_initialized()
     if own:
         url = coordinator_address or "env://"
@@ -228,8 +229,56 @@ def init_distributed(coordinator_address: Optional[str] = None,
         raise
 
 
+def form_world(coordinator_address: str, num_processes: int,
+               process_id: int, *, backend: Optional[str] = None,
+               device: Optional[Union[str, torch.device]] = None
+               ) -> RowGroup:
+    """Form one generation of an elastic world (the JAX package's
+    ``form_world``) and return its row group. ``coordinator_address`` is
+    ``host:port`` (``tcp://`` optional): rank 0 of the generation hosts the
+    ``TCPStore`` there in its own process, as the JAX package's
+    coordinator hosts its coordination service, and every rank connects to
+    it. The store is the rendezvous; after it, a peer's death reaches the
+    survivors only as a failed collective (gloo: "Connection reset by
+    peer", typed by ``collective.guarded`` as peer loss), never as an abort
+    of their process, and ``parallel.membership``'s heartbeats decide who
+    is dead. The asymmetry is the JAX package's: the death of the
+    generation's rank 0 takes the store with it, so ``elastic_train``
+    recovers from it by restarting the survivors' processes and resuming
+    from the checkpoint, never by a resize in the same process. One world
+    per process: a generation that ends is left with ``_shutdown`` (no
+    barrier), and a world of several ranks is formed again only by a new
+    process image."""
+    if not coordinator_address or num_processes is None \
+            or process_id is None:
+        raise ValueError("form_world needs the coordinator's host:port, "
+                         "the world size and this process's rank")
+    if dist.is_initialized() or _world is not None:
+        raise RuntimeError(
+            "form_world: this process already has a torch.distributed "
+            "world; an elastic world of several ranks is formed again only "
+            "by a process restart")
+    dev = _resolve_device(device, _local_index(process_id))
+    host, _, port = coordinator_address.split("://")[-1].rpartition(":")
+    timeout = datetime.timedelta(seconds=RENDEZVOUS_DEADLINE)
+    with _wd.watchdog("collective_init",
+                      seconds=_wd.deadline_for("collective_init",
+                                               RENDEZVOUS_DEADLINE)):
+        store = dist.TCPStore(host or "localhost", int(port), num_processes,
+                              is_master=process_id == 0, timeout=timeout)
+        dist.init_process_group(
+            "gloo", store=store, rank=process_id, world_size=num_processes,
+            timeout=datetime.timedelta(seconds=COLLECTIVE_DEADLINE))
+    try:
+        return make_mesh(backend, dev)
+    except ValueError:
+        _shutdown()
+        raise
+
+
 def _shutdown() -> None:
-    """Leave the world (``collective.finalize``)."""
+    """Leave the world (``collective.finalize``; an elastic generation's
+    end). No barrier: after a peer's death none could complete."""
     global _world
     _world = None
     if dist.is_initialized():

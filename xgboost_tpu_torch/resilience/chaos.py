@@ -22,11 +22,16 @@ site                injection point
 ``checkpoint_write``  atomic checkpoint writes (``resilience/checkpoint``)
 ``gradient``/``grow``/``eval``  the per-round host boundaries
                     (``utils/fault.py`` ``inject``)
+``worker_kill``     each round boundary of ``elastic_train``: a hit
+                    SIGKILLs the worker
+``heartbeat_drop``  each beat of the membership's heartbeat agent (its own
+                    copy of this grammar, ``parallel/membership.py``): a
+                    hit skips the beat
 ==================  =====================================================
 
 ``SITES`` also names the JAX package's sites the port has no caller for
-yet (the compile, native, serving and elastic sites); a schedule for them
-parses and never fires.
+yet (the compile, native and serving sites); a schedule for them parses
+and never fires.
 
 Configuration: ``XGBTPU_CHAOS="site:kind:schedule[;site:kind:schedule]"``
 or ``configure(...)``:

@@ -1,12 +1,14 @@
-"""``train()`` and ``cv()`` (the port of the JAX package's ``training.py``:
-``_AtomicCheckpoint`` :26-66, ``train`` :72-335 and ``cv`` with
+"""``train()``, ``cv()`` and elastic training (the port of the JAX
+package's ``training.py``: ``_AtomicCheckpoint`` :26-66, ``train``
+:72-335, ``elastic_train`` and ``elastic_exit`` :338-733, ``cv`` with
 ``_make_folds`` :736-872; reference ``python-package/xgboost/training.py``
-:49 and :189-459). Elastic training (``elastic_train``) is not ported."""
+:49 and :189-459)."""
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -19,7 +21,7 @@ from .observability import trace as _trace
 from .resilience import checkpoint as _ckpt
 from .resilience.watchdog import watchdog as _watchdog
 
-__all__ = ["train", "cv"]
+__all__ = ["train", "cv", "elastic_train", "elastic_exit"]
 
 
 class _AtomicCheckpoint(TrainingCallback):
@@ -224,6 +226,420 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
         for k, v in container.history.items():
             evals_result[k] = {mk: list(mv) for mk, mv in v.items()}
     return bst
+
+
+# ---------------------------------------------------------------------------
+# elastic training: worker loss shrinks the world and replays from the
+# newest verified checkpoint
+# ---------------------------------------------------------------------------
+
+
+class _ElasticGuard(TrainingCallback):
+    """The per-round elastic sentinel. At every round boundary it (a) hits
+    the ``worker_kill`` chaos site, a scripted hit SIGKILLing this worker
+    (the rabit mock's "die at (version, seqno)"); (b) exports the round to
+    the membership; (c) scans the membership and raises ``WorkerLost`` on
+    a dead peer (the quiesce at a round boundary), or when this worker is
+    fenced."""
+
+    def __init__(self, membership):
+        self.membership = membership
+
+    def before_iteration(self, model, epoch, evals_log) -> bool:
+        from .parallel.membership import WorkerLost
+        from .resilience import chaos
+        from .resilience.chaos import ChaosError
+
+        try:
+            chaos.hit("worker_kill")
+        except ChaosError:
+            import signal
+
+            from .utils import console_logger
+
+            console_logger.warning(
+                f"chaos: worker_kill fired at round {epoch}: SIGKILLing "
+                f"rank {self.membership.rank} (pid {os.getpid()})")
+            os.kill(os.getpid(), signal.SIGKILL)
+        self.membership.round = epoch
+        dead = self.membership.scan()
+        if self.membership.fenced:
+            raise WorkerLost([self.membership.rank], epoch)
+        if dead:
+            raise WorkerLost(dead, epoch)
+        return False
+
+
+def _atomic_json(path: str, obj: dict) -> None:
+    import json
+
+    _ckpt.atomic_write_bytes(path, json.dumps(obj).encode())
+
+
+def _read_json(path: str) -> Optional[dict]:
+    import json
+
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _canonical_cuts(run_dir: str, data_fn, max_bin: int, rank: int,
+                    members: List[int]):
+    """Cuts that do not depend on the sharding, for a bit-exact replay: the
+    lowest member sketches the whole dataset once (``data_fn(0, 1)``, the
+    world-1 view of the ``load_row_split`` contract) on the plain local
+    path and writes ``run_dir/cuts.json`` atomically; every generation at
+    every world size bins its shard against it. The manifest is the JAX
+    package's (``max_bin``, ``values``, ``min_vals`` and a ``sha256`` over
+    the sorted JSON of the rest), so either package reads the other's."""
+    import hashlib
+    import json
+
+    from .data.quantile import HistogramCuts
+
+    path = os.path.join(run_dir, "cuts.json")
+    got = _read_json(path)
+    if got is None and rank == min(members):
+        bm = data_fn(0, 1).get_binned(max_bin)
+        payload = {
+            "max_bin": int(max_bin),
+            "values": np.asarray(bm.cuts.values).tolist(),
+            "min_vals": np.asarray(bm.cuts.min_vals).tolist(),
+        }
+        del bm  # the whole dataset's bins: not kept on the device
+        payload["sha256"] = hashlib.sha256(
+            json.dumps(payload, sort_keys=True).encode()).hexdigest()
+        _atomic_json(path, payload)
+        got = payload
+    if got is None:
+        # the other ranks wait for the writer, under a deadline: a writer
+        # that died here must abort them, not hang them
+        with _watchdog("elastic_cuts", seconds=300.0):
+            while got is None:
+                time.sleep(0.1)
+                got = _read_json(path)
+    check = dict(got)
+    sha = check.pop("sha256", None)
+    if sha != hashlib.sha256(
+            json.dumps(check, sort_keys=True).encode()).hexdigest():
+        raise RuntimeError(f"elastic cuts manifest {path} failed its "
+                           "checksum; delete it to recompute")
+    if int(got["max_bin"]) != int(max_bin):
+        raise RuntimeError(
+            f"elastic cuts manifest was built for max_bin="
+            f"{got['max_bin']}, run requests {max_bin}")
+    return HistogramCuts(
+        values=np.asarray(got["values"], np.float32),
+        min_vals=np.asarray(got["min_vals"], np.float32))
+
+
+def _bin_with_cuts(d: DMatrix, cuts, max_bin: int) -> DMatrix:
+    """Seed ``d``'s binned-matrix cache at ``max_bin`` with ``cuts`` (the
+    ``QuantileDMatrix(ref=...)`` mechanism, in place), on ``d``'s
+    device; CSR input is binned from column blocks and stays sparse."""
+    from .data.quantile import BinnedMatrix
+
+    cat = d.categorical_features()
+    if d._csr_only():
+        bm = BinnedMatrix.from_sparse(d._sparse, max_bin=max_bin, cuts=cuts,
+                                      categorical=cat, device=d.device)
+    else:
+        bm = BinnedMatrix.from_dense(d.data, max_bin=max_bin, cuts=cuts,
+                                     categorical=cat)
+    d._binned[max_bin] = bm
+    return d
+
+
+def _leave_world(exc: BaseException) -> str:
+    """Leave this process's world at once, without a barrier, so that a
+    later generation never reduces over it and every peer still waiting in
+    a collective with this rank fails now (the survivors then decide who
+    died in the same window, while every live agent still beats). gloo
+    closes a rank's connections only when its groups are freed, and the
+    tracebacks of the failed collective hold them: they are dropped, and
+    their text is returned."""
+    import gc
+    import traceback
+
+    from .parallel import mesh as _mesh
+
+    text = "".join(traceback.format_exception(exc))
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        exc.__traceback__ = None
+        exc = exc.__cause__ or exc.__context__
+    _mesh._shutdown()
+    gc.collect()
+    return text
+
+
+_GEN_ENV = "XGBTPU_ELASTIC_GEN"
+
+
+def elastic_train(params: Dict[str, Any],
+                  data_fn: Callable[[int, int], DMatrix],
+                  num_boost_round: int, *, run_dir: str, world: int,
+                  rank: int, coordinator: Optional[str] = None,
+                  checkpoint_interval: int = 1, verbose_eval: Any = False,
+                  callbacks: Optional[Sequence[TrainingCallback]] = None,
+                  backend: Optional[str] = None) -> Booster:
+    """Fault-tolerant training over several processes (the JAX package's
+    ``elastic_train``): the loss of a worker shrinks the world and replays
+    from the newest verified checkpoint instead of ending the job (the
+    reference's rabit ``LoadCheckPoint`` at the scale of the cluster).
+
+    ``data_fn(rank, world) -> DMatrix`` is the re-shardable ingestion hook
+    (the ``load_row_split`` contract), called again at every world size
+    for that rank's rows. For a bit-exact replay the shards must be
+    contiguous blocks of one fixed global row order. Training runs on the
+    device of the matrices ``data_fn`` builds: the card unless they were
+    built with ``device="cpu"``.
+
+    ``run_dir`` is shared by every worker: the heartbeats (``members/``),
+    the cuts manifest (``cuts.json``), the generation state
+    (``generation.json``), the shared checkpoints (``checkpoints/``), the
+    snapshot each resize replays from (``quiesce/gen<g>_ckpt_*.ckpt``) and
+    each worker's telemetry (``obs/rank<base>/``). ``coordinator`` is
+    ``host:basePort`` (default ``localhost:29950``); generation g meets at
+    ``basePort + g``, its rank 0 hosting the store (``form_world``).
+    ``backend`` is ``init_distributed``'s: ``"gloo"`` for several ranks on
+    one card, whose all-reduces go through the host; ``"nccl"`` (the
+    default on a card) needs one card per rank.
+
+    The state machine of a worker: TRAIN, until a peer's death is found by
+    heartbeat silence or by a broken collective (corroborated by the
+    heartbeats: a transient fault does not shrink the world, and a failure
+    that is not a peer's death re-raises); QUIESCE at a round boundary
+    (``train``'s abort handler commits the finished rounds); RESIZE (the
+    dead tombstoned, the survivors agreed in ``generation.json``): to one
+    survivor in the same process, by a restart of each survivor's process
+    image (``os.execv`` with ``XGBTPU_ELASTIC_GEN`` set) when several
+    survive or when the generation's rank 0 died; REPLAY (every shard
+    binned against the canonical cuts, ``train(resume_from=...)`` from the
+    newest verified checkpoint); TRAIN."""
+    from .observability.metrics import REGISTRY
+    from .parallel import mesh as _mesh
+    from .parallel.membership import Membership, WorkerLost, hb_deadline
+    from .resilience import policy as _policy
+    from .utils import console_logger
+
+    os.makedirs(run_dir, exist_ok=True)
+    # each worker's flight records, metrics and trace persist under
+    # run_dir/obs/rank<base_rank>/ (obs-report merges them)
+    _flight.configure(run_dir, rank=int(rank))
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    member_dir = os.path.join(run_dir, "members")
+    gen_path = os.path.join(run_dir, "generation.json")
+    max_bin = int(params.get("max_bin", 256))
+    base_rank = int(rank)
+    host, _, base_port = (coordinator or "localhost:29950").rpartition(":")
+    base_port = int(base_port)
+
+    state = _read_json(gen_path) or {
+        "generation": 0, "members": list(range(world)),
+        "attempted_round": 0,
+    }
+    env_gen = int(os.environ.get(_GEN_ENV, state["generation"]))
+    if env_gen > state["generation"]:
+        # restarted ahead of the generation's writer (the lowest survivor
+        # commits generation.json just before its own restart): wait for
+        # the agreement to land rather than race it
+        with _watchdog("elastic_generation", seconds=300.0):
+            while state["generation"] < env_gen:
+                time.sleep(0.1)
+                state = _read_json(gen_path) or state
+    gen = max(env_gen, state["generation"])
+
+    cuts = None
+    dtrain: Optional[DMatrix] = None
+    while True:
+        members = list(state["members"])
+        if base_rank not in members:
+            raise WorkerLost([base_rank])  # fenced before it started
+        world_g = len(members)
+        rank_g = members.index(base_rank)
+        _trace.instant("elastic_generation", generation=gen, world=world_g,
+                       rank=rank_g)
+        # the fleet table keys (gen, round): replayed rounds land in their
+        # own entries
+        _flight.RECORDER.set_generation(gen)
+        if dtrain is not None:
+            # the last generation's matrix (bins, one-hot) goes before
+            # this one's is made: the hoist plan reads free memory
+            import gc
+
+            cuda = dtrain.device.type == "cuda"
+            dtrain = None
+            gc.collect()
+            if cuda:
+                import torch
+
+                torch.cuda.empty_cache()
+        shard = data_fn(rank_g, world_g)
+        mesh = None
+        if world_g > 1:
+            mesh = _mesh.init_distributed(
+                f"{host}:{base_port + gen}", world_g, rank_g,
+                backend=backend, device=shard.device, elastic=True)
+        # membership starts right after the rendezvous, the one moment
+        # every rank is in step
+        membership = Membership(member_dir, base_rank, members,
+                                generation=gen).start()
+        if cuts is None:
+            cuts = _canonical_cuts(run_dir, data_fn, max_bin, rank_g,
+                                   list(range(world_g)))
+        dtrain = _bin_with_cuts(shard, cuts, max_bin)
+        del shard
+
+        # replay accounting: rounds the last generation reached beyond
+        # what the checkpoint keeps are trained again now (the header's
+        # check only: train() reads the payload anyway)
+        resumed = 0
+        for p in reversed(_ckpt.list_checkpoints(ckpt_dir)):
+            ok, _, rounds = _ckpt.verify_checkpoint(p)
+            if ok:
+                resumed = rounds
+                break
+        replayed = max(0, int(state.get("attempted_round", 0)) - resumed)
+        if gen > 0:
+            REGISTRY.counter(
+                "elastic_resume_rounds_replayed",
+                "Rounds re-trained after elastic resizes").inc(replayed)
+            _trace.instant("elastic_replay", generation=gen,
+                           resumed=resumed, replayed=replayed)
+            _flight.RECORDER.event("elastic_replay", generation=gen,
+                                   resumed=resumed, replayed=replayed)
+
+        try:
+            import contextlib
+
+            ctx = (_mesh.mesh_context(mesh) if mesh is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                bst = train(
+                    params, dtrain, num_boost_round,
+                    verbose_eval=verbose_eval,
+                    callbacks=[_ElasticGuard(membership)]
+                    + (list(callbacks) if callbacks else []),
+                    resume_from=ckpt_dir,
+                    checkpoint_interval=checkpoint_interval,
+                    checkpoint_shared=True)
+            membership.stop()
+            # elastic workers leave through elastic_exit (os._exit, no
+            # atexit): flush the black box and the trace now
+            _flight.RECORDER.dump("elastic_complete")
+            if _trace.enabled():
+                _trace.flush()
+            return bst
+        except BaseException as e:
+            if mesh is not None:
+                mesh = None
+                e.add_note("before the world was left:\n" + _leave_world(e))
+            # the heartbeat agent beats on through this block: stopping it
+            # before the decision would let simultaneous survivors read
+            # each other as silent and fence each other
+            dead: List[int] = []
+            # rounds attempted so far: the guard's WorkerLost comes before
+            # its round runs; a broken collective means the guard's last
+            # round was in flight (it is replayed)
+            at_round = int(state.get("attempted_round", 0))
+            if isinstance(e, WorkerLost):
+                dead = e.ranks
+                at_round = max(at_round, max(e.round, 0))
+            else:
+                suspects = [m for m in members if m != base_rank]
+                if _policy.is_worker_loss(e):
+                    # a broken collective: corroborated by the heartbeats
+                    # before the world shrinks
+                    dead = membership.wait_dead(
+                        suspects, timeout=2 * hb_deadline())
+                else:
+                    # no peer-loss signature (a collective aborted by the
+                    # watchdog, an opaque error): resize only where the
+                    # heartbeats already found a death, else re-raise
+                    dead = [r for r in membership.scan() if r in suspects]
+                if not dead:
+                    membership.stop()
+                    raise
+                at_round = max(at_round, membership.round + 1)
+            if base_rank in dead or membership.fenced:
+                membership.stop()
+                console_logger.warning(
+                    f"elastic: rank {base_rank} fenced (tombstoned by a "
+                    "peer); exiting rather than splitting the run")
+                raise WorkerLost([base_rank]) from e
+            _policy.record_failure("elastic_resize", e)
+            # QUIESCE committed its rounds in train()'s abort handler
+            _trace.instant("elastic_quiesce", generation=gen,
+                           at_round=at_round, dead=repr(dead))
+            _flight.RECORDER.event("elastic_quiesce", generation=gen,
+                                   at_round=at_round, dead=repr(dead))
+            _flight.RECORDER.dump("elastic_quiesce")
+            for r in dead:
+                membership.declare_dead(r)
+            survivors = [m for m in members if m not in dead]
+            # the audit trail: the snapshot this resize replays from
+            # (retention prunes the live directory later)
+            try:
+                import shutil
+
+                for p in reversed(_ckpt.list_checkpoints(ckpt_dir)):
+                    if _ckpt.verify_checkpoint(p)[0]:
+                        qdir = os.path.join(run_dir, "quiesce")
+                        os.makedirs(qdir, exist_ok=True)
+                        shutil.copy(p, os.path.join(
+                            qdir, f"gen{gen}_{os.path.basename(p)}"))
+                        break
+            except OSError:
+                pass  # best effort: the audit copy never blocks a resize
+            gen += 1
+            state = {"generation": gen, "members": survivors,
+                     "attempted_round": at_round}
+            if base_rank == min(survivors):
+                _atomic_json(gen_path, state)
+            REGISTRY.counter(
+                "worker_restarts_total",
+                "Training restarts caused by elastic resizes").inc()
+            _trace.instant("elastic_resize", generation=gen,
+                           dead=repr(dead), world=len(survivors))
+            _flight.RECORDER.event("elastic_resize", generation=gen,
+                                   dead=repr(dead), world=len(survivors))
+            console_logger.warning(
+                f"elastic: lost rank(s) {dead}; resizing world "
+                f"{len(members)} -> {len(survivors)} (generation {gen}), "
+                f"replaying from the newest verified checkpoint")
+            membership.stop()
+            if len(survivors) == 1 and members[0] not in dead:
+                continue  # shrink to one in this process
+            # several survivors, or the generation's coordinator (the
+            # store's host) died: restart this process image in place;
+            # every piece of state is in run_dir
+            import sys
+
+            os.environ[_GEN_ENV] = str(gen)
+            console_logger.warning(
+                f"elastic: re-executing worker for generation {gen} "
+                f"(world {len(survivors)})")
+            if _trace.enabled():  # execv skips atexit: flush the timeline
+                _trace.flush()
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os.execv(sys.executable, [sys.executable] + sys.argv)
+
+
+def elastic_exit(code: int = 0) -> None:
+    """Leave an elastic worker's process: flush stdio, then ``os._exit``
+    (no atexit hooks, no exit-time teardown of a world whose peers may be
+    dead). Call it last, after the model and the metrics are saved."""
+    import sys
+
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 def _make_folds(dtrain: DMatrix, nfold: int, seed: int, stratified: bool,
