@@ -2,7 +2,8 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase below
+    python3 chip_smoke.py --serving   # phases 1 and 47 alone
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -386,6 +387,33 @@ After phase 40 (max_bin 256 unless named):
     phase 45 (a)'s run directory (2 ranks, the elastic events, its
     replayed rounds) and ``checkpoint-inspect`` on its checkpoints (the
     newest verified, 10 rounds, marked).
+47. serving (``phase_serving``, last): the reference-default model (1M x
+    50, max_bin 256, depth 6, 10 rounds) saved as JSON and served on the
+    card. (a) ``inplace_predict`` of the 100k held-out rows (through
+    ``predict_serving``) == ``Booster.predict`` margins of a fresh
+    ``DMatrix`` == kernel B's plain version on CPU copies, bit for bit,
+    and kernel B's ``kernel_ms`` at 16 and 4,096 rows beside its bound
+    (taken right after phase 5 trains the model, where ``torch.profiler``
+    still keeps kernel B's records);
+    (b) ``bench.py``'s latency sweep (1/16/256/4096 rows, medians of
+    30/8) and in-place against DMatrix-path rows/s on the 100k rows; (c)
+    ``bench.py``'s concurrent stream (8 client threads, 400 requests of
+    1-64 rows from seed 11, ``batch_wait_us=500``) interleaved with the
+    same stream run sequentially x5 (means), every response ==
+    ``inplace_predict`` of its rows bit for bit, kernel B launches ==
+    coalesced dispatches, the coalescing ratio and the SLO stage p50/p99;
+    (d) a hot swap mid-stream to the same model continued for 10 rounds:
+    no request lost, every response one model's bits or the other's; (e)
+    scripted ``pallas`` faults on served dispatches: a transient one
+    retried and served, a permanent one a typed ``RequestError``, no
+    plain walk, the breaker's state printed; (f) ``python -m
+    xgboost_tpu_torch serve --stdin``: load, a predict of 1,000 rows and
+    ``stats``, the answers == ``inplace_predict`` digit for digit; (g),
+    run after (c): where a served dispatch's time goes (its predict and
+    the rest, medians, with the clients active and parked, against the
+    same predicts in turn from one thread) and the lock releases, metric
+    registry lookups and torch calls one served request costs on each
+    thread.
 
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
@@ -411,9 +439,11 @@ import torch
 
 import xgboost_tpu_torch as xgbt
 from xgboost_tpu_torch import _build, threefry
+from xgboost_tpu_torch import predictor as predictor_mod
 from xgboost_tpu_torch.gbm.gbtree import _cat_cfg
 from xgboost_tpu_torch.metric import create_metric
 from xgboost_tpu_torch.objective import create_objective
+from xgboost_tpu_torch.observability import REGISTRY
 from xgboost_tpu_torch.params import TrainParam
 from xgboost_tpu_torch.data import external as xext
 from xgboost_tpu_torch.data.quantile import _sequential_cdf
@@ -5340,6 +5370,465 @@ def phase_cli(Xtr, ytr, Xte, yte, elastic, tmp, run_a):
                 phase_s=time.perf_counter() - t_phase)
 
 
+SERVE_THREADS, SERVE_REQUESTS, SERVE_WAIT_US = 8, 400, 500
+SERVE_LATENCY_ROWS = ((1, 30), (16, 30), (256, 30), (4096, 8))
+SERVE_THROUGHPUT_REPS = 10
+SERVE_CLI_ROWS = 1000
+
+
+def _serve_stream(rows: int):
+    """``bench.py:_served_bench``'s stream: 400 requests of 1-64 rows at
+    random offsets, from seed 11."""
+    rng = np.random.RandomState(11)
+    return [(int(lo), int(n)) for lo, n in zip(
+        rng.randint(0, max(1, rows - 64), SERVE_REQUESTS),
+        rng.randint(1, 65, SERVE_REQUESTS))]
+
+
+def _serve_clients(srv, X, reqs, name="m", on_answer=None):
+    """``reqs`` from ``SERVE_THREADS`` client threads (request k on thread
+    k % 8, as ``bench.py`` shards them): the wall seconds, the answers by
+    request index and the errors."""
+    import threading
+
+    out, errors = {}, []
+
+    def client(k):
+        try:
+            for i in range(k, len(reqs), SERVE_THREADS):
+                lo, n = reqs[i]
+                out[i] = srv.predict(name, X[lo:lo + n], timeout=120)
+                if on_answer is not None:
+                    on_answer(i)
+        except Exception as e:  # noqa: BLE001 — checked by the caller
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return time.perf_counter() - t0, out, errors
+
+
+def _registry_value(name, **labels):
+    fam = REGISTRY.get(name)
+    return 0.0 if fam is None else fam.labels(**labels).value
+
+
+def _walk_at(forest, X, what):
+    """Kernel B at ``X``'s rows: its time alone, the wrapper's time, the
+    plain version's, and the bound of the work this data needs."""
+    n = X.shape[0]
+    base = torch.zeros((n, 1), device=X.device)
+    tw = torch.ones(forest.num_trees, device=X.device)
+    run = lambda: predict_margin(forest, X, base, tw)  # noqa: E731
+    got = run()
+    want = _predict_margin_plain(forest, X, base, tw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"serving: kernel B == plain at {what}")
+    T, N = forest.left.shape
+    x_bytes, tests = walk_need(forest, X)
+    bnd, by = bound_ms(x_bytes + 2 * n * 4 + T * N * 16 + T * 8, tests * 2)
+    rec = dict(rows=n, ms=time_ms(run), kernel_ms=kernel_ms(run, "B"),
+               plain_ms=time_ms(lambda: _predict_margin_plain(
+                   forest, X, base, tw)),
+               bound_ms=bnd, bound_by=by, max_abs_err=0.0)
+    print(f"serving: kernel B at {what}: {rec['ms']:.4f} ms "
+          f"(alone {rec['kernel_ms']} ms) plain {rec['plain_ms']:.4f} ms "
+          f"bound {bnd:.6f} ms ({by})")
+    return rec
+
+
+def _dispatch_split(srv, X, reqs):
+    """Phase 47 (g): where a served dispatch's time goes. Each dispatch's
+    whole time (``MicroBatcher._dispatch_group``) and the part of it in
+    ``ModelEntry.predict`` (the rows' copy, kernel B, the transform, the
+    copy back), medians, with the 8 clients active (the closed loop of
+    (c): a client submits its next request as soon as its answer comes,
+    while the worker dispatches) and parked (each round the 8 clients
+    submit one request each, then wait on a barrier until all 8 are
+    answered, so no client runs while the round's later dispatches run),
+    and the same predicts called in turn from one thread."""
+    import threading
+
+    from xgboost_tpu_torch.serving import batcher
+
+    entry = srv.registry.get("m")
+    real_predict = entry.predict
+    real_group = batcher.MicroBatcher._dispatch_group
+    walk, whole = [], []
+
+    def timed_predict(rows, **kw):
+        t0 = time.perf_counter()
+        res = real_predict(rows, **kw)
+        walk.append(time.perf_counter() - t0)
+        return res
+
+    def timed_group(self, grp, gen):
+        t0 = time.perf_counter()
+        real_group(self, grp, gen)
+        whole.append(time.perf_counter() - t0)
+
+    def summary(wall):
+        check(len(walk) == len(whole),
+              "serving: (g) one predict a dispatch")
+        rec = dict(wall_s=wall, dispatches=len(whole),
+                   requests_per_dispatch=len(reqs) / max(len(whole), 1),
+                   dispatch_ms=statistics.median(whole) * 1e3,
+                   predict_ms=statistics.median(walk) * 1e3,
+                   rest_ms=statistics.median(
+                       w - p for w, p in zip(whole, walk)) * 1e3)
+        walk.clear()
+        whole.clear()
+        return rec
+
+    def parked_clients():
+        rounds = -(-len(reqs) // SERVE_THREADS)
+        barrier = threading.Barrier(SERVE_THREADS)
+        errors = []
+
+        def client(k):
+            try:
+                for r in range(rounds):
+                    i = r * SERVE_THREADS + k
+                    if i < len(reqs):
+                        lo, n = reqs[i]
+                        srv.predict_async("m", X[lo:lo + n]).result(120)
+                    barrier.wait(120)
+            except Exception as e:  # noqa: BLE001 — checked below
+                errors.append(repr(e))
+                barrier.abort()
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        check(not errors, f"serving: (g) parked clients {errors[:3]}")
+        return time.perf_counter() - t0
+
+    entry.predict = timed_predict
+    batcher.MicroBatcher._dispatch_group = timed_group
+    try:
+        _serve_clients(srv, X, reqs)  # warm
+        walk.clear()
+        whole.clear()
+        wall, _, errors = _serve_clients(srv, X, reqs)
+        check(not errors, f"serving: (g) stream errors {errors[:3]}")
+        active = summary(wall)
+        parked = summary(parked_clients())
+        t0 = time.perf_counter()
+        for lo, n in reqs:
+            timed_predict(X[lo:lo + n])
+        alone = dict(wall_s=time.perf_counter() - t0,
+                     predict_ms=statistics.median(walk) * 1e3)
+        walk.clear()
+    finally:
+        batcher.MicroBatcher._dispatch_group = real_group
+        entry.predict = real_predict
+    for what, rec in (("active", active), ("parked", parked)):
+        print(f"serving: (g) clients {what}: {rec['dispatches']} dispatches "
+              f"({rec['requests_per_dispatch']:.2f} requests each) in "
+              f"{rec['wall_s']:.4f} s; a dispatch {rec['dispatch_ms']:.4f} ms"
+              f" (median): its predict {rec['predict_ms']:.4f}, the rest "
+              f"{rec['rest_ms']:.4f}")
+    print(f"serving: (g) the same predicts in turn from one thread: "
+          f"{alone['predict_ms']:.4f} ms each (median), "
+          f"{alone['wall_s']:.4f} s")
+    return dict(active=active, parked=parked, alone=alone)
+
+
+def _dispatch_ops(srv, X, requests: int = 20):
+    """Phase 47 (g): what one served request costs each thread (the
+    caller's, the batcher's worker, the access-log writer): lock releases
+    (one per acquisition), metric registry lookups (``_family``), labelled
+    child lookups (``labels``) and calls into torch, counted by a profile
+    hook on every thread over ``requests`` one-request dispatches."""
+    import threading
+    from collections import Counter
+
+    from xgboost_tpu_torch.observability import metrics
+
+    names = {metrics.MetricsRegistry._family.__code__: "registry",
+             metrics.MetricFamily.labels.__code__: "labels"}
+    counts = {}
+
+    def hook(frame, event, arg):
+        key = None
+        if event == "call":
+            key = names.get(frame.f_code)
+        elif event == "c_call":
+            owner = getattr(arg, "__self__", None)
+            if getattr(arg, "__name__", "") in (
+                    "__exit__", "release", "_release_save") \
+                    and type(owner).__name__ in ("lock", "RLock"):
+                key = "locks"
+            elif isinstance(owner, torch.Tensor) or (
+                    getattr(arg, "__module__", None) or "").startswith(
+                        "torch"):
+                key = "torch"
+        if key is not None:
+            counts.setdefault(threading.current_thread().name,
+                              Counter())[key] += 1
+
+    srv.predict("m", X[:4], timeout=120)
+    srv.obs.drain()
+    threading.setprofile_all_threads(hook)
+    try:
+        for _ in range(requests):
+            srv.predict("m", X[:4], timeout=120)
+        srv.obs.drain()
+    finally:
+        threading.setprofile_all_threads(None)
+    roles = {threading.current_thread().name: "caller",
+             "xgbtpu-serving-batcher": "worker",
+             "xgbtpu-serve-obs": "writer"}
+    out = {roles[t]: {k: v / requests for k, v in sorted(c.items())}
+           for t, c in counts.items() if t in roles}
+    print(f"serving: (g) per one-request dispatch: {out}")
+    return out
+
+
+def phase_serving_walks(bst, Xte):
+    """Phase 47 (a)'s kernel B at the served batch sizes, 16 and 4,096
+    rows, on the reference-default model's forest, taken right after that
+    model is trained: late in a run ``torch.profiler`` keeps few of kernel
+    B's records (0 of 20 at the end of a whole run)."""
+    forest, _ = bst._forest_snapshot()
+    Xd = torch.as_tensor(Xte, device=DEVICE)
+    return {f"rows_{n}": _walk_at(forest, Xd[:n], f"{n} rows")
+            for n in (16, 4096)}
+
+
+def phase_serving(raw256, Xtr, ytr, Xte, yte, walks):
+    """Phase 47: the serving layer on the card (module docstring, 47);
+    ``walks`` is ``phase_serving_walks``'s record."""
+    import threading
+
+    from xgboost_tpu_torch.predictor import serving as psrv
+    from xgboost_tpu_torch.resilience import chaos
+    from xgboost_tpu_torch.serving import ModelServer, RequestError
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_serving_")
+    path = os.path.join(tmp, "m256.json")
+    with open(path, "wb") as f:
+        f.write(raw256)
+    bst = xgbt.Booster(model_file=path, device=DEVICE)
+    cpu = xgbt.Booster(model_file=path, device="cpu")
+    check(bst.num_boosted_rounds() == ROUNDS, "serving: the 10-round model")
+    out = {}
+    reset_launches()
+    # (a) parity on the 100k held-out rows
+    with psrv.serving_context():
+        margin = bst.inplace_predict(Xte, predict_type="margin")
+        route = psrv.last_route()
+    check(route == "kernel", f"serving: inplace_predict route {route!r}")
+    fresh = bst.predict(xgbt.DMatrix(Xte, device=DEVICE), output_margin=True)
+    plain = cpu.inplace_predict(Xte, predict_type="margin")
+    check(np.array_equal(margin, fresh),
+          "serving: inplace_predict == predict margins of a fresh DMatrix")
+    check(np.array_equal(margin, plain),
+          "serving: inplace_predict == kernel B's plain version on the CPU")
+    value = bst.inplace_predict(Xte)
+    check(np.array_equal(value, cpu.inplace_predict(Xte)),
+          "serving: values == the CPU's bit for bit")
+    auc = float(create_metric("auc").evaluate(
+        torch.as_tensor(value), torch.as_tensor(yte)))
+    out["kernel_B"] = walks
+    print(f"serving: (a) 100k held-out rows, inplace == predict == CPU "
+          f"plain bit for bit, AUC {auc:.6f}")
+    # (b) bench.py's latency sweep and throughput
+    lat = {}
+    for n, reps in SERVE_LATENCY_ROWS:
+        xb = np.ascontiguousarray(Xte[:n])
+        bst.inplace_predict(xb)
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            bst.inplace_predict(xb)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        lat[n] = statistics.median(ts)
+
+    def rows_per_s(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_THROUGHPUT_REPS):
+            fn()
+        return EVAL_ROWS * SERVE_THROUGHPUT_REPS / (time.perf_counter() - t0)
+
+    rps_d = rows_per_s(lambda: bst.predict(xgbt.DMatrix(Xte, device=DEVICE)))
+    rps_i = rows_per_s(lambda: bst.inplace_predict(Xte))
+    out.update(latency_ms=lat, dmatrix_rows_per_s=rps_d,
+               inplace_rows_per_s=rps_i)
+    print("serving: (b) inplace latency (median ms) " + ", ".join(
+        f"{n} rows {v:.4f}" for n, v in lat.items())
+        + f"; 100k rows in place {rps_i:,.0f} rows/s, DMatrix path "
+          f"{rps_d:,.0f} rows/s")
+    # (c) the concurrent stream against the same stream sequentially
+    reqs = _serve_stream(EVAL_ROWS)
+    total_rows = sum(n for _, n in reqs)
+    seq_ref = {}
+
+    def run_sequential():
+        t0 = time.perf_counter()
+        for i, (lo, n) in enumerate(reqs):
+            seq_ref[i] = bst.inplace_predict(Xte[lo:lo + n])
+        return time.perf_counter() - t0
+
+    srv = ModelServer(batch_wait_us=SERVE_WAIT_US, device=DEVICE)
+    try:
+        srv.load("m", path)
+        run_sequential()
+        _, answers, errors = _serve_clients(srv, Xte, reqs)
+        check(not errors, f"serving: warm stream errors {errors[:3]}")
+        check(len(answers) == SERVE_REQUESTS and all(
+            np.array_equal(answers[i], seq_ref[i]) for i in answers),
+            "serving: every served response == inplace_predict of its rows")
+        seq_t, srv_t, b_launch, disp = [], [], 0, 0
+        b0 = _registry_value("serving_requests_batched_total")
+        for _ in range(5):
+            seq_t.append(run_sequential())
+            l0 = predict_margin.launches
+            d0 = _registry_value("serving_dispatches_total")
+            wall, answers, errors = _serve_clients(srv, Xte, reqs)
+            srv_t.append(wall)
+            b_launch += predict_margin.launches - l0
+            disp += _registry_value("serving_dispatches_total") - d0
+            check(not errors and len(answers) == SERVE_REQUESTS,
+                  f"serving: stream errors {errors[:3]}")
+        batched = _registry_value("serving_requests_batched_total") - b0
+        check(b_launch == disp, f"serving: kernel B launches {b_launch} == "
+              f"coalesced dispatches {disp}")
+        seq_rps = total_rows / statistics.mean(seq_t)
+        served_rps = total_rows / statistics.mean(srv_t)
+        stages = {st: {k: v * 1e3 for k, v in qs.items()}
+                  for st, qs in srv.stats()["slo"]["stages"].items()}
+        out["stream"] = dict(
+            served_rows_per_s=served_rps, sequential_rows_per_s=seq_rps,
+            rows=total_rows, dispatches=disp, kernel_B_launches=b_launch,
+            coalesce_ratio=batched / max(disp, 1), stage_ms=stages)
+        print(f"serving: (c) {SERVE_THREADS} threads x {SERVE_REQUESTS} "
+              f"requests ({total_rows} rows): served {served_rps:,.0f} "
+              f"rows/s, sequential {seq_rps:,.0f} rows/s (means of 5, "
+              f"interleaved); {disp:.0f} dispatches, kernel B {b_launch} "
+              f"launches, coalescing {batched / max(disp, 1):.2f} req/"
+              "dispatch; stages (ms) " + "; ".join(
+                  f"{st} p50 {qs.get('p50', 0):.4f} p99 "
+                  f"{qs.get('p99', 0):.4f}" for st, qs in stages.items()))
+        # (g) where a served dispatch's time goes, and what it costs
+        out["dispatch_split"] = _dispatch_split(srv, Xte, reqs)
+        out["ops_per_request"] = _dispatch_ops(srv, Xte)
+        # (d) a hot swap mid-stream to the model continued for 10 rounds
+        t0 = time.perf_counter()
+        more = xgbt.train(PARAMS_DEFAULT, xgbt.DMatrix(Xtr, ytr, device=DEVICE),
+                          ROUNDS, xgb_model=bst)
+        raw20 = more.save_raw()
+        train_s = time.perf_counter() - t0
+        ref20 = {i: more.inplace_predict(Xte[lo:lo + n])
+                 for i, (lo, n) in enumerate(reqs)}
+        started = threading.Event()
+        answered = [0]
+
+        def note(_):
+            answered[0] += 1
+            if answered[0] >= SERVE_REQUESTS // 4:
+                started.set()
+
+        res = {}
+        runner = threading.Thread(target=lambda: res.update(zip(
+            ("wall", "answers", "errors"),
+            _serve_clients(srv, Xte, reqs, on_answer=note))))
+        runner.start()
+        check(started.wait(300), "serving: the stream started")
+        t0 = time.perf_counter()
+        label = srv.swap("m", raw20)
+        swap_s = time.perf_counter() - t0
+        runner.join(600)
+        answers = res["answers"]
+        check(not res["errors"] and len(answers) == SERVE_REQUESTS,
+              f"serving: swap lost requests: {len(answers)} answered, "
+              f"errors {res['errors'][:3]}")
+        old = sum(np.array_equal(answers[i], seq_ref[i]) for i in answers)
+        new = sum(np.array_equal(answers[i], ref20[i]) for i in answers)
+        check(old + new == SERVE_REQUESTS and new > 0,
+              f"serving: every answer one model's bits ({old} old, {new} new)")
+        check(label == "m@v2" and srv.registry.get("m", 1).inflight == 0,
+              "serving: the swap flipped and drained")
+        out["swap"] = dict(old=old, new=new, swap_s=swap_s, train_s=train_s)
+        print(f"serving: (d) hot swap to 20 rounds mid-stream in "
+              f"{swap_s:.3f} s: {SERVE_REQUESTS} answered, {old} by v1 and "
+              f"{new} by v2, none lost")
+        # (e) scripted faults at kernel B's launch site under serving
+        walks = []
+        real_plain = predictor_mod._predict_margin_plain
+        predictor_mod._predict_margin_plain = \
+            lambda *a: walks.append(1) or real_plain(*a)
+        try:
+            with chaos.configure("pallas:transient:1"):
+                got = srv.predict("m", Xte[:32], timeout=120)
+            check(np.array_equal(got, more.inplace_predict(Xte[:32])),
+                  "serving: the retried dispatch's answer")
+            with chaos.configure("pallas:permanent:1") as plan:
+                fut = srv.predict_async("m", Xte[:32], request_id="fault")
+                try:
+                    fut.result(120)
+                    typed = None
+                except RequestError as e:
+                    typed = e
+            check(typed is not None and typed.kind == "permanent"
+                  and plan.fired == [("pallas", 1, "permanent")],
+                  f"serving: a permanent launch fault is typed ({typed!r})")
+        finally:
+            predictor_mod._predict_margin_plain = real_plain
+        check(walks == [], "serving: no plain walk served a faulted launch")
+        breaker = srv.faults.breaker("m").snapshot()
+        out["fault"] = dict(error=str(typed), breaker=breaker)
+        print(f"serving: (e) pallas transient: retried and served; "
+              f"permanent: {typed}; breaker {breaker}")
+    finally:
+        srv.close()
+    out["launches"] = launches()
+    # (f) the command line over stdin, on the card
+    msgs = [{"op": "load", "model": "m", "path": path},
+            {"op": "predict", "id": "p", "model": "m",
+             "data": Xte[:SERVE_CLI_ROWS].tolist()},
+            {"op": "stats"}, {"op": "shutdown"}]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "xgboost_tpu_torch", "serve", "--stdin",
+         "--device", str(DEVICE)], input="\n".join(json.dumps(m)
+                                                   for m in msgs) + "\n",
+        cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"serving: serve exit {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    check(len(lines) == 4 and lines[0].get("version") == "m@v1",
+          f"serving: serve answers {proc.stdout[:500]}")
+    check(np.array_equal(np.asarray(lines[1]["result"], np.float64),
+                         value[:SERVE_CLI_ROWS].astype(np.float64)),
+          "serving: serve's answers == inplace_predict digit for digit")
+    check(lines[2]["stats"]["arena"]["live"] == {"m": "m@v1"},
+          "serving: serve's stats")
+    print(f"serving: (f) python -m xgboost_tpu_torch serve --stdin: "
+          f"{SERVE_CLI_ROWS} rows == inplace_predict digit for digit, "
+          f"{cli_s:.1f} s with the process start")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out.update(cli_s=cli_s, auc=auc, phase_s=time.perf_counter() - t_phase)
+    print(f"serving: phase {out['phase_s']:.1f} s, launches "
+          f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5377,6 +5866,7 @@ def main() -> int:
           "max_bin 256 at 1M x 50: a partial hoist")
     trees256 = heap_trees(bst256, CPU_ROUNDS)  # before the bytes materialize
     raw256 = bst256.save_raw()
+    serve_walks = phase_serving_walks(bst256, Xte)
     refresh = phase_refresh(bst256, Xte, yte, w_gen)
     del bst256
     torch.cuda.empty_cache()
@@ -5440,6 +5930,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     elastic, el_tmp, el_run = phase_elastic(Xtr, ytr)
     cli = phase_cli(Xtr, ytr, Xte, yte, elastic, el_tmp, el_run)
+    torch.cuda.empty_cache()
+    serving = phase_serving(raw256, Xtr, ytr, Xte, yte, serve_walks)
     del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
@@ -5461,7 +5953,8 @@ def main() -> int:
         "sparse": sparse, "external_memory": extmem,
         "distributed": distributed, "rounding": rounding,
         "traced": traced, "resilience": resilience, "elastic": elastic,
-        "cli": cli}))
+        "cli": cli, "serving": {k: v for k, v in serving.items()
+                                if k != "kernel_B"}}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -5576,6 +6069,11 @@ def main() -> int:
              distributed=dist_launches("B"), traced=traced_launches("B"),
              resilience=resilience_launches("B"),
              elastic=elastic_launches("B"),
+             serving=dict(launches=serving["launches"]["B"],
+                          stream_dispatches=serving["stream"]["dispatches"],
+                          stream_launches=serving["stream"][
+                              "kernel_B_launches"],
+                          **serving["kernel_B"]),
              **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
@@ -5635,7 +6133,36 @@ def main() -> int:
     return 0
 
 
+def main_serving() -> int:
+    """``python3 chip_smoke.py --serving``: phases 1 and 47 alone, on the
+    reference-default model trained as phase 5 trains it (no eval set:
+    the trees are the same)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_build()
+    X, y, _ = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
+    Xtr, ytr, Xte, yte = X[:ROWS], y[:ROWS], X[ROWS:], y[ROWS:]
+    bst = xgbt.train(PARAMS_DEFAULT, xgbt.DMatrix(Xtr, ytr, device=DEVICE),
+                     ROUNDS)
+    walks = phase_serving_walks(bst, Xte)
+    raw = bst.save_raw()
+    del bst
+    torch.cuda.empty_cache()
+    serving = phase_serving(raw, Xtr, ytr, Xte, yte, walks)
+    print(json.dumps({"serving": serving}, default=str))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi failed: {smi.stderr.strip()}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--serving"]:
+        sys.exit(main_serving())
     if len(sys.argv) == 3 and sys.argv[1] == "--resilience-worker":
         sys.exit(_resilience_worker(json.loads(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--elastic-worker":

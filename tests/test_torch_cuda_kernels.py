@@ -65,6 +65,10 @@ card and two on the CPU, 3 rounds at 64k rows in ragged shards on shared
 cuts, give the same model bytes and trees (the workers are
 ``tests/test_torch_distributed.py``'s).
 
+Serving (``-k serving``): a model server on the card coalesces 64 queued
+one-row requests into one dispatch, one kernel B launch, whose answers
+equal the plain version's on the CPU bit for bit.
+
 Categorical decision tables, ``[Kp, 5+B]`` (``-k categorical``): kernels A
 and D and both routing launches with wide tables whose nodes mix numerical
 and categorical splits, every bin id in some set and missing bins among
@@ -1081,3 +1085,54 @@ def test_resume_on_the_card_equals_straight_and_cpu(cuda, tmp_path):
             "trees"]
 
     assert trees(resumed) == trees(cpu.save_raw())
+
+
+@pytest.mark.parametrize("objective", ["binary:logistic", "multi:softprob"])
+def test_serving_coalesced_dispatch_equals_plain_bitwise(cuda, objective):
+    """``-k serving``: a model server on the card answers 64 one-row
+    requests queued behind a held dispatch with ONE coalesced dispatch
+    (one kernel B launch) whose rows equal kernel B's plain version on CPU
+    copies of the same rows, transform included, bit for bit."""
+    import threading
+
+    import xgboost_tpu_torch as xgbt
+    from xgboost_tpu_torch.serving import ModelServer
+
+    rng = np.random.RandomState(3)
+    X = rng.randn(2000, 12).astype(np.float32)
+    X[rng.rand(*X.shape) < 0.1] = np.nan
+    params = {"objective": objective, "max_depth": 5}
+    if objective == "multi:softprob":
+        params["num_class"] = 3
+        y = rng.randint(0, 3, len(X)).astype(np.float32)
+    else:
+        y = (np.nan_to_num(X[:, 0]) > 0).astype(np.float32)
+    cpu = xgbt.train(params, xgbt.DMatrix(X, y, device="cpu"), 8)
+    want = cpu.inplace_predict(X[:65])  # the plain version on the CPU
+    srv = ModelServer(device=cuda, batch_wait_us=1000)
+    try:
+        srv.load("m", cpu.save_raw())
+        entry = srv.registry.get("m")
+        real, entered, go = entry.predict, threading.Event(), threading.Event()
+        rows = []
+
+        def held(Xq, **kw):
+            rows.append(len(Xq))
+            entered.set()
+            assert go.wait(60)
+            return real(Xq, **kw)
+
+        entry.predict = held
+        first = srv.predict_async("m", X[:1])
+        assert entered.wait(60)
+        futs = [srv.predict_async("m", X[i:i + 1]) for i in range(1, 65)]
+        b0 = tpred.predict_margin.launches
+        go.set()
+        first.result(60)
+        got = np.concatenate([f.result(60) for f in futs])
+        assert rows == [1, 64]
+        # the held dispatch's launch and the coalesced one's
+        assert tpred.predict_margin.launches - b0 == 2
+        np.testing.assert_array_equal(got, want[1:65])
+    finally:
+        srv.close()

@@ -59,7 +59,13 @@
   agent's source imports only the standard library, and ``elastic_train``
   with a ``data_fn`` that does not ask for the CPU, the command line's
   ``train`` task without ``device=cpu`` and ``init_distributed(elastic=
-  True)`` raise where there is no card.
+  True)`` raise where there is no card;
+- the serving layer (``predictor/serving.py``, ``serving/*``) imports
+  neither ``jax`` nor ``xgboost_tpu`` (nor the JAX package's degrade
+  machine's counterpart); a ``ModelServer`` or ``ModelRegistry`` built
+  without ``device=`` raises where there is no card; a served dispatch on
+  a device reaches kernel B's wrapper once, never the plain version, and
+  a failure after the launch comes back as a typed ``RequestError``.
 """
 
 import ast
@@ -1045,3 +1051,140 @@ def test_heartbeat_agent_imports_only_the_standard_library():
         elif isinstance(node, ast.ImportFrom):
             names.add((node.module or "").split(".")[0])
     assert names == {"json", "os", "sys", "time", "zlib"}, names
+
+
+# ---------------------------------------------------------------------------
+# serving (predictor/serving.py, serving/*)
+# ---------------------------------------------------------------------------
+
+SERVING_MODULES = ("xgboost_tpu_torch.predictor.serving",
+                   "xgboost_tpu_torch.serving",
+                   "xgboost_tpu_torch.serving.admission",
+                   "xgboost_tpu_torch.serving.batcher",
+                   "xgboost_tpu_torch.serving.delivery",
+                   "xgboost_tpu_torch.serving.faults",
+                   "xgboost_tpu_torch.serving.obs",
+                   "xgboost_tpu_torch.serving.server",
+                   "xgboost_tpu_torch.serving.swap",
+                   "xgboost_tpu_torch.serving.tenancy")
+
+
+def test_serving_modules_import_no_jax():
+    for m in SERVING_MODULES:
+        path = ROOT / (m.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / m.replace(".", "/") / "__init__.py"
+        assert path.exists(), m
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in SERVING_MODULES) +
+        "from xgboost_tpu_torch import ModelServer, RequestError, "
+        "RequestShed\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'xgboost_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert 'xgboost_tpu_torch.resilience.degrade' not in sys.modules\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_model_server_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    import threading
+
+    from xgboost_tpu_torch.serving import ModelRegistry, ModelServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    threads = threading.active_count()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModelServer()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModelRegistry()
+    assert threading.active_count() == threads  # no worker was started
+    ModelServer(device="cpu").close()
+
+
+def test_served_dispatch_reaches_the_walk_kernel(cpu_models, stub_cuda):
+    """A served dispatch on a device goes to kernel B's wrapper, once per
+    coalesced dispatch, never to the plain version; what fails after the
+    launch (the stub device has no data to copy back) comes back as the
+    typed ``RequestError``, with no other route tried."""
+    from xgboost_tpu_torch.serving import ModelServer, RequestError
+
+    card, _ = _meta_case(cpu_models["mc"])
+    meta = torch.device("meta")
+    srv = ModelServer(device="cpu", batch_wait_us=0)
+    try:
+        srv.device = srv.registry.device = srv.batcher.device = meta
+        srv.load("m", card, warm=False)
+        assert srv.registry.get("m").booster is card
+        rows = np.random.RandomState(0).randn(7, 4).astype(np.float32)
+        fut = srv.predict_async("m", rows, predict_type="margin")
+        with pytest.raises(RequestError, match="meta"):
+            fut.result(60)
+    finally:
+        srv.close()
+    calls = stub_cuda.calls
+    assert [c[0] for c in calls] == ["xgbt_predict_margin"]
+    # (X, n, F, node records, tree_group, tree_weight, T, N, max_depth, G,
+    #  base, out, stream)
+    assert calls[0][1][1:3] == (7, 4) and calls[0][1][9] == 3
+
+
+def test_batcher_worker_makes_the_servers_card_current(monkeypatch):
+    """The batcher's worker thread (a new thread starts on card 0) makes
+    the server's card current before its first launch, with the card's
+    index resolved where the server was made."""
+    import threading
+
+    from xgboost_tpu_torch.serving.batcher import MicroBatcher
+
+    seen = []
+    ready = threading.Event()
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: (seen.append(d), ready.set()))
+    mb = MicroBatcher(device="cuda")
+    try:
+        assert ready.wait(30)
+        assert seen == [torch.device("cuda", 3)] and mb.device.index == 3
+    finally:
+        mb.close()
+
+
+def test_batcher_close_serves_leftovers_on_the_servers_card(monkeypatch):
+    """A request still queued when the worker is gone is served by
+    ``close(drain=True)`` on the closing thread, which makes the server's
+    card current before that dispatch."""
+    import threading
+
+    from xgboost_tpu_torch.serving import batcher as bm
+
+    seen, served = [], []
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: seen.append((threading.get_ident(), d)))
+    monkeypatch.setattr(bm.MicroBatcher, "_loop", lambda self, gen: None)
+
+    class Entry:
+        name, label = "m", "m@v1"
+
+        def predict(self, X, **kw):
+            served.append(threading.get_ident())
+            return np.zeros(len(X), np.float32)
+
+        def release(self):
+            pass
+
+    mb = bm.MicroBatcher(device="cuda")
+    mb._worker.join(30)
+    req = bm._Request(Entry(), np.zeros((2, 3), np.float32), 2, ("k",),
+                      "value", None, np.nan, None, None, None)
+    mb._q.put(req)
+    mb.close(drain=True)
+    me = threading.get_ident()
+    assert served == [me]
+    assert seen == [(me, torch.device("cuda", 3))]
+    assert req.future.result(5).shape == (2,)

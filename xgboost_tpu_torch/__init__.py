@@ -26,7 +26,11 @@ heartbeat membership in a shared directory, ``parallel.membership``; a
 lost worker shrinks the world, which replays from the newest verified
 checkpoint). ``python -m xgboost_tpu_torch`` is the command line
 (``cli.py``: the config-file ``train`` / ``dump`` / ``pred`` tasks,
-``trace-report``, ``obs-report`` and ``checkpoint-inspect``). Telemetry
+``trace-report``, ``obs-report`` and ``checkpoint-inspect``, ``serve``, ``deliver``). Serving (``serving``):
+``ModelServer``, a micro-batched, multi-tenant model server with hot
+swap, SLO admission (``RequestShed``), fault isolation (``RequestError``)
+and delivery, over the serving fast path of ``Booster.inplace_predict``.
+Telemetry
 (``observability``): span tracing to Chrome trace-event files
 (``XGBTPU_TRACE`` or ``set_config(trace_path=...)``),
 the metrics registry, collective accounting and the per-round flight
@@ -49,6 +53,7 @@ from .data.quantile import HistogramCuts
 from .learner import Booster
 from .plotting import plot_importance, plot_tree, to_graphviz
 from .predictor import forest_from_numpy
+from .serving import ModelServer, RequestError, RequestShed
 from .training import cv, elastic_exit, elastic_train, train
 from .utils.timer import profiler_context
 
@@ -58,7 +63,7 @@ __all__ = ["DMatrix", "QuantileDMatrix", "ExternalMemoryQuantileDMatrix",
            "DataIter", "load_row_split", "Booster", "train", "cv",
            "elastic_train", "elastic_exit",
            "callback", "collective", "rabit", "parallel", "observability",
-           "resilience",
+           "resilience", "ModelServer", "RequestError", "RequestShed",
            "profiler_context", "HistogramCuts",
            "forest_from_numpy", "config_context", "set_config", "get_config",
            "plot_importance", "plot_tree", "to_graphviz", "XGBModel",

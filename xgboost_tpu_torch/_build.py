@@ -127,6 +127,9 @@ def build_all() -> Dict[str, Path]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built on first use."""
+    lib = _libs.get(name)  # a dict read: no lock once loaded
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is not None:

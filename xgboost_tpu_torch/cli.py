@@ -7,6 +7,8 @@ parser of ``src/common/config.h``). Usage:
     python -m xgboost_tpu_torch trace-report <trace-file|glob> ... [--top N]
     python -m xgboost_tpu_torch obs-report <run_dir> ... [--top-rounds N]
     python -m xgboost_tpu_torch checkpoint-inspect <dir> [--json]
+    python -m xgboost_tpu_torch serve (--port N | --stdin) [--model name=path ...] [--device cpu]
+    python -m xgboost_tpu_torch deliver --connect HOST:PORT (--model M --watch DIR | --status | --stop --model M)
 
 Config keys are the reference's: task, data, test:data, model_in,
 model_out, model_dir, num_round, save_period, eval[name]=path,
@@ -21,11 +23,14 @@ metrics rollup and a per-round fleet table (``observability/fleet.py``);
 ``checkpoint-inspect`` lists a resume directory's checkpoints (round,
 bytes, checksum status) and marks the newest verified one, the snapshot
 ``train(resume_from=...)`` and an elastic replay load; its exit status is
-1 when nothing verifies.
+1 when nothing verifies. ``serve`` runs the model server's JSONL protocol
+(``serving/server.py`` ``serve_main``: the JAX package's options, plus
+``--device``, the card unless it says ``cpu``); ``deliver`` is the
+operator client of a running server's ``deliver`` op.
 
-The JAX package's ``serve``, ``serve-report``, ``serve-fleet``,
-``deliver``, ``perf-report``, ``grow-report``, ``lint`` and
-``dispatch-report`` are not in the port: each prints so and returns 1.
+The JAX package's ``serve-report``, ``serve-fleet``, ``perf-report``,
+``grow-report``, ``lint`` and ``dispatch-report`` are not in the port:
+each prints so and returns 1.
 """
 
 from __future__ import annotations
@@ -42,11 +47,11 @@ from .training import train
 from .utils import console_logger
 
 __all__ = ["parse_config_file", "cli_main", "checkpoint_inspect_main",
-           "main"]
+           "deliver_main", "main"]
 
 #: the JAX package's subcommands that have no counterpart in the port
-NOT_PORTED = ("serve", "serve-report", "serve-fleet", "deliver",
-              "perf-report", "grow-report", "lint", "dispatch-report")
+NOT_PORTED = ("serve-report", "serve-fleet", "perf-report", "grow-report",
+              "lint", "dispatch-report")
 
 
 def parse_config_file(path: str) -> List[Tuple[str, str]]:
@@ -102,6 +107,12 @@ def cli_main(argv: List[str]) -> int:
         return fleet_main(argv[1:])
     if argv[0] == "checkpoint-inspect":
         return checkpoint_inspect_main(argv[1:])
+    if argv[0] == "deliver":
+        return deliver_main(argv[1:])
+    if argv[0] == "serve":
+        from .serving.server import serve_main
+
+        return serve_main(argv[1:])
     if argv[0] in NOT_PORTED:
         print(f"{argv[0]}: not in the PyTorch port (the JAX package's "
               "xgboost_tpu has it)", file=sys.stderr)
@@ -209,6 +220,84 @@ def checkpoint_inspect_main(argv: List[str]) -> int:
     print("\n'*' = newest verified (what train(resume_from=...) / "
           "elastic replay loads)")
     return 0 if any_ok else 1
+
+
+def deliver_main(argv: List[str]) -> int:
+    """``deliver``: the operator client of the serving ``deliver`` op
+    (the JAX package's ``deliver_main``): attach, inspect or stop a
+    train-to-serve delivery controller on a running server over the JSONL
+    protocol::
+
+        python -m xgboost_tpu_torch deliver --connect HOST:PORT \\
+            --model M --watch CKPT_DIR [--mode shadow|fraction]
+            [--fraction F] [--min-requests N] [--bake-s S] [--poll-s S]
+            [--dauc TOL] [--p99-ratio R] [--from-rounds N] [--eval-npz FILE]
+        python -m xgboost_tpu_torch deliver --connect HOST:PORT --status
+        python -m xgboost_tpu_torch deliver --connect HOST:PORT --stop --model M
+    """
+    import json
+    import socket
+
+    usage = ("usage: python -m xgboost_tpu_torch deliver --connect "
+             "HOST:PORT (--model M --watch DIR [opts] | --status | --stop "
+             "--model M)")
+    msg: Dict[str, Any] = {"op": "deliver"}
+    connect = None
+    flags = {"--model": ("model", str), "--watch": ("watch", str),
+             "--mode": ("mode", str), "--fraction": ("fraction", float),
+             "--min-requests": ("min_requests", int),
+             "--bake-s": ("bake_s", float), "--poll-s": ("poll_s", float),
+             "--dauc": ("dauc_tol", float),
+             "--p99-ratio": ("p99_ratio", float),
+             "--from-rounds": ("from_rounds", int),
+             "--eval-npz": ("eval_npz", str)}
+    i = 0
+    try:
+        while i < len(argv):
+            a = argv[i]
+            if a == "--connect":
+                i += 1
+                connect = argv[i]
+            elif a == "--status":
+                msg["action"] = "status"
+            elif a == "--stop":
+                msg["action"] = "stop"
+            elif a in flags:
+                key, conv = flags[a]
+                i += 1
+                msg[key] = conv(argv[i])
+            else:
+                raise ValueError(f"unknown deliver option: {a!r}")
+            i += 1
+        if connect is None:
+            raise ValueError("--connect HOST:PORT is required")
+        if msg.get("action", "start") == "start" \
+                and not (msg.get("model") and msg.get("watch")):
+            raise ValueError("starting a delivery needs --model and "
+                             "--watch")
+        host, _, port = connect.rpartition(":")
+        port = int(port)
+    except (ValueError, IndexError) as e:
+        print(f"deliver: {e}", file=sys.stderr)
+        print(usage, file=sys.stderr)
+        return 1
+    try:
+        with socket.create_connection((host or "127.0.0.1", port),
+                                      timeout=30) as s:
+            fh = s.makefile("rw", encoding="utf-8")
+            fh.write(json.dumps(msg) + "\n")
+            fh.flush()
+            line = fh.readline()
+    except OSError as e:
+        print(f"deliver: cannot reach {connect}: {e}", file=sys.stderr)
+        return 1
+    try:
+        resp = json.loads(line)
+    except ValueError:
+        print(f"deliver: bad response: {line!r}", file=sys.stderr)
+        return 1
+    print(json.dumps(resp, indent=2))
+    return 0 if not resp.get("error") else 1
 
 
 def main() -> None:

@@ -30,7 +30,9 @@ from __future__ import annotations
 import copy as _copy
 import json
 import os
+import threading
 import time
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -49,24 +51,14 @@ from .observability import trace as _trace
 from .params import LearnerParam, check_ported, known_keys
 from .parallel.mesh import current_mesh
 from .predictor import StackedForest, predict_leaf, predict_margin
+from .predictor.serving import predict_serving
+from .predictor.serving import row_blocks as _row_blocks
 from .utils import Monitor, fault
 
 __all__ = ["Booster"]
 
 _VERSION = [2, 0, 0]
 _BOOSTERS = {"gbtree": GBTree, "dart": Dart, "gblinear": GBLinear}
-
-
-def _row_blocks(storage: CSRStorage, device: torch.device,
-                blk: int = 65536):
-    """``(lo, hi, X)`` over a CSR's rows: each block of ``blk`` rows made
-    dense on the host (NaN where absent) and sent to ``device`` (one empty
-    block for no rows)."""
-    n = storage.shape[0]
-    for lo in range(0, max(n, 1), blk):
-        hi = min(lo + blk, n)
-        yield lo, hi, torch.as_tensor(storage.dense_rows(lo, hi),
-                                      device=device)
 
 
 class _PredCache:
@@ -94,6 +86,11 @@ class Booster:
         self._base_margin_val = 0.0
         self._caches: Dict[int, _PredCache] = {}
         self._cache_refs: Dict[int, DMatrix] = {}
+        # (num_trees, rounds) -> (StackedForest, tree weights) for
+        # inplace_predict: an LRU of 4, cleared where the leaves change
+        # under the same tree count (``_forest_snapshot``)
+        self._forest_snapshots: "OrderedDict[Tuple, Tuple]" = OrderedDict()
+        self._forest_snapshots_lock = threading.Lock()
         self._loaded_num_feature = 0
         self._loaded_feature_names: List[str] = []
         self._loaded_feature_types: List[str] = []
@@ -441,6 +438,7 @@ class Booster:
             with self.monitor.section("Refresh"):
                 gbm.refresh_one_round(dtrain.data, grad, hess)
             entry.margin = None
+            self._forest_snapshots.clear()  # same num_trees, new leaves
             return
         model = gbm.model
         cache = entry.margin if entry.num_trees == model.num_trees else None
@@ -727,48 +725,103 @@ class Booster:
         out = out.cpu().numpy()
         return out[:, 0, :] if K == 1 else out
 
+    def _forest_snapshot(self, iteration_range=None
+                         ) -> Tuple[StackedForest, Optional[torch.Tensor]]:
+        """``_forest(iteration_range)`` cached per model version: an LRU of
+        4 keyed on ``(num_trees, rounds)`` (the JAX package's
+        ``_forest_snapshot``). Stacking, and for a loaded model the
+        host-to-device copy of the trees, happen once per version, not once
+        per ``inplace_predict``. Cleared where the leaves change under the
+        same tree count: refresh, ``load_model``, slicing."""
+        self._configure()
+        if iteration_range is not None and tuple(iteration_range) == (0, 0):
+            iteration_range = None
+        cur = self._gbm.model.num_trees
+        rkey = None
+        if iteration_range is not None:
+            lo, hi = (int(v) for v in iteration_range)
+            rkey = (lo, hi if hi else cur // self._per_round)
+        key = (cur, rkey)
+        with self._forest_snapshots_lock:
+            hit = self._forest_snapshots.get(key)
+            if hit is not None:
+                self._forest_snapshots.move_to_end(key)
+                _REGISTRY.counter(
+                    "predict_forest_snapshot_hits_total",
+                    "Predicts served from a cached stacked forest").inc()
+                return hit
+        _REGISTRY.counter(
+            "predict_forest_snapshot_misses_total",
+            "Stacked-forest (re)builds for predict").inc()
+        snap = self._forest(rkey)
+        with self._forest_snapshots_lock:
+            self._forest_snapshots[key] = snap
+            while len(self._forest_snapshots) > 4:
+                self._forest_snapshots.popitem(last=False)
+        return snap
+
+    @staticmethod
+    def _inplace_normalize(data, missing):
+        """Raw input -> ``[n, F]`` float32 with NaN missing, or a
+        ``CSRStorage`` for scipy sparse input; None for inputs the in-place
+        path does not take (they predict through a DMatrix)."""
+        if hasattr(data, "tocsr") and hasattr(data, "nnz"):
+            return CSRStorage(data, missing)
+        if isinstance(data, (list, tuple)):
+            data = np.asarray(data, np.float32)
+        if not isinstance(data, np.ndarray) or data.ndim != 2:
+            return None
+        X = data.astype(np.float32, copy=False)
+        if missing is not None and not (
+                isinstance(missing, float) and np.isnan(missing)):
+            X = np.where(X == missing, np.nan, X).astype(np.float32)
+        return np.ascontiguousarray(X)
+
     def inplace_predict(self, data, iteration_range=None,
                         predict_type: str = "value", missing: float = np.nan,
-                        base_margin=None, strict_shape: bool = False
-                        ) -> np.ndarray:
+                        base_margin=None, validate_features: bool = True,
+                        strict_shape: bool = False) -> np.ndarray:
         """Predict from a dense array or a scipy sparse matrix, with no
         DMatrix and no binning (reference ``XGBoosterPredictFromDense`` /
         ``FromCSR``, c_api.cc:833; the JAX package's
-        ``Booster.inplace_predict``, ``learner.py:838``): the rows go to the
-        device and straight through ``predict_margin`` (kernel B on the
-        card), which checks the feature count. Sparse rows go in blocks of
-        65,536 made dense on the host (absent entries NaN, stored
-        ``missing`` values NaN), each walked alone: bit for bit the dense
-        walk of the same rows. ``predict_type`` is
-        ``"value"`` or ``"margin"``; ``iteration_range`` ``(lo, hi)`` keeps
-        rounds ``[lo, hi)`` (``hi`` 0: to the last). Shapes as ``predict``'s,
-        except that ``strict_shape`` also makes ``[n]`` (``multi:softmax``)
-        ``[n, 1]``, as in the JAX package. The JAX package pads
-        rows to power-of-two buckets to bound XLA recompiles
-        (``predictor/serving.py``); eager PyTorch compiles nothing per shape,
-        so the port walks the rows as given. A linear booster predicts
+        ``Booster.inplace_predict``, ``learner.py:838``): the serving fast
+        path (``predictor/serving.py`` ``predict_serving``) over the
+        model's cached stacked forest (``_forest_snapshot``). The rows go
+        to the device once and through ``predict_margin`` (kernel B on the
+        card); the transform runs on the device; one copy comes back.
+        Sparse rows go in blocks of 65,536 made dense on the host (absent
+        entries NaN, stored ``missing`` values NaN), bit for bit the dense
+        walk of the same rows. ``predict_type`` is ``"value"`` or
+        ``"margin"``; ``iteration_range`` ``(lo, hi)`` keeps rounds ``[lo,
+        hi)`` (``hi`` 0: to the last). With ``validate_features`` an input
+        narrower than ``num_features()`` raises. Shapes as ``predict``'s,
+        except that ``strict_shape`` also makes ``[n]``
+        (``multi:softmax``) ``[n, 1]``, as in the JAX package. A linear
+        booster, and input that is neither an array nor sparse, predict
         through a DMatrix of the rows, as in the JAX package."""
         self._configure()
         if predict_type not in ("value", "margin"):
             raise ValueError(
                 f"inplace_predict supports predict_type 'value' and "
                 f"'margin', got {predict_type!r}")
-        if self._gbm.name == "gblinear":
+        if isinstance(data, np.ndarray) and data.ndim != 2:
+            raise ValueError(f"data must be 2-D, got shape {data.shape}")
+        X = (self._inplace_normalize(data, missing)
+             if self._gbm.name in ("gbtree", "dart") else None)
+        if X is None:
             d = DMatrix(data, missing=missing, device=self.device)
             if base_margin is not None:
                 d.set_base_margin(base_margin)
             return self.predict(d, output_margin=predict_type == "margin",
+                                iteration_range=iteration_range,
                                 strict_shape=strict_shape)
-        sparse = hasattr(data, "tocsr") and hasattr(data, "nnz")
-        if sparse:
-            X = CSRStorage(data, missing)
-        else:
-            X = np.asarray(data, np.float32)
-            if X.ndim != 2:
-                raise ValueError(f"data must be 2-D, got shape {X.shape}")
-            if not (isinstance(missing, float) and np.isnan(missing)):
-                X = np.where(X == missing, np.nan, X).astype(np.float32)
-        n = X.shape[0]
+        n, F = X.shape
+        if validate_features:
+            nf = self._num_feature()
+            if nf and F < nf:
+                raise ValueError(
+                    f"feature count mismatch: model needs >= {nf} "
+                    f"features, input has {F}")
         K = self.n_groups
         if base_margin is not None:
             base = torch.as_tensor(
@@ -777,17 +830,11 @@ class Booster:
         else:
             base = torch.full((n, K), self._base_margin_val,
                               dtype=torch.float32, device=self.device)
-        forest, tw = self._forest(iteration_range)
-        if sparse:
-            margin = torch.cat([predict_margin(forest, Xb, base[lo:hi], tw)
-                                for lo, hi, Xb in _row_blocks(X, self.device)])
-        else:
-            margin = predict_margin(
-                forest, torch.as_tensor(np.ascontiguousarray(X),
-                                        device=self.device), base, tw)
-        out = margin if predict_type == "margin" else self._obj.pred_transform(
-            margin[:, 0] if K == 1 else margin)
-        out = out.cpu().numpy()
+        forest, tw = self._forest_snapshot(iteration_range)
+        out = predict_serving(
+            forest, X, base, tw,
+            transform=None if predict_type == "margin"
+            else self._obj.pred_transform)
         if out.ndim == 2 and out.shape[1] == 1 and not strict_shape:
             out = out[:, 0]
         elif strict_shape and out.ndim == 1:
@@ -863,6 +910,7 @@ class Booster:
         self._loaded_feature_types = list(learner.get("feature_types", []))
         self.attributes_ = dict(learner.get("attributes", {}))
         self._caches.clear()
+        self._forest_snapshots.clear()
 
     def load_model(self, fname: Union[str, bytes, bytearray, os.PathLike]) -> None:
         if isinstance(fname, (bytes, bytearray)):
@@ -1239,4 +1287,5 @@ class Booster:
         out = self.copy()
         out._gbm.model = out._gbm.model.slice(start, stop, step)
         out._caches.clear()
+        out._forest_snapshots.clear()
         return out

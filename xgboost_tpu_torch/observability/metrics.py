@@ -155,6 +155,9 @@ class MetricFamily:
     def labels(self, **labelset: Any):
         key: _LabelKey = tuple(sorted(
             (k, str(v)) for k, v in labelset.items()))
+        child = self._children.get(key)  # a dict read: no lock on a hit
+        if child is not None:
+            return child
         with self._lock:
             child = self._children.get(key)
             if child is None:
@@ -162,21 +165,27 @@ class MetricFamily:
             return child
 
     # -- empty-label convenience forwarding ---------------------------------
+    def _root(self):
+        """The empty-label child; once it exists, without ``labels()``'s
+        sort and lock (the serving path bumps these per request)."""
+        child = self._children.get(())
+        return child if child is not None else self.labels()
+
     def inc(self, amount: float = 1.0) -> None:
-        self.labels().inc(amount)
+        self._root().inc(amount)
 
     def set(self, value: float) -> None:
-        self.labels().set(value)
+        self._root().set(value)
 
     def dec(self, amount: float = 1.0) -> None:
-        self.labels().dec(amount)
+        self._root().dec(amount)
 
     def observe(self, value: float) -> None:
-        self.labels().observe(value)
+        self._root().observe(value)
 
     @property
     def value(self) -> float:
-        return self.labels().value
+        return self._root().value
 
     def series(self) -> List[Tuple[Dict[str, str], Any]]:
         with self._lock:
@@ -205,6 +214,9 @@ class MetricsRegistry:
 
     def _family(self, name: str, kind: str, help: str,
                 buckets: Optional[Sequence[float]] = None) -> MetricFamily:
+        fam = self._families.get(name)  # a dict read: no lock on a hit
+        if fam is not None and fam.kind == kind:
+            return fam
         with self._lock:
             fam = self._families.get(name)
             if fam is None:

@@ -306,7 +306,8 @@ def _predict_margin_cuda(forest: StackedForest, X: torch.Tensor,
     base = base_margin.contiguous()
     nodes = forest.nodes.contiguous()
     group = forest.tree_group.contiguous()
-    tw = tree_weights.to(torch.float32).contiguous()
+    tw = (tree_weights if tree_weights.dtype == torch.float32
+          else tree_weights.to(torch.float32)).contiguous()
     out = torch.empty((n, G), dtype=torch.float32, device=X.device)
     lib = _build.library("predict_walk")
     for lo, hi in walk_row_chunks(n, F):

@@ -27,11 +27,18 @@ site                injection point
 ``heartbeat_drop``  each beat of the membership's heartbeat agent (its own
                     copy of this grammar, ``parallel/membership.py``): a
                     hit skips the beat
+``serving_dispatch``  each coalesced dispatch of the model server's
+                    batcher (``serving/batcher.py``), before the walk
+``batcher_wedge``   each batch the batcher's worker runs: a hit parks the
+                    worker until its watchdog replaces it
+``serving_model_load``, ``serving_swap``, ``delivery_publish``,
+``canary_diff``     the model server's loads, hot swaps, delivery
+                    publishes and shadow diffs (``serving/``)
 ==================  =====================================================
 
 ``SITES`` also names the JAX package's sites the port has no caller for
-yet (the compile, native and serving sites); a schedule for them parses
-and never fires.
+(the compile and native sites); a schedule for them parses and never
+fires.
 
 Configuration: ``XGBTPU_CHAOS="site:kind:schedule[;site:kind:schedule]"``
 or ``configure(...)``:
