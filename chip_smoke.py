@@ -3,7 +3,7 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py             # every phase below
-    python3 chip_smoke.py --serving   # phases 1 and 47 alone
+    python3 chip_smoke.py --serving   # phases 1, 47 and 48 alone
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -380,9 +380,9 @@ After phase 40 (max_bin 256 unless named):
     (b) the seconds from the resize to the restarted image's first flight
     line and first round;
 46. the command line (``phase_cli``): ``python -m xgboost_tpu_torch`` with
-    config files on the card: ``train`` (10 rounds on the first 200,000
-    main-path rows written as libsvm), ``pred`` (the 100,000 held-out
-    rows) and ``dump``, the predictions == ``Booster.predict`` on the card
+    config files on the card: ``train`` (10 rounds on the first 100,000
+    main-path rows written as libsvm; 200,000 before phase 48 came),
+    ``pred`` (the first 50,000 held-out rows) and ``dump``, the predictions == ``Booster.predict`` on the card
     digit for digit and the dump == ``get_dump()``; ``obs-report`` on
     phase 45 (a)'s run directory (2 ranks, the elastic events, its
     replayed rounds) and ``checkpoint-inspect`` on its checkpoints (the
@@ -414,6 +414,33 @@ After phase 40 (max_bin 256 unless named):
     same predicts in turn from one thread) and the lock releases, metric
     registry lookups and torch calls one served request costs on each
     thread.
+48. the serving fleet (``phase_fleet``, after 47): the same model saved
+    as JSON and served as ``m`` and ``m2`` by ``python -m
+    xgboost_tpu_torch serve-fleet --replicas 2 --batch-wait-us 500`` on
+    the card. (a) READY, ``fleet.json`` with 2 replicas alive, each
+    replica's seconds from spawn to READY, and only the replicas on the
+    card: ``nvidia-smi``'s compute apps list them and not the fleet's own
+    process (or, where it lists another pid namespace, one more app a
+    replica), and the fleet's process holds no ``/dev/nvidia*`` file; (b)
+    phase 47's stream (8 threads, 400 requests of 1-64 rows, seed 11)
+    through the router, one connection a thread, ``m`` and ``m2``
+    alternating, two tenants, every answer == ``inplace_predict`` bit for
+    bit, the rows/s of 3 passes beside phase 47's one server and its
+    sequential stream, the same stream straight to one replica, and the
+    parse and re-encode of a request line (the router's work on one
+    interpreter lock); (c) SIGTERM to the hash owner of ``m`` a quarter
+    into a pass, (d) SIGKILL to the other replica likewise: the clients
+    stream on until the respawn serves, none lost, every answer's bits
+    kept, ``fleet_reroutes_total`` risen, the respawn a new pid of a
+    higher generation started without ``--model`` and serving ``m`` and
+    ``m2`` from the manifest, the seconds from the signal to its READY;
+    (g) SIGTERM to the fleet: exit 0, no replica left; (e) every dispatch
+    record and access line of every replica generation on route
+    ``kernel`` (kernel B), the dispatches per replica (kernel B's
+    launches there) and their p50 / p99; (f) ``serve-report`` on the
+    fleet directory (``fleet serve-report (2 replicas)``, the per-replica
+    rollup with the drain, the per-tenant rollup, the merged trace with
+    both replicas) and ``obs-report`` folding in both replicas.
 
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
@@ -5002,7 +5029,7 @@ ELASTIC_ROUNDS = 10
 ELASTIC_PARAMS = {**PARAMS_DEFAULT, "max_depth": DEPTH}
 ELASTIC_KILL_HIT = 5    # the killed rank dies at its 5th round boundary
 ELASTIC_HEARTBEAT = "0.25"
-CLI_ROWS = 200_000
+CLI_ROWS, CLI_TEST_ROWS = 100_000, 50_000
 
 
 def _elastic_block(n: int, r: int, world: int):
@@ -5296,8 +5323,8 @@ def _write_libsvm(path, X, y):
 
 
 def phase_cli(Xtr, ytr, Xte, yte, elastic, tmp, run_a):
-    """Phase 46: the command line on the card. The first 200,000 main-path
-    rows and the 100,000 held-out rows as libsvm files; ``python -m
+    """Phase 46: the command line on the card. The first 100,000 main-path
+    rows and the first 50,000 held-out rows as libsvm files; ``python -m
     xgboost_tpu_torch`` with a config file (no ``device`` line: the card)
     for ``train`` (10 rounds, the main path's parameters), ``pred`` and
     ``dump``; the predictions equal ``Booster.predict`` on the card to the
@@ -5312,6 +5339,7 @@ def phase_cli(Xtr, ytr, Xte, yte, elastic, tmp, run_a):
     t0 = time.perf_counter()
     _write_libsvm(os.path.join(cdir, "train.libsvm"), Xtr[:CLI_ROWS],
                   ytr[:CLI_ROWS])
+    Xte, yte = Xte[:CLI_TEST_ROWS], yte[:CLI_TEST_ROWS]
     _write_libsvm(os.path.join(cdir, "test.libsvm"), Xte, yte)
     write_s = time.perf_counter() - t0
     params = "".join(f"{k}={v}\n" for k, v in ELASTIC_PARAMS.items()
@@ -5829,6 +5857,446 @@ def phase_serving(raw256, Xtr, ytr, Xte, yte, walks):
     return out
 
 
+FLEET_REPLICAS, FLEET_PASSES = 2, 3
+FLEET_TENANTS = ("acme", "globex")
+
+
+def _fleet_rpc(port, msg, timeout=120):
+    """One request line to ``port``, its answer."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as c:
+        c.sendall((json.dumps(msg) + "\n").encode())
+        return json.loads(c.makefile("rb").readline())
+
+
+def _fleet_state(run):
+    with open(os.path.join(run, "fleet.json")) as f:
+        return json.load(f)
+
+
+def _fleet_clients(port, lines, ref, rows, until=None, on_answer=None):
+    """Phase 48's stream through the router: ``lines[i]`` (pre-encoded)
+    from thread i % 8, one connection a thread; with ``until``, the
+    threads repeat their share of the stream until it is set. Every answer
+    is held against ``ref[i]`` bit for bit as it comes. Returns the wall
+    seconds, the answers and rows counted, the mismatches and the
+    errors."""
+    import socket
+    import threading
+
+    stats = {"answered": 0, "rows": 0}
+    bad, errors = [], []
+    lock = threading.Lock()
+
+    def client(k):
+        try:
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=300) as c:
+                rf = c.makefile("rb")
+                while True:
+                    for i in range(k, len(lines), SERVE_THREADS):
+                        c.sendall(lines[i])
+                        r = json.loads(rf.readline())
+                        if "result" not in r:
+                            errors.append(f"request {i}: {r}")
+                            continue
+                        if not np.array_equal(
+                                np.asarray(r["result"], np.float64), ref[i]):
+                            bad.append(i)
+                        with lock:
+                            stats["answered"] += 1
+                            stats["rows"] += rows[i]
+                        if on_answer is not None:
+                            on_answer()
+                    if until is None or until.is_set():
+                        return
+        except Exception as e:  # noqa: BLE001 — checked by the caller
+            errors.append(f"client {k}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return (time.perf_counter() - t0, stats["answered"], stats["rows"], bad,
+            errors)
+
+
+def _compute_apps():
+    """The pids ``nvidia-smi`` lists as compute apps on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"fleet: nvidia-smi compute apps: "
+          f"{out.stderr.strip()}")
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def _nvidia_fds(pid):
+    """How many of ``pid``'s open files are the NVIDIA driver's device
+    nodes: a process with a CUDA context holds some, a process that never
+    initialised CUDA holds none."""
+    n = 0
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            n += os.readlink(f"/proc/{pid}/fd/{fd}").startswith(
+                "/dev/nvidia")
+        except OSError:
+            pass
+    return n
+
+
+def _pid_alive(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _poll(fn, timeout, what):
+    t_end = time.monotonic() + timeout
+    while True:
+        got = fn()
+        if got:
+            return got
+        check(time.monotonic() < t_end, what)
+        time.sleep(0.02)
+
+
+def _router_counter(port, name):
+    """``name``'s value in the router's exposition (0 when absent)."""
+    text = _fleet_rpc(port, {"op": "metrics"})["metrics"]
+    for ln in text.splitlines():
+        if ln.startswith(name + " ") or ln.startswith(name + "{}"):
+            return float(ln.split()[-1])
+    return 0.0
+
+
+def fleet_launches(fleet):
+    """Kernel B's launches in phase 48's replica processes: one per
+    coalesced dispatch (every dispatch record of every generation, route
+    ``kernel``), per replica directory."""
+    return dict(launches_per_replica={
+        name: v["dispatches"] for name, v in fleet["replicas"].items()},
+        generations_per_replica={
+        name: v["generations"] for name, v in fleet["replicas"].items()})
+
+
+def phase_fleet(raw256, Xte, serving):
+    """Phase 48: the serving fleet on the card (module docstring, 48);
+    ``serving`` is phase 47's record, whose sequential and single-server
+    rows/s are printed beside the fleet's."""
+    import threading
+
+    from xgboost_tpu_torch.observability import fleet as obs_fleet
+    from xgboost_tpu_torch.observability import trace as obs_trace
+    from xgboost_tpu_torch.observability.serve_report import _pct
+    from xgboost_tpu_torch.serving.fleet import HashRing
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_fleet_")
+    path = os.path.join(tmp, "m256.json")
+    with open(path, "wb") as f:
+        f.write(raw256)
+    bst = xgbt.Booster(model_file=path, device=DEVICE)
+    reqs = _serve_stream(EVAL_ROWS)
+    rows = [n for _, n in reqs]
+    total_rows = sum(rows)
+    ref = [bst.inplace_predict(Xte[lo:lo + n]).astype(np.float64)
+           for lo, n in reqs]
+    lines = [(json.dumps({
+        "op": "predict", "id": f"q{i}", "model": ("m", "m2")[i % 2],
+        "tenant": FLEET_TENANTS[(i // 2) % 2],
+        "data": Xte[lo:lo + n].tolist()}) + "\n").encode()
+        for i, (lo, n) in enumerate(reqs)]
+    del bst
+    run = os.path.join(tmp, "fleet")
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    base_apps = _compute_apps()
+    out = {}
+    log = []
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "xgboost_tpu_torch", "serve-fleet",
+         "--port", str(port), "--replicas", str(FLEET_REPLICAS),
+         "--run-dir", run, "--model", f"m={path}", "--model", f"m2={path}",
+         "--batch-wait-us", str(SERVE_WAIT_US)],
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    threading.Thread(target=lambda: log.extend(proc.stdout),
+                     daemon=True).start()
+    pids = set()
+    try:
+        # (a) start: READY, both replicas alive, only they on the card
+        t0 = time.perf_counter()
+        _poll(lambda: any(ln.startswith("READY fleet") for ln in log)
+              or proc.poll() is not None, 300, "fleet: READY fleet")
+        check(proc.poll() is None, "fleet: serve-fleet exited before READY: "
+              + "".join(log)[-3000:])
+        start_s = time.perf_counter() - t0
+        st = _fleet_state(run)
+        reps = st["replicas"]
+        check([r["replica"] for r in reps] == ["r0", "r1"]
+              and all(r["alive"] for r in reps),
+              f"fleet: fleet.json shows 2 replicas alive: {reps}")
+        pids |= {r["pid"] for r in reps}
+        apps = _compute_apps()
+        if os.getpid() in apps:
+            check(all(r["pid"] in apps for r in reps)
+                  and proc.pid not in apps,
+                  f"fleet: compute apps {apps}: replicas "
+                  f"{[r['pid'] for r in reps]}, not the parent {proc.pid}")
+            smi = "pids"
+        elif base_apps:  # another pid namespace's pids: count them
+            check(len(apps) == len(base_apps) + FLEET_REPLICAS,
+                  f"fleet: compute apps {base_apps} -> {apps}: one more a "
+                  "replica, none for the parent")
+            smi = "count"
+        else:  # nvidia-smi sees no process here: the open files decide
+            smi = "none listed"
+        fds = {"parent": _nvidia_fds(proc.pid),
+               **{r["replica"]: _nvidia_fds(r["pid"]) for r in reps}}
+        check(fds["parent"] == 0 and all(fds[r["replica"]] > 0
+                                         for r in reps),
+              f"fleet: /dev/nvidia* files open: {fds}")
+        out["start"] = dict(fleet_s=start_s, compute_apps=apps,
+                            checked_by=smi, nvidia_fds=fds,
+                            ready_s={r["replica"]: r["ready_s"]
+                                     for r in reps})
+        print(f"fleet: (a) serve-fleet READY in {start_s:.2f} s; replicas "
+              "spawn -> READY " + ", ".join(
+                  f"{r['replica']} {r['ready_s']:.2f} s" for r in reps)
+              + f"; compute apps {apps} (checked by {smi}), /dev/nvidia* "
+              f"files {fds}: the parent holds no CUDA context")
+        # (b) the stream, warm pass first, then FLEET_PASSES timed passes
+        wall, n, _, bad, errors = _fleet_clients(port, lines, ref, rows)
+        check(not errors and not bad and n == SERVE_REQUESTS,
+              f"fleet: warm pass: {n} answered, {len(bad)} differ, "
+              f"errors {errors[:3]}")
+        walls = []
+        for _ in range(FLEET_PASSES):
+            wall, n, _, bad, errors = _fleet_clients(port, lines, ref, rows)
+            check(not errors and not bad and n == SERVE_REQUESTS,
+                  f"fleet: pass: {n} answered, {len(bad)} differ, "
+                  f"errors {errors[:3]}")
+            walls.append(wall)
+        fleet_rps = total_rows / statistics.mean(walls)
+        # where the router's time goes: the same stream straight to one
+        # replica (no hop), and the parse and re-encode of each request
+        # line that the router does on one interpreter lock
+        direct = []
+        for _ in range(FLEET_PASSES):
+            wall, n, _, bad, errors = _fleet_clients(
+                reps[0]["port"], lines, ref, rows)
+            check(not errors and not bad and n == SERVE_REQUESTS,
+                  f"fleet: direct pass: {n} answered, {len(bad)} differ, "
+                  f"errors {errors[:3]}")
+            direct.append(wall)
+        direct_rps = total_rows / statistics.mean(direct)
+        json_ms = []
+        for ln in lines:
+            t1 = time.perf_counter()
+            json.dumps(json.loads(ln))
+            json_ms.append((time.perf_counter() - t1) * 1e3)
+        stream = serving["stream"]
+        out["stream"] = dict(
+            fleet_rows_per_s=fleet_rps, direct_rows_per_s=direct_rps,
+            single_server_rows_per_s=stream["served_rows_per_s"],
+            sequential_rows_per_s=stream["sequential_rows_per_s"],
+            rows=total_rows, walls_s=walls, direct_walls_s=direct,
+            request_json_ms_p50=statistics.median(json_ms),
+            request_json_s_per_pass=sum(json_ms) / 1e3)
+        print(f"fleet: (b) {SERVE_THREADS} threads x {SERVE_REQUESTS} "
+              f"requests ({total_rows} rows) through the router, m and m2 "
+              f"alternating, every answer == inplace_predict bit for bit: "
+              f"fleet {fleet_rps:,.0f} rows/s (mean of {FLEET_PASSES}), "
+              f"straight to r0 {direct_rps:,.0f} rows/s; phase 47: one "
+              f"server {stream['served_rows_per_s']:,.0f}, sequential "
+              f"{stream['sequential_rows_per_s']:,.0f} rows/s; a request "
+              f"line's parse and re-encode {statistics.median(json_ms):.3f}"
+              f" ms (median), {sum(json_ms):.3f} ms for the 400")
+
+        def kill_mid_stream(rid, sig, what):
+            """``sig`` to replica ``rid`` a quarter into a pass; the
+            clients stream on until its respawn is READY and serving."""
+            k = int(rid[1:])
+            old = _fleet_state(run)["replicas"][k]
+            until, quarter = threading.Event(), threading.Event()
+            count = [0]
+
+            def note():
+                count[0] += 1
+                if count[0] >= SERVE_REQUESTS // 4:
+                    quarter.set()
+
+            rr0 = _router_counter(port, "fleet_reroutes_total")
+            res = {}
+            runner = threading.Thread(target=lambda: res.update(zip(
+                ("wall", "n", "rows", "bad", "errors"),
+                _fleet_clients(port, lines, ref, rows, until=until,
+                               on_answer=note))))
+            runner.start()
+            check(quarter.wait(300), f"fleet: ({what}) the pass started")
+            t_sig = time.time()
+            os.kill(old["pid"], sig)
+
+            def respawned():
+                rep = _fleet_state(run)["replicas"][k]
+                return rep if (rep["pid"] != old["pid"] and rep["alive"]
+                               and rep["generation"] > old["generation"]
+                               ) else None
+
+            rep = _poll(respawned, 300, f"fleet: ({what}) {rid} respawned")
+            pids.add(rep["pid"])
+            at = count[0]
+            _poll(lambda: count[0] >= at + SERVE_REQUESTS, 300,
+                  f"fleet: ({what}) traffic after the respawn")
+            until.set()
+            runner.join(600)
+            check(not res["errors"] and not res["bad"],
+                  f"fleet: ({what}) {res['n']} answered, {len(res['bad'])} "
+                  f"differ, errors {res['errors'][:3]}")
+            reroutes = _router_counter(port, "fleet_reroutes_total") - rr0
+            check(reroutes >= 1, f"fleet: ({what}) fleet_reroutes_total "
+                  f"rose by {reroutes}")
+            with open(f"/proc/{rep['pid']}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+            check(b"--model" not in argv,
+                  f"fleet: ({what}) the respawn was given no model: {argv}")
+            for name in ("m", "m2"):
+                lo, n = reqs[0]
+                r = _fleet_rpc(rep["port"], {"op": "predict", "model": name,
+                                             "data": Xte[lo:lo + n].tolist()})
+                check("result" in r and np.array_equal(
+                    np.asarray(r["result"], np.float64), ref[0]),
+                    f"fleet: ({what}) the respawn serves {name} from the "
+                    f"manifest: {str(r)[:300]}")
+            signal_to_ready = rep["ready_unix_ms"] / 1e3 - t_sig
+            rec = dict(replica=rid, old_pid=old["pid"], new_pid=rep["pid"],
+                       generation=rep["generation"], answered=res["n"],
+                       reroutes=reroutes, signal_to_ready_s=signal_to_ready,
+                       spawn_to_ready_s=rep["ready_s"])
+            print(f"fleet: ({what}) {rid} (pid {old['pid']}) signalled a "
+                  f"quarter into a pass: {res['n']} answered, none lost or "
+                  f"changed, {reroutes:.0f} re-routed; respawned as pid "
+                  f"{rep['pid']} generation {rep['generation']}, signal -> "
+                  f"READY {signal_to_ready:.2f} s (spawn -> READY "
+                  f"{rep['ready_s']:.2f} s), m and m2 served from the "
+                  "manifest alone")
+            return rec
+
+        # (c) SIGTERM the hash owner of m, (d) SIGKILL the other
+        owner = HashRing(["r0", "r1"]).lookup("m")
+        other = "r1" if owner == "r0" else "r0"
+        out["sigterm"] = kill_mid_stream(owner, signal.SIGTERM, "c")
+        out["sigkill"] = kill_mid_stream(other, signal.SIGKILL, "d")
+        # (g) SIGTERM the fleet: exit 0, nothing of it left on the card
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(120)
+        check(rc == 0, f"fleet: serve-fleet exit {rc}: "
+              + "".join(log)[-3000:])
+        _poll(lambda: not any(_pid_alive(p) for p in pids), 60,
+              f"fleet: replicas {pids} outlived the fleet")
+        apps = _compute_apps()
+        check(not (pids | {proc.pid}) & set(apps)
+              and len(apps) <= len(base_apps),
+              f"fleet: compute apps after the fleet {apps} (before "
+              f"{base_apps})")
+        print(f"fleet: (g) SIGTERM: serve-fleet exit 0, compute apps "
+              f"{base_apps} -> {apps}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        for p in pids:
+            try:
+                os.kill(p, signal.SIGKILL)
+            except OSError:
+                pass
+    # (e) kernel B behind every dispatch of every replica generation
+    per_replica = {}
+    for k in range(FLEET_REPLICAS):
+        d = os.path.join(run, f"replica{k}", "obs", "server")
+        sink = obs_fleet.load_obs_dir(d)  # a SIGKILL's torn line skipped
+        flight = sink.flight
+        access = [r for r in sink._read_jsonl(
+            os.path.join(d, "access.jsonl")) if r.get("t") == "req"]
+        disp = [r for r in flight if r.get("t") == "dispatch"]
+        routes = {r.get("route") for r in disp} | {
+            r["route"] for r in access if "route" in r}
+        ok = [r for r in access if r.get("outcome") == "ok"]
+        check(routes == {"kernel"} and all(r.get("route") == "kernel"
+                                           for r in ok),
+              f"fleet: replica{k} routes {routes}")
+        ds = sorted(r["dispatch_s"] for r in ok if "dispatch_s" in r)
+        per_replica[f"replica{k}"] = dict(
+            generations=sum(r.get("t") == "meta" for r in flight),
+            dispatches=len(disp), requests=len(access), ok=len(ok),
+            dispatch_p50_ms=_pct(ds, 0.50) * 1e3,
+            dispatch_p99_ms=_pct(ds, 0.99) * 1e3)
+    out["replicas"] = per_replica
+    print("fleet: (e) every dispatch and access line of every generation "
+          "on route kernel (kernel B): " + "; ".join(
+              f"{name} {v['generations']} generations, {v['dispatches']} "
+              f"dispatches = kernel B launches, {v['ok']} requests served, "
+              f"dispatch p50 {v['dispatch_p50_ms']:.3f} ms p99 "
+              f"{v['dispatch_p99_ms']:.3f} ms"
+              for name, v in per_replica.items()))
+    # (f) serve-report and obs-report over both replicas (the two
+    # processes at once; neither writes what the other reads)
+    reports = {sub: subprocess.Popen(
+        [sys.executable, "-m", "xgboost_tpu_torch", sub, run], cwd=tmp,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for sub in ("serve-report", "obs-report")}
+    outs = {sub: p.communicate(timeout=300) + (p.returncode,)
+            for sub, p in reports.items()}
+    text, err, rc = outs["serve-report"]
+    check(rc == 0, f"fleet: serve-report exit {rc}: {err[-2000:]}")
+    check(text.startswith("fleet serve-report (2 replicas)")
+          and "per-replica rollup" in text and "server_drain" in text
+          and "per-tenant rollup" in text,
+          f"fleet: serve-report text: {text[:2000]}")
+    with open(os.path.join(run, "obs", "fleet_serve_report.json")) as f:
+        doc = json.load(f)
+    events = obs_trace.load_trace(
+        os.path.join(run, "obs", "fleet_serve.trace.json"))
+    check({e.get("pid") for e in events} == {0, 1},
+          "fleet: the merged serving trace holds both replicas")
+    obs_text, obs_err, rc = outs["obs-report"]
+    check(rc == 0 and "obs-report: 2 rank(s)" in obs_text
+          and "replica0" in obs_text and "replica1" in obs_text,
+          f"fleet: obs-report: {obs_text[:1500]} {obs_err[-1500:]}")
+    out["report"] = dict(
+        replicas={r["replica"]: {k: r[k] for k in (
+            "requests", "ok", "shed", "error", "total_p50_s",
+            "total_p99_s", "events")} for r in doc["replicas"]},
+        summary={k: doc["summary"][k] for k in (
+            "requests", "outcomes", "dispatches", "coalesce_ratio",
+            "routes", "cache_misses")},
+        tenants=sorted(doc["tenants"]))
+    print("fleet: (f) serve-report: " + text.splitlines()[0] + "; "
+          + "; ".join(f"{name} total p50 {r['total_p50_s'] * 1e3:.3f} ms "
+                      f"p99 {r['total_p99_s'] * 1e3:.3f} ms, events "
+                      f"{r['events']}"
+                      for name, r in out["report"]["replicas"].items())
+          + f"; tenants {out['report']['tenants']}; obs-report folds in "
+          "replica0 and replica1")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet: phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5932,6 +6400,7 @@ def main() -> int:
     cli = phase_cli(Xtr, ytr, Xte, yte, elastic, el_tmp, el_run)
     torch.cuda.empty_cache()
     serving = phase_serving(raw256, Xtr, ytr, Xte, yte, serve_walks)
+    fleet = phase_fleet(raw256, Xte, serving)
     del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
@@ -5954,7 +6423,7 @@ def main() -> int:
         "distributed": distributed, "rounding": rounding,
         "traced": traced, "resilience": resilience, "elastic": elastic,
         "cli": cli, "serving": {k: v for k, v in serving.items()
-                                if k != "kernel_B"}}))
+                                if k != "kernel_B"}, "fleet": fleet}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -6074,6 +6543,7 @@ def main() -> int:
                           stream_launches=serving["stream"][
                               "kernel_B_launches"],
                           **serving["kernel_B"]),
+             fleet=fleet_launches(fleet),
              **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
@@ -6134,8 +6604,8 @@ def main() -> int:
 
 
 def main_serving() -> int:
-    """``python3 chip_smoke.py --serving``: phases 1 and 47 alone, on the
-    reference-default model trained as phase 5 trains it (no eval set:
+    """``python3 chip_smoke.py --serving``: phases 1, 47 and 48 alone, on
+    the reference-default model trained as phase 5 trains it (no eval set:
     the trees are the same)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6151,7 +6621,10 @@ def main_serving() -> int:
     del bst
     torch.cuda.empty_cache()
     serving = phase_serving(raw, Xtr, ytr, Xte, yte, walks)
-    print(json.dumps({"serving": serving}, default=str))
+    fleet = phase_fleet(raw, Xte, serving)
+    print(json.dumps({"serving": serving, "fleet": fleet,
+                      "kernel_B_fleet": fleet_launches(fleet)},
+                     default=str))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)

@@ -15,7 +15,8 @@
   document, and returns 1 on an empty directory;
 - ``python -m xgboost_tpu_torch`` without arguments prints the usage and
   returns 1; every JAX subcommand that is not in the port returns 1 and
-  calls nothing.
+  calls nothing; ``serve-report`` and ``serve-fleet`` run the port's
+  ``observability/serve_report.py`` and ``serving/fleet/supervisor.py``.
 """
 
 import json
@@ -203,3 +204,47 @@ def test_unported_subcommand_returns_1(sub, capsys, monkeypatch):
         "an unported subcommand read a config"))
     assert tcli.cli_main([sub, "--help"]) == 1
     assert "not in the PyTorch port" in capsys.readouterr().err
+
+
+def test_not_ported_is_the_four_analysis_tools():
+    assert tcli.NOT_PORTED == ("perf-report", "grow-report", "lint",
+                               "dispatch-report")
+
+
+@pytest.mark.parametrize("sub, module, fn", [
+    ("serve-report", "xgboost_tpu_torch.observability.serve_report",
+     "main"),
+    ("serve-fleet", "xgboost_tpu_torch.serving.fleet.supervisor",
+     "serve_fleet_main"),
+])
+def test_serving_subcommand_runs_the_ports_tool(sub, module, fn,
+                                                monkeypatch):
+    import importlib
+
+    seen = []
+    monkeypatch.setattr(importlib.import_module(module), fn,
+                        lambda argv: seen.append(argv) or 0)
+    assert tcli.cli_main([sub, "a", "--b"]) == 0
+    assert seen == [["a", "--b"]]
+
+
+def test_serve_report_on_a_servers_run_dir(tmp_path, capsys):
+    from xgboost_tpu_torch.serving import ModelServer
+
+    X = np.random.RandomState(7).randn(200, 4).astype(np.float32)
+    bst = xgbt.train({"max_depth": 2}, xgbt.DMatrix(
+        X, (X[:, 0] > 0).astype(np.float32), device="cpu"), 2)
+    srv = ModelServer(device="cpu", batch_wait_us=0, run_dir=str(tmp_path))
+    try:
+        srv.load("m", bst)
+        for i in range(3):
+            srv.predict("m", X[i:i + 2], request_id=f"r{i}", timeout=60)
+    finally:
+        srv.close()
+    assert tcli.cli_main(["serve-report", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("serve-report: 3 request(s)")
+    assert os.path.exists(tmp_path / "obs" / "serve_report.json")
+    assert tcli.cli_main(["serve-fleet", "--port", "1"]) == 1
+    assert "serve-fleet needs --port N and --run-dir D" \
+        in capsys.readouterr().err

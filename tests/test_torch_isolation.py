@@ -65,12 +65,18 @@
   machine's counterpart); a ``ModelServer`` or ``ModelRegistry`` built
   without ``device=`` raises where there is no card; a served dispatch on
   a device reaches kernel B's wrapper once, never the plain version, and
-  a failure after the launch comes back as a typed ``RequestError``.
+  a failure after the launch comes back as a typed ``RequestError``;
+- the serving fleet (``serving/fleet/*``) and ``serve-report`` import
+  neither ``jax`` nor ``xgboost_tpu``; the fleet's supervising process
+  (supervisor and router) spawns, routes and stops replicas without one
+  call into ``torch.cuda``; ``serve-fleet`` without ``--device`` where
+  there is no card fails at once, its replica's log naming the card.
 """
 
 import ast
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -1188,3 +1194,105 @@ def test_batcher_close_serves_leftovers_on_the_servers_card(monkeypatch):
     assert served == [me]
     assert seen == [(me, torch.device("cuda", 3))]
     assert req.future.result(5).shape == (2,)
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet (serving/fleet/*, observability/serve_report.py)
+# ---------------------------------------------------------------------------
+
+FLEET_MODULES = ("xgboost_tpu_torch.serving.fleet",
+                 "xgboost_tpu_torch.serving.fleet.hashring",
+                 "xgboost_tpu_torch.serving.fleet.router",
+                 "xgboost_tpu_torch.serving.fleet.supervisor",
+                 "xgboost_tpu_torch.observability.serve_report")
+
+
+def test_fleet_modules_import_no_jax():
+    for m in FLEET_MODULES:
+        path = ROOT / (m.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / m.replace(".", "/") / "__init__.py"
+        assert path.exists(), m
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in FLEET_MODULES) +
+        "from xgboost_tpu_torch.serving import FleetSupervisor, HashRing, "
+        "ReplicaEndpoint, Router, serve_fleet_main\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'xgboost_tpu')]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+_JSONL_STUB = """
+import json, socketserver, sys
+
+class H(socketserver.StreamRequestHandler):
+    def handle(self):
+        for raw in self.rfile:
+            msg = json.loads(raw)
+            if msg.get("op") == "ping":
+                out = {"ok": True, "draining": False}
+            else:
+                out = {"id": msg.get("id"), "result": [0.5], "version": "m@v1"}
+            self.wfile.write((json.dumps(out) + "\\n").encode())
+            self.wfile.flush()
+
+srv = socketserver.ThreadingTCPServer(("127.0.0.1", int(sys.argv[1])), H)
+print("READY stub", flush=True)
+srv.serve_forever()
+"""
+
+
+def test_fleet_parent_makes_no_cuda_call(tmp_path):
+    """Supervisor and router spawn, probe, forward, broadcast and stop two
+    line-protocol replicas with every ``torch.cuda`` entry that could make
+    a context replaced by one that fails the run."""
+    stub = tmp_path / "stub.py"
+    stub.write_text(_JSONL_STUB)
+    code = (
+        "import sys, torch\n"
+        "def boom(*a, **k):\n"
+        "    raise AssertionError('the fleet parent called torch.cuda')\n"
+        "for name in ('is_available', 'init', '_lazy_init', 'set_device',\n"
+        "             'current_device', 'device_count', 'synchronize'):\n"
+        "    setattr(torch.cuda, name, boom)\n"
+        "from xgboost_tpu_torch.serving.fleet import FleetSupervisor, Router\n"
+        "router = Router(health_interval_s=0.05).start()\n"
+        f"sup = FleetSupervisor({str(tmp_path / 'run')!r}, replicas=2,\n"
+        f"    spawn_cmd=lambda rid, port: [sys.executable, {str(stub)!r},\n"
+        "                                 str(port)], router=router).start()\n"
+        "r = router.handle({'op': 'predict', 'id': 'q', 'model': 'm',\n"
+        "                   'data': [[1.0, 2.0]]})\n"
+        "assert r == {'id': 'q', 'result': [0.5], 'version': 'm@v1'}, r\n"
+        "r = router.handle({'op': 'load', 'model': 'm', 'path': 'x'})\n"
+        "assert r['ok'] and r['replicas'] == ['r0', 'r1'], r\n"
+        "assert all(x['healthy'] for x in\n"
+        "           router.handle({'op': 'stats'})['stats']['replicas'])\n"
+        "sup.stop(drain_timeout_s=5)\n"
+        "router.stop()\n"
+        "assert not torch.cuda.is_initialized()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_serve_fleet_without_a_card_fails_at_once(tmp_path, monkeypatch):
+    """``serve-fleet`` without ``--device``: each replica asks for the
+    card; with none, the first replica raises before READY and the command
+    exits 1 within seconds (not after the 180 s READY wait), its log
+    holding the replica's error."""
+    from xgboost_tpu_torch.serving.fleet import serve_fleet_main
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    t0 = time.monotonic()
+    assert serve_fleet_main(["--port", "0", "--run-dir", str(tmp_path),
+                             "--replicas", "2"]) == 1
+    assert time.monotonic() - t0 < 90
+    with open(tmp_path / "replica0" / "serve.log") as f:
+        assert "torch.cuda.is_available() is False" in f.read()
+    assert not (tmp_path / "replica1").exists()

@@ -6,8 +6,10 @@ parser of ``src/common/config.h``). Usage:
     python -m xgboost_tpu_torch <config> [key=value ...]
     python -m xgboost_tpu_torch trace-report <trace-file|glob> ... [--top N]
     python -m xgboost_tpu_torch obs-report <run_dir> ... [--top-rounds N]
+    python -m xgboost_tpu_torch serve-report <run_dir> ... [--top N]
     python -m xgboost_tpu_torch checkpoint-inspect <dir> [--json]
     python -m xgboost_tpu_torch serve (--port N | --stdin) [--model name=path ...] [--device cpu]
+    python -m xgboost_tpu_torch serve-fleet --port N --run-dir D [--replicas K] [--model name=path ...] [--device cpu]
     python -m xgboost_tpu_torch deliver --connect HOST:PORT (--model M --watch DIR | --status | --stop --model M)
 
 Config keys are the reference's: task, data, test:data, model_in,
@@ -19,18 +21,23 @@ the CPU; without it they go on the CUDA card, and without a card the task
 raises. ``trace-report`` summarizes Chrome trace-event files
 (``observability/report.py``); ``obs-report`` merges a run's per-rank
 telemetry (``run_dir/obs/rank<k>/``) into one clock-aligned trace, a
-metrics rollup and a per-round fleet table (``observability/fleet.py``);
+metrics rollup and a per-round fleet table (``observability/fleet.py``;
+a fleet's ``replica<k>/obs/server`` sinks fold in as ranks);
 ``checkpoint-inspect`` lists a resume directory's checkpoints (round,
 bytes, checksum status) and marks the newest verified one, the snapshot
 ``train(resume_from=...)`` and an elastic replay load; its exit status is
 1 when nothing verifies. ``serve`` runs the model server's JSONL protocol
 (``serving/server.py`` ``serve_main``: the JAX package's options, plus
-``--device``, the card unless it says ``cpu``); ``deliver`` is the
-operator client of a running server's ``deliver`` op.
+``--device``, the card unless it says ``cpu``); ``serve-fleet`` runs N
+``serve`` replicas behind one routing front (``serving/fleet``: the JAX
+package's options, ``--device`` passed on to every replica);
+``serve-report`` merges a server's or a fleet's serving observability into
+latency, shed and coalescing tables and one trace
+(``observability/serve_report.py``); ``deliver`` is the operator client of
+a running server's ``deliver`` op.
 
-The JAX package's ``serve-report``, ``serve-fleet``, ``perf-report``,
-``grow-report``, ``lint`` and ``dispatch-report`` are not in the port:
-each prints so and returns 1.
+The JAX package's ``perf-report``, ``grow-report``, ``lint`` and
+``dispatch-report`` are not in the port: each prints so and returns 1.
 """
 
 from __future__ import annotations
@@ -50,8 +57,7 @@ __all__ = ["parse_config_file", "cli_main", "checkpoint_inspect_main",
            "deliver_main", "main"]
 
 #: the JAX package's subcommands that have no counterpart in the port
-NOT_PORTED = ("serve-report", "serve-fleet", "perf-report", "grow-report",
-              "lint", "dispatch-report")
+NOT_PORTED = ("perf-report", "grow-report", "lint", "dispatch-report")
 
 
 def parse_config_file(path: str) -> List[Tuple[str, str]]:
@@ -113,6 +119,14 @@ def cli_main(argv: List[str]) -> int:
         from .serving.server import serve_main
 
         return serve_main(argv[1:])
+    if argv[0] == "serve-report":
+        from .observability.serve_report import main as serve_report_main
+
+        return serve_report_main(argv[1:])
+    if argv[0] == "serve-fleet":
+        from .serving.fleet.supervisor import serve_fleet_main
+
+        return serve_fleet_main(argv[1:])
     if argv[0] in NOT_PORTED:
         print(f"{argv[0]}: not in the PyTorch port (the JAX package's "
               "xgboost_tpu has it)", file=sys.stderr)

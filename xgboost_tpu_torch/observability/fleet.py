@@ -25,9 +25,13 @@ so it also reads what a crashed run left:
 
 Partial data is expected: a SIGKILLed rank's torn last JSONL line is
 skipped, a rank that died before its first round has only a meta line,
-and a rank without ``clock.json`` keeps unshifted timestamps. The JAX
-package's serving sinks (``replica<k>/obs/server``) have no counterpart:
-serving is not ported.
+and a rank without ``clock.json`` keeps unshifted timestamps.
+
+A fleet run directory (``serve-fleet``) holds no ranks but one serving
+sink per replica, ``replica<k>/obs/server``: :func:`collect` loads each as
+a rank-shaped member after any training ranks, so ``obs-report`` rolls N
+replicas up as it rolls up N ranks. :func:`load_obs_dir` loads one such
+directory on its own (``serve-report``, ``observability/serve_report.py``).
 """
 
 from __future__ import annotations
@@ -41,16 +45,17 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from .trace import load_trace
 
-__all__ = ["collect", "merge_trace", "write_trace", "rollup_metrics",
-           "fleet_table", "format_fleet_report", "main"]
+__all__ = ["collect", "load_obs_dir", "merge_trace", "write_trace",
+           "rollup_metrics", "fleet_table", "format_fleet_report", "main"]
 
 _RANK_RE = re.compile(r"^rank(\d+)$")
+_REPLICA_RE = re.compile(r"^replica(\d+)$")
 
 
 class RankObs:
     """One rank's persisted observability files, parsed leniently.
     ``title`` names the merged trace's process lane (the rank, unless a
-    merge of several run directories sets it)."""
+    merge of several run directories or a fleet replica sets it)."""
 
     def __init__(self, rank: int, path: str, title: Optional[str] = None):
         self.rank = rank
@@ -128,9 +133,18 @@ class RankObs:
         return out
 
 
+def load_obs_dir(path: str, rank: int = 0,
+                 title: Optional[str] = None) -> RankObs:
+    """One observability directory outside the ``rank<k>`` naming (the
+    same files, parsed as leniently), such as a server's ``obs/server``;
+    ``rank`` becomes its Chrome ``pid``."""
+    return RankObs(rank, path, title).load()
+
+
 def collect(run_dir: str) -> List[RankObs]:
-    """Every ``rank<k>`` directory under ``run_dir/obs``, loaded, in rank
-    order."""
+    """Every ``rank<k>`` directory under ``run_dir/obs``, loaded, and
+    every ``replica<k>/obs/server`` sink of a fleet run directory as a
+    rank-shaped member titled ``replica<k>``, in rank order."""
     ranks: List[RankObs] = []
     obs = os.path.join(run_dir, "obs")
     try:
@@ -142,6 +156,18 @@ def collect(run_dir: str) -> List[RankObs]:
         sub = os.path.join(obs, name)
         if m and os.path.isdir(sub):
             ranks.append(RankObs(int(m.group(1)), sub).load())
+    try:
+        top = sorted(os.listdir(run_dir))
+    except OSError:
+        top = []
+    # replicas come after the training ranks, so pids never collide
+    base = max((r.rank for r in ranks), default=-1) + 1
+    for name in top:
+        m = _REPLICA_RE.match(name)
+        sub = os.path.join(run_dir, name, "obs", "server")
+        if m and os.path.isdir(sub):
+            ranks.append(RankObs(base + int(m.group(1)), sub,
+                                 title=name).load())
     return sorted(ranks, key=lambda r: r.rank)
 
 
@@ -423,9 +449,10 @@ def main(argv: List[str]) -> int:
                 r.rank += i * 100
         ranks.extend(sub)
     if not ranks:
-        print(f"{' '.join(run_dirs)}: no obs/rank<k> directories found "
-              "(was the run given a flight-recorder sink? "
-              "observability.flight.configure(run_dir))", file=sys.stderr)
+        print(f"{' '.join(run_dirs)}: no obs/rank<k> (or replica<k>/obs/"
+              "server) directories found (was the run given a "
+              "flight-recorder sink? observability.flight.configure("
+              "run_dir))", file=sys.stderr)
         return 1
     merged = merge_trace(ranks)
     rollup = rollup_metrics(ranks)
@@ -434,6 +461,7 @@ def main(argv: List[str]) -> int:
     trace_out = os.path.join(obs, "merged.trace.json")
     rollup_out = os.path.join(obs, "metrics_rollup.json")
     try:
+        os.makedirs(obs, exist_ok=True)  # a fleet run_dir may have none
         write_trace(trace_out, merged)
         with open(rollup_out, "w") as f:
             json.dump({"rollup": rollup, "fleet_table": table}, f)

@@ -2,8 +2,10 @@
 ``resilience``):
 
 - ``policy``: failure classification (transient / resource / permanent,
-  with the card's own signatures) and ``RetryPolicy`` (bounded retries,
-  deterministic backoff, deadlines; ``XGBTPU_RETRY``);
+  with the card's own signatures), ``RetryPolicy`` (bounded retries,
+  deterministic backoff, deadlines; ``XGBTPU_RETRY``) and
+  ``should_reroute``, the serving fleet router's verdict on a request
+  lost in transit;
 - ``chaos``: named-site fault injection with seeded schedules
   (``XGBTPU_CHAOS``);
 - ``checkpoint``: atomic, checksummed checkpoints with previous-good
@@ -13,8 +15,8 @@
 
 Not ported: the JAX package's ``degrade`` (its callers demote a Pallas
 kernel to XLA, a fallback the port forbids: a kernel launches or
-raises), the serving router's ``policy.should_reroute`` and the
-``policy.retry_call`` shorthand (the port has no caller of either).
+raises) and the ``policy.retry_call`` shorthand (the port has no caller
+of it).
 """
 
 from . import chaos, checkpoint, policy, watchdog  # noqa: F401

@@ -35,7 +35,7 @@ from typing import Callable, Optional, Sequence, Tuple
 __all__ = [
     "TRANSIENT", "RESOURCE", "PERMANENT", "KINDS",
     "classify", "record_failure", "retry_budget", "RetryPolicy",
-    "is_worker_loss",
+    "is_worker_loss", "should_reroute",
 ]
 
 TRANSIENT = "transient"
@@ -87,6 +87,21 @@ def is_worker_loss(exc: BaseException) -> bool:
         return True
     msg = str(exc).lower()
     return any(t in msg for t in _WORKER_LOSS_SUBSTRINGS)
+
+
+def should_reroute(exc: BaseException) -> bool:
+    """The serving fleet's verdict on a request that failed in transit to
+    a replica (``serving/fleet/router.py``): True when the failure reads
+    as a lost or draining peer, a bare connection exception (reset,
+    refused, broken pipe, EOF mid-response), a socket timeout, or any
+    :func:`is_worker_loss` signature. The router then retries the request
+    once on a healthy replica: a predict is idempotent, so a re-route can
+    duplicate work but never corrupt an answer. A failure the replica
+    itself reported (a typed ``RequestError``, a shed) rides the response
+    line and is never re-routed: the replica is alive and classified it."""
+    if isinstance(exc, (ConnectionError, EOFError, TimeoutError)):
+        return True
+    return is_worker_loss(exc)
 
 
 def classify(exc: BaseException) -> str:

@@ -15,13 +15,16 @@ package's ``serving/``; ``predictor/serving.py`` is the fast path).
   typed ``RequestError`` for exactly the poison members), per-model
   circuit breakers, input quarantine, the batcher watchdog;
 - :mod:`.delivery`: continuous train-to-serve delivery (watch, publish,
-  canary, gate, promote, auto-rollback).
+  canary, gate, promote, auto-rollback);
+- :mod:`.fleet`: N replica processes behind a consistent-hash router,
+  supervised and respawned from one shared manifest.
 
 Entry points: :class:`ModelServer` in Python, ``python -m
-xgboost_tpu_torch serve`` for the JSONL stdin/socket protocol. Not ported
-yet: the JAX package's fleet tier (``serving/fleet``) and
-``serve-report``. Not ported, on purpose: its degrade routing to a native
-CPU walker (a faulting launch takes the fault ladder instead).
+xgboost_tpu_torch serve`` for the JSONL stdin/socket protocol, ``python -m
+xgboost_tpu_torch serve-fleet`` for the replicated tier and ``serve-report``
+(``observability/serve_report.py``) for what the traffic looked like. Not
+ported, on purpose: the JAX package's degrade routing to a native CPU
+walker (a faulting launch takes the fault ladder instead).
 """
 
 from .admission import AdmissionController, RequestShed  # noqa: F401
@@ -38,11 +41,15 @@ from .swap import hot_swap, promote_live  # noqa: F401
 from .tenancy import (  # noqa: F401
     ModelEntry, ModelRegistry, TenantFairQueue,
 )
+from .fleet import (  # noqa: F401
+    FleetSupervisor, HashRing, ReplicaEndpoint, Router, serve_fleet_main,
+)
 
 __all__ = [
     "AdmissionController", "CanaryRouter", "CanaryState", "CircuitBreaker",
-    "DeliveryController", "FaultDomain", "MicroBatcher",
-    "ModelEntry", "ModelRegistry", "ModelServer", "Quarantine",
-    "RequestError", "RequestShed", "SLOLedger", "ServingRecorder",
-    "TenantFairQueue", "hot_swap", "promote_live", "serve_main",
+    "DeliveryController", "FaultDomain", "FleetSupervisor", "HashRing",
+    "MicroBatcher", "ModelEntry", "ModelRegistry", "ModelServer",
+    "Quarantine", "ReplicaEndpoint", "RequestError", "RequestShed",
+    "Router", "SLOLedger", "ServingRecorder", "TenantFairQueue",
+    "hot_swap", "promote_live", "serve_fleet_main", "serve_main",
 ]

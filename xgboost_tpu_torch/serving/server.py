@@ -886,6 +886,14 @@ def serve_main(argv: List[str], stdin=None, stdout=None) -> int:
     except ValueError:
         pass  # not the main thread
 
+    if server.device.type == "cuda":
+        # a server restored from a manifest (a fleet replica's respawn)
+        # faults its models in at their first request: kernel B's library
+        # (built at first use) loads here, before READY, not on that
+        # request
+        from .. import _build
+
+        _build.library("predict_walk")
     host, port = tcp.server_address[:2]
     print(f"READY serving on {host}:{port} "
           f"(models: {', '.join(sorted(opts['models'])) or 'none'} "
