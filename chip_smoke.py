@@ -4,6 +4,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --serving   # phases 1, 47 and 48 alone
+    python3 chip_smoke.py --pipeline  # phases 1 and 49 alone
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -441,6 +442,28 @@ After phase 40 (max_bin 256 unless named):
     fleet directory (``fleet serve-report (2 replicas)``, the per-replica
     rollup with the drain, the per-tenant rollup, the merged trace with
     both replicas) and ``obs-report`` folding in both replicas.
+49. the pipelined round loop (``phase_pipeline``, after 48) on the main
+    path (1M x 50, max_bin 64, depth 6, eta 0.1, the hoisted route). (a)
+    20 consumer-free rounds (no eval set) at ``XGBTPU_PIPELINE_DEPTH`` 0
+    and 2 in turns, 3 runs each, after one untimed round (the binning and
+    kernel C's one-hot): equal ``save_raw()`` bytes, the flight ``sync``
+    stage above 0 at depth 2, launches C 1, D 6 a round, A and B none;
+    the host ms a round (the run's wall time over its rounds, the device
+    synchronised at the end) and ``torch.cuda.max_memory_allocated`` of
+    each depth; the host syncs of one consumer-free round listed by
+    ``torch.cuda.set_sync_debug_mode("warn")``. (c) 10 rounds with the
+    100k held-out eval and a checkpoint a round, async
+    (``XGBTPU_ASYNC_CKPT=1``) and synchronous in turns (async, sync, sync,
+    async): every run's checkpoint files byte-equal; the median round
+    (flight records' wall time) and a checkpoint's ms on the loop's thread
+    (``_AtomicCheckpoint._save``) of each; S, the runs' bytes. (b) The
+    same run with a scripted ``pipeline_sync`` fault at round 5's wait:
+    it raises with ``.pipeline_round`` 5 and one ``pipeline_fault`` flight
+    event, the abort commits 6 rounds, and the resume gives S; (b) and
+    (c) launch D 6 a trained round, B one eval walk a trained round and
+    the resume's fill walks (2 a committed round), C and A none. (d)
+    ``XGBTPU_OBSERVER`` on 2 rounds: the JAX package's 6 file names
+    (``00000_grad.npy`` ...), their sums printed.
 
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
@@ -6297,6 +6320,243 @@ def phase_fleet(raw256, Xte, serving):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 49: the pipelined round loop
+# ---------------------------------------------------------------------------
+
+PIPE_ROUNDS = 20        # consumer-free rounds of each run of (a)
+PIPE_TURNS = (0, 2, 2, 0, 0, 2)  # XGBTPU_PIPELINE_DEPTH of (a)'s runs
+PIPE_CKPT_ROUNDS = 10   # (b) and (c): one checkpoint a round
+PIPE_FAULT_ROUND = 5    # (b): the pipeline_sync fault's round
+PIPE_CKPT_TURNS = ("1", "0", "0", "1")  # XGBTPU_ASYNC_CKPT of (c)'s runs
+
+
+def _pipe_syncs(d):
+    """The host syncs of one consumer-free round (round 2 of a Booster
+    admitting each round to a depth-2 ``RoundPipeline``), listed by
+    ``torch.cuda.set_sync_debug_mode("warn")``: ``{"file:line": count}``
+    and the first message."""
+    from xgboost_tpu_torch.pipeline import RoundPipeline, completion_probe
+
+    bst = xgbt.Booster(PARAMS, cache=[d], device=DEVICE)
+    pipe = RoundPipeline(depth=2)
+    root = os.path.dirname(os.path.abspath(__file__)) + os.sep
+    where, first = {}, None
+    for i in range(3):
+        if i == 2:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                bst.update(d, i)
+                pipe.admit(i, completion_probe(bst._caches[id(d)].margin))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if i == 2:
+            for w in caught:
+                if "synchroniz" not in str(w.message):
+                    continue
+                key = f"{w.filename.replace(root, '')}:{w.lineno}"
+                where[key] = where.get(key, 0) + 1
+                first = first or str(w.message).splitlines()[0][:160]
+    pipe.drain()
+    del bst
+    return where, first
+
+
+def phase_pipeline(Xtr, ytr, Xte, yte):
+    """Phase 49: the pipelined round loop on the main path (module
+    docstring, 49)."""
+    from xgboost_tpu_torch.observability import flight
+    from xgboost_tpu_torch.resilience import chaos, checkpoint
+    from xgboost_tpu_torch.resilience.chaos import ChaosError
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="xgbt_pipeline_")
+    env0 = {k: os.environ.get(k) for k in (
+        "XGBTPU_PIPELINE_DEPTH", "XGBTPU_ASYNC_CKPT", "XGBTPU_OBSERVER")}
+    out = {}
+    try:
+        d = xgbt.DMatrix(Xtr, ytr, device=DEVICE)
+        dv = xgbt.DMatrix(Xte, yte, device=DEVICE)
+
+        # (a) consumer-free rounds at depth 0 and 2, in turns; the first
+        # round (binning, kernel C's one-hot) runs before them, untimed
+        torch.cuda.synchronize()
+        reset_launches()
+        xgbt.train(PARAMS, d, 1, verbose_eval=False)
+        raws, ms, mem, sync = set(), {0: [], 2: []}, {0: [], 2: []}, \
+            {0: 0.0, 2: 0.0}
+        for depth in PIPE_TURNS:
+            os.environ["XGBTPU_PIPELINE_DEPTH"] = str(depth)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            s0 = flight.stage_totals().get("sync", 0.0)
+            t0 = time.perf_counter()
+            bst = xgbt.train(PARAMS, d, PIPE_ROUNDS, verbose_eval=False)
+            torch.cuda.synchronize()
+            ms[depth].append((time.perf_counter() - t0) * 1e3 / PIPE_ROUNDS)
+            mem[depth].append(torch.cuda.max_memory_allocated())
+            sync[depth] += flight.stage_totals().get("sync", 0.0) - s0
+            raws.add(bst.save_raw())
+            del bst
+        got_a = launches()
+        check(len(raws) == 1, "pipeline (a): depths 0 and 2 give equal "
+              f"save_raw() bytes ({len(raws)} distinct)")
+        check(sync[2] > 0, f"pipeline (a): the flight sync stage at depth 2 "
+              f"{sync[2]}")
+        want = {"A": 0, "B": 0, "C": 1,
+                "D": DEPTH * (1 + PIPE_ROUNDS * len(PIPE_TURNS))}
+        check(got_a == want, f"pipeline (a): launches {got_a}, want {want}")
+        os.environ["XGBTPU_PIPELINE_DEPTH"] = "2"
+        where, first = _pipe_syncs(d)
+        out["a"] = dict(
+            ms_per_round={k: statistics.median(v) for k, v in ms.items()},
+            ms_runs=ms, max_memory_allocated=mem, sync_s=sync,
+            launches=got_a, syncs_in_a_round=where, sync_message=first)
+        print(f"pipeline: (a) {PIPE_ROUNDS} consumer-free rounds x "
+              f"{len(PIPE_TURNS)} runs (depths {PIPE_TURNS}): bytes equal; "
+              f"host ms a round, median of 3: depth 0 "
+              f"{out['a']['ms_per_round'][0]:.3f}, depth 2 "
+              f"{out['a']['ms_per_round'][2]:.3f} (runs {ms}); "
+              f"max_memory_allocated depth 0 {max(mem[0])}, depth 2 "
+              f"{max(mem[2])} bytes; sync stage {sync} s; launches {got_a}")
+        print(f"pipeline: syncs in one consumer-free round "
+              f"(set_sync_debug_mode warn): {sum(where.values())} at "
+              f"{json.dumps(where)}; first: {first}")
+
+        # (c) async and synchronous checkpoints a round, in turns, each
+        # run with the held-out eval (one kernel B walk a round)
+        reset_launches()
+        files, round_ms, save_ms = {}, {"1": [], "0": []}, {"1": [], "0": []}
+        stages = {"1": {}, "0": {}}
+        straight = set()
+        for i, mode in enumerate(PIPE_CKPT_TURNS):
+            os.environ["XGBTPU_ASYNC_CKPT"] = mode
+            ckdir = os.path.join(tmp, f"ck_c{i}")
+            flight.RECORDER.reset()
+            with _ResumeClock() as clock:
+                bst = xgbt.train(PARAMS, d, PIPE_CKPT_ROUNDS,
+                                 evals=[(dv, "eval")], verbose_eval=False,
+                                 resume_from=ckdir, checkpoint_interval=1)
+            torch.cuda.synchronize()
+            recs = [r for r in flight.RECORDER.records()
+                    if r.get("t") == "round"]
+            round_ms[mode].append(_median_wall(recs))
+            save_ms[mode].append(statistics.median(clock.ms["save"]))
+            for st in ("checkpoint", "checkpoint_io", "sync"):
+                stages[mode].setdefault(st, []).append(
+                    flight.stage_totals().get(st, 0.0))
+            straight.add(bst.save_raw())
+            del bst
+            files[i] = {os.path.basename(p): open(p, "rb").read()
+                        for p in checkpoint.list_checkpoints(ckdir)}
+        os.environ["XGBTPU_ASYNC_CKPT"] = "1"
+        check(len(straight) == 1, "pipeline (c): the runs' bytes are equal")
+        S = straight.pop()
+        check(all(files[i] == files[0] for i in files) and sorted(files[0])
+              == [f"ckpt_{PIPE_CKPT_ROUNDS - 1:08d}.ckpt",
+                  f"ckpt_{PIPE_CKPT_ROUNDS:08d}.ckpt"],
+              "pipeline (c): async and synchronous checkpoint files "
+              "byte-equal")
+        check(checkpoint.read_checkpoint(os.path.join(
+            tmp, "ck_c0", f"ckpt_{PIPE_CKPT_ROUNDS:08d}.ckpt"))[0] == S,
+            "pipeline (c): the newest checkpoint holds the run's bytes")
+        out["c"] = dict(median_round_ms=round_ms, save_ms=save_ms,
+                        stage_totals_s=stages, payload_bytes=len(S))
+        print(f"pipeline: (c) {PIPE_CKPT_ROUNDS} rounds with a checkpoint a "
+              f"round and the eval, in turns {PIPE_CKPT_TURNS} "
+              f"(XGBTPU_ASYNC_CKPT): files byte-equal; median round ms "
+              f"async {round_ms['1']}, sync {round_ms['0']}; a checkpoint "
+              f"on the loop's thread ms async {save_ms['1']}, sync "
+              f"{save_ms['0']}; stage "
+              f"totals s {json.dumps(stages)}; payload {len(S)} bytes")
+
+        # (b) a pipeline_sync fault at round PIPE_FAULT_ROUND's wait, the
+        # abort's commit, and the resume
+        ckdir = os.path.join(tmp, "ck_b")
+        flight.RECORDER.reset()
+        err = None
+        with chaos.configure(
+                f"pipeline_sync:transient:{PIPE_FAULT_ROUND + 1}") as plan:
+            try:
+                xgbt.train(PARAMS, d, PIPE_CKPT_ROUNDS, evals=[(dv, "eval")],
+                           verbose_eval=False, resume_from=ckdir,
+                           checkpoint_interval=1)
+            except ChaosError as e:
+                err = e
+        check(err is not None and plan.fired == [
+            ("pipeline_sync", PIPE_FAULT_ROUND + 1, "transient")],
+            f"pipeline (b): the pipeline_sync fault fired ({plan.fired})")
+        check(getattr(err, "pipeline_round", None) == PIPE_FAULT_ROUND,
+              f"pipeline (b): .pipeline_round "
+              f"{getattr(err, 'pipeline_round', None)}")
+        ev = [r for r in flight.RECORDER.records()
+              if r.get("t") == "event" and r.get("name") == "pipeline_fault"]
+        check(len(ev) == 1 and ev[0]["args"]["round"] == PIPE_FAULT_ROUND,
+              f"pipeline (b): pipeline_fault events {ev}")
+        at_fault = checkpoint.load_latest(ckdir)[1]
+        check(at_fault == PIPE_FAULT_ROUND + 1,
+              f"pipeline (b): the abort committed {at_fault} rounds")
+        bst = xgbt.train(PARAMS, d, PIPE_CKPT_ROUNDS, evals=[(dv, "eval")],
+                         verbose_eval=False, resume_from=ckdir,
+                         checkpoint_interval=1)
+        check(bst.save_raw() == S, "pipeline (b): resumed == straight")
+        del bst
+        got_bc = launches()
+        resumed = PIPE_CKPT_ROUNDS - at_fault
+        evals = PIPE_CKPT_ROUNDS * len(PIPE_CKPT_TURNS) \
+            + PIPE_FAULT_ROUND + resumed
+        want = {"A": 0, "C": 0,
+                "D": DEPTH * (PIPE_CKPT_ROUNDS * (len(PIPE_CKPT_TURNS) + 1)),
+                "B": evals + 2 * at_fault}
+        check(got_bc == want,
+              f"pipeline (b, c): launches {got_bc}, want {want}")
+        out["b"] = dict(pipeline_round=err.pipeline_round, at_fault=at_fault,
+                        launches_b_c=got_bc)
+        print(f"pipeline: (b) pipeline_sync fault at round "
+              f"{err.pipeline_round} ({type(err).__name__}, one "
+              f"pipeline_fault event), the abort committed {at_fault} "
+              f"rounds, resumed == straight; launches of (b) and (c) "
+              f"{got_bc} (B: {evals} eval walks, {2 * at_fault} fill walks)")
+
+        # (d) the observer on 2 rounds
+        obs = os.path.join(tmp, "obs")
+        os.environ["XGBTPU_OBSERVER"] = obs
+        xgbt.train(PARAMS, d, 2, verbose_eval=False)
+        del os.environ["XGBTPU_OBSERVER"]
+        names = sorted(os.listdir(obs))
+        want_names = [f"{i:05d}_{n}.npy" for i in (0, 1)
+                      for n in ("grad", "hess", "margin")]
+        check(names == want_names, f"pipeline (d): observer files {names}")
+        sums = {n: float(np.load(os.path.join(obs, n)).astype(np.float64)
+                         .sum()) for n in names}
+        shapes = {n: list(np.load(os.path.join(obs, n)).shape)
+                  for n in names}
+        check(all(np.isfinite(v) for v in sums.values())
+              and shapes["00000_margin.npy"] == [ROWS, 1]
+              and shapes["00000_grad.npy"] == [ROWS],
+              f"pipeline (d): observer arrays {shapes} {sums}")
+        out["d"] = dict(files=names, sums=sums)
+        print(f"pipeline: (d) XGBTPU_OBSERVER on 2 rounds: {names}; sums "
+              f"{json.dumps(sums)}")
+    finally:
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["launches"] = {k: out["a"]["launches"][k] + out["b"]["launches_b_c"][k]
+                       for k in "ABCD"}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"pipeline: launches {out['launches']}; phase "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6401,6 +6661,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving = phase_serving(raw256, Xtr, ytr, Xte, yte, serve_walks)
     fleet = phase_fleet(raw256, Xte, serving)
+    torch.cuda.empty_cache()
+    pipeline = phase_pipeline(Xtr, ytr, Xte, yte)
     del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
@@ -6423,7 +6685,8 @@ def main() -> int:
         "distributed": distributed, "rounding": rounding,
         "traced": traced, "resilience": resilience, "elastic": elastic,
         "cli": cli, "serving": {k: v for k, v in serving.items()
-                                if k != "kernel_B"}, "fleet": fleet}))
+                                if k != "kernel_B"}, "fleet": fleet,
+        "pipeline": pipeline}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -6516,6 +6779,7 @@ def main() -> int:
              distributed=dist_launches("A"),
              resilience=resilience_launches("A"),
              elastic=elastic_launches("A"),
+             pipeline=dict(launches=pipeline["launches"]["A"]),
              **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
@@ -6544,6 +6808,7 @@ def main() -> int:
                               "kernel_B_launches"],
                           **serving["kernel_B"]),
              fleet=fleet_launches(fleet),
+             pipeline=dict(launches=pipeline["launches"]["B"]),
              **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
@@ -6564,6 +6829,7 @@ def main() -> int:
              distributed=dist_launches("C"), traced=traced_launches("C"),
              resilience=resilience_launches("C"),
              elastic=elastic_launches("C"),
+             pipeline=dict(launches=pipeline["launches"]["C"]),
              **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
@@ -6589,6 +6855,7 @@ def main() -> int:
              distributed=dist_launches("D"), traced=traced_launches("D"),
              resilience=resilience_launches("D"),
              elastic=elastic_launches("D"),
+             pipeline=dict(launches=pipeline["launches"]["D"]),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -6633,9 +6900,29 @@ def main_serving() -> int:
     return 0
 
 
+def main_pipeline() -> int:
+    """``python3 chip_smoke.py --pipeline``: phases 1 and 49 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_build()
+    X, y, _ = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
+    pipeline = phase_pipeline(X[:ROWS], y[:ROWS], X[ROWS:], y[ROWS:])
+    print(json.dumps({"pipeline": pipeline}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi failed: {smi.stderr.strip()}")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--serving"]:
         sys.exit(main_serving())
+    if sys.argv[1:] == ["--pipeline"]:
+        sys.exit(main_pipeline())
     if len(sys.argv) == 3 and sys.argv[1] == "--resilience-worker":
         sys.exit(_resilience_worker(json.loads(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--elastic-worker":

@@ -352,12 +352,15 @@ def test_world2_ranks_killed_at_different_rounds_resume_together(
     """Rank 1's writes are held in flight (``XGBTPU_TEST_CKPT_WRITE_DELAY``)
     and both ranks are killed once rank 0 has committed round 3: rank 0's
     newest is 3, rank 1's is 2. The rerun resumes both from 2, the newest
-    round both hold, and ends with the single process's bytes."""
+    round both hold, and ends with the single process's bytes. The writes
+    run on the training thread (``XGBTPU_ASYNC_CKPT=0``), so a held write
+    holds its rank's round: the async writer's one slot would hold rank 1
+    a round further back, with no round in common with rank 0's."""
     from xgboost_tpu_torch.resilience import checkpoint
 
     ck = tmp_path / "ck"
     procs = [_run(["rank", r, tmp_path / "pg_kill", ck,
-                   tmp_path / f"rank{r}.bin"],
+                   tmp_path / f"rank{r}.bin"], XGBTPU_ASYNC_CKPT="0",
                   **({"XGBTPU_TEST_CKPT_WRITE_DELAY": "1.5"} if r else {}))
              for r in (0, 1)]
     try:

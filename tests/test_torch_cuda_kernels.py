@@ -1087,6 +1087,50 @@ def test_resume_on_the_card_equals_straight_and_cpu(cuda, tmp_path):
     assert trees(resumed) == trees(cpu.save_raw())
 
 
+def test_pipeline_on_the_card_equals_depth_0_and_cpu(cuda, monkeypatch):
+    """``-k pipeline``: 5 rounds of 64k rows (depth 6, max_bin 64) through
+    ``train`` and ``update_many`` at ``XGBTPU_PIPELINE_DEPTH`` 0, 1 and 2
+    give one set of bytes, whose trees are the CPU's; each admitted round's
+    handle is a ``torch.cuda.Event`` that has completed after the drain."""
+    import json
+
+    import xgboost_tpu_torch as xgbt
+    from xgboost_tpu_torch import learner as tlearner
+    from test_torch_crash_resume import data
+
+    X, y = data(65_536, 20)
+    params = {"objective": "binary:logistic", "max_depth": 6, "max_bin": 64,
+              "eta": 0.1, "verbosity": 0}
+    probes = []
+    real = tlearner.completion_probe
+
+    def probe(t):
+        probes.append(real(t))
+        return probes[-1]
+
+    monkeypatch.setattr(tlearner, "completion_probe", probe)
+    raws = set()
+    for depth in "012":
+        monkeypatch.setenv("XGBTPU_PIPELINE_DEPTH", depth)
+        d = xgbt.DMatrix(X, y, device=cuda)
+        raws.add(xgbt.train(params, d, 5, verbose_eval=False).save_raw())
+        b = xgbt.Booster(params, [d], device=cuda)
+        b.update_many(d, 0, 5, chunk=2)
+        b._pipeline.drain()
+        raws.add(b.save_raw())
+    assert len(raws) == 1
+    assert len(probes) == 9
+    assert all(isinstance(e, torch.cuda.Event) and e.query() for e in probes)
+    cpu = xgbt.train(params, xgbt.DMatrix(X, y, device="cpu"), 5,
+                     verbose_eval=False)
+
+    def trees(raw):
+        return json.loads(raw)["learner"]["gradient_booster"]["model"][
+            "trees"]
+
+    assert trees(raws.pop()) == trees(cpu.save_raw())
+
+
 @pytest.mark.parametrize("objective", ["binary:logistic", "multi:softprob"])
 def test_serving_coalesced_dispatch_equals_plain_bitwise(cuda, objective):
     """``-k serving``: a model server on the card answers 64 one-row

@@ -30,9 +30,8 @@ NAMES = ["a", "b", "c", "d", "e"]
 TYPES = ["q", "c", "q", "c", "int"]
 FMAP = "0 a q\n1 b c\n2 c i\n3 d q\n4 e int\n"
 #: learner_train_param keys of the JAX package's LearnerParam that the
-#: port's lacks (the device is the Booster's own; multi-output trees are
-#: not ported)
-CONFIG_ONLY_JAX = {"device", "multi_strategy"}
+#: port's lacks (the device is the Booster's own)
+CONFIG_ONLY_JAX = {"device"}
 
 
 def _data(seed=0, n=600):

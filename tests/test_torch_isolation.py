@@ -70,7 +70,11 @@
   neither ``jax`` nor ``xgboost_tpu``; the fleet's supervising process
   (supervisor and router) spawns, routes and stops replicas without one
   call into ``torch.cuda``; ``serve-fleet`` without ``--device`` where
-  there is no card fails at once, its replica's log naming the card.
+  there is no card fails at once, its replica's log naming the card;
+- the pipelined round loop (``pipeline.py``, ``utils/observer.py`` and the
+  async checkpoint writer) imports neither ``jax`` nor ``xgboost_tpu``,
+  nor does a pipelined run with checkpoints, the async writer and the
+  observer on.
 """
 
 import ast
@@ -1296,3 +1300,36 @@ def test_serve_fleet_without_a_card_fails_at_once(tmp_path, monkeypatch):
     with open(tmp_path / "replica0" / "serve.log") as f:
         assert "torch.cuda.is_available() is False" in f.read()
     assert not (tmp_path / "replica1").exists()
+
+
+# ---------------------------------------------------------------------------
+# the pipelined round loop (pipeline.py, utils/observer.py, the async writer)
+# ---------------------------------------------------------------------------
+
+PIPELINE_MODULES = ("xgboost_tpu_torch.pipeline",
+                    "xgboost_tpu_torch.utils.observer",
+                    "xgboost_tpu_torch.resilience.checkpoint")
+
+
+def test_pipeline_modules_import_no_jax(tmp_path):
+    for m in PIPELINE_MODULES:
+        assert (ROOT / (m.replace(".", "/") + ".py")).exists(), m
+    code = (
+        "import os, sys\n"
+        + "".join(f"import {m}\n" for m in PIPELINE_MODULES) +
+        f"os.environ['XGBTPU_OBSERVER'] = {str(tmp_path / 'obs')!r}\n"
+        "os.environ['XGBTPU_PIPELINE_DEPTH'] = '2'\n"
+        "import numpy as np\n"
+        "import xgboost_tpu_torch as xgbt\n"
+        "X = np.random.RandomState(0).randn(200, 3).astype(np.float32)\n"
+        "d = xgbt.DMatrix(X, (X[:, 0] > 0).astype(np.float32), device='cpu')\n"
+        f"bst = xgbt.train({{'max_depth': 2}}, d, 2, resume_from={str(tmp_path / 'ck')!r})\n"
+        "bst.update_many(d, 2, 2)\n"
+        "bst._pipeline.drain()\n"
+        f"assert len(os.listdir({str(tmp_path / 'obs')!r})) == 12\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'xgboost_tpu')]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -289,6 +289,9 @@ def test_abandoned_future_skipped_at_dispatch_assembly(model):
         np.testing.assert_array_equal(f2.result(60),
                                       bst.inplace_predict(X[1:3]))
         assert f1.cancelled()
+        # the outcome is counted on the recorder's writer thread: read it
+        # behind the barrier its readers use
+        assert srv.obs.drain(30)
         assert _counter("serving_requests_total",
                         outcome="abandoned") == a0 + 1
         assert srv.registry.get("m").inflight == 0

@@ -586,13 +586,14 @@ def test_validate_parameters_matches(both, params, raises):
     ({"max_leaves": 8}, True),
     ({"num_parallel_tree": 2}, True),
     ({"updater": "refresh"}, False),
-    ({"multi_strategy": "multi_output_tree"}, False),
+    ({"multi_strategy": "multi_output_tree"}, True),
     ({"booster": "gblinear"}, True),
     ({"feature_selector": "shuffle", "top_k": 2}, True)])
 def test_unported_parameters_raise(both, params, ported):
     """A key the port has not ported raises, through ``train`` and
     ``set_param``. ``max_leaves`` (read by the lossguide grower only),
-    ``num_parallel_tree``, the linear booster and its keys are ported: they
+    ``num_parallel_tree``, the linear booster and its keys and
+    ``multi_strategy`` (read by nothing in either package) are ported: they
     train the JAX package's model (the linear keys change no tree, and a
     linear model's rounds count 0 in both packages). The tree boosters'
     ``updater`` sequences are ported too: ``updater="refresh"`` with no

@@ -53,7 +53,8 @@ from .parallel.mesh import current_mesh
 from .predictor import StackedForest, predict_leaf, predict_margin
 from .predictor.serving import predict_serving
 from .predictor.serving import row_blocks as _row_blocks
-from .utils import Monitor, fault
+from .pipeline import RoundPipeline, completion_probe
+from .utils import Monitor, fault, observer
 
 __all__ = ["Booster"]
 
@@ -96,6 +97,9 @@ class Booster:
         self._loaded_feature_types: List[str] = []
         self.attributes_: Dict[str, str] = {}
         self.monitor = Monitor("Booster")
+        # update_many's in-flight window, made at its first call; not in
+        # __getstate__, so a pickle or a copy starts without one
+        self._pipeline = None
         if params:
             self._apply_params(params)
         for d in cache:
@@ -387,6 +391,10 @@ class Booster:
                 m, self._label(dtrain), dtrain.weight, iteration,
                 label_lower=dtrain.label_lower_bound,
                 label_upper=dtrain.label_upper_bound, groups=dtrain.groups)
+        if observer.enabled():  # off: no copy leaves the card
+            observer.observe("margin", margin.cpu().numpy(), iteration)
+            observer.observe("grad", grad.cpu().numpy(), iteration)
+            observer.observe("hess", hess.cpu().numpy(), iteration)
         self._boost(dtrain, grad, hess, iteration)
         self.monitor.maybe_print()
 
@@ -491,16 +499,27 @@ class Booster:
         """``num_rounds`` boosting rounds from ``start_iteration``: the JAX
         package's signature, as a per-round loop (the same trees as calling
         ``update`` per round). The JAX package runs ``chunk`` rounds per
-        device dispatch (a ``lax.scan``); the port dispatches per round
+        device dispatch (a ``lax.scan``); the port launches per round
         whatever ``chunk`` is. Inside ``mesh_context`` a configuration
         outside the envelope raises before the first round. The flight
         recorder keeps one record per chunk of ``chunk`` rounds, as the
         JAX package's does (nested in ``train``'s round record, it adds
-        none)."""
+        none).
+
+        Chunks are pipelined as in the JAX package: each chunk's
+        completion event is admitted to ``self._pipeline`` (a
+        ``RoundPipeline``, made at the first call), so the host waits only
+        when more than ``XGBTPU_PIPELINE_DEPTH`` chunks are in flight; a
+        fault at that wait carries the chunk's first round
+        (``.pipeline_round``) and drops the younger chunks. The window
+        stays open across calls: a caller drains it
+        (``bst._pipeline.drain()``) at its own boundaries."""
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self._configure()
         self._check_group_envelope(dtrain, False)
+        if self._pipeline is None:
+            self._pipeline = RoundPipeline()
         done = 0
         while done < num_rounds:
             k = min(chunk, num_rounds - done)
@@ -514,6 +533,13 @@ class Booster:
                     self.update(dtrain, i)
                 if owned:
                     _flight.note("grow", time.perf_counter() - t0)
+                entry = self._caches.get(id(dtrain))
+                try:
+                    self._pipeline.admit(first, completion_probe(
+                        entry.margin if entry is not None else None))
+                except BaseException:
+                    self._pipeline.abandon()  # younger chunks are dead too
+                    raise
                 done += k
             finally:
                 _flight.RECORDER.end_round()

@@ -210,6 +210,9 @@ class LearnerParam(ParamSet):
         "nthread": Field(0, aliases=("n_jobs",)),
         "verbosity": Field(1, lower=0, upper=3),
         "validate_parameters": Field(False),
+        # declared and read by nothing, as in the JAX package: every value
+        # trains one output per tree
+        "multi_strategy": Field("one_output_per_tree"),
         "scale_pos_weight": Field(1.0),
         # the objectives' own parameters (reference regression_obj.cu,
         # aft_obj.cu; the JAX package's LearnerParam)
@@ -232,10 +235,7 @@ class LearnerParam(ParamSet):
 #: keys that the JAX package's parameter structs know and the port has not
 #: ported, each with the value at which it changes nothing; any other value
 #: raises NotImplementedError (``check_ported``).
-NOT_PORTED: Dict[str, Any] = {
-    # multi-output trees (LearnerParam)
-    "multi_strategy": "one_output_per_tree",
-}
+NOT_PORTED: Dict[str, Any] = {}
 
 
 def check_ported(params: Dict[str, Any]) -> None:

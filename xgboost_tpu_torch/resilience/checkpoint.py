@@ -23,11 +23,20 @@ bytes.
 after a crash resumes from the last committed round and grows the trees
 an uninterrupted run grows.
 
-Writes run on the caller's thread. The JAX package's async writer
-(``XGBTPU_ASYNC_CKPT``) is not ported: there it overlaps the write with
-the pipelined round loop, which the port does not have, and on the
-port's host-bound round its thread's JSON encoding and hashing cost as
-much as they hide.
+By default ``train`` commits through the async writer
+(``AsyncCheckpointWriter``, the JAX package's): the round loop takes the
+model's snapshot (``Booster.save_json()``, which copies the device trees
+to the host: a sync point) on its own thread, and one writer thread
+encodes, hashes, writes, fsyncs, renames and prunes, overlapping the next
+rounds. The loop waits again only when the previous write is still in
+flight at the next checkpoint (charged to the flight ``checkpoint``
+stage; the writer's own seconds go to ``checkpoint_io``). A write that
+exhausts its retries is parked under its directory and re-raised, with
+``.checkpoint_rounds``, at that directory's next ``submit`` or ``wait``.
+The bytes are ``save_checkpoint``'s. ``XGBTPU_ASYNC_CKPT=0`` writes on
+the caller's thread. A reader of a directory's newest checkpoint calls
+``settle(directory)`` first, so it never misses a write still in flight
+in this process.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import os
 import re
 import threading
 import time
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from . import chaos, policy
 
@@ -46,6 +55,7 @@ __all__ = [
     "FORMAT", "checkpoint_path", "save_checkpoint", "read_checkpoint",
     "load_latest", "list_checkpoints", "process_dir", "inspect_dir",
     "verify_checkpoint", "path_rounds", "atomic_write_bytes",
+    "AsyncCheckpointWriter", "async_writer", "async_enabled", "settle",
 ]
 
 FORMAT = "xgbtpu-ckpt-v1"
@@ -105,10 +115,17 @@ def save_checkpoint(directory: str, booster, rounds: int, *,
     finished rounds, then prune to the ``retain`` newest. Transient write
     faults are retried (``XGBTPU_RETRY``, default 2 retries). The write's
     seconds go to the flight stage ``checkpoint``."""
+    return _commit_payload(directory, booster.save_raw(), rounds, retain)
+
+
+def _commit_payload(directory: str, payload: bytes, rounds: int,
+                    retain: int, stage: str = "checkpoint") -> str:
+    """Header, atomic write and pruning of an encoded model: the part of
+    ``save_checkpoint`` the async writer runs on its thread, its seconds
+    charged to ``stage``."""
     from ..observability import flight, trace
     from ..observability.metrics import REGISTRY
 
-    payload = booster.save_raw()
     header = json.dumps({
         "format": FORMAT,
         "rounds": int(rounds),
@@ -121,7 +138,7 @@ def save_checkpoint(directory: str, booster, rounds: int, *,
                     bytes=len(payload)):
         policy.RetryPolicy("checkpoint_write", retries=2).run(
             _write_atomic, path, header, payload)
-    flight.note("checkpoint", time.perf_counter() - t0)
+    flight.note(stage, time.perf_counter() - t0)
     REGISTRY.counter(
         "checkpoints_written_total", "Atomic checkpoints committed").inc()
     for old in list_checkpoints(directory)[:-retain] if retain else []:
@@ -130,6 +147,180 @@ def save_checkpoint(directory: str, booster, rounds: int, *,
         except OSError:
             pass
     return path
+
+
+_ASYNC_ENV = "XGBTPU_ASYNC_CKPT"
+
+
+def async_enabled() -> bool:
+    """Whether ``train`` commits through the writer thread
+    (``XGBTPU_ASYNC_CKPT=0``: on the caller's thread)."""
+    return os.environ.get(_ASYNC_ENV) != "0"
+
+
+class AsyncCheckpointWriter:
+    """One-slot background checkpoint committer, thread-safe; one per
+    process (``async_writer``). Failures are parked by directory: two
+    trainings in one process share the thread, and one's exhausted
+    retries surface at its own next sync point, never in the other's
+    run."""
+
+    def __init__(self) -> None:
+        self._cond = threading.Condition(threading.Lock())
+        self._task: Optional[Tuple[str, Dict[str, Any], int, int]] = None
+        self._busy = False
+        self._errors: Dict[str, BaseException] = {}
+        self._thread: Optional[threading.Thread] = None
+        self._newest: Dict[str, int] = {}  # directory -> newest submitted
+        self._current: Optional[Tuple[str, int]] = None  # being written
+
+    def submit(self, directory: str, booster, rounds: int, *,
+               retain: int = 2) -> None:
+        """Take ``booster``'s snapshot on this thread and queue its commit.
+        Waits only while the previous write is in flight (charged to the
+        flight ``checkpoint`` stage); re-raises a failure parked for
+        ``directory``."""
+        from ..observability import flight
+
+        doc = booster.save_json()  # host lists only: the thread reads no tensor
+        with self._cond:
+            self._raise_pending_locked(directory)
+            t0 = time.perf_counter()
+            while self._busy:
+                self._cond.wait()
+            waited = time.perf_counter() - t0
+            self._raise_pending_locked(directory)
+            self._task = (directory, doc, int(rounds), int(retain))
+            self._busy = True
+            self._newest[directory] = int(rounds)
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._run, name="xgbtpu-ckpt-writer", daemon=True)
+                self._thread.start()
+            self._cond.notify_all()
+        if waited > 0:
+            flight.note("checkpoint", waited)
+
+    def wait(self, directory: Optional[str] = None) -> None:
+        """Wait until the write in flight has landed and re-raise a parked
+        failure: a checkpoint is durable once this returns. With
+        ``directory``, waits only while that directory's write is in
+        flight and raises only its failure; with None, every write and any
+        failure."""
+        from ..observability import flight
+
+        with self._cond:
+            t0 = time.perf_counter()
+            while self._busy and (directory is None
+                                  or self._inflight_dir() == directory):
+                self._cond.wait()
+            waited = time.perf_counter() - t0
+            self._raise_pending_locked(directory)
+        if waited > 0:
+            flight.note("checkpoint", waited)
+
+    def settle(self, directory: str) -> None:
+        """Wait while ``directory``'s write is in flight, leaving a parked
+        failure for its run's own sync point (the readers' barrier).
+        Paths compare as absolute paths."""
+        want = os.path.abspath(directory)
+        with self._cond:
+            while self._busy and os.path.abspath(
+                    self._inflight_dir() or "") == want:
+                self._cond.wait()
+
+    def _inflight_dir(self) -> Optional[str]:
+        """The directory of the queued or running write (lock held)."""
+        if self._task is not None:
+            return self._task[0]
+        return self._current[0] if self._current is not None else None
+
+    def covered(self, directory: str, rounds: int) -> bool:
+        """The probe before a write: True when the commit of ``(directory,
+        rounds)`` is queued or being written, or was submitted here and
+        its file is still on disk (a directory wiped since re-commits)."""
+        with self._cond:
+            if self._newest.get(directory) != int(rounds):
+                return False
+            if self._task is not None and self._task[0] == directory \
+                    and self._task[2] == int(rounds):
+                return True
+            if self._current == (directory, int(rounds)):
+                return True
+        return os.path.exists(checkpoint_path(directory, rounds))
+
+    def reset(self) -> None:
+        """Tests: wait without raising, drop parked failures and the
+        submitted-rounds memo."""
+        with self._cond:
+            while self._busy:
+                self._cond.wait()
+            self._errors.clear()
+            self._newest.clear()
+
+    def _raise_pending_locked(self, directory: Optional[str]) -> None:
+        if directory is None:
+            for d in list(self._errors):
+                raise self._errors.pop(d)
+            return
+        e = self._errors.pop(directory, None)
+        if e is not None:
+            raise e
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while self._task is None:
+                    self._cond.wait()
+                directory, doc, rounds, retain = self._task
+                self._task = None
+                self._current = (directory, rounds)
+            try:
+                payload = json.dumps(doc).encode()  # save_raw()'s bytes
+                _commit_payload(directory, payload, rounds, retain,
+                                stage="checkpoint_io")
+            except BaseException as e:  # parked for the next sync point
+                try:
+                    e.checkpoint_rounds = rounds  # type: ignore[attr-defined]
+                except Exception:
+                    pass
+                with self._cond:
+                    self._errors.setdefault(directory, e)
+                try:
+                    from ..observability import flight
+
+                    flight.RECORDER.event(
+                        "checkpoint_fault", rounds=int(rounds),
+                        error=type(e).__name__, detail=str(e)[:200])
+                except Exception:
+                    pass  # attribution must never mask the fault
+            finally:
+                with self._cond:
+                    self._busy = False
+                    self._current = None
+                    self._cond.notify_all()
+
+
+_writer_lock = threading.Lock()
+_writer: Optional[AsyncCheckpointWriter] = None
+
+
+def async_writer() -> AsyncCheckpointWriter:
+    """The process's checkpoint writer (made at the first call)."""
+    global _writer
+    with _writer_lock:
+        if _writer is None:
+            _writer = AsyncCheckpointWriter()
+        return _writer
+
+
+def settle(directory: str) -> None:
+    """Wait until no write of ``directory`` is in flight in this process
+    (a no-op before the writer's first use); a parked failure stays
+    parked."""
+    w = _writer
+    if w is not None:
+        w.settle(directory)
 
 
 def list_checkpoints(directory: str) -> List[str]:
@@ -215,7 +406,8 @@ def inspect_dir(directory: str) -> List[dict]:
     """One record per checkpoint file of ``directory`` and its ``rank<r>``
     subdirectories: path, rounds, bytes, verified, detail, and
     ``newest_verified`` on the one ``load_latest`` would resume from in
-    each directory."""
+    each directory. A write of this process still in flight to any of
+    those directories lands first (``settle``)."""
     dirs = [directory]
     try:
         for name in sorted(os.listdir(directory)):
@@ -226,6 +418,7 @@ def inspect_dir(directory: str) -> List[dict]:
         return []
     records: List[dict] = []
     for d in dirs:
+        settle(d)
         best = None
         recs = []
         for path in list_checkpoints(d):

@@ -18,6 +18,7 @@ from .data.dmatrix import DMatrix
 from .learner import Booster
 from .observability import flight as _flight
 from .observability import trace as _trace
+from .pipeline import RoundPipeline, completion_probe
 from .resilience import checkpoint as _ckpt
 from .resilience.watchdog import watchdog as _watchdog
 
@@ -27,18 +28,28 @@ __all__ = ["train", "cv", "elastic_train", "elastic_exit"]
 class _AtomicCheckpoint(TrainingCallback):
     """Crash-safe checkpoints for ``train(resume_from=...)`` every
     ``interval`` rounds (``resilience/checkpoint.py``: atomic, checksummed,
-    the 2 newest kept), written on this thread; ``after_training`` writes
-    the final round. A round already on disk (a resumed run's first) is
-    not written again."""
+    the 2 newest kept); ``after_training`` writes the final round and
+    waits until it has landed. A round already on disk (a resumed run's
+    first) or in flight is not written again. The commit goes through the
+    async writer (``XGBTPU_ASYNC_CKPT=0``: on this thread)."""
 
     def __init__(self, directory: str, interval: int = 1):
         self.directory = directory
         self.interval = max(1, int(interval))
 
-    def _save(self, model) -> None:
+    def _save(self, model, final: bool = False) -> None:
         rounds = model.num_boosted_rounds()
-        if rounds and _ckpt.read_checkpoint(
-                _ckpt.checkpoint_path(self.directory, rounds)) is None:
+        if not rounds:
+            return
+        path = _ckpt.checkpoint_path(self.directory, rounds)
+        if _ckpt.async_enabled():
+            w = _ckpt.async_writer()
+            if not w.covered(self.directory, rounds) \
+                    and _ckpt.read_checkpoint(path) is None:
+                w.submit(self.directory, model, rounds)
+            if final:
+                w.wait(self.directory)
+        elif _ckpt.read_checkpoint(path) is None:
             _ckpt.save_checkpoint(self.directory, model, rounds)
 
     def after_iteration(self, model, epoch, evals_log) -> bool:
@@ -47,7 +58,7 @@ class _AtomicCheckpoint(TrainingCallback):
         return False
 
     def after_training(self, model):
-        self._save(model)  # the final round is always durable
+        self._save(model, final=True)  # the final round is always durable
         return model
 
 
@@ -61,9 +72,11 @@ def _agreed_checkpoint(ckpt_dir: str) -> Optional[Tuple[bytes, int]]:
     verified (a kill can land while one rank's write is in flight or after
     its file was damaged, and ranks resuming from different rounds would
     desync), or None when they share none. The JAX package resumes each
-    rank from its own newest."""
+    rank from its own newest. A write of this process still in flight
+    there lands first."""
     from .parallel.mesh import collective_active
 
+    _ckpt.settle(ckpt_dir)
     if not collective_active():
         return _ckpt.load_latest(ckpt_dir)
     from .collective import process_allgather
@@ -92,11 +105,17 @@ def _agreed_checkpoint(ckpt_dir: str) -> Optional[Tuple[bytes, int]]:
 
 def _commit_on_abort(bst: Booster, ckpt_dir: Optional[str]) -> None:
     """An abort mid-loop (a watchdog expiry, a failed collective, a fault
-    at a kernel's launch site) keeps the finished rounds: write the
-    model's whole rounds. Best effort: the abort itself must still
-    surface."""
+    at a kernel's launch site or at a pipeline wait) keeps the finished
+    rounds: write the model's whole rounds, on this thread, after the
+    async writer's write to ``ckpt_dir`` has landed (a failure parked
+    there is dropped: it must not hide this abort). Best effort: the
+    abort itself must still surface."""
     if ckpt_dir is None:
         return
+    try:
+        _ckpt.async_writer().wait(ckpt_dir)
+    except Exception:
+        pass
     try:
         rounds = bst.num_boosted_rounds()  # 0 for gblinear: nothing to keep
         # never a round cut between its trees
@@ -133,26 +152,41 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
 
     The loop is traced as the JAX package's: a ``train`` span holding one
     ``round`` span a round, and the flight recorder keeps one record a
-    round (its ``grow`` and ``eval`` stages); an exception dumps the
-    recorder's black box before it propagates (``abort_dump``), and
+    round (its ``grow``, ``sync`` and ``eval`` stages); an exception dumps
+    the recorder's black box before it propagates (``abort_dump``), and
     ``XGBTPU_PROFILE`` opens the profiling window at the first round.
+
+    The round loop is pipelined as the JAX package's per-round loop
+    (``pipeline.RoundPipeline``): each round's completion event is
+    admitted after its ``update``, and the host waits only when more than
+    ``XGBTPU_PIPELINE_DEPTH`` rounds (default 2; 0 = every round) are in
+    flight, and at the sync points: every round when there are evals,
+    ``obj``, ``feval``, early stopping or a callback of the caller's;
+    with the interval checkpoint alone, only the rounds it commits; and
+    the end of training. A fault surfacing at a wait carries the round it
+    belongs to (``.pipeline_round``, a ``pipeline_fault`` flight event).
+    The trees stay on the card until a consumer reads them, so a
+    consumer-free round needs no host copy of its tree.
 
     ``resume_from`` is a directory of crash-safe checkpoints
     (``resilience/checkpoint.py``; ``rank<r>`` subdirectories in a world of
     several ranks unless ``checkpoint_shared``). Training resumes from the
     newest verified checkpoint there (when no ``xgb_model`` is given) and
-    commits one every ``checkpoint_interval`` rounds, and on any abort the
-    finished rounds. With ``resume_mode="total"`` ``num_boost_round`` is
-    the total: a run resumed at round r trains the remaining
+    commits one every ``checkpoint_interval`` rounds (through the async
+    writer unless ``XGBTPU_ASYNC_CKPT=0``; the final one has landed when
+    ``train`` returns), and on any abort the finished rounds. With
+    ``resume_mode="total"`` ``num_boost_round`` is the total: a run
+    resumed at round r trains the remaining
     ``num_boost_round - r``, so rerunning a killed command finishes it;
     ``"append"`` trains ``num_boost_round`` more. A resumed booster fills
     its caches round by round (``Booster._fill_caches_by_round``), so the
     resumed model's bytes are an uninterrupted run's. Each round's
     ``update`` runs under the ``round_dispatch`` watchdog
     (``XGBTPU_WATCHDOG``; none by default). No counterpart here: the JAX
-    package's scan path and its ``train_dispatch`` deadline (TPU only),
-    the ``native_dispatch`` retry (the CPU native kernels have no
-    counterpart by design), ``RoundPipeline`` and ``kernelprof``."""
+    package's scan path and its ``train_dispatch`` deadline (TPU only; the
+    port keeps the per-round loop on every device), the
+    ``native_dispatch`` retry (the CPU native kernels have no counterpart
+    by design) and ``kernelprof``."""
     if resume_mode not in ("total", "append"):
         raise ValueError(
             f"resume_mode must be 'total' or 'append', got {resume_mode!r}")
@@ -195,8 +229,22 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
 
     container = CallbackContainer(callbacks)
     bst = container.before_training(bst)
+    pipe = RoundPipeline()
+    # the caller's consumers read every round; the interval checkpoint
+    # alone reads only the rounds it commits
+    other_consumers = (
+        bool(evals) or obj is not None or feval is not None
+        or early_stopping_rounds is not None
+        or any(not isinstance(c, (EvaluationMonitor, _AtomicCheckpoint))
+               for c in callbacks))
+
+    def round_consumer(i: int) -> bool:
+        return other_consumers or (ckpt_dir is not None and (i + 1)
+                                   % max(checkpoint_interval, 1) == 0)
+
     try:
-        with _trace.span("train", rounds=num_boost_round, path="per_round"):
+        with _trace.span("train", rounds=num_boost_round, path="per_round",
+                         pipeline_depth=pipe.depth):
             for i in range(start_round, start_round + num_boost_round):
                 if container.before_iteration(bst, i, dtrain, evals):
                     break
@@ -208,12 +256,18 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
                         with _watchdog("round_dispatch"):
                             bst.update(dtrain, i, fobj=obj)
                         _flight.note("grow", time.perf_counter() - t0)
+                        entry = bst._caches.get(id(dtrain))
+                        pipe.admit(i, completion_probe(
+                            entry.margin if entry is not None else None))
+                        if round_consumer(i):
+                            pipe.drain()  # the consumer reads a finished round
                         stop = container.after_iteration(
                             bst, i, dtrain, evals, feval=feval)
                 finally:
                     _flight.RECORDER.end_round()
                 if stop:
                     break
+            pipe.drain()  # the end of training
     except BaseException as e:
         _commit_on_abort(bst, ckpt_dir)
         _flight.RECORDER.abort_dump(e)  # the black box: ring + metrics
@@ -499,6 +553,7 @@ def elastic_train(params: Dict[str, Any],
         # what the checkpoint keeps are trained again now (the header's
         # check only: train() reads the payload anyway)
         resumed = 0
+        _ckpt.settle(ckpt_dir)
         for p in reversed(_ckpt.list_checkpoints(ckpt_dir)):
             ok, _, rounds = _ckpt.verify_checkpoint(p)
             if ok:
@@ -587,6 +642,7 @@ def elastic_train(params: Dict[str, Any],
             try:
                 import shutil
 
+                _ckpt.settle(ckpt_dir)
                 for p in reversed(_ckpt.list_checkpoints(ckpt_dir)):
                     if _ckpt.verify_checkpoint(p)[0]:
                         qdir = os.path.join(run_dir, "quiesce")
