@@ -5,6 +5,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --serving   # phases 1, 47 and 48 alone
     python3 chip_smoke.py --pipeline  # phases 1 and 49 alone
+    python3 chip_smoke.py --c-api     # phases 1, 39 and 50 alone
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -464,6 +465,31 @@ After phase 40 (max_bin 256 unless named):
     the resume's fill walks (2 a committed round), C and A none. (d)
     ``XGBTPU_OBSERVER`` on 2 rounds: the JAX package's 6 file names
     (``00000_grad.npy`` ...), their sums printed.
+50. the C API and the native host runtime (``phase_c_api``, after 49) on
+    the main path (1M x 50, max_bin 64, depth 6, eta 0.1, AUC + logloss on
+    the 100k held-out rows, 10 rounds), ``XGBTPU_DEVICE`` unset (the card).
+    (a) ``g++`` builds ``native/{fastparse,pagecache,c_api}.cpp`` (seconds
+    and paths printed). (b) Through ``ctypes`` in this process:
+    ``XGDMatrixCreateFromMat`` + ``XGDMatrixSetFloatInfo`` for both row
+    sets, ``XGBoosterCreate`` over both, ``XGBoosterSetParam`` a key (a
+    call a metric), 10 rounds of ``XGBoosterUpdateOneIter`` +
+    ``XGBoosterEvalOneIter``, ``XGBoosterPredict`` on the eval set and
+    ``XGBoosterSaveModelToBuffer``, each round in turns with the same round
+    through the Python API (``Booster``, ``update``, ``eval_set``, then
+    ``predict``, ``save_raw``): equal model bytes, predictions bit for bit
+    and eval strings; AUC >= 0.80 and rising; the C API's launches C 1, D
+    60, A 0, B >= 10; the ms a round of each (medians). (c) A C program
+    (``C_HOST_TRAIN``, ``gcc`` against the library) reads the same rows
+    from raw float32 files and trains the same 10 rounds on the card: exit
+    0, its model bytes and predictions equal (b)'s, its last eval string
+    (b)'s; the seconds to its first handle and first finished round and
+    its ms a round. (d) ``XGDMatrixCreateFromFile`` on libsvm files of
+    phase 46's shape (100,000 and 50,000 rows): the native parser's arrays
+    equal the plain Python parser's and the rows themselves, the handle's
+    shape and labels too, and the (b) model predicts the same on the
+    file's handle as on the plain parser's rows; both parse times. (e) Phase
+    39's page reads, now through ``pagecache.cpp``'s ring: the read wait and
+    copy a page beside the numpy reads' (~2.95 ms wait, 2.5-2.9 ms copy).
 
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
@@ -6557,6 +6583,431 @@ def phase_pipeline(Xtr, ytr, Xte, yte):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 50: the C API and the native host runtime
+# ---------------------------------------------------------------------------
+
+#: a C program training through libxgbtpu_torch: argv = directory of the
+#: raw float32 files (train_X, train_y, test_X, test_y), rows, columns,
+#: eval rows, rounds, then key=value parameters; it writes the eval set's
+#: predictions (c_pred.f32) and the model (c_model.json) to the directory
+C_HOST_TRAIN = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <math.h>
+#include <time.h>
+
+typedef unsigned long long bst_ulong;
+extern const char *XGBGetLastError(void);
+extern int XGDMatrixCreateFromMat(const float*, bst_ulong, bst_ulong, float,
+                                  void**);
+extern int XGDMatrixSetFloatInfo(void*, const char*, const float*,
+                                 bst_ulong);
+extern int XGDMatrixFree(void*);
+extern int XGBoosterCreate(void**, bst_ulong, void**);
+extern int XGBoosterSetParam(void*, const char*, const char*);
+extern int XGBoosterUpdateOneIter(void*, int, void*);
+extern int XGBoosterEvalOneIter(void*, int, void**, const char**, bst_ulong,
+                                const char**);
+extern int XGBoosterPredict(void*, void*, int, unsigned, int, bst_ulong*,
+                            const float**);
+extern int XGBoosterSaveModelToBuffer(void*, const char*, bst_ulong*,
+                                      const char**);
+extern int XGBoosterFree(void*);
+
+#define CK(x) if ((x) != 0) { \
+  fprintf(stderr, "FAIL %s: %s\n", #x, XGBGetLastError()); return 1; }
+
+static double now(void) {
+  struct timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return t.tv_sec + 1e-9 * t.tv_nsec;
+}
+
+static float *load(const char *dir, const char *name, size_t n) {
+  char path[4096];
+  snprintf(path, sizeof path, "%s/%s.f32", dir, name);
+  FILE *f = fopen(path, "rb");
+  float *buf = malloc(n * sizeof(float));
+  if (!f || !buf || fread(buf, sizeof(float), n, f) != n) return NULL;
+  fclose(f);
+  return buf;
+}
+
+static int save(const char *dir, const char *name, const void *p, size_t n) {
+  char path[4096];
+  snprintf(path, sizeof path, "%s/%s", dir, name);
+  FILE *f = fopen(path, "wb");
+  if (!f || fwrite(p, 1, n, f) != n) return 1;
+  return fclose(f);
+}
+
+int main(int argc, char **argv) {
+  double t0 = now();
+  if (argc < 6) return 2;
+  const char *dir = argv[1];
+  size_t rows = atol(argv[2]), cols = atol(argv[3]), erows = atol(argv[4]);
+  int rounds = atoi(argv[5]);
+  float *X = load(dir, "train_X", rows * cols), *y = load(dir, "train_y", rows);
+  float *Xe = load(dir, "test_X", erows * cols), *ye = load(dir, "test_y", erows);
+  if (!X || !y || !Xe || !ye) { fprintf(stderr, "FAIL: read\n"); return 1; }
+  double t_read = now() - t0;
+  void *dtr = NULL, *dte = NULL, *bst = NULL;
+  CK(XGDMatrixCreateFromMat(X, rows, cols, NAN, &dtr));
+  double t_handle = now() - t0;
+  CK(XGDMatrixSetFloatInfo(dtr, "label", y, rows));
+  CK(XGDMatrixCreateFromMat(Xe, erows, cols, NAN, &dte));
+  CK(XGDMatrixSetFloatInfo(dte, "label", ye, erows));
+  void *mats[2] = {dtr, dte};
+  CK(XGBoosterCreate(mats, 2, &bst));
+  for (int i = 6; i < argc; ++i) {
+    char *eq = strchr(argv[i], '=');
+    if (!eq) return 2;
+    *eq = '\0';
+    CK(XGBoosterSetParam(bst, argv[i], eq + 1));
+  }
+  void *evm[1] = {dte};
+  const char *names[1] = {"test"};
+  const char *res = NULL;
+  printf("C_HOST_READ_S=%.3f\nC_HOST_FIRST_HANDLE_S=%.3f\nC_HOST_ROUND_MS=",
+         t_read, t_handle);
+  double t_first = 0;
+  for (int it = 0; it < rounds; ++it) {
+    double t = now();
+    CK(XGBoosterUpdateOneIter(bst, it, dtr));
+    CK(XGBoosterEvalOneIter(bst, it, evm, names, 1, &res));
+    printf("%s%.3f", it ? "," : "", (now() - t) * 1e3);
+    if (it == 0) t_first = now() - t0;
+  }
+  printf("\nC_HOST_FIRST_ROUND_S=%.3f\nC_HOST_EVAL=%s\n", t_first, res);
+  bst_ulong len = 0;
+  const float *out = NULL;
+  CK(XGBoosterPredict(bst, dte, 0, 0, 0, &len, &out));
+  if (len != erows || save(dir, "c_pred.f32", out, len * sizeof(float)))
+    return 1;
+  const char *model = NULL;
+  CK(XGBoosterSaveModelToBuffer(bst, "{}", &len, &model));
+  if (save(dir, "c_model.json", model, len)) return 1;
+  CK(XGBoosterFree(bst));
+  CK(XGDMatrixFree(dte));
+  CK(XGDMatrixFree(dtr));
+  printf("C_HOST_TOTAL_S=%.3f\n", now() - t0);
+  return 0;
+}
+"""
+
+
+def _capi(path):
+    """The C API library through ``ctypes``, the entry points the phase
+    calls typed."""
+    import ctypes as C
+
+    VP, U64, F32P = C.c_void_p, C.c_uint64, C.POINTER(C.c_float)
+    sig = {
+        "XGDMatrixCreateFromMat": [F32P, U64, U64, C.c_float,
+                                   C.POINTER(VP)],
+        "XGDMatrixCreateFromFile": [C.c_char_p, C.c_int, C.POINTER(VP)],
+        "XGDMatrixSetFloatInfo": [VP, C.c_char_p, F32P, U64],
+        "XGDMatrixGetFloatInfo": [VP, C.c_char_p, C.POINTER(U64),
+                                  C.POINTER(F32P)],
+        "XGDMatrixNumRow": [VP, C.POINTER(U64)],
+        "XGDMatrixNumCol": [VP, C.POINTER(U64)],
+        "XGDMatrixFree": [VP],
+        "XGBoosterCreate": [C.POINTER(VP), U64, C.POINTER(VP)],
+        "XGBoosterSetParam": [VP, C.c_char_p, C.c_char_p],
+        "XGBoosterUpdateOneIter": [VP, C.c_int, VP],
+        "XGBoosterEvalOneIter": [VP, C.c_int, C.POINTER(VP),
+                                 C.POINTER(C.c_char_p), U64,
+                                 C.POINTER(C.c_char_p)],
+        "XGBoosterPredict": [VP, VP, C.c_int, C.c_uint, C.c_int,
+                             C.POINTER(U64), C.POINTER(F32P)],
+        "XGBoosterSaveModelToBuffer": [VP, C.c_char_p, C.POINTER(U64),
+                                       C.POINTER(C.c_char_p)],
+        "XGBoosterFree": [VP],
+    }
+    lib = C.CDLL(path)
+    lib.XGBGetLastError.restype = C.c_char_p
+    for name, argtypes in sig.items():
+        getattr(lib, name).argtypes = argtypes
+
+    def ok(rc, what):
+        check(rc == 0, f"c api: {what} returned {rc}: "
+              f"{lib.XGBGetLastError().decode()}")
+
+    def dmatrix(X, y):
+        X = np.ascontiguousarray(X, np.float32)
+        y = np.ascontiguousarray(y, np.float32)
+        h = VP()
+        ok(lib.XGDMatrixCreateFromMat(X.ctypes.data_as(F32P), X.shape[0],
+                                      X.shape[1], float("nan"),
+                                      C.byref(h)), "XGDMatrixCreateFromMat")
+        ok(lib.XGDMatrixSetFloatInfo(h, b"label", y.ctypes.data_as(F32P),
+                                     y.size), "XGDMatrixSetFloatInfo")
+        return h
+
+    def predict(bh, h):
+        n, p = U64(), F32P()
+        ok(lib.XGBoosterPredict(bh, h, 0, 0, 0, C.byref(n), C.byref(p)),
+           "XGBoosterPredict")
+        return np.ctypeslib.as_array(p, shape=(n.value,)).copy()
+
+    def raw(bh):
+        n, p = U64(), C.c_char_p()
+        ok(lib.XGBoosterSaveModelToBuffer(bh, b"{}", C.byref(n), C.byref(p)),
+           "XGBoosterSaveModelToBuffer")
+        return C.string_at(p, n.value)
+
+    lib.ok, lib.dmatrix, lib.predict, lib.raw = ok, dmatrix, predict, raw
+    lib.C = C
+    return lib
+
+
+def _param_pairs(params):
+    """``params`` as ``XGBoosterSetParam`` calls: one a key, one a metric
+    for a list (each call adds a metric)."""
+    for k, v in params.items():
+        for item in (v if isinstance(v, list) else [v]):
+            yield k, str(item)
+
+
+def _eval_values(text):
+    """``{"test-auc": x, ...}`` of an ``EvalOneIter`` string."""
+    return {k: float(v) for k, v in
+            (f.rsplit(":", 1) for f in text.split("\t")[1:])}
+
+
+def phase_c_api(Xtr, ytr, Xte, yte, extmem=None):
+    """Phase 50: the C API and the native host runtime on the card
+    (module docstring, 50)."""
+    from xgboost_tpu_torch import native
+    from xgboost_tpu_torch.data import adapters
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) the three native libraries, built in turn
+    t0 = time.perf_counter()
+    paths = {n: str(native.build(n)) for n in ("fastparse", "pagecache",
+                                               "capi")}
+    out["build_s"] = time.perf_counter() - t0
+    out["builds"] = {n: native.build_log[n]["seconds"] for n in paths}
+    print(f"c api: (a) native builds {out['build_s']:.2f} s "
+          f"({json.dumps(out['builds'])}); libraries {json.dumps(paths)}")
+    env0 = os.environ.pop("XGBTPU_DEVICE", None)  # unset: the card
+    tmp = tempfile.mkdtemp(prefix="xgbt_capi_")
+    try:
+        lib = _capi(paths["capi"])
+        C = lib.C
+
+        # (b) in process through ctypes, in turns with the Python API
+        h_tr, h_te = lib.dmatrix(Xtr, ytr), lib.dmatrix(Xte, yte)
+        bh = C.c_void_p()
+        lib.ok(lib.XGBoosterCreate((C.c_void_p * 2)(h_tr, h_te), 2,
+                                   C.byref(bh)), "XGBoosterCreate")
+        for k, v in _param_pairs(PARAMS):
+            lib.ok(lib.XGBoosterSetParam(bh, k.encode(), v.encode()),
+                   f"XGBoosterSetParam({k}, {v})")
+        d_tr, d_te = xgbt.DMatrix(Xtr, ytr), xgbt.DMatrix(Xte, yte)
+        bp = xgbt.Booster(PARAMS, [d_tr, d_te])
+        evm = (C.c_void_p * 1)(h_te)
+        names = (C.c_char_p * 1)(b"test")
+        res = C.c_char_p()
+        got = {k: 0 for k in "ABCD"}
+        ms = {"c_api": [], "python": []}
+        evals = {"c_api": [], "python": []}
+
+        def c_round(it):
+            before = launches()
+            lib.ok(lib.XGBoosterUpdateOneIter(bh, it, h_tr),
+                   "XGBoosterUpdateOneIter")
+            lib.ok(lib.XGBoosterEvalOneIter(bh, it, evm, names, 1,
+                                            C.byref(res)),
+                   "XGBoosterEvalOneIter")
+            evals["c_api"].append(res.value.decode())
+            for k, v in launches().items():
+                got[k] += v - before[k]
+
+        def py_round(it):
+            bp.update(d_tr, it)
+            evals["python"].append(bp.eval_set([(d_te, "test")], it))
+
+        reset_launches()
+        for it in range(ROUNDS):
+            turn = (("c_api", c_round), ("python", py_round))
+            for name, fn in (turn if it % 2 == 0 else turn[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(it)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        before = launches()
+        pred_c = lib.predict(bh, h_te)
+        for k, v in launches().items():
+            got[k] += v - before[k]
+        raw_c = lib.raw(bh)
+        pred_p = bp.predict(d_te)
+        check(raw_c == bp.save_raw(),
+              "c api (b): model bytes == the Python API's")
+        check(pred_c.dtype == pred_p.dtype
+              and np.array_equal(pred_c, pred_p),
+              "c api (b): predictions == the Python API's, bit for bit")
+        check(evals["c_api"] == evals["python"],
+              f"c api (b): eval strings {evals['c_api'][-1]} vs "
+              f"{evals['python'][-1]}")
+        auc = [_eval_values(e)["test-auc"] for e in evals["c_api"]]
+        check(auc[-1] >= 0.80 and auc[-1] > auc[0],
+              f"c api (b): held-out AUC {auc}")
+        want = {"A": 0, "C": 1, "D": ROUNDS * DEPTH}
+        check(all(got[k] == v for k, v in want.items())
+              and got["B"] >= ROUNDS,
+              f"c api (b): launches {got}, want {want} and B >= {ROUNDS}")
+        out["b"] = dict(launches=got, ms=ms,
+                        median_ms={k: statistics.median(v)
+                                   for k, v in ms.items()},
+                        auc=auc, eval_last=evals["c_api"][-1])
+        print(f"c api: (b) {ROUNDS} rounds through ctypes and the Python "
+              f"API in turns: bytes, predictions and eval strings equal; "
+              f"launches through the C API {got}; ms a round (update + "
+              f"eval, median) C API {out['b']['median_ms']['c_api']:.2f}, "
+              f"Python {out['b']['median_ms']['python']:.2f} (C API "
+              f"{[round(v, 2) for v in ms['c_api']]}, Python "
+              f"{[round(v, 2) for v in ms['python']]}); "
+              f"{evals['c_api'][-1]!r}")
+        del bp, d_tr, d_te
+        for h in (h_tr, h_te):
+            lib.ok(lib.XGDMatrixFree(h), "XGDMatrixFree")
+        torch.cuda.empty_cache()
+
+        # (c) a C program on the card
+        for name, arr in (("train_X", Xtr), ("train_y", ytr),
+                          ("test_X", Xte), ("test_y", yte)):
+            np.ascontiguousarray(arr, np.float32).tofile(
+                os.path.join(tmp, f"{name}.f32"))
+        lib_path = paths["capi"]
+        src, exe = os.path.join(tmp, "host.c"), os.path.join(tmp, "host")
+        with open(src, "w") as f:
+            f.write(C_HOST_TRAIN)
+        cc = subprocess.run(
+            ["gcc", "-O2", src, "-o", exe,
+             f"-L{os.path.dirname(lib_path)}",
+             f"-l:{os.path.basename(lib_path)}",
+             f"-Wl,-rpath,{os.path.dirname(lib_path)}", "-lm"],
+            capture_output=True, text=True, timeout=120)
+        check(cc.returncode == 0, f"c api (c): gcc: {cc.stderr[-2000:]}")
+        args = [exe, tmp, str(len(Xtr)), str(COLS), str(len(Xte)),
+                str(ROUNDS)] + [f"{k}={v}" for k, v in _param_pairs(PARAMS)]
+        t0 = time.perf_counter()
+        host = subprocess.run(args, capture_output=True, text=True,
+                              timeout=600)
+        host_s = time.perf_counter() - t0
+        check(host.returncode == 0,
+              f"c api (c): the C host exited {host.returncode}: "
+              f"{host.stdout[-2000:]} {host.stderr[-3000:]}")
+        lines = dict(ln.split("=", 1) for ln in host.stdout.splitlines()
+                     if ln.startswith("C_HOST_"))
+        with open(os.path.join(tmp, "c_model.json"), "rb") as f:
+            check(f.read() == raw_c,
+                  "c api (c): the C host's model bytes == (b)'s")
+        host_pred = np.fromfile(os.path.join(tmp, "c_pred.f32"), np.float32)
+        check(np.array_equal(host_pred, pred_c),
+              "c api (c): the C host's predictions == (b)'s, bit for bit")
+        check(lines.get("C_HOST_EVAL") == evals["c_api"][-1],
+              f"c api (c): the C host's last eval {lines.get('C_HOST_EVAL')}")
+        round_ms = [float(v) for v in lines["C_HOST_ROUND_MS"].split(",")]
+        out["c"] = dict(
+            exit_code=host.returncode, process_s=host_s,
+            read_s=float(lines["C_HOST_READ_S"]),
+            first_handle_s=float(lines["C_HOST_FIRST_HANDLE_S"]),
+            first_round_s=float(lines["C_HOST_FIRST_ROUND_S"]),
+            round_ms=round_ms, median_round_ms=statistics.median(
+                round_ms[1:]))
+        print(f"c api: (c) C host exit {host.returncode} in {host_s:.2f} s: "
+              f"read {out['c']['read_s']:.3f} s, first handle (interpreter, "
+              f"torch import, the copy to the card) "
+              f"{out['c']['first_handle_s']:.3f} s, first round finished "
+              f"{out['c']['first_round_s']:.3f} s after the start; ms a "
+              f"round {round_ms} (median of rounds 1-{ROUNDS - 1} "
+              f"{out['c']['median_round_ms']:.2f}); model bytes and "
+              f"predictions == (b)'s")
+
+        # (d) the parser: XGDMatrixCreateFromFile against the plain parser
+        out["d"] = {}
+        loaded = xgbt.Booster(model_file=raw_c)
+        for name, X, y in (("train", Xtr[:CLI_ROWS], ytr[:CLI_ROWS]),
+                           ("test", Xte[:CLI_TEST_ROWS],
+                            yte[:CLI_TEST_ROWS])):
+            path = os.path.join(tmp, f"{name}.libsvm")
+            _write_libsvm(path, X, y)
+            h = C.c_void_p()
+            t0 = time.perf_counter()
+            lib.ok(lib.XGDMatrixCreateFromFile(path.encode(), 1,
+                                               C.byref(h)),
+                   "XGDMatrixCreateFromFile")
+            torch.cuda.synchronize()
+            capi_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            Xn, yn, qn = native.load_svmlight_native(path)
+            native_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            Xp, yp, qp = adapters._load_svmlight_py(path)
+            plain_s = time.perf_counter() - t0
+            check(Xn.shape == Xp.shape == X.shape and np.array_equal(
+                Xn, Xp) and np.array_equal(yn, yp) and qn is None
+                and qp is None and np.array_equal(Xp, X),
+                f"c api (d): {name}: the native parser's arrays == the "
+                "plain parser's")
+            nr, nc = C.c_uint64(), C.c_uint64()
+            lib.ok(lib.XGDMatrixNumRow(h, C.byref(nr)), "XGDMatrixNumRow")
+            lib.ok(lib.XGDMatrixNumCol(h, C.byref(nc)), "XGDMatrixNumCol")
+            n, p = C.c_uint64(), C.POINTER(C.c_float)()
+            lib.ok(lib.XGDMatrixGetFloatInfo(h, b"label", C.byref(n),
+                                             C.byref(p)),
+                   "XGDMatrixGetFloatInfo")
+            check((nr.value, nc.value) == Xp.shape and np.array_equal(
+                np.ctypeslib.as_array(p, shape=(n.value,)), yp),
+                f"c api (d): {name}: the handle's shape and labels")
+            check(np.array_equal(lib.predict(bh, h),
+                                 loaded.predict(xgbt.DMatrix(Xp))),
+                f"c api (d): {name}: predictions on the file's handle == "
+                "on the plain parser's rows")
+            lib.ok(lib.XGDMatrixFree(h), "XGDMatrixFree")
+            out["d"][name] = dict(rows=len(yp), capi_s=capi_s,
+                                  native_s=native_s, plain_s=plain_s,
+                                  bytes=os.path.getsize(path))
+            print(f"c api: (d) {name}.libsvm ({len(yp)} rows, "
+                  f"{os.path.getsize(path)} bytes): XGDMatrixCreateFromFile "
+                  f"{capi_s:.3f} s (the card's DMatrix included), native "
+                  f"parse {native_s:.3f} s, plain Python parse "
+                  f"{plain_s:.3f} s; arrays equal")
+        lib.ok(lib.XGBoosterFree(bh), "XGBoosterFree")
+    finally:
+        if env0 is not None:
+            os.environ["XGBTPU_DEVICE"] = env0
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (e) the paged phase's reads, through the native ring since this phase
+    if extmem is not None:
+        io = extmem["paged"]["io"]
+        out["e"] = dict(
+            wait_ms_per_page=io["wait_s"] * 1e3 / max(io["prefetched"], 1),
+            read_ms_per_page=io["read_s"] * 1e3 / max(io["reads"], 1),
+            copy_ms_per_page=statistics.mean(
+                p["copy_ms"] for p in extmem["pages"]),
+            reads=io["reads"], prefetched=io["prefetched"])
+        print(f"c api: (e) the paged phase through pagecache.cpp's ring: "
+              f"{io['reads']} page reads ({io['prefetched']} prefetched), "
+              f"read wait {out['e']['wait_ms_per_page']:.3f} ms a page "
+              f"(numpy reads: ~2.95), pc_read "
+              f"{out['e']['read_ms_per_page']:.3f} "
+              f"ms a read, copy {out['e']['copy_ms_per_page']:.3f} ms a "
+              f"page (numpy reads: 2.5-2.9); paged trees == streaming")
+    out["launches"] = out["b"]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"c api: launches {out['launches']}; phase {out['phase_s']:.1f} s")
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6663,6 +7114,7 @@ def main() -> int:
     fleet = phase_fleet(raw256, Xte, serving)
     torch.cuda.empty_cache()
     pipeline = phase_pipeline(Xtr, ytr, Xte, yte)
+    c_api = phase_c_api(Xtr, ytr, Xte, yte, extmem)
     del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
@@ -6686,7 +7138,7 @@ def main() -> int:
         "traced": traced, "resilience": resilience, "elastic": elastic,
         "cli": cli, "serving": {k: v for k, v in serving.items()
                                 if k != "kernel_B"}, "fleet": fleet,
-        "pipeline": pipeline}))
+        "pipeline": pipeline, "c_api": c_api}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -6780,6 +7232,7 @@ def main() -> int:
              resilience=resilience_launches("A"),
              elastic=elastic_launches("A"),
              pipeline=dict(launches=pipeline["launches"]["A"]),
+             c_api=dict(launches=c_api["launches"]["A"]),
              **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
@@ -6809,6 +7262,7 @@ def main() -> int:
                           **serving["kernel_B"]),
              fleet=fleet_launches(fleet),
              pipeline=dict(launches=pipeline["launches"]["B"]),
+             c_api=dict(launches=c_api["launches"]["B"]),
              **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
@@ -6830,6 +7284,7 @@ def main() -> int:
              resilience=resilience_launches("C"),
              elastic=elastic_launches("C"),
              pipeline=dict(launches=pipeline["launches"]["C"]),
+             c_api=dict(launches=c_api["launches"]["C"]),
              **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
@@ -6856,6 +7311,7 @@ def main() -> int:
              resilience=resilience_launches("D"),
              elastic=elastic_launches("D"),
              pipeline=dict(launches=pipeline["launches"]["D"]),
+             c_api=dict(launches=c_api["launches"]["D"]),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -6918,11 +7374,37 @@ def main_pipeline() -> int:
     return 0
 
 
+def main_c_api() -> int:
+    """``python3 chip_smoke.py --c-api``: phases 1 and 50 alone, with
+    phase 39 (the paged phase, read through the native ring) before 50 for
+    its (e)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_build()
+    X, y, _ = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
+    Xtr, ytr, Xte, yte = X[:ROWS], y[:ROWS], X[ROWS:], y[ROWS:]
+    extmem = phase_external_memory(Xtr, ytr, Xte, yte)
+    torch.cuda.empty_cache()
+    c_api = phase_c_api(Xtr, ytr, Xte, yte, extmem)
+    print(json.dumps({"c_api": c_api,
+                      "external_memory_io": extmem["paged"]["io"]}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi failed: {smi.stderr.strip()}")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--serving"]:
         sys.exit(main_serving())
     if sys.argv[1:] == ["--pipeline"]:
         sys.exit(main_pipeline())
+    if sys.argv[1:] == ["--c-api"]:
+        sys.exit(main_c_api())
     if len(sys.argv) == 3 and sys.argv[1] == "--resilience-worker":
         sys.exit(_resilience_worker(json.loads(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--elastic-worker":

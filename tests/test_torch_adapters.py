@@ -8,7 +8,10 @@ tables, lists, libsvm files with ``qid:`` (rows, labels and query
 groups), csv files, ``__array_interface__`` documents (dense and CSR), and
 ``save_binary`` files written by either package and read by the other,
 metadata included; ``load_row_split`` keeps the JAX package's rows.
-Frames and tables are skipped where pandas or pyarrow is absent.
+Frames and tables are skipped where pandas or pyarrow is absent. Files the
+plain Python parsers refuse (a csv header line, an empty csv field, a
+malformed libsvm token) give the JAX package's matrices: both packages
+read them with their native parsers.
 """
 
 import json
@@ -137,6 +140,33 @@ def test_csv_matches_jax(tmp_path):
     td = xgbt.DMatrix(f"{alias}?format=csv", **CPU)
     np.testing.assert_array_equal(td.data.numpy(), raw[:, 1:])
     np.testing.assert_array_equal(td.get_label(), raw[:, 0])
+
+
+@pytest.fixture
+def jax_parser():
+    """The JAX package's native parser loaded in this process (its loader
+    remembers a failed first try, which a build racing another test
+    process's can cause: one more try then)."""
+    from xgboost_tpu import native as jnative
+
+    if jnative.get_lib() is None:
+        jnative._tried = False
+    assert jnative.get_lib() is not None
+
+
+@pytest.mark.parametrize("name,text,rows", [
+    ("header.csv", "label,a,b\n1,0.5,2\n0,1.5,-3\n", 2),
+    ("empty_field.csv", "1,,3\n0,2.5,\n1,4,5\n", 3),
+    ("malformed.libsvm", "1 0:1.5 garbage 2:3\n0 1:2\n", 2),
+])
+def test_files_the_plain_parsers_refuse_match_jax(tmp_path, jax_parser,
+                                                  name, text, rows):
+    path = tmp_path / name
+    path.write_text(text)
+    td, jd = xgbt.DMatrix(str(path), **CPU), xgb.DMatrix(str(path))
+    np.testing.assert_array_equal(td.data.numpy(), np.asarray(jd.data))
+    np.testing.assert_array_equal(td.get_label(), jd.get_label())
+    assert td.data.dtype == torch.float32 and td.num_row() == rows
 
 
 def _iface(a):

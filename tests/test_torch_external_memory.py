@@ -20,6 +20,10 @@ Within a stated tolerance of the JAX package (structure and split
 conditions exact, leaf values within rtol 1e-5 / atol 5e-5, margins
 within the same): paged training with and without ``subsample`` (each
 page sampled under ``fold_in(k_sub, k)`` in both packages).
+Pages are written by ``pagecache.cpp``'s ``pc_write`` (the
+``pack_symbols`` bytes of the streaming matrix's bins) and read through
+``pc_read``'s ring, never ``np.fromfile``: the paged trees equal the
+streaming trees bit for bit, and a page missing on disk raises OSError.
 Refusals with the JAX package's messages: lossguide, categorical, approx,
 exact and the local histmaker on a paged matrix, its ``data``, another
 ``max_bin``, and a non-deterministic iterator; a foreign booster walking a
@@ -27,6 +31,7 @@ paged matrix warns.
 """
 
 import json
+import os
 import warnings
 
 import jax
@@ -252,6 +257,42 @@ def test_paged_training_matches_jax(paged_models, case):
     np.testing.assert_allclose(
         tb.predict(xgbt.DMatrix(X, **CPU), output_margin=True),
         jb.predict(xgb.DMatrix(X), output_margin=True), rtol=1e-5, atol=TOL)
+
+
+def test_pages_go_through_the_native_page_cache(tmp_path, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("np.fromfile read a page")
+
+    monkeypatch.setattr(np, "fromfile", refuse)
+    monkeypatch.setenv("XGBTPU_RETRY", "pager_io=0")
+    parts = _batches(seed=9)
+    d = xgbt.ExternalMemoryQuantileDMatrix(
+        _iters(parts)[0], cache_prefix=str(tmp_path / "c"), max_bin=32,
+        page_rows=1024, **CPU)
+    s = StreamingQuantileDMatrix(_iters(parts)[0], max_bin=32, **CPU)
+    pg, whole = d._paged, s.get_binned(32)
+    assert pg._ring is None and pg.n_pages == 3
+    for k in range(pg.n_pages):
+        lo = k * pg.page_rows
+        want = text.pack_symbols(
+            whole.bins[lo:lo + pg.rows_of(k)].numpy().astype(pg.dtype),
+            pg.bits)
+        with open(pg.page_path(k), "rb") as f:
+            assert f.read() == want.tobytes()
+    bp = xgbt.train(PARAMS, d, 3, verbose_eval=False)
+    bs = xgbt.train(PARAMS, s, 3, verbose_eval=False)
+    assert bp.save_raw() == bs.save_raw()
+    assert pg._ring is not None and pg.io["reads"] >= 3 * 4 * pg.n_pages
+    pg.close()
+    assert pg._ring is None
+    with open(pg.page_path(2), "ab") as f:  # a page of the wrong size
+        f.write(b"\0")
+    with pytest.raises(OSError, match="must hold"):
+        pg.read_page(2)
+    os.remove(pg.page_path(1))
+    with pytest.raises(OSError, match="pc_read returned 2"):
+        pg.read_page(1)
+    pg.cleanup()
 
 
 def test_page_streamed_predict_eval_and_early_stopping(tmp_path):

@@ -74,7 +74,13 @@
 - the pipelined round loop (``pipeline.py``, ``utils/observer.py`` and the
   async checkpoint writer) imports neither ``jax`` nor ``xgboost_tpu``,
   nor does a pipelined run with checkpoints, the async writer and the
-  observer on.
+  observer on;
+- the native host runtime (``native/*.py``) imports neither ``jax`` nor
+  ``xgboost_tpu`` (AST), nor does a paged run and a parse through it; the
+  modules the C API (``native/c_api.cpp``) imports are ``numpy``, ``json``
+  or ``xgboost_tpu_torch``'s own; with the compiler pointed at ``false``
+  the libsvm and csv loaders, ``PagedBins`` and the C API builder raise,
+  and nothing falls back to the Python parsers or ``np.fromfile``.
 """
 
 import ast
@@ -1333,3 +1339,98 @@ def test_pipeline_modules_import_no_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+NATIVE = ROOT / "xgboost_tpu_torch" / "native"
+
+
+def test_native_modules_import_no_jax(tmp_path):
+    files = sorted(NATIVE.glob("*.py"))
+    assert {f.name for f in files} >= {"__init__.py", "capi.py"}
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not [n for n in names if _forbidden(n)], (path, names)
+    data = tmp_path / "d.libsvm"
+    data.write_text("1 0:1.5 junk 2:3\n0 1:2\n")
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import xgboost_tpu_torch as xgbt\n"
+        "from xgboost_tpu_torch.native import capi\n"
+        f"d = xgbt.DMatrix({str(data)!r}, device='cpu')\n"
+        "assert d.num_row() == 2\n"
+        "class It(xgbt.DataIter):\n"
+        "    def __init__(self):\n"
+        "        super().__init__(); self.i = 0\n"
+        "    def reset(self): self.i = 0\n"
+        "    def next(self, input_data):\n"
+        "        if self.i == 2: return 0\n"
+        "        X = np.random.RandomState(self.i).randn(300, 3)\n"
+        "        input_data(data=X, label=(X[:, 0] > 0) * 1.0)\n"
+        "        self.i += 1; return 1\n"
+        f"m = xgbt.ExternalMemoryQuantileDMatrix(It(), cache_prefix={str(tmp_path / 'c')!r}, max_bin=16, page_rows=256, device='cpu')\n"
+        "xgbt.train({'max_depth': 2, 'max_bin': 16}, m, 2)\n"
+        "assert m._paged.io['reads'] > 0\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'xgboost_tpu')]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_c_api_imports_only_numpy_json_and_the_port():
+    import re
+
+    src = (NATIVE / "c_api.cpp").read_text()
+    names = re.findall(r'\bimp\(\s*"([^"]+)"', src)
+    assert names, "c_api.cpp names no module"
+    # every import of the C source goes through imp()
+    assert len(re.findall(r"PyImport_\w+\(", src)) == 1
+    assert "PyRun_" not in src
+    for name in names:
+        assert name in ("numpy", "json") or name.split(".")[0] == \
+            "xgboost_tpu_torch", name
+
+
+def test_native_build_failure_raises_with_no_fallback(tmp_path, monkeypatch):
+    """``CXX=false``: every loader and builder raises; neither the plain
+    parsers nor ``np.fromfile`` run."""
+    from xgboost_tpu_torch import native
+    from xgboost_tpu_torch.data import adapters
+    from xgboost_tpu_torch.data.external import PagedBins
+
+    def never(*a, **k):
+        raise AssertionError("a fallback ran")
+
+    monkeypatch.setenv("CXX", "false")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_libs", {})
+    for name in ("_load_svmlight_py", "_load_csv_py"):
+        monkeypatch.setattr(adapters, name, never)
+    monkeypatch.setattr(np, "fromfile", never)
+    monkeypatch.setattr(np, "loadtxt", never)
+    data = tmp_path / "d.libsvm"
+    data.write_text("1 0:1.5\n")
+    (tmp_path / "d.csv").write_text("1,2\n")
+    for fn, arg in ((adapters.load_svmlight, data),
+                    (adapters.load_csv, tmp_path / "d.csv"),
+                    (xgbt.DMatrix, str(data))):
+        with pytest.raises(RuntimeError, match="native build of fastparse"):
+            fn(arg) if fn is not xgbt.DMatrix else fn(arg, device="cpu")
+    X = np.random.RandomState(0).randn(64, 3).astype(np.float32)
+    cuts = xgbt.DMatrix(X, device="cpu").get_binned(16).cuts
+    pg = PagedBins(str(tmp_path / "p"), cuts, 64, 3, 32, np.uint8)
+    with pytest.raises(RuntimeError, match="native build of pagecache"):
+        pg.write_page(0, np.zeros((32, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="native build of pagecache"):
+        pg.read_page(0)
+    with pytest.raises(RuntimeError, match="native build of capi"):
+        native.build_capi()
+    assert not list((tmp_path / "build").glob("*.so"))

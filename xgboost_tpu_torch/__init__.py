@@ -40,7 +40,10 @@ recorder (``observability.flight.configure(run_dir)``);
 checkpoints behind ``train(resume_from=...)``. The four kernels of the path (the
 construct and hoisted level histograms, the one-hot build and the forest
 walk) are hand-written CUDA (``csrc/``), built at first use; on CPU
-tensors their plain PyTorch versions run.
+tensors their plain PyTorch versions run. The native host runtime
+(``native``: the libsvm / csv parser, the page cache and the C API
+library ``libxgbtpu_torch``) is C++ built with ``g++`` at first use.
+``build_info()`` reports the backend and what is built.
 """
 
 from . import callback, collective, observability, parallel, resilience
@@ -50,6 +53,7 @@ from .data.dmatrix import DMatrix, QuantileDMatrix, load_row_split
 from .data.external import ExternalMemoryQuantileDMatrix
 from .data.iterator import DataIter
 from .data.quantile import HistogramCuts
+from .gbm import Dart, GBLinear, GBTree
 from .learner import Booster
 from .plotting import plot_importance, plot_tree, to_graphviz
 from .predictor import forest_from_numpy
@@ -68,7 +72,32 @@ __all__ = ["DMatrix", "QuantileDMatrix", "ExternalMemoryQuantileDMatrix",
            "forest_from_numpy", "config_context", "set_config", "get_config",
            "plot_importance", "plot_tree", "to_graphviz", "XGBModel",
            "XGBRegressor", "XGBClassifier", "XGBRanker", "XGBRFRegressor",
-           "XGBRFClassifier", "__version__"]
+           "XGBRFClassifier", "GBTree", "Dart", "GBLinear", "build_info",
+           "__version__"]
+
+
+def build_info() -> dict:
+    """Build and runtime facts (reference ``xgboost.build_info``), under
+    the JAX package's keys: ``backend`` ``"cuda"`` where a card is present,
+    else ``"cpu"``; ``pallas_kernels``, whether the hand-written kernels
+    (``csrc/``, the counterparts of the JAX package's Pallas kernels) are
+    the route, as they are for every tensor on a card; ``native_pagecache``,
+    whether the native page cache (``native/pagecache.cpp``) builds and
+    loads here (a report: the page reader itself raises where it does
+    not); ``devices``, the backend's device count."""
+    import torch
+
+    from . import native
+
+    cuda = torch.cuda.is_available()
+    try:
+        native.pagecache()
+        pagecache = True
+    except (OSError, RuntimeError):
+        pagecache = False
+    return {"backend": "cuda" if cuda else "cpu", "pallas_kernels": cuda,
+            "native_pagecache": pagecache,
+            "devices": torch.cuda.device_count() if cuda else 1}
 
 _ESTIMATORS = ("XGBModel", "XGBRegressor", "XGBClassifier", "XGBRanker",
                "XGBRFRegressor", "XGBRFClassifier")

@@ -8,9 +8,12 @@ one host array ``[n_rows, n_features] float32`` with NaN for missing,
 which ``DMatrix`` sends to its device. scipy input reaching ``DMatrix``
 stays sparse (``data/sparse.py``); ``dispatch_data`` densifies it only for
 its own callers. ``pandas`` and ``pyarrow`` are imported where a frame or a
-table arrives, never at import time. The files are parsed in Python (the
-JAX package's fallback parsers): its native parser is host C++ the port
-does not carry.
+table arrives, never at import time. libsvm and csv files are parsed by
+the native parser (``native/fastparse.cpp``, built with ``g++`` at first
+use; a failed build raises), as in the JAX package; a csv whose label is
+not in column 0 goes through ``np.loadtxt``, as there. The Python parsers
+``_load_svmlight_py`` / ``_load_csv_py`` are the plain versions the tests
+hold the native one against.
 """
 
 from __future__ import annotations
@@ -96,8 +99,18 @@ def _from_pandas(data: Any, enable_categorical: bool):
 
 
 def load_svmlight(path) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
-    """A libsvm file -> ``(X, y, qid)``: absent entries NaN, ``qid`` when
-    every row has one (else None)."""
+    """A libsvm file -> ``(X, y, qid)``: absent entries NaN, ``qid`` where
+    any row has one (else None); malformed tokens skipped and lines whose
+    label does not parse dropped (``native/fastparse.cpp``)."""
+    from ..native import load_svmlight_native
+
+    return load_svmlight_native(path)
+
+
+def _load_svmlight_py(path) -> Tuple[np.ndarray, np.ndarray,
+                                     Optional[np.ndarray]]:
+    """The plain Python libsvm parser: ``qid`` when every row has one;
+    raises on a malformed token."""
     labels: List[float] = []
     rows: List[int] = []
     cols: List[int] = []
@@ -131,7 +144,21 @@ def load_svmlight(path) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
 
 
 def load_csv(path, label_column: int = 0) -> Tuple[np.ndarray, np.ndarray]:
-    """A headerless csv file -> ``(X, y)``, the label in ``label_column``."""
+    """A csv file -> ``(X, y)``, the label in ``label_column``. With the
+    label in column 0 (the default) the native parser reads it: header and
+    ``#`` lines skipped, empty fields NaN; otherwise ``np.loadtxt`` (a
+    headerless file), as in the JAX package."""
+    if label_column == 0:
+        from ..native import load_csv_native
+
+        return load_csv_native(path)
+    return _load_csv_py(path, label_column)
+
+
+def _load_csv_py(path, label_column: int = 0) -> Tuple[np.ndarray,
+                                                        np.ndarray]:
+    """The plain csv parser (``np.loadtxt``): a headerless file of numbers
+    only."""
     raw = np.loadtxt(path, delimiter=",", dtype=np.float32, ndmin=2)
     y = raw[:, label_column].copy()
     return np.delete(raw, label_column, axis=1), y

@@ -8,16 +8,21 @@ to fixed-row pages ``prefix.page{k}.bin``, bit-packed at
 ``ceil(log2(B+1))`` bits a symbol, the JAX package's bytes. Training
 (``tree/grow_fused.py:grow_tree_fused_paged``) streams the pages every
 level: one background slot reads the next page while the current one is
-on the device. The bytes go to the device packed and are unpacked there
-(``device_page``); the host unpack (``read_page``) is the JAX package's.
+on the device. Pages are written and read by the native page cache
+(``native/pagecache.cpp``, as in the JAX package): its ring of 4 slots
+reads ahead in page order on a thread of its own. The bytes go to the
+device packed and are unpacked there (``device_page``); the host unpack
+(``read_page``) is the JAX package's.
 Device memory holds one page of bins and every page's row positions;
 labels, weights and margins stay in memory.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple, Union
@@ -25,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import native
 from ..resilience import chaos, policy
 from .dmatrix import DMatrix
 from .iterator import DataIter, bin_batches, set_batch_meta, sketch_batches
@@ -91,7 +97,9 @@ def unpack_symbols_torch(packed: torch.Tensor, bits: int, count: int,
 class PagedBins:
     """Disk-backed quantized matrix: pages of ``[page_rows, F]`` bins (the
     last one shorter), ``cuts.max_bin`` the missing bin, in files
-    ``prefix.page{k}.bin`` read with numpy. ``io`` sums the seconds spent
+    ``prefix.page{k}.bin`` written and read through ``pagecache.cpp``
+    (``pc_write``; ``pc_read`` from a ring of 4 prefetched pages, opened at
+    the first read). ``io`` sums the seconds spent
     reading (``read_s``, on whichever thread read), waiting for a
     prefetched read (``wait_s``) and unpacking on the host (``unpack_s``),
     and counts the reads (``reads``, ``prefetched``)."""
@@ -115,6 +123,8 @@ class PagedBins:
         self.bits = _symbol_bits(cuts.max_bin + 1)
         self.packed = self.bits < 8 * self.dtype.itemsize
         self._pf: Optional[Tuple[int, Any]] = None
+        self._ring: Optional[int] = None  # the native reader's handle
+        self._ring_lock = threading.Lock()
         self._pool: Optional[ThreadPoolExecutor] = None
         self._mid: Optional[np.ndarray] = None
         self._mid_t: Dict[torch.device, torch.Tensor] = {}
@@ -135,33 +145,60 @@ class PagedBins:
         return n_sym * self.dtype.itemsize
 
     def write_page(self, k: int, bins: np.ndarray) -> None:
-        """Write page ``k``: the ``pager_io`` site, its transient failures
-        retried (``RetryPolicy("pager_io", retries=2)``, ``XGBTPU_RETRY``)
-        as the JAX package's spill does."""
+        """Write page ``k`` with ``pc_write``: the ``pager_io`` site, its
+        transient failures retried (``RetryPolicy("pager_io", retries=2)``,
+        ``XGBTPU_RETRY``) as the JAX package's spill does. Open readers
+        are closed first, so no ring slot keeps the page's old bytes."""
+        lib = native.pagecache()
         arr = np.ascontiguousarray(bins, self.dtype)
         out = pack_symbols(arr, self.bits) if self.packed else arr
+        self.close()
 
         def write_once() -> None:
             chaos.hit("pager_io")
-            out.tofile(self.page_path(k))
+            rc = lib.pc_write(os.fsencode(self.page_path(k)),
+                              out.ctypes.data, out.nbytes)
+            if rc:
+                raise OSError(f"{self.page_path(k)}: pc_write failed ({rc})")
 
         policy.RetryPolicy("pager_io", retries=2).run(write_once)
 
-    def _read_raw(self, k: int) -> np.ndarray:
-        """Page ``k``'s bytes read from disk under the ``pager_io`` retry
-        policy (on the caller's thread or the prefetch worker alike)."""
-        return policy.RetryPolicy("pager_io", retries=2).run(
-            self._read_once, k)
+    def _reader(self) -> int:
+        """The native reader over every page (``pc_open``, a ring of 4),
+        opened at the first read."""
+        with self._ring_lock:
+            if self._ring is None:
+                lib = native.pagecache()
+                sizes = (ctypes.c_longlong * self.n_pages)(
+                    *[self.page_bytes(k) for k in range(self.n_pages)])
+                self._ring = lib.pc_open(os.fsencode(self.prefix),
+                                         self.n_pages, sizes, 4)
+            return self._ring
 
-    def _read_once(self, k: int) -> np.ndarray:
+    def _close_ring(self) -> None:
+        with self._ring_lock:
+            if self._ring is not None:
+                native.pagecache().pc_close(self._ring)
+                self._ring = None
+
+    def _read_raw(self, k: int) -> np.ndarray:
+        """Page ``k``'s bytes from the native reader under the
+        ``pager_io`` retry policy (on the caller's thread or the prefetch
+        worker alike)."""
+        ring = self._reader()
+        return policy.RetryPolicy("pager_io", retries=2).run(
+            self._read_once, ring, k)
+
+    def _read_once(self, ring: int, k: int) -> np.ndarray:
         chaos.hit("pager_io")
+        raw = np.empty(self.page_bytes(k), np.uint8)
         t0 = time.perf_counter()
-        raw = np.fromfile(self.page_path(k), dtype=np.uint8)
+        rc = native.pagecache().pc_read(ring, k, raw.ctypes.data)
         self.io["read_s"] += time.perf_counter() - t0
         self.io["reads"] += 1
-        if raw.size != self.page_bytes(k):
-            raise IOError(f"{self.page_path(k)}: {raw.size} bytes, expected "
-                          f"{self.page_bytes(k)}")
+        if rc or os.path.getsize(self.page_path(k)) != raw.size:
+            raise OSError(f"{self.page_path(k)}: pc_read returned {rc}; the "
+                          f"page file must hold {raw.size} bytes")
         return raw
 
     def start_prefetch(self, k: int) -> None:
@@ -264,11 +301,12 @@ class PagedBins:
         return torch.where(bins >= B, torch.full_like(x, np.nan), x)
 
     def close(self) -> None:
-        """Stop the prefetch worker."""
+        """Stop the prefetch worker and close the native reader."""
         self._pf = None
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+        self._close_ring()
 
     def cleanup(self) -> None:
         """Close and delete the cache files (the reference's
