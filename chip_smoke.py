@@ -6,6 +6,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --serving   # phases 1, 47 and 48 alone
     python3 chip_smoke.py --pipeline  # phases 1 and 49 alone
     python3 chip_smoke.py --c-api     # phases 1, 39 and 50 alone
+    python3 chip_smoke.py --kernelprof  # phases 1 and 51 alone
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -490,6 +491,26 @@ After phase 40 (max_bin 256 unless named):
     file's handle as on the plain parser's rows; both parse times. (e) Phase
     39's page reads, now through ``pagecache.cpp``'s ring: the read wait and
     copy a page beside the numpy reads' (~2.95 ms wait, 2.5-2.9 ms copy).
+51. the per-level grow profiler and the perf ledger (``phase_kernelprof``,
+    after 50) on the main path's data (1M x 50, depth 6, eta 0.1, AUC +
+    logloss on the 100k held-out rows, 10 rounds), each run on a fresh
+    matrix with ``XGBTPU_KERNEL_PROF`` unset and then ``every=1``: (a)
+    max_bin 64 (the full hoist, kernel D), (b) the construct route
+    (``XGBTPU_HOIST_BUDGET_MB=0``, kernel A), (c) max_bin 256 (the partial
+    hoist, D). Each: model bytes equal with and without the profiler;
+    launches equal and C 1 (hoisted), D or A 6 a round, B 1 a round; none
+    of B's or C's inside a bracket (the bracket wrapped to count them); a
+    ``grow_detail`` a round with 16 brackets, ``level_hist`` ``cuda:D`` or
+    ``cuda:A``, the other ops ``torch``; the per-op, per-depth medians of
+    rounds 1-9 (wall, host, in-flight, gap ms) and the coverage ``sum_s /
+    stages.grow`` with the rest of ``stages.grow`` (gaps, and outside the
+    brackets), beside the unprofiled run's median ``stages.grow``. (d)
+    ``grow-report`` of (a)'s flight sink and ``--diff`` (a) (b)
+    (``cuda:D->cuda:A``), ``trace-report`` of (a)'s trace with its
+    ``grow`` breakdown, ``perf-report`` on the repository's banks: each
+    exits 0. (e) The host syncs of an unprofiled round
+    (``set_sync_debug_mode``): round 2 of a ``train`` after profiled rounds
+    0-1 equal to the profiler off, and phase 49's all among them.
 
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
@@ -7008,6 +7029,298 @@ def phase_c_api(Xtr, ytr, Xte, yte, extmem=None):
     print(f"c api: launches {out['launches']}; phase {out['phase_s']:.1f} s")
     return out
 
+# ---------------------------------------------------------------------------
+# phase 51: the per-level grow profiler and the perf ledger
+# ---------------------------------------------------------------------------
+
+#: (name, parameters, hoist budget env, the level kernel) of phase 51's runs
+KP_CONFIGS = (("a_bin64_D", PARAMS, None, "D"),
+              ("b_bin64_A", PARAMS, "0", "A"),
+              ("c_bin256_D", PARAMS_DEFAULT, None, "D"))
+KP_OPS = ("prep", "level_hist", "level_update", "level_partition",
+          "finalize", "leaf_delta")
+
+
+class _SyncWatch(xgbt.callback.TrainingCallback):
+    """Lists the host syncs of round ``at`` (``set_sync_debug_mode``:
+    warnings caught around the whole run, the mode on for that round
+    alone)."""
+
+    def __init__(self, at: int):
+        self.at = at
+
+    def before_iteration(self, model, epoch, evals_log):
+        if epoch == self.at:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+        return False
+
+    def after_iteration(self, model, epoch, evals_log):
+        torch.cuda.set_sync_debug_mode(0)
+        return False
+
+
+def _train_round_syncs(d, spec):
+    """The host syncs of round 2 of a 3-round consumer-free ``train`` (the
+    callback above is its only consumer) with ``XGBTPU_KERNEL_PROF`` =
+    ``spec`` (None: unset): ``{"file:line": count}``."""
+    root = os.path.dirname(os.path.abspath(__file__)) + os.sep
+    if spec is None:
+        os.environ.pop("XGBTPU_KERNEL_PROF", None)
+    else:
+        os.environ["XGBTPU_KERNEL_PROF"] = spec
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                xgbt.train(PARAMS, d, 3, verbose_eval=False,
+                           callbacks=[_SyncWatch(2)])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        os.environ.pop("XGBTPU_KERNEL_PROF", None)
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{w.filename.replace(root, '')}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return where
+
+
+def _kp_run(name, params, Xtr, ytr, Xte, yte, spec, run_dir, inside):
+    """One 10-round run of phase 51 on a fresh matrix (its own binning and,
+    hoisted, kernel C's one-hot) with the held-out eval, the flight sink at
+    ``run_dir``: ``(save_raw bytes, launches, the round records)``."""
+    from xgboost_tpu_torch.observability import flight
+
+    if spec is None:
+        os.environ.pop("XGBTPU_KERNEL_PROF", None)
+    else:
+        os.environ["XGBTPU_KERNEL_PROF"] = spec
+    flight.RECORDER.reset()
+    flight.configure(run_dir, rank=0)
+    try:
+        d = xgbt.DMatrix(Xtr, ytr, device=DEVICE)
+        dv = xgbt.DMatrix(Xte, yte, device=DEVICE)
+        torch.cuda.synchronize()
+        reset_launches()
+        inside.update(B=0, C=0)
+        bst = xgbt.train(params, d, ROUNDS, evals=[(dv, "eval")],
+                         verbose_eval=False)
+        torch.cuda.synchronize()
+        got = launches()
+        recs = [r for r in flight.RECORDER.records() if r.get("t") == "round"]
+        raw = bst.save_raw()
+        del bst, d, dv
+    finally:
+        flight.RECORDER.reset()  # closes the sink
+        os.environ.pop("XGBTPU_KERNEL_PROF", None)
+    torch.cuda.empty_cache()
+    print(f"kernelprof: {name} {'profiled' if spec else 'unprofiled'}: "
+          f"launches {got}")
+    return raw, got, recs
+
+
+def _kp_medians(recs):
+    """Per (op, depth): the medians over rounds 1-9 (round 0 also bins and
+    builds the one-hot) of wall, host, in-flight and gap ms, and its
+    impls; per round: the coverage ``sum_s / stages.grow`` and the rest of
+    ``stages.grow`` outside the brackets and their gaps."""
+    per = {}
+    cover, rest_ms, gap_ms, grow_ms = [], [], [], []
+    for r in recs:
+        gd = r.get("grow_detail")
+        if gd is None or r["round"] == 0:
+            continue
+        for b in gd["ops"]:
+            e = per.setdefault(f"{b['op']}@{b['depth']}", {
+                "wall": [], "host": [], "inflight": [], "gap": [],
+                "impl": set()})
+            for k in ("wall", "host", "inflight", "gap"):
+                e[k].append(b[f"{k}_s"] * 1e3)
+            e["impl"].add(b["impl"])
+        grow = r["stages"]["grow"]
+        cover.append(gd["sum_s"] / grow)
+        grow_ms.append(grow * 1e3)
+        gap_ms.append(gd["gap_s"] * 1e3)
+        rest_ms.append((grow - gd["sum_s"] - gd["gap_s"]) * 1e3)
+    table = {k: dict({m: statistics.median(v[m]) for m in
+                      ("wall", "host", "inflight", "gap")},
+                     impl=sorted(v["impl"])) for k, v in per.items()}
+    return table, dict(
+        coverage_median=statistics.median(cover), coverage=cover,
+        grow_ms_median=statistics.median(grow_ms),
+        gap_ms_median=statistics.median(gap_ms),
+        outside_ms_median=statistics.median(rest_ms))
+
+
+def _report(argv):
+    """``python -m xgboost_tpu_torch <argv>`` in this process
+    (``cli_main``; ``_cli``'s new process would cost ~8 s a call): its
+    exit code and standard output."""
+    import io
+
+    from xgboost_tpu_torch import cli as tcli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tcli.cli_main(list(argv))
+    return rc, buf.getvalue()
+
+
+def phase_kernelprof(Xtr, ytr, Xte, yte, pipe_syncs=None):
+    """Phase 51: the per-level grow profiler and the perf ledger on the
+    main path (module docstring, 51). ``pipe_syncs``: phase 49's host syncs
+    of a consumer-free round, when it ran."""
+    from xgboost_tpu_torch.observability import kernelprof as tkp
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="xgbt_kernelprof_")
+    env0 = {k: os.environ.get(k) for k in (
+        "XGBTPU_KERNEL_PROF", "XGBTPU_HOIST_BUDGET_MB")}
+    out = {"runs": {}}
+    inside = {"B": 0, "C": 0}
+    bracket0 = tkp._bracket
+
+    def counting(prof, device):
+        """The profiler's bracket, also counting kernels B and C inside."""
+        step = bracket0(prof, device)
+
+        def run(op, depth, fn, *args, **kwargs):
+            b0, c0 = predict_margin.launches, hk.build_onehot.launches
+            res = step(op, depth, fn, *args, **kwargs)
+            inside["B"] += predict_margin.launches - b0
+            inside["C"] += hk.build_onehot.launches - c0
+            return res
+        return run
+
+    tkp._bracket = counting
+    try:
+        for name, params, budget, kernel in KP_CONFIGS:
+            if budget is None:
+                os.environ.pop("XGBTPU_HOIST_BUDGET_MB", None)
+            else:
+                os.environ["XGBTPU_HOIST_BUDGET_MB"] = budget
+            runs = {}
+            for spec in (None, "every=1"):
+                run_dir = os.path.join(tmp, name, spec or "off")
+                runs[spec] = _kp_run(name, params, Xtr, ytr, Xte, yte, spec,
+                                     run_dir, inside)
+            (raw0, l0, recs0), (raw1, l1, recs1) = runs[None], runs["every=1"]
+            check(raw1 == raw0, f"kernelprof ({name}): profiled model bytes "
+                  "equal the unprofiled run's")
+            other = "A" if kernel == "D" else "D"
+            want = {kernel: ROUNDS * DEPTH, other: 0, "B": ROUNDS,
+                    "C": 1 if kernel == "D" else 0}
+            check(l0 == l1 == want, f"kernelprof ({name}): launches "
+                  f"unprofiled {l0}, profiled {l1}, want {want}")
+            check(inside == {"B": 0, "C": 0}, f"kernelprof ({name}): "
+                  f"kernels B and C launched inside a bracket {inside}")
+            check(not any("grow_detail" in r for r in recs0),
+                  f"kernelprof ({name}): an unprofiled round has a record")
+            gds = [r["grow_detail"] for r in recs1]
+            check(len(gds) == ROUNDS and all(
+                g["host_syncs"] == 4 + 2 * DEPTH and len(g["ops"]) ==
+                4 + 2 * DEPTH for g in gds),
+                f"kernelprof ({name}): a record a round, "
+                f"{4 + 2 * DEPTH} brackets each")
+            impls = {(b["op"], b["impl"]) for g in gds for b in g["ops"]}
+            want_impls = {(op, f"cuda:{kernel}" if op == "level_hist"
+                           else "torch") for op in KP_OPS}
+            check(impls == want_impls, f"kernelprof ({name}): impls "
+                  f"{sorted(impls)}, want {sorted(want_impls)}")
+            table, cover = _kp_medians(recs1)
+            grow0 = statistics.median(r["stages"]["grow"] * 1e3
+                                      for r in recs0 if r["round"] > 0)
+            qs = gds[-1]["quant_scales"]
+            out["runs"][name] = dict(launches=l1, launches_unprofiled=l0,
+                                     ops=table, quant_scales=qs,
+                                     grow_ms_unprofiled_median=grow0,
+                                     **cover)
+            print(f"kernelprof: ({name}) bytes equal; level_hist "
+                  f"cuda:{kernel}; launches {l1} both; B and C inside the "
+                  f"brackets {inside}; quant_scales of round 9 {qs}")
+            print(f"kernelprof: ({name}) coverage sum_s / stages.grow, "
+                  f"rounds 1-9: median {cover['coverage_median']:.4f} "
+                  f"({', '.join(f'{c:.3f}' for c in cover['coverage'])}); "
+                  f"stages.grow {cover['grow_ms_median']:.3f} ms "
+                  f"(unprofiled {grow0:.3f}), gaps "
+                  f"{cover['gap_ms_median']:.3f} ms, outside the brackets "
+                  f"{cover['outside_ms_median']:.3f} ms (medians)")
+            print(f"kernelprof: ({name}) per op and depth, medians of rounds "
+                  f"1-9, ms: wall / host / in-flight / gap")
+            for key in sorted(table, key=lambda k: (int(k.split("@")[1]),
+                                                    k)):
+                m = table[key]
+                print(f"  {key:<20} {m['impl'][0]:<7} {m['wall']:9.4f} "
+                      f"{m['host']:9.4f} {m['inflight']:9.4f} "
+                      f"{m['gap']:9.4f}")
+            os.environ.pop("XGBTPU_HOIST_BUDGET_MB", None)
+
+        # (d) grow-report, trace-report and perf-report on this run's sinks
+        # and the repository's banks
+        a_dir = os.path.join(tmp, "a_bin64_D", "every=1")
+        b_dir = os.path.join(tmp, "b_bin64_A", "every=1")
+        rc, text = _report(["grow-report", a_dir])
+        check(rc == 0 and text.count("grow detail") == ROUNDS
+              and "cuda:D" in text and "substages = " in text,
+              f"kernelprof (d): grow-report rc {rc}")
+        rc_d, diff = _report(["grow-report", "--diff", a_dir, b_dir])
+        check(rc_d == 0 and "cuda:D->cuda:A" in diff,
+              f"kernelprof (d): grow-report --diff rc {rc_d}")
+        trace_file = os.path.join(a_dir, "obs", "rank0", "trace.jsonl")
+        rc_t, ttext = _report(["trace-report", trace_file])
+        check(rc_t == 0 and "grow breakdown" in ttext
+              and "grow/level_hist" in ttext,
+              f"kernelprof (d): trace-report rc {rc_t}")
+        root = os.path.dirname(os.path.abspath(__file__))
+        rc_p, ptext = _report(["perf-report", "--root", root])
+        check(rc_p == 0 and ptext.startswith("== perf ledger:"),
+              f"kernelprof (d): perf-report rc {rc_p}")
+        print("kernelprof: (d) grow-report of (a), round 5:\n" + "\n".join(
+            text.split("\n\n")[5].splitlines()))
+        print("kernelprof: (d) grow-report --diff (a) (b):\n" + diff.rstrip())
+        print("kernelprof: (d) trace-report of (a): " + " | ".join(
+            ln.strip() for ln in ttext.splitlines() if "grow" in ln)[:1500])
+        print(f"kernelprof: (d) perf-report --root .: exit 0, "
+              f"{ptext.splitlines()[0]}")
+        out["reports"] = dict(grow_report=rc, diff=rc_d, trace_report=rc_t,
+                              perf_report=rc_p)
+
+        # (e) an unprofiled round keeps the host syncs it had
+        d = xgbt.DMatrix(Xtr, ytr, device=DEVICE)
+        where49 = pipe_syncs if pipe_syncs is not None else _pipe_syncs(d)[0]
+        off = _train_round_syncs(d, None)
+        between = _train_round_syncs(d, "rounds=0,1")
+        del d
+        check(between == off, f"kernelprof (e): host syncs of an unprofiled "
+              f"round after two profiled ones {between}, with the profiler "
+              f"off {off}")
+        check(set(where49) <= set(off), f"kernelprof (e): phase 49's syncs "
+              f"{where49} not all in a train round's {off}")
+        out["syncs"] = dict(phase49=where49, train_off=off,
+                            train_after_profiled=between)
+        print(f"kernelprof: (e) host syncs of an unprofiled round: phase 49's "
+              f"harness {json.dumps(where49)}; train round 2, profiler off "
+              f"{json.dumps(off)}, after profiled rounds 0-1 "
+              f"{json.dumps(between)}")
+    finally:
+        tkp._bracket = bracket0
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["launches"] = {k: sum(r["launches"][k] for r in out["runs"].values())
+                       for k in "ABCD"}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"kernelprof: launches of the profiled runs {out['launches']}; "
+          f"phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7115,6 +7428,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     pipeline = phase_pipeline(Xtr, ytr, Xte, yte)
     c_api = phase_c_api(Xtr, ytr, Xte, yte, extmem)
+    torch.cuda.empty_cache()
+    kprof = phase_kernelprof(Xtr, ytr, Xte, yte,
+                             pipeline["a"]["syncs_in_a_round"])
     del X, Xtr, Xte
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
@@ -7138,7 +7454,7 @@ def main() -> int:
         "traced": traced, "resilience": resilience, "elastic": elastic,
         "cli": cli, "serving": {k: v for k, v in serving.items()
                                 if k != "kernel_B"}, "fleet": fleet,
-        "pipeline": pipeline, "c_api": c_api}))
+        "pipeline": pipeline, "c_api": c_api, "kernelprof": kprof}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -7176,6 +7492,12 @@ def main() -> int:
                     rerun_after_chaos=resilience["launches_rerun"][k],
                     resumed_in_process=resilience[
                         "launches_resumed_here"][k])
+    def kernelprof_launches(k):
+        """Kernel ``k``'s launches on phase 51's profiled runs, each
+        equal to its unprofiled run's."""
+        return dict(launches=kprof["launches"][k], per_run={
+            n: r["launches"][k] for n, r in kprof["runs"].items()})
+
     def elastic_launches(k):
         """Kernel ``k``'s launches on phase 45's survivors: (a)'s, one
         process over both generations; (b)'s restarted images (generation
@@ -7233,6 +7555,7 @@ def main() -> int:
              elastic=elastic_launches("A"),
              pipeline=dict(launches=pipeline["launches"]["A"]),
              c_api=dict(launches=c_api["launches"]["A"]),
+             kernelprof=kernelprof_launches("A"),
              **a64),
         dict(name="predict_margin", route="cuda",
              source="xgboost_tpu_torch/csrc/predict_walk.cu",
@@ -7263,6 +7586,7 @@ def main() -> int:
              fleet=fleet_launches(fleet),
              pipeline=dict(launches=pipeline["launches"]["B"]),
              c_api=dict(launches=c_api["launches"]["B"]),
+             kernelprof=kernelprof_launches("B"),
              **b),
         dict(name="build_onehot", route="cuda",
              source="xgboost_tpu_torch/csrc/onehot.cu",
@@ -7285,6 +7609,7 @@ def main() -> int:
              elastic=elastic_launches("C"),
              pipeline=dict(launches=pipeline["launches"]["C"]),
              c_api=dict(launches=c_api["launches"]["C"]),
+             kernelprof=kernelprof_launches("C"),
              **c256),
         dict(name="hoisted_level", route="cuda",
              source="xgboost_tpu_torch/csrc/hoisted_level.cu",
@@ -7312,6 +7637,7 @@ def main() -> int:
              elastic=elastic_launches("D"),
              pipeline=dict(launches=pipeline["launches"]["D"]),
              c_api=dict(launches=c_api["launches"]["D"]),
+             kernelprof=kernelprof_launches("D"),
              **d256),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -7323,6 +7649,24 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_kernelprof() -> int:
+    """``python3 chip_smoke.py --kernelprof``: phases 1 and 51 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_build()
+    X, y, _ = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
+    kprof = phase_kernelprof(X[:ROWS], y[:ROWS], X[ROWS:], y[ROWS:])
+    print(json.dumps({"kernelprof": kprof}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi failed: {smi.stderr.strip()}")
     return 0
 
 
@@ -7405,6 +7749,8 @@ if __name__ == "__main__":
         sys.exit(main_pipeline())
     if sys.argv[1:] == ["--c-api"]:
         sys.exit(main_c_api())
+    if sys.argv[1:] == ["--kernelprof"]:
+        sys.exit(main_kernelprof())
     if len(sys.argv) == 3 and sys.argv[1] == "--resilience-worker":
         sys.exit(_resilience_worker(json.loads(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--elastic-worker":

@@ -8,6 +8,8 @@ parser of ``src/common/config.h``). Usage:
     python -m xgboost_tpu_torch obs-report <run_dir> ... [--top-rounds N]
     python -m xgboost_tpu_torch serve-report <run_dir> ... [--top N]
     python -m xgboost_tpu_torch checkpoint-inspect <dir> [--json]
+    python -m xgboost_tpu_torch grow-report <flight.jsonl|run-dir> [--round N] | --diff <A> <B>
+    python -m xgboost_tpu_torch perf-report [--root DIR] [--json]
     python -m xgboost_tpu_torch serve (--port N | --stdin) [--model name=path ...] [--device cpu]
     python -m xgboost_tpu_torch serve-fleet --port N --run-dir D [--replicas K] [--model name=path ...] [--device cpu]
     python -m xgboost_tpu_torch deliver --connect HOST:PORT (--model M --watch DIR | --status | --stop --model M)
@@ -36,7 +38,11 @@ latency, shed and coalescing tables and one trace
 (``observability/serve_report.py``); ``deliver`` is the operator client of
 a running server's ``deliver`` op.
 
-The JAX package's ``perf-report``, ``grow-report``, ``lint`` and
+``perf-report`` renders the banked perf ledger (``BENCH_r*.json`` under
+``--root``, ``observability/ledger.py``); ``grow-report`` renders the
+per-depth x per-op ``grow_detail`` of kernel-profiled rounds
+(``XGBTPU_KERNEL_PROF``) from a run's flight sinks, either package's
+(``observability/kernelprof.py``). The JAX package's ``lint`` and
 ``dispatch-report`` are not in the port: each prints so and returns 1.
 """
 
@@ -57,7 +63,7 @@ __all__ = ["parse_config_file", "cli_main", "checkpoint_inspect_main",
            "deliver_main", "main"]
 
 #: the JAX package's subcommands that have no counterpart in the port
-NOT_PORTED = ("perf-report", "grow-report", "lint", "dispatch-report")
+NOT_PORTED = ("lint", "dispatch-report")
 
 
 def parse_config_file(path: str) -> List[Tuple[str, str]]:
@@ -127,6 +133,14 @@ def cli_main(argv: List[str]) -> int:
         from .serving.fleet.supervisor import serve_fleet_main
 
         return serve_fleet_main(argv[1:])
+    if argv[0] == "perf-report":
+        from .observability.ledger import main as ledger_main
+
+        return ledger_main(argv[1:])
+    if argv[0] == "grow-report":
+        from .observability.kernelprof import main as kernelprof_main
+
+        return kernelprof_main(argv[1:])
     if argv[0] in NOT_PORTED:
         print(f"{argv[0]}: not in the PyTorch port (the JAX package's "
               "xgboost_tpu has it)", file=sys.stderr)

@@ -38,6 +38,7 @@ import torch
 from .. import threefry
 from ..config import warn
 from ..observability import REGISTRY as _REGISTRY
+from ..observability import kernelprof as _kernelprof
 from ..observability import trace as _trace
 from ..params import GBTreeParam, TrainParam
 from ..objective.base import segment_sum
@@ -612,7 +613,11 @@ class GBTree:
                             float(tp.gamma), cfg, key=key,
                             feature_weights=feature_weights)
                     else:
-                        tree = grow_tree_fused(
+                        # a sampled round (XGBTPU_KERNEL_PROF) brackets
+                        # the same level loop's ops
+                        grow = (_kernelprof.grow_tree_fused_profiled
+                                if _kernelprof.active() else grow_tree_fused)
+                        tree = grow(
                             binned.bins, g, h, cut_values, float(tp.eta),
                             float(tp.gamma), cfg, onehot=onehot,
                             bins_t=bins_t, key=key,

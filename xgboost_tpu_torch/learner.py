@@ -47,6 +47,7 @@ from .metric import create_metric
 from .objective import create_objective
 from .observability import REGISTRY as _REGISTRY
 from .observability import flight as _flight
+from .observability import kernelprof as _kernelprof
 from .observability import trace as _trace
 from .params import LearnerParam, check_ported, known_keys
 from .parallel.mesh import current_mesh
@@ -513,7 +514,9 @@ class Booster:
         fault at that wait carries the chunk's first round
         (``.pipeline_round``) and drops the younger chunks. The window
         stays open across calls: a caller drains it
-        (``bst._pipeline.drain()``) at its own boundaries."""
+        (``bst._pipeline.drain()``) at its own boundaries. Its rounds are
+        not kernel-profiled (``observability/kernelprof.py``), as the JAX
+        package's scanned chunks are not."""
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self._configure()
@@ -529,8 +532,9 @@ class Booster:
                 _flight.profile_tick(first)
             try:
                 t0 = time.perf_counter()
-                for i in range(first, first + k):
-                    self.update(dtrain, i)
+                with _kernelprof.paused():  # not profiled (the JAX scan)
+                    for i in range(first, first + k):
+                        self.update(dtrain, i)
                 if owned:
                     _flight.note("grow", time.perf_counter() - t0)
                 entry = self._caches.get(id(dtrain))

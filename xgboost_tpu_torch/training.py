@@ -17,6 +17,7 @@ from .callback import (CallbackContainer, EarlyStopping, EvaluationMonitor,
 from .data.dmatrix import DMatrix
 from .learner import Booster
 from .observability import flight as _flight
+from .observability import kernelprof as _kernelprof
 from .observability import trace as _trace
 from .pipeline import RoundPipeline, completion_probe
 from .resilience import checkpoint as _ckpt
@@ -182,11 +183,20 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
     its caches round by round (``Booster._fill_caches_by_round``), so the
     resumed model's bytes are an uninterrupted run's. Each round's
     ``update`` runs under the ``round_dispatch`` watchdog
-    (``XGBTPU_WATCHDOG``; none by default). No counterpart here: the JAX
-    package's scan path and its ``train_dispatch`` deadline (TPU only; the
-    port keeps the per-round loop on every device), the
+    (``XGBTPU_WATCHDOG``; none by default).
+
+    Sampled rounds (``XGBTPU_KERNEL_PROF=every=N`` or ``rounds=a,b,c``;
+    off by default) run the grow with every op bracketed by a completion
+    sync (``observability/kernelprof.py``), and the round's flight record
+    carries the per-depth x per-op ``grow_detail``. Before a sampled
+    round's ``update`` the pipeline is drained, its wait charged to the
+    flight ``sync`` stage, so that the first bracket's sync does not
+    charge the rounds still in flight to this one. An unsampled round
+    pays one environment read for it and no sync. No counterpart here:
+    the JAX package's scan path and its ``train_dispatch`` deadline (TPU
+    only; the port keeps the per-round loop on every device) and the
     ``native_dispatch`` retry (the CPU native kernels have no counterpart
-    by design) and ``kernelprof``."""
+    by design)."""
     if resume_mode not in ("total", "append"):
         raise ValueError(
             f"resume_mode must be 'total' or 'append', got {resume_mode!r}")
@@ -250,7 +260,13 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
                     break
                 _flight.profile_tick(i)
                 _flight.RECORDER.begin_round(i)
+                sampled = _kernelprof.should_sample(i)
                 try:
+                    if sampled:
+                        # the earlier rounds finish first (charged to
+                        # this round's sync stage), then the profile arms
+                        pipe.drain()
+                        _kernelprof.arm(i)
                     with _trace.span("round", iteration=i):
                         t0 = time.perf_counter()
                         with _watchdog("round_dispatch"):
@@ -264,6 +280,10 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
                         stop = container.after_iteration(
                             bst, i, dtrain, evals, feval=feval)
                 finally:
+                    if sampled:
+                        detail = _kernelprof.disarm()
+                        if detail is not None:
+                            _flight.RECORDER.annotate("grow_detail", detail)
                     _flight.RECORDER.end_round()
                 if stop:
                     break

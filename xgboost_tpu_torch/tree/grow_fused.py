@@ -8,7 +8,9 @@ next decision table); after the loop, the final ``partition_apply``,
 ``_finalize`` (gamma pruning, leaf values) and ``leaf_delta`` (the
 prediction-cache increment). The tree comes back as heap-layout arrays
 (children of ``i`` at ``2i+1`` / ``2i+2``) on the device; nothing is copied
-to the host during a round.
+to the host during a round. Each op of the loop goes through one step
+seam: a direct call, or on a sampled round the per-level profiler's
+bracket (``observability/kernelprof.py``), which adds only syncs.
 
 Rows are not padded: the CUDA kernels mask the ragged edge themselves
 (the JAX package pads to a 1024-row tile), so ``delta`` covers exactly the
@@ -347,11 +349,25 @@ def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
                                 onehot, bins_t, key, feature_weights, group)
 
 
-def _grow_tree_fused(bins, grad, hess, cut_values, eta, gamma, cfg, onehot,
-                     bins_t, key, feature_weights, group) -> GrownTree:
-    B = cut_values.shape[1]
+def _direct(op: str, depth: int, fn, *args, **kwargs):
+    """The step seam of an unprofiled tree: the call itself."""
+    return fn(*args, **kwargs)
+
+
+class _Prep(NamedTuple):
+    """What a tree's level loop starts from."""
+
+    gq: QuantizedGradients
+    tree_mask: Optional[torch.Tensor]  # [F] bool, None: every feature
+    k_level: torch.Tensor
+    st: _HeapState
+
+
+def _prep(bins, grad, hess, key, feature_weights, cfg: GrowParams, B: int,
+          group) -> _Prep:
+    """Split the tree's key, sample rows and the tree's columns, quantise
+    the gradients and set up the root."""
     F = bins.shape[1]
-    max_depth = cfg.max_depth
     k_sub, k_ctree, k_level = threefry.split(
         threefry.prng_key(0) if key is None else key, 3)
     grad, hess = apply_row_sampling(cfg, k_sub, grad, hess)
@@ -360,27 +376,51 @@ def _grow_tree_fused(bins, grad, hess, cut_values, eta, gamma, cfg, onehot,
         tree_mask = _sample_features_exact(k_ctree, F, cfg.colsample_bytree,
                                            feature_weights,
                                            device=bins.device)
-    gq: QuantizedGradients = quantize_gradients(grad, hess, group)
-    st = _init_state(cfg, gq.totals(group), B, F)
+    gq = quantize_gradients(grad, hess, group)
+    return _Prep(gq, tree_mask, k_level,
+                 _init_state(cfg, gq.totals(group), B, F))
+
+
+def _level_hist(bins, pos, gq: QuantizedGradients, ptab, B: int, d: int,
+                onehot, bins_t, group):
+    """Level ``d``'s routing and float histogram ``[F, 2K, B]``: kernel D
+    or A, the group's SUM of the int64 cells, then the scale."""
+    K = 1 << d
+    pos, hq = fused_level_int(bins, pos, gq, ptab, K=K, Kp=K >> 1, B=B, d=d,
+                              onehot=onehot, bins_t=bins_t)
+    hq = collective.all_reduce(hq, group, site="level_hist")
+    return pos, gq.dequantize(hq, level_lanes(K, hq.device))
+
+
+def _grow_tree_fused(bins, grad, hess, cut_values, eta, gamma, cfg, onehot,
+                     bins_t, key, feature_weights, group,
+                     step=_direct) -> GrownTree:
+    """The level loop. Each op goes through ``step(op, depth, fn, *args)``,
+    the seam where a sampled round's profiler brackets it
+    (``observability/kernelprof.py``); unprofiled, it is the call."""
+    B = cut_values.shape[1]
+    max_depth = cfg.max_depth
+    gq, tree_mask, k_level, st = step("prep", -1, _prep, bins, grad, hess,
+                                      key, feature_weights, cfg, B, group)
     pos = torch.zeros((bins.shape[0], 1), dtype=torch.int32, device=bins.device)
     for d in range(max_depth):
-        K = 1 << d
-        pos, hq = fused_level_int(bins, pos, gq, st.ptab, K=K, Kp=K >> 1,
-                                  B=B, d=d, onehot=onehot, bins_t=bins_t)
-        hq = collective.all_reduce(hq, group, site="level_hist")
-        histC = gq.dequantize(hq, level_lanes(K, hq.device))
-        st = _level_update(st, histC, cut_values, cfg, d, tree_mask, k_level)
+        pos, histC = step("level_hist", d, _level_hist, bins, pos, gq,
+                          st.ptab, B, d, onehot, bins_t, group)
+        st = step("level_update", d, _level_update, st, histC, cut_values,
+                  cfg, d, tree_mask, k_level)
     # route rows through the last level's splits to their leaves
     if max_depth > 0:
-        pos = partition_apply(bins, pos, st.ptab, Kp=1 << (max_depth - 1),
-                              B=B, d=max_depth)
-    keep, leaf_value = _finalize(st, eta, gamma, cfg)
+        pos = step("level_partition", max_depth, partition_apply, bins, pos,
+                   st.ptab, Kp=1 << (max_depth - 1), B=B, d=max_depth)
+    keep, leaf_value = step("finalize", max_depth, _finalize, st, eta, gamma,
+                            cfg)
+    delta = step("leaf_delta", max_depth, leaf_delta, pos, leaf_value)
     return GrownTree(
         keep=keep, feature=st.feature, split_bin=st.split_bin,
         split_cond=st.split_cond, default_left=st.default_left,
         node_g=st.node_g, node_h=st.node_h, node_weight=st.node_w,
-        loss_chg=st.loss_chg, leaf_value=leaf_value,
-        delta=leaf_delta(pos, leaf_value), cat_set=st.cat_set,
+        loss_chg=st.loss_chg, leaf_value=leaf_value, delta=delta,
+        cat_set=st.cat_set,
     )
 
 
