@@ -1,0 +1,3 @@
+"""Device idle share of a binary round at the program's own pace, %."""
+
+from portbench.readers import idle_share as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""Level histograms' share of their roofline in the binary cells (device trace), %."""
+
+from portbench.readers import level_hist_roofline as read  # noqa: F401
