@@ -1,0 +1,3 @@
+"""Ms of the held-out rows' walk (kernel B) a round in the ranking cells (round_detail)."""
+
+from portbench.round_detail import eval_walk_ms as read  # noqa: F401

@@ -907,8 +907,18 @@ def test_spans_and_records_read_no_tensor(stub_cuda, monkeypatch, tmp_path):
     grow()
     assert stub_cuda.calls == untraced and len(untraced) == depth
     trace.flush()
-    assert [e["name"] for e in trace.load_trace(str(tmp_path / "t.json"))
-            if e.get("ph") == "X"] == ["grow_tree"]
+    spans = [e for e in trace.load_trace(str(tmp_path / "t.json"))
+             if e.get("ph") == "X"]
+    assert [e["name"] for e in spans if e.get("cat") != "step"] == \
+        ["grow_tree"]
+    # the traced tree's step seam: a span per op, sub-op and scan
+    steps = sorted(e["name"] for e in spans if e.get("cat") == "step")
+    lu = ["step/level_update/" + s for s in ("eval_splits", "heap_write",
+                                             "scan", "scan", "with_missing")]
+    assert steps == sorted(
+        ["step/prep", "step/level_partition", "step/finalize",
+         "step/leaf_delta"]
+        + depth * (["step/level_hist", "step/level_update"] + lu))
     trace.reset()
     RECORDER.reset()
 

@@ -239,10 +239,29 @@ def test_traced_run_matches_jax_span_names_and_nesting(tmp_path,
     _run(xgb, X, y)
     assert jtrace.flush() == str(tmp_path / "jax.json")
 
-    mine, theirs = _x_events(tmp_path / "port.json"), \
+    port, theirs = _x_events(tmp_path / "port.json"), \
         _x_events(tmp_path / "jax.json")
+    # the port's own step/<op> spans (cat="step": the level loop's ops,
+    # _level_update's sub-ops, the eval walk and metric, the one-hot plan)
+    # aside, the spans are the JAX package's
+    mine = [e for e in port if e.get("cat") != "step"]
     assert [e["name"] for e in mine] == [e["name"] for e in theirs]
     assert _nesting(mine) == _nesting(theirs)
+    lu = "step/level_update"
+    parents = {
+        **{f"step/{op}": {"grow_tree"} for op in (
+            "prep", "level_hist", "level_update", "level_partition",
+            "finalize", "leaf_delta")},
+        **{f"{lu}/{op}": {lu} for op in (
+            "with_missing", "eval_splits", "heap_write")},
+        f"{lu}/scan": {f"{lu}/with_missing", f"{lu}/eval_splits", lu},
+        "step/eval_walk": {"eval"}, "step/eval_metric": {"eval"},
+        "step/onehot": {"BoostOneRound"}}
+    nested = [(n, p) for n, p in _nesting(port) if n.startswith("step/")]
+    assert {n for n, _ in nested} == set(parents)
+    for name, parent in nested:
+        assert parent in parents[name], (name, parent)
+    assert sum(n == f"{lu}/scan" for n, _ in nested) == 2 * 3 * 3
     names = {e["name"] for e in mine}
     assert {"train", "round", "update", "GetGradient", "GetBinned",
             "dmatrix_build", "sketch", "quantize", "BoostOneRound",

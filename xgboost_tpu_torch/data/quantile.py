@@ -282,17 +282,28 @@ class BinnedMatrix:
         raises."""
         key = None if group is None else id(group)
         if self._hoist_fh is None or self._hoist_group != key:
-            chaos.hit("pallas")
-            n, F = self.bins.shape
-            B = self.cuts.max_bin
-            fh = hoist_plan_synced(hoist_plan(onehot_rows(n), F, B,
-                                              self.bins.device), group,
-                                   cuts_digest=self.cuts.digest())
-            if fh != self._hoist_fh:
-                self._onehot = (build_onehot(self.bins, B=B, Fh=fh) if fh
-                                else None)
-            self._hoist_fh, self._hoist_group = fh, key
+            from ..observability import kernelprof
+
+            # the plan and the build: the round's ``onehot`` op on a
+            # sampled or traced round
+            step = kernelprof.round_seam(self.bins.device)
+            if step is None:
+                self._plan_onehot(group, key)
+            else:
+                step("onehot", -1, self._plan_onehot, group, key)
         return self._onehot
+
+    def _plan_onehot(self, group, key) -> None:
+        chaos.hit("pallas")
+        n, F = self.bins.shape
+        B = self.cuts.max_bin
+        fh = hoist_plan_synced(hoist_plan(onehot_rows(n), F, B,
+                                          self.bins.device), group,
+                               cuts_digest=self.cuts.digest())
+        if fh != self._hoist_fh:
+            self._onehot = (build_onehot(self.bins, B=B, Fh=fh) if fh
+                            else None)
+        self._hoist_fh, self._hoist_group = fh, key
 
     def feature_major(self) -> torch.Tensor:
         """The bins feature-major (``tree/hist_kernel.py:feature_major``),

@@ -386,18 +386,28 @@ class Booster:
             self.boost(dtrain, grad, hess)
             return
         with self.monitor.section("GetGradient"):
-            margin = self._training_margin(dtrain)
-            m = margin[:, 0] if self.n_groups == 1 else margin
-            grad, hess = self._obj.get_gradient(
-                m, self._label(dtrain), dtrain.weight, iteration,
-                label_lower=dtrain.label_lower_bound,
-                label_upper=dtrain.label_upper_bound, groups=dtrain.groups)
+            if _kernelprof.active():  # a sampled round: bracketed
+                margin, grad, hess = _kernelprof.round_seam(self.device)(
+                    "gradient", -1, self._gradient, dtrain, iteration)
+            else:
+                margin, grad, hess = self._gradient(dtrain, iteration)
         if observer.enabled():  # off: no copy leaves the card
             observer.observe("margin", margin.cpu().numpy(), iteration)
             observer.observe("grad", grad.cpu().numpy(), iteration)
             observer.observe("hess", hess.cpu().numpy(), iteration)
         self._boost(dtrain, grad, hess, iteration)
         self.monitor.maybe_print()
+
+    def _gradient(self, dtrain: DMatrix, iteration: int):
+        """``(margin, grad, hess)`` of the round: the margin read and the
+        objective's ``get_gradient`` at it."""
+        margin = self._training_margin(dtrain)
+        m = margin[:, 0] if self.n_groups == 1 else margin
+        grad, hess = self._obj.get_gradient(
+            m, self._label(dtrain), dtrain.weight, iteration,
+            label_lower=dtrain.label_lower_bound,
+            label_upper=dtrain.label_upper_bound, groups=dtrain.groups)
+        return margin, grad, hess
 
     def _training_margin(self, dtrain: DMatrix) -> torch.Tensor:
         """The margin the round's gradients are taken at: the cache, or
@@ -577,20 +587,35 @@ class Booster:
         """{data name: {metric name: value}} for one round. The metrics see
         the objective's ``eval_transform`` of the margin (softmax
         probabilities for both multiclass objectives, the log-space score
-        for ``survival:aft``), the label bounds and the query groups."""
+        for ``survival:aft``), the label bounds and the query groups. On a
+        sampled or traced round each set's walk and its metrics go through
+        the round's seam as ``eval_walk`` and ``eval_metric``
+        (``kernelprof.round_seam``)."""
         self._configure()
         out: Dict[str, Dict[str, float]] = {}
+        step = _kernelprof.round_seam(self.device)
         for dmat, name in evals:
-            margin = self._predict_margin(dmat)
-            preds = self._obj.eval_transform(
-                margin[:, 0] if self.n_groups == 1 else margin)
-            label = self._label(dmat)
-            out[name] = {m.name: m.evaluate(
-                preds, label, dmat.weight,
-                label_lower=dmat.label_lower_bound,
-                label_upper=dmat.label_upper_bound, groups=dmat.groups)
-                for m in self._resolve_metrics()}
+            if step is None:
+                margin = self._predict_margin(dmat)
+                out[name] = self._metric_values(dmat, margin)
+            else:
+                margin = step("eval_walk", -1, self._predict_margin, dmat)
+                out[name] = step("eval_metric", -1, self._metric_values, dmat,
+                                 margin)
         return out
+
+    def _metric_values(self, dmat: DMatrix, margin: torch.Tensor
+                       ) -> Dict[str, float]:
+        """Every metric of the Booster on the ``eval_transform`` of
+        ``dmat``'s margin, each down to its float."""
+        preds = self._obj.eval_transform(
+            margin[:, 0] if self.n_groups == 1 else margin)
+        label = self._label(dmat)
+        return {m.name: m.evaluate(
+            preds, label, dmat.weight,
+            label_lower=dmat.label_lower_bound,
+            label_upper=dmat.label_upper_bound, groups=dmat.groups)
+            for m in self._resolve_metrics()}
 
     def eval_set(self, evals, iteration: int = 0, feval=None,
                  output_margin: bool = True) -> str:

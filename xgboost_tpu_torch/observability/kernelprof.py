@@ -30,7 +30,8 @@ level at a time, so there is no mirror: a sampled round runs the same loop
 with the same calls in the same order, and only the syncs are added, so
 its trees are bit for bit the unsampled round's by construction. Round 0
 builds kernel C's one-hot before the grow and each round's eval walk
-(kernel B) runs after it: both fall outside every bracket.
+(kernel B) runs after it: both fall outside every grow bracket (they are
+``round_detail``'s ``onehot`` and ``eval_walk``, below).
 
 Rounds this profiler does not cover leave the armed profile empty and
 ``disarm()`` returns None, as the JAX package's scan, paged and mesh
@@ -42,6 +43,30 @@ The record feeds the flight record as ``grow_detail`` (rendered by
 flight sinks) and each bracket is emitted as a ``cat="grow"`` Chrome span
 nested under the ``round`` span, which ``trace-report`` renders as its
 ``grow`` breakdown.
+
+The port adds one more record and one more mode of the same seam. The
+seam is chosen once per tree (and once per call site outside the grower):
+
+- ``_direct`` (trace off, round unsampled): the call itself, no clock read;
+- ``_spanned`` (trace on, round unsampled): a ``step/<op>`` span
+  (``cat="step"``) from two clock reads, no sync, for every op of the
+  level loop, every sub-op of ``_level_update`` and the round's ops
+  outside the grower, so that a device trace's idle gaps can be named by
+  the op the host was in;
+- ``_bracket`` (a sampled round): as above, unchanged.
+
+On a sampled round ``_level_update``'s sub-ops (``level_update/
+with_missing``, ``level_update/eval_splits``, ``level_update/heap_write``
+and each strict-order scan inside the first two, ``level_update/scan``,
+which also counts the bins it scanned as ``steps``) are host-only
+brackets: two clock reads, no sync, no ``host_syncs_total`` count, so
+``level_update``'s own bracket reads as before. The round's ops outside
+the grower (``gradient``, ``onehot`` when kernel C's one-hot is planned
+and built, ``eval_walk`` and ``eval_metric``, at depth -1) are brackets
+with a sync before (its wait in the bucket's gap) and one after. Both go
+to the port-only ``round_detail`` record on the same flight round
+(``grow-report --round-detail`` prints it under the grow table), never
+into ``grow_detail``, which stays the JAX package's field for field.
 
 Import discipline: this module imports ONLY stdlib at module scope —
 ``gbm/gbtree.py`` and ``training.py`` import it eagerly, and torch and the
@@ -61,7 +86,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 __all__ = [
     "should_sample", "arm", "active", "disarm",
     "grow_tree_fused_profiled", "format_grow_detail", "format_grow_diff",
-    "main",
+    "round_detail", "round_seam", "format_round_detail", "main",
 ]
 
 _ENV = "XGBTPU_KERNEL_PROF"
@@ -142,16 +167,51 @@ def should_sample(round_idx: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
+Buckets = Dict[Tuple[str, int], Dict[str, Any]]
+
+
+def _add(buckets: Buckets, op: str, depth: int, impl: str, host_ns: int,
+         inflight_ns: int, gap_ns: int) -> Dict[str, Any]:
+    b = buckets.get((op, depth))
+    if b is None:
+        b = buckets[(op, depth)] = {
+            "op": op, "depth": depth, "impl": impl, "count": 0,
+            "wall_s": 0.0, "host_s": 0.0, "inflight_s": 0.0,
+            "gap_s": 0.0}
+    b["count"] += 1
+    b["impl"] = impl
+    b["wall_s"] += (host_ns + inflight_ns) / 1e9
+    b["host_s"] += host_ns / 1e9
+    b["inflight_s"] += inflight_ns / 1e9
+    b["gap_s"] += gap_ns / 1e9
+    return b
+
+
+def _ops(buckets: Buckets) -> List[Dict[str, Any]]:
+    """The buckets by depth, then op name (the JAX package's sort), their
+    seconds rounded to the microsecond."""
+    return [dict(b,
+                 wall_s=round(b["wall_s"], 6),
+                 host_s=round(b["host_s"], 6),
+                 inflight_s=round(b["inflight_s"], 6),
+                 gap_s=round(b["gap_s"], 6))
+            for _, b in sorted(buckets.items(),
+                               key=lambda kv: (kv[0][1], kv[0][0]))]
+
+
 class _Profile:
     """Accumulator for ONE sampled round (all trees of the round)."""
 
-    __slots__ = ("round_idx", "buckets", "host_syncs", "trees",
-                 "quant_scales", "_last_done_ns")
+    __slots__ = ("round_idx", "buckets", "round_buckets", "host_syncs",
+                 "trees", "quant_scales", "_last_done_ns")
 
     def __init__(self, round_idx: int) -> None:
         self.round_idx = int(round_idx)
         # (op, depth) -> aggregated bucket; depth -1 = pre-level prep
-        self.buckets: Dict[Tuple[str, int], Dict[str, Any]] = {}
+        self.buckets: Buckets = {}
+        # the port's own buckets (``round_detail``): _level_update's
+        # sub-ops at their level, the round's ops outside the grower at -1
+        self.round_buckets: Buckets = {}
         self.host_syncs = 0
         self.trees = 0
         # the round's quantiser grid exponents {"g_exp": Eg, "h_exp": Eh}
@@ -161,28 +221,21 @@ class _Profile:
 
     def record(self, op: str, depth: int, impl: str,
                host_ns: int, inflight_ns: int, gap_ns: int) -> None:
-        b = self.buckets.get((op, depth))
-        if b is None:
-            b = self.buckets[(op, depth)] = {
-                "op": op, "depth": depth, "impl": impl, "count": 0,
-                "wall_s": 0.0, "host_s": 0.0, "inflight_s": 0.0,
-                "gap_s": 0.0}
-        b["count"] += 1
-        b["impl"] = impl
-        b["wall_s"] += (host_ns + inflight_ns) / 1e9
-        b["host_s"] += host_ns / 1e9
-        b["inflight_s"] += inflight_ns / 1e9
-        b["gap_s"] += gap_ns / 1e9
+        _add(self.buckets, op, depth, impl, host_ns, inflight_ns, gap_ns)
         self.host_syncs += 1
 
+    def note(self, op: str, depth: int, impl: str, host_ns: int,
+             inflight_ns: int = 0, gap_ns: int = 0,
+             steps: Optional[int] = None) -> None:
+        """A ``round_detail`` bucket: outside ``grow_detail`` and its
+        ``host_syncs``. ``steps`` (the scan's) adds to the bucket's."""
+        b = _add(self.round_buckets, op, depth, impl, host_ns, inflight_ns,
+                 gap_ns)
+        if steps is not None:
+            b["steps"] = b.get("steps", 0) + steps
+
     def to_record(self) -> Dict[str, Any]:
-        ops = [dict(b,
-                    wall_s=round(b["wall_s"], 6),
-                    host_s=round(b["host_s"], 6),
-                    inflight_s=round(b["inflight_s"], 6),
-                    gap_s=round(b["gap_s"], 6))
-               for _, b in sorted(self.buckets.items(),
-                                  key=lambda kv: (kv[0][1], kv[0][0]))]
+        ops = _ops(self.buckets)
         # the port has one route: a per-level loop over int64 quantised
         # histograms (no whole-tree kernel, no sibling subtraction)
         return {
@@ -214,6 +267,17 @@ def arm(round_idx: int) -> _Profile:
 
 def active() -> bool:
     return getattr(_TLS, "profile", None) is not None
+
+
+def round_detail() -> Optional[Dict[str, Any]]:
+    """The armed profile's ``round_detail`` record so far (read it before
+    ``disarm``), or None when nothing outside ``grow_detail`` was
+    recorded."""
+    prof = getattr(_TLS, "profile", None)
+    if prof is None or not prof.round_buckets:
+        return None
+    return {"round": prof.round_idx, "trees": prof.trees,
+            "ops": _ops(prof.round_buckets)}
 
 
 def disarm() -> Optional[Dict[str, Any]]:
@@ -298,6 +362,96 @@ def _bracket(prof: _Profile, device) -> Callable[..., Any]:
     return step
 
 
+#: the sub-op whose bucket also counts ``steps``, the bins it scanned
+SCAN = "level_update/scan"
+
+
+def _sub_bracket(prof: _Profile, device, traced: bool) -> Callable[..., Any]:
+    """The seam of ``_level_update``'s sub-ops on a sampled tree: a
+    host-only bracket (two clock reads, no sync, no ``host_syncs_total``
+    count) into ``round_detail``, so that ``level_update``'s own bracket
+    reads as it would without it; traced, a ``step/<op>`` span too."""
+    from . import trace as _trace
+
+    impl = "torch" if device.type == "cuda" else "plain"
+
+    def sub(op: str, depth: int, fn: Callable, *args: Any,
+            **kwargs: Any) -> Any:
+        t0 = time.perf_counter_ns()
+        out = fn(*args, **kwargs)
+        t1 = time.perf_counter_ns()
+        prof.note(op, depth, impl, t1 - t0,
+                  steps=args[0].shape[-1] if op == SCAN else None)
+        if traced:
+            _trace.emit(f"step/{op}", t0, t1, cat="step", depth=depth)
+        return out
+
+    return sub
+
+
+def _spanned() -> Callable[..., Any]:
+    """The step seam of a traced tree or round that is not sampled: a
+    ``step/<op>`` span (``cat="step"``) from two clock reads around the
+    call, with no sync, so that a device trace's idle gaps can be named by
+    the op the host was in."""
+    from . import trace as _trace
+
+    def step(op: str, depth: int, fn: Callable, *args: Any,
+             **kwargs: Any) -> Any:
+        t0 = time.perf_counter_ns()
+        out = fn(*args, **kwargs)
+        _trace.emit(f"step/{op}", t0, time.perf_counter_ns(), cat="step",
+                    depth=depth)
+        return out
+
+    return step
+
+
+def _round_bracket(prof: _Profile, device, traced: bool) -> Callable[..., Any]:
+    """The seam of a sampled round's ops outside the grower (``gradient``,
+    ``onehot``, ``eval_walk``, ``eval_metric``; depth -1): a sync before
+    the op, its wait charged to the bucket's gap, and one after, as the
+    grower's bracket, into ``round_detail`` and outside ``host_syncs_total``.
+    Traced, a ``step/<op>`` span too, but for ``gradient``: the Monitor's
+    ``GetGradient`` span already covers it."""
+    import torch
+
+    from . import trace as _trace
+
+    on_card = device.type == "cuda"
+    impl = "torch" if on_card else "plain"
+
+    def step(op: str, depth: int, fn: Callable, *args: Any,
+             **kwargs: Any) -> Any:
+        g0 = time.perf_counter_ns()
+        if on_card:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter_ns()
+        out = fn(*args, **kwargs)
+        t1 = time.perf_counter_ns()
+        if on_card:
+            torch.cuda.synchronize(device)
+        t2 = time.perf_counter_ns()
+        prof.note(op, depth, impl, t1 - t0, t2 - t1, t0 - g0)
+        if traced and op != "gradient":
+            _trace.emit(f"step/{op}", t0, t2, cat="step", depth=depth)
+        return out
+
+    return step
+
+
+def round_seam(device) -> Optional[Callable[..., Any]]:
+    """The seam of the round's ops outside the grower, chosen once per
+    call site: on a sampled round the bracket, with the trace on a
+    ``step/<op>`` span, else None (the caller makes the call itself)."""
+    prof = getattr(_TLS, "profile", None)
+    from . import trace as _trace
+
+    if prof is not None:
+        return _round_bracket(prof, device, _trace.enabled())
+    return _spanned() if _trace.enabled() else None
+
+
 def grow_tree_fused_profiled(bins, grad, hess, cut_values, eta, gamma, cfg,
                              onehot=None, bins_t=None, key=None,
                              feature_weights=None, group=None):
@@ -321,11 +475,13 @@ def grow_tree_fused_profiled(bins, grad, hess, cut_values, eta, gamma, cfg,
     # lands in prep's gap column instead of vanishing from the attribution
     prof._last_done_ns = time.perf_counter_ns()
     step = _bracket(prof, bins.device)
+    sub = _sub_bracket(prof, bins.device, _trace.enabled())
     with _trace.span("grow_tree", fused=True, instrumented=True,
                      depth=cfg.max_depth, features=int(bins.shape[1])):
         return _gf._grow_tree_fused(bins, grad, hess, cut_values, eta,
                                     gamma, cfg, onehot, bins_t, key,
-                                    feature_weights, None, step=step)
+                                    feature_weights, None, step=step,
+                                    sub=sub)
 
 
 # ---------------------------------------------------------------------------
@@ -381,6 +537,53 @@ def format_grow_detail(rec: Dict[str, Any],
     if grow_s:
         total += (f"; stages.grow {ms(grow_s)} "
                   f"(substages = {100.0 * rec.get('sum_s', 0.0) / grow_s:.1f}%)")
+    lines.append(total)
+    return "\n".join(lines)
+
+
+#: ``_level_update``'s three sub-ops, which share out its host time
+LEVEL_SUB_OPS = ("level_update/with_missing", "level_update/eval_splits",
+                 "level_update/heap_write")
+
+
+def format_round_detail(rec: Dict[str, Any],
+                        grow: Optional[Dict[str, Any]] = None) -> str:
+    """Render one ``round_detail`` record (the port's own) as a table in
+    ``grow-report``'s columns, plus ``steps`` for the scans. ``grow`` (the
+    round's ``grow_detail``) adds the coverage line: the three sub-ops'
+    host time against ``level_update``'s."""
+    lines = [
+        f"round {rec.get('round')}: round detail ({rec.get('trees')} "
+        f"tree(s); level_update sub-ops by depth, the round's other ops "
+        f"at -1)",
+        f"  {'depth':>5} {'op':<26} {'impl':<6} {'count':>5} "
+        f"{'wall':>10} {'host':>10} {'inflight':>10} {'gap':>9} "
+        f"{'steps':>6}",
+    ]
+
+    def ms(v: float) -> str:
+        return f"{v * 1e3:.3f}ms"
+
+    for b in rec.get("ops", ()):
+        steps = b.get("steps")
+        lines.append(
+            f"  {b.get('depth', -1)!s:>5} {b['op']:<26} "
+            f"{b.get('impl', '?'):<6} {b.get('count', 0):>5} "
+            f"{ms(b['wall_s']):>10} {ms(b.get('host_s', 0.0)):>10} "
+            f"{ms(b.get('inflight_s', 0.0)):>10} "
+            f"{ms(b.get('gap_s', 0.0)):>9} "
+            f"{'' if steps is None else steps:>6}")
+    ops = rec.get("ops", ())
+    sub = sum(b.get("host_s", 0.0) for b in ops if b["op"] in LEVEL_SUB_OPS)
+    scan = [b for b in ops if b["op"] == SCAN]
+    total = (f"  sub-ops host {ms(sub)}, of it scans "
+             f"{ms(sum(b.get('host_s', 0.0) for b in scan))} "
+             f"({sum(b.get('steps', 0) for b in scan)} steps)")
+    lu = sum(b.get("host_s", 0.0) for b in (grow or {}).get("ops", ())
+             if b.get("op") == "level_update")
+    if lu:
+        total += (f"; level_update host {ms(lu)} "
+                  f"(sub-ops = {100.0 * sub / lu:.1f}%)")
     lines.append(total)
     return "\n".join(lines)
 
@@ -488,6 +691,10 @@ def main(argv: List[str]) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print(usage, file=sys.stderr)
         return 0 if argv else 1
+    # the port's round_detail under each grow table (the default output
+    # stays the JAX package's, line for line)
+    with_round = "--round-detail" in argv
+    argv = [a for a in argv if a != "--round-detail"]
     want_round: Optional[int] = None
     if "--round" in argv:
         i = argv.index("--round")
@@ -546,6 +753,9 @@ def main(argv: List[str]) -> int:
         for r in sampled:
             print(format_grow_detail(
                 r["grow_detail"], r.get("stages", {}).get("grow")))
+            if with_round and "round_detail" in r:
+                print(format_round_detail(r["round_detail"],
+                                          r["grow_detail"]))
             print()
             shown += 1
     if not shown:

@@ -12,6 +12,12 @@ the accepted forms; see ``load_trace``) and prints:
   counted as ``train`` and the known collective span names as
   ``collective``;
 - the ``grow`` category's spans by name, where a trace has them;
+- with ``--steps``, the port's ``step`` category by name (``step/<op>``:
+  the level loop's ops, ``_level_update``'s sub-ops and the round's ops
+  outside the grower), with the level loop's total over the ``step/<op>``
+  spans of the grower's loop alone: the nested ``step/level_update/*``
+  spans are not added to it a second time (without the flag the report
+  stays the JAX package's, line for line);
 - per-rank (Chrome ``pid``) totals;
 - counts of instant events.
 
@@ -110,31 +116,49 @@ def summarize(events: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
     inst_counts: Dict[str, int] = defaultdict(int)
     for ev in instants:
         inst_counts[ev["name"]] += 1
-    # the cat="grow" spans by name (the JAX package's kernel profiler
-    # writes them; a merged trace may hold them)
-    per_grow: Dict[str, Dict[str, float]] = {}
-    for ev in complete:
-        if _category(ev) != "grow":
-            continue
-        g = per_grow.setdefault(ev["name"], {"count": 0, "total_us": 0.0})
-        g["count"] += 1
-        g["total_us"] += ev["dur"]
-    return {
+    out = {
         "n_events": len(events),
         "n_spans": len(complete),
         "spans": per_name,
         "ranks": per_rank,
         "categories": per_cat,
-        "grow": per_grow,
+        # the cat="grow" spans by name (the JAX package's kernel profiler
+        # writes them; a merged trace may hold them)
+        "grow": _by_name(complete, "grow"),
         "instants": dict(inst_counts),
     }
+    per_step = _by_name(complete, "step")
+    if per_step:  # only the port's traces have them
+        out["step"] = per_step
+    return out
+
+
+def _by_name(complete: List[Dict[str, Any]], cat: str
+             ) -> Dict[str, Dict[str, float]]:
+    """Count and total time by span name of the category ``cat``."""
+    per: Dict[str, Dict[str, float]] = {}
+    for ev in complete:
+        if _category(ev) != cat:
+            continue
+        g = per.setdefault(ev["name"], {"count": 0, "total_us": 0.0})
+        g["count"] += 1
+        g["total_us"] += ev["dur"]
+    return per
+
+
+#: the ``step/<op>`` spans of the grower's level loop; the
+#: ``step/level_update/*`` spans nest inside ``step/level_update``
+LEVEL_LOOP_STEPS = tuple(f"step/{op}" for op in (
+    "prep", "level_hist", "level_update", "level_partition", "finalize",
+    "leaf_delta"))
 
 
 def _ms(us: float) -> str:
     return f"{us / 1000.0:.3f}ms"
 
 
-def format_report(summary: Dict[str, Any], top: int = 20) -> str:
+def format_report(summary: Dict[str, Any], top: int = 20,
+                  steps: bool = False) -> str:
     cats = summary.get("categories", {})
     lines = [
         f"trace: {summary['n_events']} events, "
@@ -153,6 +177,18 @@ def format_report(summary: Dict[str, Any], top: int = 20) -> str:
                               key=lambda kv: -kv[1]["total_us"]):
             lines.append(f"  {name:<28} {g['count']:>7} "
                          f"{_ms(g['total_us']):>12}")
+    step = (summary.get("step") or {}) if steps else {}
+    if step:
+        lines.append("step breakdown (program spans of the level loop, "
+                     "its sub-ops and the round's other ops):")
+        for name, g in sorted(step.items(),
+                              key=lambda kv: -kv[1]["total_us"]):
+            lines.append(f"  {name:<28} {g['count']:>7} "
+                         f"{_ms(g['total_us']):>12}")
+        loop = sum(g["total_us"] for name, g in step.items()
+                   if name in LEVEL_LOOP_STEPS)
+        lines.append(f"  level loop {_ms(loop)} (step/level_update/* "
+                     f"nested in step/level_update, not added again)")
     lines += [
         "",
         f"top spans by self time (top {top}):",
@@ -196,6 +232,8 @@ def main(argv: List[str]) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print(usage, file=sys.stderr)
         return 0 if argv else 1
+    steps = "--steps" in argv  # the port's step table
+    argv = [a for a in argv if a != "--steps"]
     top = 20
     if "--top" in argv:
         i = argv.index("--top")
@@ -219,5 +257,5 @@ def main(argv: List[str]) -> int:
     if loaded:
         if len(loaded) > 1:
             print(f"== merged {len(loaded)} trace files ==")
-        print(format_report(summarize(events), top=top))
+        print(format_report(summarize(events), top=top, steps=steps))
     return rc

@@ -57,6 +57,7 @@ _dropped = 0
 _headers_written: set = set()
 _tid_map: Dict[int, int] = {}
 _sink: Optional[str] = None  # the flight recorder's sink (flight.py)
+_config_state = None  # config._state, bound by the first trace_path()
 # the two clock reads are adjacent on purpose: _EPOCH_UNIX_NS is the
 # wall-clock instant at which event timestamps are 0, the per-rank clock
 # base a cross-rank merge aligns on
@@ -86,12 +87,14 @@ def trace_path() -> Optional[str]:
     """The active trace destination, or None when tracing is off. The
     ``XGBTPU_TRACE`` environment variable wins; otherwise the
     (thread-local) ``set_config(trace_path=...)`` value, then the sink."""
+    global _config_state
     p = os.environ.get(_ENV_PATH)
     if p:
         return p
-    from ..config import _state  # direct read: no per-span dict copy
-
-    return _state().get("trace_path") or _sink or None
+    if _config_state is None:
+        # bound once; a direct read of the state: no per-span dict copy
+        from ..config import _state as _config_state
+    return _config_state().get("trace_path") or _sink or None
 
 
 def enabled() -> bool:

@@ -188,7 +188,10 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
     Sampled rounds (``XGBTPU_KERNEL_PROF=every=N`` or ``rounds=a,b,c``;
     off by default) run the grow with every op bracketed by a completion
     sync (``observability/kernelprof.py``), and the round's flight record
-    carries the per-depth x per-op ``grow_detail``. Before a sampled
+    carries the per-depth x per-op ``grow_detail`` and the port's
+    ``round_detail`` (``_level_update``'s sub-ops, the gradient, the
+    one-hot build, the eval walk and the metrics; the profile stays armed
+    until the callbacks' ``after_iteration`` has run). Before a sampled
     round's ``update`` the pipeline is drained, its wait charged to the
     flight ``sync`` stage, so that the first bracket's sync does not
     charge the rounds still in flight to this one. An unsampled round
@@ -281,9 +284,13 @@ def train(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
                             bst, i, dtrain, evals, feval=feval)
                 finally:
                     if sampled:
+                        rdetail = _kernelprof.round_detail()
                         detail = _kernelprof.disarm()
                         if detail is not None:
                             _flight.RECORDER.annotate("grow_detail", detail)
+                        if rdetail is not None:
+                            _flight.RECORDER.annotate("round_detail",
+                                                      rdetail)
                     _flight.RECORDER.end_round()
                 if stop:
                     break

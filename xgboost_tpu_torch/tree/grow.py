@@ -138,7 +138,8 @@ def eval_splits(hist: torch.Tensor, Gtot: torch.Tensor, Htot: torch.Tensor,
                 cat_part: Optional[torch.Tensor] = None,
                 mono: Optional[torch.Tensor] = None,
                 node_lo: Optional[torch.Tensor] = None,
-                node_up: Optional[torch.Tensor] = None) -> SplitDecision:
+                node_up: Optional[torch.Tensor] = None,
+                scan=seq_cumsum) -> SplitDecision:
     """``hist`` [K, F, B+1, 2] (bin B = missing) -> the best split per node.
     ``cat_feats`` / ``cat_part`` ([F] bool) mark the one-hot and the
     partition categorical features (the JAX package's ``eval_splits``
@@ -150,7 +151,9 @@ def eval_splits(hist: torch.Tensor, Gtot: torch.Tensor, Htot: torch.Tensor,
     give the same bits. With ``mono`` ([F] -1/0/+1) the child weights are
     clamped into the node's bounds ``node_lo`` / ``node_up`` ([K]), the
     gains taken at the clamped weights, and a split whose clamped weights
-    break its feature's direction is invalid (split_evaluator.h)."""
+    break its feature's direction is invalid (split_evaluator.h). ``scan``
+    takes the prefix sums (``seq_cumsum``, or the grow profiler's seam
+    around it)."""
     K, F = hist.shape[0], hist.shape[1]
     g_b, h_b = hist[:, :, :B, 0], hist[:, :, :B, 1]
     g_miss, h_miss = hist[:, :, B, 0], hist[:, :, B, 1]
@@ -163,7 +166,7 @@ def eval_splits(hist: torch.Tensor, Gtot: torch.Tensor, Htot: torch.Tensor,
         rank = torch.argsort(order, dim=-1)  # rank of each bin
         lanes += [torch.gather(g_b, -1, order), torch.gather(h_b, -1, order)]
     # one strict-order scan for the bins and the sorted categories
-    sums = seq_cumsum(torch.stack(lanes))
+    sums = scan(torch.stack(lanes))
     GL, HL = sums[0], sums[1]
     # dir 0: missing goes right (default_left=False); dir 1: missing left
     GLd = torch.stack([GL, GL + g_miss[..., None]], dim=1)  # [K, 2, F, B]

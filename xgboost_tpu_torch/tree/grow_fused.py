@@ -8,9 +8,11 @@ next decision table); after the loop, the final ``partition_apply``,
 ``_finalize`` (gamma pruning, leaf values) and ``leaf_delta`` (the
 prediction-cache increment). The tree comes back as heap-layout arrays
 (children of ``i`` at ``2i+1`` / ``2i+2``) on the device; nothing is copied
-to the host during a round. Each op of the loop goes through one step
-seam: a direct call, or on a sampled round the per-level profiler's
-bracket (``observability/kernelprof.py``), which adds only syncs.
+to the host during a round. Each op of the loop, and each sub-op of
+``_level_update``, goes through one step seam, chosen once per tree: a
+direct call; with the trace on, a ``step/<op>`` span; on a sampled round
+the per-level profiler's bracket (``observability/kernelprof.py``), which
+adds only syncs and clock reads.
 
 Rows are not padded: the CUDA kernels mask the ragged edge themselves
 (the JAX package pads to a 1024-row tile), so ``delta`` covers exactly the
@@ -139,15 +141,16 @@ def _init_state(cfg: GrowParams, totals: torch.Tensor, B: int = 0,
 
 
 def with_missing(histC: torch.Tensor, Gtot: torch.Tensor,
-                 Htot: torch.Tensor) -> torch.Tensor:
+                 Htot: torch.Tensor, scan=seq_cumsum) -> torch.Tensor:
     """``fused_level``'s ``[F, 2K, B]`` histogram (missing excluded) and the
     nodes' totals ``[K]`` -> ``eval_splits``' ``[K, F, B+1, 2]``, bin B the
     missing values: each node's total less its present sum, taken in the
-    strict left-to-right association (``seq_cumsum``)."""
+    strict left-to-right association (``seq_cumsum``, or ``scan``: the
+    grow profiler's seam around it)."""
     K = Gtot.shape[0]
     hg = histC[:, :K, :].permute(1, 0, 2)  # [K, F, B]
     hh = histC[:, K:, :].permute(1, 0, 2)
-    cum = seq_cumsum(torch.stack([hg, hh]))[..., -1]
+    cum = scan(torch.stack([hg, hh]))[..., -1]
     g_miss = Gtot[:, None] - cum[0]
     h_miss = Htot[:, None] - cum[1]
     return torch.stack([
@@ -156,11 +159,17 @@ def with_missing(histC: torch.Tensor, Gtot: torch.Tensor,
     ], dim=-1)
 
 
+def _direct(op: str, depth: int, fn, *args, **kwargs):
+    """The step seam of an unprofiled, untraced tree: the call itself."""
+    return fn(*args, **kwargs)
+
+
 def _level_update(st: _HeapState, histC: torch.Tensor,
                   cut_values: torch.Tensor, cfg: GrowParams, d: int,
                   tree_mask: Optional[torch.Tensor] = None,
                   k_level: Optional[torch.Tensor] = None,
-                  node_rows: Optional[int] = None) -> _HeapState:
+                  node_rows: Optional[int] = None,
+                  sub=_direct) -> _HeapState:
     """Evaluate level ``d``'s splits from its histogram ``histC``
     [F, 2K, B] (missing excluded) and write the heap arrays and the next
     partition table. ``cut_values`` is [F, B], or [K, F, B] with each
@@ -169,17 +178,37 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
     drawn under ``fold_in(k_level, d)`` and ``fold_in(fold_in(k_level, d),
     1)`` when ``colsample_bylevel`` / ``colsample_bynode`` are below 1, the
     nodes' as ``node_rows`` rows (default K) of which the first K are
-    used."""
+    used. Its three sub-ops, ``level_update/with_missing``,
+    ``level_update/eval_splits`` and ``level_update/heap_write``, and each
+    strict-order scan inside the first two (``level_update/scan``) go
+    through the seam ``sub``, as the level loop's ops go through ``step``
+    (``observability/kernelprof.py``)."""
     F, B = cut_values.shape[-2:]
-    p = cfg.split
-    max_nodes = cfg.max_nodes
     K = 1 << d
     off = K - 1
-    dev = histC.device
     Gtot = st.node_g[off:off + K]
     Htot = st.node_h[off:off + K]
-    hist = with_missing(histC, Gtot, Htot)
-    mono, gmask = _constraint_consts(cfg, F, dev)
+    scan = (seq_cumsum if sub is _direct
+            else functools.partial(sub, "level_update/scan", d, seq_cumsum))
+    hist = sub("level_update/with_missing", d, with_missing, histC, Gtot,
+               Htot, scan=scan)
+    mono, gmask = _constraint_consts(cfg, F, histC.device)
+    dec = sub("level_update/eval_splits", d, _split_decisions, st, hist,
+              Gtot, Htot, cfg, d, B, mono, gmask, tree_mask, k_level,
+              node_rows, scan)
+    return sub("level_update/heap_write", d, _heap_write, st, dec, Gtot,
+               Htot, cut_values, cfg, d, mono, gmask)
+
+
+def _split_decisions(st: _HeapState, hist: torch.Tensor, Gtot, Htot,
+                     cfg: GrowParams, d: int, B: int, mono, gmask,
+                     tree_mask, k_level, node_rows, scan):
+    """The level's column masks, then ``eval_splits``: each node's best
+    split."""
+    F = hist.shape[1]
+    K = 1 << d
+    off = K - 1
+    dev = hist.device
     node_lo = node_up = None
     if mono is not None:
         node_lo, node_up = st.lo_b[off:off + K], st.up_b[off:off + K]
@@ -201,8 +230,23 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
         node_fmask = node_fmask & interaction_allowed(st.used[off:off + K],
                                                       gmask)
     cat_feats, cat_part = cfg.cat_masks(F, dev)
-    dec = eval_splits(hist, Gtot, Htot, p, node_fmask, B, cat_feats, cat_part,
-                      mono=mono, node_lo=node_lo, node_up=node_up)
+    return eval_splits(hist, Gtot, Htot, cfg.split, node_fmask, B, cat_feats,
+                       cat_part, mono=mono, node_lo=node_lo, node_up=node_up,
+                       scan=scan)
+
+
+def _heap_write(st: _HeapState, dec, Gtot, Htot,
+                cut_values: torch.Tensor, cfg: GrowParams, d: int, mono,
+                gmask) -> _HeapState:
+    """Write level ``d``'s decisions ``dec`` into the heap arrays (the
+    clones, the scatters and the children's slots) and the next partition
+    table."""
+    F = cut_values.shape[-2]
+    p = cfg.split
+    max_nodes = cfg.max_nodes
+    K = 1 << d
+    off = K - 1
+    dev = Gtot.device
     can_split = (dec.loss > RT_EPS) & (Htot > 0.0)
     GLb, HLb = dec.GL, dec.HL
     GRb, HRb = Gtot - GLb, Htot - HLb
@@ -228,7 +272,8 @@ def _level_update(st: _HeapState, histC: torch.Tensor,
 
     if mono is not None:
         l_lo, l_up, r_lo, r_up, wl_c, wr_c = child_bounds_and_weights(
-            p, mono[fl], GLb, HLb, GRb, HRb, node_lo, node_up)
+            p, mono[fl], GLb, HLb, GRb, HRb, st.lo_b[off:off + K],
+            st.up_b[off:off + K])
     else:
         wl_c = calc_weight(GLb, HLb, p)
         wr_c = calc_weight(GRb, HRb, p)
@@ -342,16 +387,22 @@ def grow_tree_fused(bins: torch.Tensor, grad: torch.Tensor,
     splits from the same numbers and grows the tree one process would grow
     on all the ranks' rows, bit for bit, with its own rows' ``delta``. Row
     samples are drawn per rank under the same key, as the JAX package's
-    shards draw them."""
+    shards draw them.
+
+    Untraced, every op is the call itself (``_direct``); traced, each op
+    of the level loop and of ``_level_update`` also records a ``step/<op>``
+    span (``kernelprof._spanned``: two clock reads, no sync)."""
+    if not _trace.enabled():
+        return _grow_tree_fused(bins, grad, hess, cut_values, eta, gamma, cfg,
+                                onehot, bins_t, key, feature_weights, group)
+    from ..observability import kernelprof
+
+    step = kernelprof._spanned()
     with _trace.span("grow_tree", fused=True, depth=cfg.max_depth,
                      features=int(bins.shape[1])):
         return _grow_tree_fused(bins, grad, hess, cut_values, eta, gamma, cfg,
-                                onehot, bins_t, key, feature_weights, group)
-
-
-def _direct(op: str, depth: int, fn, *args, **kwargs):
-    """The step seam of an unprofiled tree: the call itself."""
-    return fn(*args, **kwargs)
+                                onehot, bins_t, key, feature_weights, group,
+                                step=step, sub=step)
 
 
 class _Prep(NamedTuple):
@@ -394,10 +445,11 @@ def _level_hist(bins, pos, gq: QuantizedGradients, ptab, B: int, d: int,
 
 def _grow_tree_fused(bins, grad, hess, cut_values, eta, gamma, cfg, onehot,
                      bins_t, key, feature_weights, group,
-                     step=_direct) -> GrownTree:
+                     step=_direct, sub=_direct) -> GrownTree:
     """The level loop. Each op goes through ``step(op, depth, fn, *args)``,
     the seam where a sampled round's profiler brackets it
-    (``observability/kernelprof.py``); unprofiled, it is the call."""
+    (``observability/kernelprof.py``), and ``_level_update``'s sub-ops
+    through ``sub``; unprofiled and untraced, both are the call."""
     B = cut_values.shape[1]
     max_depth = cfg.max_depth
     gq, tree_mask, k_level, st = step("prep", -1, _prep, bins, grad, hess,
@@ -407,7 +459,7 @@ def _grow_tree_fused(bins, grad, hess, cut_values, eta, gamma, cfg, onehot,
         pos, histC = step("level_hist", d, _level_hist, bins, pos, gq,
                           st.ptab, B, d, onehot, bins_t, group)
         st = step("level_update", d, _level_update, st, histC, cut_values,
-                  cfg, d, tree_mask, k_level)
+                  cfg, d, tree_mask, k_level, sub=sub)
     # route rows through the last level's splits to their leaves
     if max_depth > 0:
         pos = step("level_partition", max_depth, partition_apply, bins, pos,
