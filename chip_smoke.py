@@ -7,10 +7,11 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --pipeline  # phases 1 and 49 alone
     python3 chip_smoke.py --c-api     # phases 1, 39 and 50 alone
     python3 chip_smoke.py --kernelprof  # phases 1 and 51 alone
+    python3 chip_smoke.py --scan      # phases 1 and 52 alone
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build all four hand-written kernels from ``xgboost_tpu_torch/csrc/``
+1. build all five hand-written kernels from ``xgboost_tpu_torch/csrc/``
    with ``nvcc`` for ``sm_90a``, one process per source, in parallel;
 2. the level kernels at the main path's shape (1M x 50 dense rows, real
    logistic gradients, the decision tables of a real grown tree), for
@@ -511,6 +512,22 @@ After phase 40 (max_bin 256 unless named):
     exits 0. (e) The host syncs of an unprofiled round
     (``set_sync_debug_mode``): round 2 of a ``train`` after profiled rounds
     0-1 equal to the profiler off, and phase 49's all among them.
+52. kernel S, the strict-order scan of split evaluation (``phase_scan``,
+    after 51): (a) ``seq_cumsum`` on ``[2, K, F, 256]`` normals, the two
+    scans of a level at depths 0-5 for F = 50 and 136, and at B = 7,175
+    and 16,001, bit for bit the plain loop's on the card; each timed as
+    phase 8 times the others (wrapper ``ms``, ``kernel_ms``, the plain
+    loop's ms, ``torch.cumsum`` as the library yardstick, which the port
+    never calls) beside its byte bound. (b) The rows of the benchmark's
+    ``synth-binary.1m-bin256`` cell (``portbench/traffic.py``, one seed)
+    through ``QuantileDMatrix``, 10 rounds of its parameters with the
+    held-out logloss: runs with kernel S and with the plain loop put in
+    its place, in turns (kernel, plain, plain, kernel), give the same
+    model bytes; kernel S launches 12 a tree, the plain loop none; a run
+    under ``XGBTPU_KERNEL_PROF=every=1`` gives the same bytes and reads
+    impl ``cuda:S`` on every ``level_update/scan`` record (2 a depth);
+    the ms a round after round 0 of each run, and the profiled rounds'
+    host ms of the scans.
 
 The data generator is ``bench.py:_make_data``, copied. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
@@ -652,11 +669,11 @@ def time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
 KERNEL_KEYS = {"A": ("level_",), "B": ("walk_kernel",), "C": ("onehot",),
                "D": ("route_kernel", "hoisted_kernel"),
                "A_route": ("level_route_kernel",),
-               "D_route": ("route_kernel",)}
+               "D_route": ("route_kernel",), "S": ("seq_scan",)}
 #: CUDA launches per wrapper call (A and D: the routing launch and the
 #: histogram launch; one level each)
 KERNEL_LAUNCHES = {"A": 2, "B": 1, "C": 1, "D": 2, "A_route": 1,
-                   "D_route": 1}
+                   "D_route": 1, "S": 1}
 
 
 def _profiled_ms(prof, kernel: str, calls: int):
@@ -7321,6 +7338,170 @@ def phase_kernelprof(Xtr, ytr, Xte, yte, pipe_syncs=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 52: kernel S, the strict-order scan of split evaluation
+# ---------------------------------------------------------------------------
+
+#: the benchmark cell whose rows phase 52 trains on, and its seed
+SCAN_CELL, SCAN_SEED = "synth-binary.1m-bin256", 2_900_000_017
+
+
+def _scan_level_shapes():
+    """``[2, K, F, 256]``, the shapes of a level's two scans on the main
+    path: depths 0-5 at F = 50 (the binary cell) and F = 136 (ranking)."""
+    return [(2, 1 << d, F, DEFAULT_MAX_BIN) for F in (COLS, 136)
+            for d in range(DEPTH)]
+
+
+class _RoundClock(xgbt.callback.TrainingCallback):
+    """Syncs and reads the clock once, after round 0, so that the caller's
+    synced end over ``rounds - 1`` is the warm rounds' wall a round."""
+
+    def after_iteration(self, model, epoch, evals_log):
+        if epoch == 0:
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+        return False
+
+
+def _scan_train(dtrain, dvalid, params, rounds, spec=None, run_dir=None):
+    """One ``train`` of ``rounds`` on the cell's matrices:
+    ``(save_raw bytes, kernel S launches, ms a round after round 0, round
+    records)``; with ``spec``, under ``XGBTPU_KERNEL_PROF`` and the flight
+    sink at ``run_dir``."""
+    from xgboost_tpu_torch.observability import flight
+    from xgboost_tpu_torch.tree import grow as tgrow
+
+    if spec is not None:
+        os.environ["XGBTPU_KERNEL_PROF"] = spec
+        flight.RECORDER.reset()
+        flight.configure(run_dir, rank=0)
+    clock = _RoundClock()
+    try:
+        s0 = tgrow.seq_cumsum.launches
+        bst = xgbt.train(params, dtrain, rounds, evals=[(dvalid, "valid")],
+                         verbose_eval=False, callbacks=[clock])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - clock.t0) / (rounds - 1) * 1e3
+        got = tgrow.seq_cumsum.launches - s0
+        recs = [r for r in flight.RECORDER.records() if r.get("t") == "round"]
+        raw = bst.save_raw()
+        del bst
+    finally:
+        if spec is not None:
+            flight.RECORDER.reset()
+            os.environ.pop("XGBTPU_KERNEL_PROF", None)
+    return raw, got, ms, recs
+
+
+def phase_scan():
+    """Phase 52: kernel S against the plain loop, timed at the main path's
+    level shapes, and on the binary benchmark cell's rows (module
+    docstring, 52)."""
+    from portbench import harness, traffic
+    from xgboost_tpu_torch.tree import grow as tgrow
+
+    t_phase = time.perf_counter()
+    out = {"levels": [], "widths": []}
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(52)
+    # (a) the main path's level shapes, and the other widths
+    for shape in _scan_level_shapes() + [(2, 4, 54, 7175), (2, 2, 8, 16001)]:
+        x = torch.randn(shape, generator=gen, device=DEVICE)
+        got = tgrow.seq_cumsum(x)
+        want = tgrow._seq_cumsum_plain(x)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"scan {shape}: kernel S == the plain loop, bit for bit")
+        del got, want
+        B = shape[-1]
+        ms = time_ms(lambda: tgrow.seq_cumsum(x))
+        k_ms = kernel_ms(lambda: tgrow.seq_cumsum(x), "S")
+        plain_ms = time_ms(lambda: tgrow._seq_cumsum_plain(x), reps=5,
+                           warmup=1)
+        lib_ms = time_ms(lambda: torch.cumsum(x, -1))
+        bnd, by = bound_ms(2 * x.numel() * 4, x.numel())
+        rec = dict(shape=list(shape), rows=x.numel() // B, ms=ms,
+                   kernel_ms=k_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bnd, bound_by=by)
+        (out["levels"] if B == DEFAULT_MAX_BIN else out["widths"]).append(rec)
+        print(f"kernel S {shape}: {ms:.4f} ms (kernel alone {k_ms} ms)  "
+              f"plain {plain_ms:.4f} ms  torch.cumsum {lib_ms:.4f} ms  "
+              f"bound {bnd:.5f} ms ({by})  bitwise equal")
+        del x
+    for F in (COLS, 136):
+        lv = [r for r in out["levels"] if r["shape"][2] == F]
+        out[f"mean_f{F}"] = {k: statistics.mean(r[k] for r in lv) for k in (
+            "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")
+            if all(r[k] is not None for r in lv)}
+        print(f"kernel S, levels 0-5 at F = {F}, means: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in out[f"mean_f{F}"].items()))
+
+    # (b) the binary cell's rows, one seed: kernel S and the plain loop
+    # train the same bytes; 12 launches a tree; cuda:S on every scan record
+    c = harness.cell(SCAN_CELL)
+    params = harness.params_of(c)
+    data = traffic.make(c["config"], c["traffic"], SCAN_SEED, DEVICE)
+    B = int(params["max_bin"])
+    dtrain = xgbt.QuantileDMatrix(data.train.X, data.train.y, max_bin=B,
+                                  device=str(DEVICE))
+    dvalid = xgbt.QuantileDMatrix(data.valid.X, data.valid.y, max_bin=B,
+                                  ref=dtrain, device=str(DEVICE))
+    del data
+    per_tree = 2 * int(params["max_depth"])
+    tmp = tempfile.mkdtemp(prefix="xgbt_scan_")
+    kernel_route = tgrow._seq_cumsum_cuda
+    runs = {"kernel": [], "plain": []}
+    try:
+        for route in ("kernel", "plain", "plain", "kernel"):
+            tgrow._seq_cumsum_cuda = (kernel_route if route == "kernel" else
+                                      lambda x: tgrow._seq_cumsum_plain(x))
+            runs[route].append(_scan_train(dtrain, dvalid, params, ROUNDS))
+        tgrow._seq_cumsum_cuda = kernel_route
+        prof = _scan_train(dtrain, dvalid, params, ROUNDS, "every=1", tmp)
+    finally:
+        tgrow._seq_cumsum_cuda = kernel_route
+        shutil.rmtree(tmp, ignore_errors=True)
+    raw = runs["kernel"][0][0]
+    for route, rs in runs.items():
+        for r in rs:
+            check(r[0] == raw, f"scan (b): {route} model bytes equal kernel "
+                  "S's first run")
+            check(r[1] == (ROUNDS * per_tree if route == "kernel" else 0),
+                  f"scan (b): {route} launched kernel S {r[1]} times")
+    check(prof[0] == raw, "scan (b): the profiled run's model bytes equal")
+    check(prof[1] == ROUNDS * per_tree, f"scan (b): profiled launches {prof[1]}")
+    scans = [b for r in prof[3] for b in r.get("round_detail", {}).get("ops", [])
+             if b["op"] == "level_update/scan"]
+    check(len(prof[3]) == ROUNDS and len(scans) == ROUNDS * DEPTH and all(
+        b["impl"] == "cuda:S" and b["count"] == 2 for b in scans),
+        f"scan (b): every level_update/scan record impl cuda:S, 2 a depth "
+        f"({sorted({(b['impl'], b['count']) for b in scans})})")
+    scan_ms = [sum(b["host_s"] for b in r["round_detail"]["ops"]
+                   if b["op"] == "level_update/scan") * 1e3 for r in prof[3]]
+    out["train"] = dict(
+        cell=SCAN_CELL, seed=SCAN_SEED, rounds=ROUNDS,
+        model_sha256=hashlib.sha256(raw).hexdigest(),
+        launches=prof[1], launches_per_tree=per_tree,
+        round_ms_kernel=[r[2] for r in runs["kernel"]],
+        round_ms_plain=[r[2] for r in runs["plain"]],
+        level_scan_ms_rounds_1_9=scan_ms[1:])
+    del dtrain, dvalid
+    torch.cuda.empty_cache()
+    t = out["train"]
+    print(f"scan (b) {SCAN_CELL} seed {SCAN_SEED}, {ROUNDS} rounds: model "
+          f"bytes equal on kernel S and the plain loop (sha256 "
+          f"{t['model_sha256'][:16]}); launches {t['launches']} "
+          f"({per_tree} a tree); every level_update/scan cuda:S; ms a round "
+          f"after round 0: kernel {', '.join(f'{v:.2f}' for v in t['round_ms_kernel'])}"
+          f", plain {', '.join(f'{v:.2f}' for v in t['round_ms_plain'])}; "
+          f"profiled level_scan ms, rounds 1-9: "
+          f"{', '.join(f'{v:.3f}' for v in t['level_scan_ms_rounds_1_9'])}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"scan: phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7432,6 +7613,8 @@ def main() -> int:
     kprof = phase_kernelprof(Xtr, ytr, Xte, yte,
                              pipeline["a"]["syncs_in_a_round"])
     del X, Xtr, Xte
+    torch.cuda.empty_cache()
+    scan = phase_scan()
     print(json.dumps({
         "levels": {"A_bin64": a64.pop("levels"), "A_bin256": a256.pop("levels"),
                    "D_bin64": d64.pop("levels"),
@@ -7454,7 +7637,8 @@ def main() -> int:
         "traced": traced, "resilience": resilience, "elastic": elastic,
         "cli": cli, "serving": {k: v for k, v in serving.items()
                                 if k != "kernel_B"}, "fleet": fleet,
-        "pipeline": pipeline, "c_api": c_api, "kernelprof": kprof}))
+        "pipeline": pipeline, "c_api": c_api, "kernelprof": kprof,
+        "scan": scan}))
     gbl_launches = {k: sum(v["launches"][k] for v in gblinear.values()
                            if isinstance(v, dict) and "launches" in v)
                     for k in "ABCD"}
@@ -7639,6 +7823,10 @@ def main() -> int:
              c_api=dict(launches=c_api["launches"]["D"]),
              kernelprof=kernelprof_launches("D"),
              **d256),
+        dict(name="seq_cumsum", route="cuda",
+             source="xgboost_tpu_torch/csrc/seq_scan.cu",
+             replaces=None, launches=scan["train"]["launches"],
+             levels_f50=scan[f"mean_f{COLS}"], levels_f136=scan["mean_f136"]),
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
@@ -7662,6 +7850,22 @@ def main_kernelprof() -> int:
     X, y, _ = _make_data(ROWS + EVAL_ROWS, COLS, 0.0, seed=42)
     kprof = phase_kernelprof(X[:ROWS], y[:ROWS], X[ROWS:], y[ROWS:])
     print(json.dumps({"kernelprof": kprof}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi failed: {smi.stderr.strip()}")
+    return 0
+
+
+def main_scan() -> int:
+    """``python3 chip_smoke.py --scan``: phases 1 and 52 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_build()
+    print(json.dumps({"scan": phase_scan()}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -7751,6 +7955,8 @@ if __name__ == "__main__":
         sys.exit(main_c_api())
     if sys.argv[1:] == ["--kernelprof"]:
         sys.exit(main_kernelprof())
+    if sys.argv[1:] == ["--scan"]:
+        sys.exit(main_scan())
     if len(sys.argv) == 3 and sys.argv[1] == "--resilience-worker":
         sys.exit(_resilience_worker(json.loads(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--elastic-worker":

@@ -69,6 +69,13 @@ Serving (``-k serving``): a model server on the card coalesces 64 queued
 one-row requests into one dispatch, one kernel B launch, whose answers
 equal the plain version's on the CPU bit for bit.
 
+The strict-order scan, kernel S (``-k scan``): ``seq_cumsum`` on the card
+bit for bit the plain loop's at the level shapes ``[2, K, F, B]`` (d =
+0-5, F = 50 and 136, B = 256), 4 lanes, B = 64, 7,175 and 16,001 and
+ragged rows, with -0.0, infinities, NaN and subnormals in the rows; the
+wrapper's refusals; ``_level_update``'s heap equal on the card and the
+CPU; 12 launches in a depth-6 tree, whose model bytes equal the CPU's.
+
 Categorical decision tables, ``[Kp, 5+B]`` (``-k categorical``): kernels A
 and D and both routing launches with wide tables whose nodes mix numerical
 and categorical splits, every bin id in some set and missing bins among
@@ -81,7 +88,10 @@ import pytest
 import torch
 
 from xgboost_tpu_torch import predictor as tpred
+from xgboost_tpu_torch.tree import grow as tgrow
+from xgboost_tpu_torch.tree import grow_fused as tgf
 from xgboost_tpu_torch.tree import hist_kernel as thk
+from xgboost_tpu_torch.tree.param import SplitParams as TSplitParams
 
 pytestmark = pytest.mark.cuda
 
@@ -1180,3 +1190,141 @@ def test_serving_coalesced_dispatch_equals_plain_bitwise(cuda, objective):
         np.testing.assert_array_equal(got, want[1:65])
     finally:
         srv.close()
+
+
+def _scan_input(shape, seed, dev):
+    """float32 normals of ``shape`` [..., B] with the edge values on the
+    first rows: all -0.0, a leading -0.0, +inf then -inf (their NaN), a
+    mid-row NaN, -inf, subnormals only, subnormals whose sums cross into
+    the normal range and back."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape).astype(np.float32)
+    rows = x.reshape(-1, shape[-1])
+    B, tiny = shape[-1], np.finfo(np.float32).tiny
+    edge = [np.full(B, -0.0), np.r_[-0.0, rows[1, 1:]],
+            np.r_[np.inf, -np.inf, rows[2, 2:]][:B],
+            np.r_[rows[3, :B // 2], np.nan, rows[3, B // 2 + 1:]][:B],
+            np.r_[-np.inf, rows[4, 1:]], np.full(B, tiny * 0.375),
+            np.where(np.arange(B) % 2 == 0, 1.25 * tiny, -1.125 * tiny)]
+    for i, e in enumerate(edge[:len(rows)]):
+        rows[i] = e
+    return torch.as_tensor(x, device=dev)
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [
+    *[(2, 1 << d, F, 256) for d in range(6) for F in (50, 136)],
+    (4, 32, 50, 256),        # a categorical partition level: 4 lanes
+    (2, 8, 50, 64), (2, 4, 54, 7175), (2, 2, 8, 16001),  # other widths
+    (7, 1), (9, 2), (33, 257), (65, 33),  # ragged rows and chunks
+])
+def test_scan_kernel_matches_plain_bitwise(cuda, shape):
+    """Kernel S, ``seq_cumsum`` on the card, equals the plain loop on the
+    card bit for bit (NaN patterns included) at the main path's level
+    shapes ``[2, K, F, B]`` (d = 0-5, F = 50 and 136, B = 256), the
+    partition path's 4 lanes, the other widths (B = 64, 7,175, 16,001) and
+    ragged rows and chunks, each with the edge rows of ``_scan_input``;
+    one launch a call."""
+    x = _scan_input(shape, sum(shape), cuda)
+    before = tgrow.seq_cumsum.launches
+    got = tgrow.seq_cumsum(x)
+    assert tgrow.seq_cumsum.launches == before + 1
+    want = tgrow._seq_cumsum_plain(x)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    flat = got.reshape(-1, shape[-1])
+    assert flat[0].view(torch.int32).eq(0).all()  # -0.0 rows sum to +0.0
+    if flat.shape[0] > 5:
+        assert (flat[5] != 0.0).all()  # subnormals kept, not flushed
+
+
+def test_scan_kernel_wrapper_raises(cuda):
+    """What kernel S does not take raises: float64, a non-contiguous view,
+    an output of another shape, type, device or layout; an empty input
+    launches nothing."""
+    x = torch.randn(2, 3, 5, 16, device=cuda)
+    with pytest.raises(ValueError, match="seq_cumsum"):
+        tgrow.seq_cumsum(x.double())
+    with pytest.raises(ValueError, match="seq_cumsum"):
+        tgrow.seq_cumsum(x.transpose(-1, -2))
+    with pytest.raises(ValueError, match="seq_cumsum"):
+        tgrow.seq_cumsum(x[..., ::2])
+    for out in (torch.empty(2, 3, 5, 15, device=cuda),
+                torch.empty_like(x, dtype=torch.float64),
+                torch.empty_like(x, device="cpu"),
+                torch.empty(2, 3, 16, 5, device=cuda).transpose(-1, -2)):
+        with pytest.raises(ValueError, match="seq_cumsum"):
+            tgrow._seq_cumsum_cuda(x, out=out)
+    out = torch.empty_like(x)
+    assert tgrow._seq_cumsum_cuda(x, out=out) is out
+    assert _same_bits(out, tgrow._seq_cumsum_plain(x))
+    before = tgrow.seq_cumsum.launches
+    empty = torch.empty(3, 0, device=cuda)
+    assert tgrow.seq_cumsum(empty).shape == (3, 0)
+    assert tgrow.seq_cumsum.launches == before
+
+
+@pytest.mark.parametrize("d,F,B", [(0, 50, 256), (3, 50, 256),
+                                   (5, 136, 256), (2, 12, 64)])
+def test_level_update_same_heap_on_card_and_cpu(cuda, d, F, B):
+    """``_level_update`` of one level histogram ``[F, 2K, B]`` writes the
+    same heap and decision table on the card (two kernel S launches) as
+    on the CPU (the plain loop), bit for bit."""
+    rng = np.random.RandomState(d + F + B)
+    K = 1 << d
+    g = rng.randn(F, K, B).astype(np.float32)
+    h = rng.uniform(0.0, 2.0, size=(F, K, B)).astype(np.float32)
+    g[:, :, ::7] = 0.0
+    histC = np.concatenate([g, h], axis=1)
+    Gtot = g[0].sum(axis=1) + rng.uniform(-0.5, 0.5, K).astype(np.float32)
+    Htot = h[0].sum(axis=1) + rng.uniform(0.0, 0.5, K).astype(np.float32)
+    cuts = np.sort(rng.randn(F, B).astype(np.float32), axis=1)
+    cfg = tgrow.GrowParams(max_depth=6, split=TSplitParams())
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        st = tgf._init_state(cfg, torch.tensor([0.0, 1.0], device=dev))
+        st.node_g[K - 1:2 * K - 1] = torch.as_tensor(Gtot, device=dev)
+        st.node_h[K - 1:2 * K - 1] = torch.as_tensor(Htot, device=dev)
+        before = tgrow.seq_cumsum.launches
+        out = tgf._level_update(st, torch.as_tensor(histC, device=dev),
+                                torch.as_tensor(cuts, device=dev), cfg, d)
+        assert tgrow.seq_cumsum.launches - before == (2 if dev == cuda
+                                                      else 0)
+        outs.append({f: getattr(out, f).cpu() for f in out._fields})
+    assert bool(outs[1]["is_split"].any())
+    for f, got in outs[0].items():
+        want = outs[1][f]
+        assert got.dtype == want.dtype and torch.equal(
+            got.view(torch.int32) if got.dtype == torch.float32 else got,
+            want.view(torch.int32) if want.dtype == torch.float32 else want), f
+
+
+def test_scan_launches_twelve_in_a_depth_6_tree(cuda):
+    """An unprofiled depth-6 tree on the main path launches kernel S 12
+    times, two scans a level (``with_missing`` and ``eval_splits``), and
+    grows the CPU's tree."""
+    import json
+
+    import xgboost_tpu_torch as xgbt
+
+    rng = np.random.RandomState(12)
+    X = rng.randn(20_000, 10).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(np.float32)
+    params = {"objective": "binary:logistic", "max_depth": 6}
+    dtrain = xgbt.DMatrix(X, y, device=cuda)
+    before = tgrow.seq_cumsum.launches
+    bst = xgbt.train(params, dtrain, 1, verbose_eval=False)
+    torch.cuda.synchronize()
+    assert tgrow.seq_cumsum.launches - before == 12
+    cpu = xgbt.train(params, xgbt.DMatrix(X, y, device="cpu"), 1,
+                     verbose_eval=False)
+
+    def trees(b):
+        return json.loads(b.save_raw())["learner"]["gradient_booster"][
+            "model"]["trees"]
+
+    assert trees(bst) == trees(cpu)

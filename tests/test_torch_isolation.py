@@ -8,7 +8,8 @@
 - a tensor that is not on the CPU goes to the kernel wrapper (checked with
   a stub kernel library that records its calls), never to the plain
   version: kernel A with uint8 and int16 bins, kernel D when a one-hot is
-  given, kernel C for the one-hot itself; a device with no kernel, a failed
+  given, kernel C for the one-hot itself, kernel S for every strict-order
+  scan of split evaluation (two a level); a device with no kernel, a failed
   build, or a failed one-hot build raises, with no degrade to another route;
 - categorical decision tables ``[Kp, 5+B]`` reach kernels A and D with
   their width, and a table of any other width raises;
@@ -96,6 +97,7 @@ import torch
 import xgboost_tpu_torch as xgbt
 from xgboost_tpu_torch import _build
 from xgboost_tpu_torch import predictor as tpred
+from xgboost_tpu_torch.tree import grow as tgrow
 from xgboost_tpu_torch.tree import hist_kernel as thk
 
 torch.set_num_threads(1)
@@ -222,7 +224,17 @@ def stub_cuda(monkeypatch):
                  "_build_onehot_plain"):
         monkeypatch.setattr(thk, name, no_plain)
     monkeypatch.setattr(tpred, "_predict_margin_plain", no_plain)
+    monkeypatch.setattr(tgrow, "_seq_cumsum_plain", no_plain)
     return lib
+
+
+#: kernel S's entry point, which every strict-order scan reaches
+SCAN = "xgbt_seq_scan"
+
+
+def _split_calls(calls):
+    """``(the stub's calls but kernel S's, the number of kernel S's)``."""
+    return [c for c in calls if c[0] != SCAN], sum(c[0] == SCAN for c in calls)
 
 
 def _meta_level(n, F, Kp):
@@ -626,13 +638,14 @@ def test_lossguide_steps_reach_the_level_kernel_at_d0(stub_cuda, max_leaves):
     steps = tlg.lossguide_steps(max_leaves)
     kexp = tlg.expansions_per_step(max_leaves)
     assert thk.fused_level.launches == before + 1 + steps
-    names = [c[0] for c in stub_cuda.calls]
-    assert names == ["xgbt_fused_level"] * (1 + steps)
+    calls, scans = _split_calls(stub_cuda.calls)
+    assert [c[0] for c in calls] == ["xgbt_fused_level"] * (1 + steps)
+    assert scans == 2 * (1 + steps)  # with_missing and eval_splits a step
     # (bins, bin_bytes, n, F, B, pos, pos_out, q, ptab, W, Kp, prev_offset,
     #  K, offset, hist, bins_t, ...)
-    ks = [args[12] for _, args in stub_cuda.calls]
+    ks = [args[12] for _, args in calls]
     assert ks == [1] + [2 * kexp] * steps
-    for _, args in stub_cuda.calls:
+    for _, args in calls:
         assert args[1:5] == (1, n, F, B)
         assert args[9:12] == (4, 0, 0) and args[13] == 0
     assert tree.positions.device.type == "meta"
@@ -658,11 +671,12 @@ def test_local_levels_reach_the_level_kernel_at_d0(stub_cuda, max_depth):
     tree = tgl.grow_tree_local(X, g, h, tgrow.GrowParams(max_depth=max_depth),
                                B, 0.3, 0.0)
     assert thk.fused_level.launches == before + max_depth
-    names = [c[0] for c in stub_cuda.calls]
-    assert names == ["xgbt_fused_level"] * max_depth
+    calls, scans = _split_calls(stub_cuda.calls)
+    assert [c[0] for c in calls] == ["xgbt_fused_level"] * max_depth
+    assert scans == 2 * max_depth
     # (bins, bin_bytes, n, F, B, pos, pos_out, q, ptab, W, Kp, prev_offset,
     #  K, offset, hist, bins_t, ...)
-    for d, (_, args) in enumerate(stub_cuda.calls):
+    for d, (_, args) in enumerate(calls):
         assert args[1:5] == (2, n, F, B)
         assert args[9:14] == (4, 0, 0, 1 << d, 0)
     assert tree.delta.device.type == "meta" and tuple(tree.delta.shape) == (n,)
@@ -792,11 +806,12 @@ def test_paged_levels_reach_the_level_kernel_page_by_page(stub_cuda, cpu_paged,
     tree = tgf.grow_tree_fused_paged(cpu_paged, g, h, cuts, 0.3, 0.0,
                                      tgrow.GrowParams(max_depth=max_depth))
     assert thk.fused_level.launches == before + 3 * max_depth
-    assert [c[0] for c in stub_cuda.calls] == ["xgbt_fused_level"] * (
-        3 * max_depth)
+    calls, scans = _split_calls(stub_cuda.calls)
+    assert [c[0] for c in calls] == ["xgbt_fused_level"] * (3 * max_depth)
+    assert scans == 2 * max_depth  # a level's scans, over all its pages
     # (bins, bin_bytes, n, F, B, pos, pos_out, q, ptab, W, Kp, prev_offset,
     #  K, offset, ...)
-    for i, (_, args) in enumerate(stub_cuda.calls):
+    for i, (_, args) in enumerate(calls):
         d, k = divmod(i, 3)
         assert args[1:5] == (2, cpu_paged.rows_of(k), F, B)
         assert args[12] == 1 << d
@@ -905,7 +920,9 @@ def test_spans_and_records_read_no_tensor(stub_cuda, monkeypatch, tmp_path):
     monkeypatch.setenv("XGBTPU_TRACE", str(tmp_path / "t.json"))
     trace.reset()
     grow()
-    assert stub_cuda.calls == untraced and len(untraced) == depth
+    level, scans = _split_calls(untraced)
+    assert stub_cuda.calls == untraced and len(level) == depth
+    assert scans == 2 * depth
     trace.flush()
     spans = [e for e in trace.load_trace(str(tmp_path / "t.json"))
              if e.get("ph") == "X"]
@@ -975,7 +992,8 @@ def test_group_histograms_reach_the_kernels_and_reduce_on_the_device(
         tgrow.GrowParams(max_depth=depth), onehot=onehot, group=group)
     kernel = "xgbt_fused_level" if route == "construct" \
         else "xgbt_hoisted_level"
-    assert [c[0] for c in stub_cuda.calls] == [kernel] * depth
+    calls, scans = _split_calls(stub_cuda.calls)
+    assert [c[0] for c in calls] == [kernel] * depth and scans == 2 * depth
     assert seen[0] == ("meta", torch.float32, (2,), dist.ReduceOp.MAX,
                        "device group")
     assert seen[1] == ("meta", torch.int64, (2,), dist.ReduceOp.SUM,

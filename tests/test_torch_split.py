@@ -69,6 +69,73 @@ def test_seq_cumsum_is_strictly_sequential_f32():
                                                          dtype=np.float32))
 
 
+def _edge_rows(B):
+    """Rows of the edge values at width ``B``: a leading -0.0, +-inf and
+    their NaN, a NaN mid-row, subnormal inputs and sums."""
+    tiny = np.finfo(np.float32).tiny
+    rng = np.random.RandomState(B)
+    x = rng.randn(8, B).astype(np.float32)
+    x[0, :] = -0.0
+    x[1, 0] = -0.0
+    x[2, 0] = np.inf
+    x[3, :2] = [np.inf, -np.inf][:B]
+    x[4, B // 2] = np.nan
+    x[5, 0] = -np.inf
+    x[6, :] = tiny * 0.375
+    x[7, ::2] = 1.25 * tiny
+    x[7, 1::2] = -1.125 * tiny
+    return x
+
+
+def _scan_case(name):
+    rng = np.random.RandomState(len(name))
+    if name == "with_missing":  # [2, K, F, B]: g and h lanes
+        return rng.randn(2, K, F, B).astype(np.float32)
+    if name == "partition":  # [4, K, F, B]: the sorted categories too
+        x = rng.randn(4, K, F, B).astype(np.float32)
+        x[1::2] = np.abs(x[1::2])
+        x[:, 0, 0, 0] = -0.0
+        return x
+    return _edge_rows(int(name[1:]))
+
+
+def _ftz(a):
+    """x86 flush-to-zero of float32 subnormals, keeping the sign."""
+    return np.where(np.abs(a) < np.finfo(np.float32).tiny,
+                    np.copysign(np.float32(0.0), a), a).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["B1", "B2", "B5", "B257", "with_missing",
+                                  "partition"])
+def test_seq_cumsum_bits_match_jax_and_numpy(case):
+    """The plain ``seq_cumsum`` (what kernel S must reproduce on the card)
+    bit for bit: against ``np.add.accumulate`` in float32 of each row
+    behind a +0.0 (the loop starts from +0.0, so a leading -0.0 sums to
+    +0.0; NaNs keep the same bits), and against the JAX package's
+    ``seq_cumsum``. XLA's CPU runtime flushes subnormal inputs and results
+    to zero, where the port keeps IEEE subnormals; so the JAX package is
+    held to the same loop with each add's operands and result flushed."""
+    x = _scan_case(case)
+    got = tgrow.seq_cumsum(torch.from_numpy(x)).numpy()
+    zero = np.zeros(x.shape[:-1] + (1,), np.float32)
+    with np.errstate(invalid="ignore"):
+        want = np.add.accumulate(np.concatenate([zero, x], axis=-1),
+                                 axis=-1, dtype=np.float32)[..., 1:]
+        flushed = np.empty_like(x)
+        acc = zero[..., 0]
+        for b in range(x.shape[-1]):
+            acc = _ftz(acc + _ftz(x[..., b]))
+            flushed[..., b] = acc
+    jax_got = np.asarray(jgrow.seq_cumsum(jnp.asarray(x)))
+    assert got.shape == x.shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(jax_got.view(np.uint32),
+                                  flushed.view(np.uint32))
+    if case.startswith("B"):
+        assert got.view(np.uint32)[0, 0] == 0  # +0.0 from a leading -0.0
+        assert np.all(got[6] != 0.0) and np.all(flushed[6] == 0.0)
+
+
 @pytest.mark.parametrize("d", [0, 2])
 def test_level_update_same_heap(d):
     """Both packages' _level_update on the same [F, 2K, B] level histogram

@@ -37,9 +37,10 @@ the metrics registry, collective accounting and the per-round flight
 recorder (``observability.flight.configure(run_dir)``);
 ``profiler_context`` wraps ``torch.profiler``. The failure-handling layer
 (``resilience``): retry policy, chaos sites, the watchdog and crash-safe
-checkpoints behind ``train(resume_from=...)``. The four kernels of the path (the
-construct and hoisted level histograms, the one-hot build and the forest
-walk) are hand-written CUDA (``csrc/``), built at first use; on CPU
+checkpoints behind ``train(resume_from=...)``. The five kernels of the path (the
+construct and hoisted level histograms, the one-hot build, the strict-order
+scan of split evaluation and the forest walk) are hand-written CUDA
+(``csrc/``), built at first use; on CPU
 tensors their plain PyTorch versions run. The native host runtime
 (``native``: the libsvm / csv parser, the page cache and the C API
 library ``libxgbtpu_torch``) is C++ built with ``g++`` at first use.

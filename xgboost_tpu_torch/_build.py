@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 
 #: library name -> source file under csrc/
 SOURCES = {"hist_level": "hist_level.cu", "predict_walk": "predict_walk.cu",
-           "onehot": "onehot.cu", "hoisted_level": "hoisted_level.cu"}
+           "onehot": "onehot.cu", "hoisted_level": "hoisted_level.cu",
+           "seq_scan": "seq_scan.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -65,6 +66,9 @@ _SIGNATURES = {
     "predict_walk": {
         "xgbt_predict_margin": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                                 _P, _P],
+    },
+    "seq_scan": {
+        "xgbt_seq_scan": [_P, _P, _L, _I, _P],
     },
 }
 

@@ -58,7 +58,8 @@ seam is chosen once per tree (and once per call site outside the grower):
 On a sampled round ``_level_update``'s sub-ops (``level_update/
 with_missing``, ``level_update/eval_splits``, ``level_update/heap_write``
 and each strict-order scan inside the first two, ``level_update/scan``,
-which also counts the bins it scanned as ``steps``) are host-only
+which also counts the bins it scanned as ``steps`` and reads impl
+``cuda:S`` when it launched kernel S, ``csrc/seq_scan.cu``) are host-only
 brackets: two clock reads, no sync, no ``host_syncs_total`` count, so
 ``level_update``'s own bracket reads as before. The round's ops outside
 the grower (``gradient``, ``onehot`` when kernel C's one-hot is planned
@@ -370,17 +371,22 @@ def _sub_bracket(prof: _Profile, device, traced: bool) -> Callable[..., Any]:
     """The seam of ``_level_update``'s sub-ops on a sampled tree: a
     host-only bracket (two clock reads, no sync, no ``host_syncs_total``
     count) into ``round_detail``, so that ``level_update``'s own bracket
-    reads as it would without it; traced, a ``step/<op>`` span too."""
+    reads as it would without it; traced, a ``step/<op>`` span too. A
+    scan's impl is ``cuda:S`` when it launched kernel S
+    (``seq_cumsum.launches`` moved across the call)."""
+    from ..tree.grow import seq_cumsum
     from . import trace as _trace
 
     impl = "torch" if device.type == "cuda" else "plain"
 
     def sub(op: str, depth: int, fn: Callable, *args: Any,
             **kwargs: Any) -> Any:
+        s0 = seq_cumsum.launches
         t0 = time.perf_counter_ns()
         out = fn(*args, **kwargs)
         t1 = time.perf_counter_ns()
-        prof.note(op, depth, impl, t1 - t0,
+        scanned = op == SCAN and seq_cumsum.launches != s0
+        prof.note(op, depth, "cuda:S" if scanned else impl, t1 - t0,
                   steps=args[0].shape[-1] if op == SCAN else None)
         if traced:
             _trace.emit(f"step/{op}", t0, t1, cat="step", depth=depth)

@@ -8,7 +8,10 @@ per node over the flattened ``[2, F, B]`` scores (missing-right first).
 Categorical features (one bin per category) are scored as one category
 right against the rest (one-hot) or as the best prefix of the categories
 sorted by gradient ratio going right (partition); the winner's right-going
-set comes back in ``SplitDecision.cat_set``.
+set comes back in ``SplitDecision.cat_set``. Every prefix sum of split
+evaluation is ``seq_cumsum``'s strict-order scan: kernel S
+(``csrc/seq_scan.cu``, one launch a scan) on a CUDA tensor, the plain loop
+on a CPU tensor.
 
 Also the grower's samplers and constraints (the JAX package's
 ``tree/grow.py``): row sampling (uniform Bernoulli or minimal-variance),
@@ -29,7 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import threefry
+from .. import _build, threefry
 from .param import SplitParams, calc_gain, calc_gain_given_weight, calc_weight
 
 __all__ = ["GrowParams", "SplitDecision", "seq_cumsum", "eval_splits",
@@ -97,17 +100,55 @@ class GrowParams:
         return m
 
 
-def seq_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Cumulative sum over the last axis with STRICT left-to-right f32
-    association (((0+x0)+x1)+...), the order of the JAX package's
-    ``seq_cumsum``. ``torch.cumsum`` accumulates f32 in double on the CPU
-    and as a parallel scan on CUDA, so neither may stand in for it."""
+def _seq_cumsum_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain version: one add and one strided write a bin."""
     out = torch.empty_like(x)
     acc = torch.zeros_like(x[..., 0])
     for b in range(x.shape[-1]):
         acc = acc + x[..., b]
         out[..., b] = acc
     return out
+
+
+def _seq_cumsum_cuda(x: torch.Tensor,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch kernel S (``csrc/seq_scan.cu``) into ``out`` (allocated when
+    None). Checks what the kernel takes and raises otherwise."""
+    what = "seq_cumsum"
+    _build.require_kernel_device(x, what)
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.dim() == 0:
+        raise ValueError(f"{what}: the input must be a contiguous float32 "
+                         f"tensor of at least one axis, not {x.dtype} "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    if out is None:
+        out = torch.empty_like(x)
+    elif (out.shape != x.shape or out.dtype != x.dtype
+          or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"{what}: the output must be a contiguous "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if x.numel() == 0:
+        return out
+    B = x.shape[-1]
+    status = _build.library("seq_scan").xgbt_seq_scan(
+        x.data_ptr(), out.data_ptr(), x.numel() // B, B,
+        _build.stream_of(x.device))
+    _build.check_status(status, what)
+    seq_cumsum.launches += 1
+    return out
+
+
+def seq_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum over the last axis with STRICT left-to-right f32
+    association (((0+x0)+x1)+...), the order of the JAX package's
+    ``seq_cumsum``. ``torch.cumsum`` accumulates f32 in double on the CPU
+    and as a parallel scan on CUDA, so neither may stand in for it. Kernel
+    S, one launch, on a CUDA tensor (``seq_cumsum.launches`` counts it),
+    the plain loop on a CPU tensor: the same bits."""
+    run = _seq_cumsum_plain if x.device.type == "cpu" else _seq_cumsum_cuda
+    return run(x)
+
+
+seq_cumsum.launches = 0
 
 
 class SplitDecision(NamedTuple):
