@@ -6,7 +6,8 @@ program for its duration.
 - ``unchanged_step``: every round's tree has all-zero leaves, so a round
   leaves the model's predictions as they were;
 - ``half_batch``: the gradients of every other row are dropped and the
-  rest doubled, the mean taken over half the rows;
+  rest doubled, the mean taken over half the rows, whatever the objective
+  (the round's gradients as the learner hands them to the grower);
 - ``altered_leaf``: one leaf value of every tree is altered by 0.1% where
   the grower produces it;
 - ``altered_walk``: the walk's answer for one row is altered by 1e-3
@@ -58,19 +59,17 @@ def altered_leaf():
 def half_batch():
     import torch
 
-    from xgboost_tpu_torch.objective import ranking, regression
+    from xgboost_tpu_torch import learner
 
-    stack = contextlib.ExitStack()
-    for cls in (regression._LogisticBase, ranking._LambdaRankBase):
-        f = cls.get_gradient
+    orig = learner.Booster._gradient
 
-        def halved(self, *a, _f=f, **k):
-            g, h = _f(self, *a, **k)
-            keep = (torch.arange(g.shape[0], device=g.device) % 2 == 0) * 2.0
-            return g * keep, h * keep
+    def halved(self, *a, **k):
+        margin, g, h = orig(self, *a, **k)
+        keep = (torch.arange(g.shape[0], device=g.device) % 2 == 0) * 2.0
+        keep = keep if g.dim() == 1 else keep[:, None]
+        return margin, g * keep, h * keep
 
-        stack.enter_context(_patch(cls, "get_gradient", halved))
-    return stack
+    return _patch(learner.Booster, "_gradient", halved)
 
 
 def altered_walk():

@@ -2,8 +2,10 @@
 
 A cell is found by its name: its entry in ``BENCHMARK.json``, its traffic
 in ``workloads/<cell>.json``, its configuration in
-``configs/<config>.json`` and each metric's reader in
-``metrics/<metric>.py``. A run
+``configs/<config>.json``, and each part the configuration names in a
+file of its own (``lookup``): each metric's reader in
+``metrics/<metric>.py``, the data rule in ``rules/``, the objective's and
+the evaluation metrics' references in ``reference/``. A run
 
 1. draws the rows on the device from the seed (``traffic.make``) and
    hands them to the program as host numpy arrays;
@@ -19,7 +21,8 @@ in ``workloads/<cell>.json``, its configuration in
 
 With ``trace`` the run also profiles rounds 4-6 with ``torch.profiler``
 (``devtrace``) and samples rounds 8, 10 and 12 with the program's grow
-profiler (``XGBTPU_KERNEL_PROF``), keeps the host time of those six
+profiler (``XGBTPU_KERNEL_PROF``, whose records the run keeps as
+``grow_details`` and ``round_details``), keeps the host time of those six
 rounds apart from the window's other rounds, and reports the per-layer
 metrics.
 """
@@ -28,13 +31,14 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
 import json
 import os
 import sys
 import tempfile
 import time
 from typing import Dict, List, Optional
+
+from . import lookup
 
 BENCH = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH)
@@ -77,12 +81,7 @@ def cell(name: str, root: str = ROOT) -> dict:
 
 def reader(metric: str):
     """The ``read(run)`` function of ``metrics/<metric>.py``."""
-    path = os.path.join(BENCH, "metrics", metric + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return lookup.find("metrics", metric).read
 
 
 def forbidden_modules(names=None) -> List[str]:
@@ -101,7 +100,7 @@ def params_of(c: dict) -> dict:
 class Run:
     """What a metric's reader may read."""
 
-    shapes: dict  # n, F, B, depth, m_eval, objective
+    shapes: dict  # n, F, B, depth, m_eval, objective, groups
     device_name: str
     setup_s: float
     ingest_s: float
@@ -111,6 +110,7 @@ class Run:
     plain: Optional[tuple] = None
     profile: Optional[dict] = None  # devtrace.reduce of the traced rounds
     grow_details: List[dict] = dataclasses.field(default_factory=list)
+    round_details: List[dict] = dataclasses.field(default_factory=list)
 
 
 def make_window(TrainingCallback, warm: int, seconds: float, sync, profile=None,
@@ -181,6 +181,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     c["traffic"].update(overrides or {})
     traffic_spec, config = c["traffic"], c["config"]
     params = params_of(c)
+    groups = lookup.objective(params["objective"]).outputs(params)
     warm = int(traffic_spec["warm_rounds"])
     if trace:
         os.environ["XGBTPU_KERNEL_PROF"] = "rounds=" + ",".join(
@@ -194,7 +195,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     import xgboost_tpu_torch as xgbt
     from xgboost_tpu_torch.callback import TrainingCallback
 
-    from . import devtrace, judge, traffic
+    from . import devtrace, judge, round_detail, traffic
     t_import = (marks or {}).get("program", time.perf_counter())
 
     dev = torch.device(device)
@@ -263,7 +264,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     run = Run(shapes={"n": int(data.train.X.shape[0]), "F": int(data.train.X.shape[1]),
                       "B": B, "depth": int(params["max_depth"]),
                       "m_eval": int(data.valid.X.shape[0]),
-                      "objective": params["objective"]},
+                      "objective": params["objective"], "groups": groups},
               device_name=torch.cuda.get_device_name(dev) if on_card else "cpu",
               setup_s=setup_s, ingest_s=t_ingest - t_data,
               window_s=window.t_close - window.t_open, window_rounds=window.rounds)
@@ -275,6 +276,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                      window.rounds - window.watched_rounds)
         run.grow_details = [r["grow_detail"] for r in flight.RECORDER.records()
                             if "grow_detail" in r]
+        run.round_details = round_detail.records()
         spans = []
         if window.profile_s is not None:
             ptrace.flush(trace_file)
@@ -287,7 +289,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             os.remove(trace_file)
 
     out = judge.collect(bst, dtrain, dvalid, window.history,
-                        int(params["max_depth"]), rounds)
+                        int(params["max_depth"]), rounds, groups)
     del bst, dtrain, dvalid, window, prof
     gc.collect()
     if on_card:

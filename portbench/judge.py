@@ -1,20 +1,26 @@
 """The comparison that decides a run's ``correct``.
 
 After the window has closed the run hands over what the timed path made:
-the model (its trees, read from the program's JSON dump), the training
-matrix's cuts and bins, the two prediction caches (the margins of the
-training and held-out rows after the last round) and the evaluation
-history the run reported. The reference (``reference/``) works each of
-them out again from the raw rows and labels:
+the model (its trees and each tree's output group, read from the
+program's JSON dump), the training matrix's cuts and bins, the two
+prediction caches (the margins ``[rows, G]`` of the training and held-out
+rows after the last round) and the evaluation history the run reported.
+The reference (``reference/``) works each of them out again from the raw
+rows and labels. The configuration's objective and metrics are found by
+name (``lookup``); the objective's file gives ``G``, its outputs, and a
+round adds ``G`` trees, tree ``k`` of a round for output ``k``:
 
 - ``cut_mismatch``, ``bin_mismatch``: cut values and bins that differ
   from the reference's (exact: limit 0);
-- ``tree_count_gap``: rounds that did not add exactly one tree (limit 0);
-- ``gain_gap``, ``leaf_gap``: ``reference.tree.judge`` of the trees of
-  the warm rounds, of three window rounds drawn from the seed and of the
-  last round, each on the reference's own gradients at the margins the
-  model's earlier trees give (the reference walks the model's trees in
-  float32, round by round, as the prediction cache adds them);
+- ``tree_count_gap``: ``|trees - rounds * G|``, plus the trees whose group
+  in the dump is not their place in the round (limit 0);
+- ``gain_gap``, ``leaf_gap``: ``reference.tree.judge`` of the ``G`` trees
+  of each warm round, of three window rounds drawn from the seed and of
+  the last round, tree ``k`` on column ``k`` of the reference's own
+  gradients at the margins the model's earlier rounds give (the gradients
+  of a round are taken once, before its trees, as the program takes them;
+  the reference walks the model's trees in float32, round by round, as the
+  prediction cache adds them);
 - ``train_margin_gap``, ``valid_margin_gap``: the widest distance of a
   cached margin from that walk, over the larger of 1 and the walk's
   largest margin;
@@ -22,7 +28,7 @@ them out again from the raw rows and labels:
   any round, from the reference's metric of the walked held-out margins.
 
 The reference follows the model step by step: each judged tree is judged
-on gradients of the margins of the model's own earlier trees. Round 0
+on gradients of the margins of the model's own earlier rounds. Round 0
 starts from the base margin alone, and the stage this skips, the margin
 update, is judged by itself by the two margin gaps.
 """
@@ -37,7 +43,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .reference import metric, objective, quantile
+from . import lookup
+from .reference import quantile
 from .reference import tree as rtree
 
 #: the numbers compared, in the order they are printed
@@ -51,25 +58,35 @@ ROW_BLOCK = 1 << 20
 @dataclasses.dataclass
 class Outputs:
     trees: List[rtree.HeapTree]
+    tree_groups: List[int]  # each tree's output group, as the dump has it
     cuts: np.ndarray  # [F, B] float32
     bins: Optional[torch.Tensor]  # [n, F], freed once compared
-    train_margin: torch.Tensor  # [n]
-    valid_margin: torch.Tensor  # [m]
+    train_margin: torch.Tensor  # [n, G]
+    valid_margin: torch.Tensor  # [m, G]
     history: Dict[str, List[float]]  # metric -> value a round
     rounds: int
 
 
-def collect(bst, dtrain, dvalid, history: dict, depth: int, rounds: int) -> Outputs:
+def collect(bst, dtrain, dvalid, history: dict, depth: int, rounds: int,
+            groups: int) -> Outputs:
     """What the program made, read through its public model dump, its
-    matrix's cuts and bins and its prediction caches."""
+    matrix's cuts and bins and its prediction caches. ``groups`` is the
+    objective's outputs by its reference; a dump with another
+    ``num_class`` raises."""
     model = json.loads(bst.save_raw("json"))
+    num_class = int(model["learner"]["learner_model_param"]["num_class"])
+    if max(1, num_class) != groups:
+        raise ValueError(f"the model has num_class {num_class}; the objective's "
+                         f"reference has {groups} outputs")
     bm = next(iter(dtrain._binned.values()))
     return Outputs(
         trees=rtree.trees_from_model(model, depth),
+        tree_groups=[int(k) for k in
+                     model["learner"]["gradient_booster"]["model"]["tree_info"]],
         cuts=np.asarray(bm.cuts.values, np.float32),
         bins=bm.bins,
-        train_margin=bst._caches[id(dtrain)].margin.reshape(-1).clone(),
-        valid_margin=bst._caches[id(dvalid)].margin.reshape(-1).clone(),
+        train_margin=bst._caches[id(dtrain)].margin.clone(),
+        valid_margin=bst._caches[id(dvalid)].margin.clone(),
         history={k: list(v) for k, v in history.get("valid", {}).items()},
         rounds=rounds)
 
@@ -95,12 +112,23 @@ def ref_bins(X: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
                       for r in range(0, X.shape[0], ROW_BLOCK)])
 
 
+def add_round(margin: torch.Tensor, trees: List[rtree.HeapTree], X: torch.Tensor,
+              depth: int) -> torch.Tensor:
+    """``margin`` [rows, G] plus one round's trees, tree ``k`` into column
+    ``k``, each leaf value added once in float32."""
+    delta = torch.zeros_like(margin)
+    for k, tr in enumerate(trees):
+        delta[:, k] = tr.value[rtree.leaf_of(tr, X, depth)]
+    return margin + delta
+
+
 def compare(out: Outputs, data, params: dict, warm: int, seed: int,
             device) -> Dict[str, float]:
     """The numbers of ``CHECKS`` for the outputs ``out`` of a run on
     ``data`` (``traffic.Data``) under ``params``."""
     dev = torch.device(device)
-    obj = params["objective"]
+    obj = lookup.objective(params["objective"])
+    G = obj.outputs(params)
     B = int(params["max_bin"])
     p = split_params(params)
     D = p.max_depth
@@ -118,20 +146,24 @@ def compare(out: Outputs, data, params: dict, warm: int, seed: int,
                  != bins[r:r + ROW_BLOCK].to(torch.int32)).sum())
             for r in range(0, X.shape[0], ROW_BLOCK)))
         out.bins = None
-    checks["tree_count_gap"] = float(abs(len(out.trees) - out.rounds))
+    misplaced = sum(k != t % G for t, k in enumerate(out.tree_groups))
+    checks["tree_count_gap"] = float(abs(len(out.trees) - out.rounds * G) + misplaced)
 
-    base = objective.base_margin(obj)
+    base = obj.base_margin(params)
     judged = set(judged_rounds(out.rounds, warm, seed))
-    margin = torch.full((X.shape[0],), base, dtype=torch.float32, device=dev)
-    gain_gap = leaf_gap = 0.0
     trees = [t.to(dev) for t in out.trees]
-    for t, tr in enumerate(trees):
-        if t in judged:
-            g, h = objective.gradient(obj, margin, y, sizes, t)
-            r = rtree.judge(tr, X, bins, B, g, h, p)
-            gain_gap, leaf_gap = max(gain_gap, r["gain_gap"]), max(leaf_gap, r["leaf_gap"])
+    rounds = [trees[i:i + G] for i in range(0, len(trees), G)]
+    margin = torch.full((X.shape[0], G), base, dtype=torch.float32, device=dev)
+    gain_gap = leaf_gap = 0.0
+    for r, round_trees in enumerate(rounds):
+        if r in judged:
+            g, h = obj.gradient(margin, y, sizes, r)
+            for k, tr in enumerate(round_trees):
+                res = rtree.judge(tr, X, bins, B, g[:, k], h[:, k], p)
+                gain_gap = max(gain_gap, res["gain_gap"])
+                leaf_gap = max(leaf_gap, res["leaf_gap"])
             del g, h
-        margin = margin + tr.value[rtree.leaf_of(tr, X, D)]
+        margin = add_round(margin, round_trees, X, D)
     checks["gain_gap"], checks["leaf_gap"] = gain_gap, leaf_gap
     checks["train_margin_gap"] = _margin_gap(out.train_margin, margin)
     del X, bins, margin
@@ -140,13 +172,14 @@ def compare(out: Outputs, data, params: dict, warm: int, seed: int,
     yv = _tensor(data.valid.y, dev)
     sv = (None if data.valid.sizes is None
           else _tensor(data.valid.sizes, dev, torch.long))
-    mv = torch.full((Xv.shape[0],), base, dtype=torch.float32, device=dev)
+    metrics = [(values, *lookup.metric(name)) for name, values in out.history.items()]
+    mv = torch.full((Xv.shape[0], G), base, dtype=torch.float32, device=dev)
     gap = 0.0
-    for t, tr in enumerate(trees):
-        mv = mv + tr.value[rtree.leaf_of(tr, Xv, D)]
-        for name, values in out.history.items():
-            if t < len(values):
-                gap = max(gap, abs(values[t] - metric.evaluate(name, mv, yv, sv)))
+    for r, round_trees in enumerate(rounds):
+        mv = add_round(mv, round_trees, Xv, D)
+        for values, mod, arg in metrics:
+            if r < len(values):
+                gap = max(gap, abs(values[r] - mod.evaluate(mv, yv, sv, arg)))
     checks["valid_margin_gap"] = _margin_gap(out.valid_margin, mv)
     checks["metric_gap"] = gap
     return checks

@@ -45,12 +45,13 @@ def _peak(run):
 
 def level_hist_roofline(run) -> Optional[float]:
     """The level histograms' least time over their launches' device time
-    in the profiled rounds, in %."""
+    in the profiled rounds (``groups`` trees a round), in %."""
     peak = _peak(run)
     if peak is None or run.profile["level_hist_s"] <= 0:
         return None
     s = run.shapes
-    least = work.level_hist_least_s(s["n"], s["F"], s["B"], s["depth"], peak)
+    least = work.level_hist_least_s(s["n"], s["F"], s["B"], s["depth"], peak,
+                                    s["groups"])
     return 100.0 * least * run.profile["rounds"] / run.profile["level_hist_s"]
 
 
@@ -82,5 +83,5 @@ def round_mfu(run) -> Optional[float]:
         return None
     s = run.shapes
     least = work.round_least_s(s["objective"], s["n"], s["F"], s["B"], s["depth"],
-                               s["m_eval"], peak)
+                               s["m_eval"], peak, s["groups"])
     return 100.0 * least / t

@@ -5,10 +5,11 @@ the program annotates its flight round record with ``round_detail``
 (``xgboost_tpu_torch/observability/kernelprof.py``): buckets of
 ``_level_update``'s sub-ops at their depth (``level_update/scan``: the
 strict-order scans) and of the round's ops outside the grower at depth -1
-(``gradient``, ``eval_walk``, ``eval_metric``). Each reader takes them from
-the program's flight recorder, where the harness takes ``grow_detail``
-from, and returns None where no sampled round carries the op: an untraced
-run, or a program without the record.
+(``gradient``, ``eval_walk``, ``eval_metric``). The harness keeps them as
+the run's ``round_details`` (``records``, from the program's flight
+recorder, beside ``grow_details``); each reader takes them from the run
+it is given and returns None where no sampled round carries the op: an
+untraced run, or a program without the record.
 """
 
 from __future__ import annotations
@@ -37,20 +38,20 @@ def mean_ms(details: List[Dict], op: str, field: str) -> Optional[float]:
 def level_scan_ms(run) -> Optional[float]:
     """Host ms of the strict-order scans inside ``_level_update`` a round
     (host-only brackets: no sync; part of ``level_update_ms``)."""
-    return mean_ms(records(), "level_update/scan", "host_s")
+    return mean_ms(run.round_details, "level_update/scan", "host_s")
 
 
 def gradient_ms(run) -> Optional[float]:
     """Ms of the round's margin read and ``get_gradient``, bracketed by
     syncs."""
-    return mean_ms(records(), "gradient", "wall_s")
+    return mean_ms(run.round_details, "gradient", "wall_s")
 
 
 def eval_walk_ms(run) -> Optional[float]:
     """Ms of the held-out rows' walk (kernel B) into the eval cache."""
-    return mean_ms(records(), "eval_walk", "wall_s")
+    return mean_ms(run.round_details, "eval_walk", "wall_s")
 
 
 def eval_metric_ms(run) -> Optional[float]:
     """Ms of ``eval_transform`` and every metric down to its float."""
-    return mean_ms(records(), "eval_metric", "wall_s")
+    return mean_ms(run.round_details, "eval_metric", "wall_s")

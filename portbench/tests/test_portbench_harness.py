@@ -56,15 +56,19 @@ def test_a_cell_is_found_by_its_name(name):
 def test_every_metric_of_a_cell_is_reported_from_a_full_run():
     for name in CELLS:
         c = harness.cell(name)
+        bucket = {"depth": 0, "host_s": 0.001, "wall_s": 0.002}
         run = harness.Run(
             shapes={"n": 1000, "F": 5, "B": 16, "depth": 6, "m_eval": 100,
-                    "objective": c["config"]["params"]["objective"]},
+                    "objective": c["config"]["params"]["objective"], "groups": 1},
             device_name="NVIDIA H100 80GB HBM3", setup_s=20.0, ingest_s=1.0, window_s=10.0, window_rounds=50,
             plain=(8.8, 44),
             profile={"busy_s": 0.1, "window_s": 0.4, "rounds": 3, "level_hist_s": 0.05,
                      "breakdown": {}},
             grow_details=[{"ops": [{"op": "level_update", "host_s": 0.002},
-                                   {"op": "level_hist", "host_s": 0.001}]}])
+                                   {"op": "level_hist", "host_s": 0.001}]}],
+            round_details=[{"round": 8, "trees": 1, "ops": [
+                dict(bucket, op=op) for op in ("level_update/scan", "gradient",
+                                               "eval_walk", "eval_metric")]}])
         for m in c["end_to_end"] + c["per_layer"]:
             v = harness.reader(m["name"])(run)
             assert v is not None and v > 0, m["name"]
@@ -138,6 +142,21 @@ def test_work_counts_by_hand_for_both_routes():
     assert work.level_hist_least_s(1_000_000, 50, 256, 6, peak) == pytest.approx(
         sum(work.level(1_000_000, 50, 256, k).bytes for k in range(6)) / 3.35e12)
     assert work.peaks("Tesla T4") is None
+
+
+def test_work_counts_g_trees_a_round():
+    peak = work.peaks("NVIDIA H100 80GB HBM3")
+    n, F, B, D, m = 435_759, 54, 256, 6, 145_253
+    one = work.level_hist_least_s(n, F, B, D, peak)
+    assert work.level_hist_least_s(n, F, B, D, peak, 7) == pytest.approx(7 * one)
+    # one gradient of n rows and G outputs, then G trees: levels, split
+    # searches, the partition, the margin update and the eval walk each
+    grad = work.least_s(work.gradient("binary:logistic", n, 3), peak)
+    tree = work.round_least_s("binary:logistic", n, F, B, D, m, peak) - work.least_s(
+        work.gradient("binary:logistic", n), peak)
+    assert work.round_least_s("binary:logistic", n, F, B, D, m, peak, 3) == pytest.approx(
+        grad + 3 * tree)
+    assert work.gradient("rank:ndcg", 10) == work.Work(10 * 32, 10 * 40)
 
 
 def test_forbidden_modules_compare_whole_top_level_names():

@@ -15,7 +15,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-from portbench.reference import metric, objective, quantile, threefry  # noqa: E402
+from portbench import lookup  # noqa: E402
+from portbench.reference import quantile, threefry  # noqa: E402
 from portbench.reference import tree as rtree  # noqa: E402
 
 P = rtree.Params(max_depth=1, eta=0.5)
@@ -48,12 +49,14 @@ def test_cuts_and_bins_by_hand():
 
 
 def test_logistic_gradient_by_hand():
-    g, h = objective.logistic(torch.tensor([0.0, math.log(3.0)]),
-                              torch.tensor([1.0, 0.0]))
-    assert g.tolist() == pytest.approx([-0.5, 0.75])
-    assert h.tolist() == pytest.approx([0.25, 0.1875])
-    assert objective.base_margin("binary:logistic") == 0.0
-    assert objective.base_margin("rank:ndcg") == 0.5
+    logistic = lookup.objective("binary:logistic")
+    g, h = logistic.gradient(torch.tensor([[0.0], [math.log(3.0)]]),
+                             torch.tensor([1.0, 0.0]), None, 0)
+    assert g.shape == h.shape == (2, 1) and g.dtype == torch.float64
+    assert g[:, 0].tolist() == pytest.approx([-0.5, 0.75])
+    assert h[:, 0].tolist() == pytest.approx([0.25, 0.1875])
+    assert logistic.base_margin({}) == 0.0 and logistic.outputs({}) == 1
+    assert lookup.objective("rank:ndcg").base_margin({}) == 0.5
 
 
 def test_ndcg_gradient_two_rows():
@@ -62,7 +65,8 @@ def test_ndcg_gradient_two_rows():
     # opponent is the other row or itself (no pair); the sampler's weight
     # is 2 * (1/1 + 1/1) / 2 = 2 and rho = 1/2
     y = torch.tensor([1.0, 0.0])
-    g, h = objective.ndcg(torch.tensor([0.5, 0.5]), y, torch.tensor([2]), 3)
+    g, h = lookup.objective("rank:ndcg").ndcg(torch.tensor([0.5, 0.5]), y,
+                                              torch.tensor([2]), 3)
     u = threefry.uniform((3 * 2654435761) & 0x7FFFFFFF, 2, 1, "cpu")
     j = torch.minimum((u[:, 0] * 2.0).long(), torch.tensor(1))
     pairs = int(j[0] == 1) + int(j[1] == 0)
@@ -117,36 +121,40 @@ def test_judge_sees_a_worse_split_and_a_wrong_leaf():
 
 
 def test_metrics_by_hand():
+    auc, ndcg, map_at, logloss = (lookup.metric(k)[0]
+                                  for k in ("auc", "ndcg@2", "map@2", "logloss"))
     s = torch.tensor([0.1, 0.4, 0.35, 0.8])
     y = torch.tensor([0.0, 0.0, 1.0, 1.0])
-    assert metric.auc(s, y) == pytest.approx(0.75)
-    assert metric.auc(torch.zeros(4), y) == pytest.approx(0.5)  # all tied
+    assert auc.auc(s, y) == pytest.approx(0.75)
+    assert auc.auc(torch.zeros(4), y) == pytest.approx(0.5)  # all tied
     sizes = torch.tensor([3, 1])
     score = torch.tensor([0.3, 0.2, 0.1, 0.0])
     lab = torch.tensor([0.0, 2.0, 1.0, 0.0])
     # query 0 ranked (0, 2, 1): DCG@2 = 0 + 3/log2(3); ideal 3 + 1/log2(3);
     # query 1 has no relevant row: 1
     q0 = (3.0 / math.log2(3.0)) / (3.0 + 1.0 / math.log2(3.0))
-    assert metric.ndcg(score, lab, sizes, 2) == pytest.approx((q0 + 1.0) / 2)
+    assert ndcg.ndcg(score, lab, sizes, 2) == pytest.approx((q0 + 1.0) / 2)
+    assert ndcg.evaluate(score[:, None], lab, sizes, "2") == pytest.approx((q0 + 1.0) / 2)
     # map@2, query 0: one relevant row in the top 2, at rank 2 (1/2), over
     # its 2 relevant rows
-    assert metric.map_at(score, lab, sizes, 2) == pytest.approx((0.25 + 1.0) / 2)
+    assert map_at.map_at(score, lab, sizes, 2) == pytest.approx((0.25 + 1.0) / 2)
     p = torch.tensor([0.5, 0.25])
     ll = -(math.log(0.5) + math.log(0.75)) / 2
-    assert metric.logloss(p, torch.tensor([1.0, 0.0])) == pytest.approx(ll)
+    assert logloss.logloss(p, torch.tensor([1.0, 0.0])) == pytest.approx(ll)
 
 
 def test_logloss_clips_in_the_predictions_own_type():
     # a float32 probability of 1 against label 0 is clipped to 1 - 1e-7 in
     # float32, which is 1 - 2**-23: a loss of 23 log 2, not log(1e7)
+    logloss = lookup.metric("logloss")[0]
     one = torch.tensor([1.0], dtype=torch.float32)
-    assert metric.logloss(one, torch.tensor([0.0])) == pytest.approx(23 * math.log(2.0),
-                                                                    rel=1e-12)
-    assert metric.logloss(one.double(), torch.tensor([0.0])) == pytest.approx(
+    assert logloss.logloss(one, torch.tensor([0.0])) == pytest.approx(23 * math.log(2.0),
+                                                                     rel=1e-12)
+    assert logloss.logloss(one.double(), torch.tensor([0.0])) == pytest.approx(
         7 * math.log(10.0), rel=1e-9)
     # at a margin of 17 the float32 probability is 1, and the clip decides
-    m = torch.tensor([17.0], dtype=torch.float32)
-    assert metric.evaluate("logloss", m, torch.tensor([0.0]), None) == pytest.approx(
+    m = torch.tensor([[17.0]], dtype=torch.float32)
+    assert logloss.evaluate(m, torch.tensor([0.0]), None, None) == pytest.approx(
         23 * math.log(2.0), rel=1e-12)
 
 

@@ -30,16 +30,21 @@ def _rec(round_idx, scale):
     return {"round": round_idx, "trees": 1, "ops": ops}
 
 
-def test_readers_take_the_mean_over_sampled_rounds(monkeypatch):
+def _run(details):
+    return harness.Run(shapes={}, device_name="", setup_s=0, ingest_s=0, window_s=1,
+                       window_rounds=1, round_details=details)
+
+
+def test_readers_take_the_mean_over_sampled_rounds():
     details = [_rec(8, 1.0), _rec(10, 2.0)]
-    monkeypatch.setattr(round_detail, "records", lambda: details)
-    assert round_detail.level_scan_ms(None) == pytest.approx(3 * 4.0 * 1.5)
-    assert round_detail.gradient_ms(None) == pytest.approx(3.0 * 1.5)
-    assert round_detail.eval_walk_ms(None) == pytest.approx(1.5 * 1.5)
-    assert round_detail.eval_metric_ms(None) == pytest.approx(3.0 * 1.5)
+    run = _run(details)
+    assert round_detail.level_scan_ms(run) == pytest.approx(3 * 4.0 * 1.5)
+    assert round_detail.gradient_ms(run) == pytest.approx(3.0 * 1.5)
+    assert round_detail.eval_walk_ms(run) == pytest.approx(1.5 * 1.5)
+    assert round_detail.eval_metric_ms(run) == pytest.approx(3.0 * 1.5)
     # a round without the op (an uncovered round) is left out of the mean
     details.append({"round": 12, "trees": 0, "ops": []})
-    assert round_detail.gradient_ms(None) == pytest.approx(3.0 * 1.5)
+    assert round_detail.gradient_ms(run) == pytest.approx(3.0 * 1.5)
 
 
 @pytest.mark.parametrize("suffix", ["binary", "rank"])
@@ -54,12 +59,15 @@ def test_a_run_without_round_detail_reports_nothing(name, suffix):
     RECORDER.annotate("grow_detail", {"ops": []})
     RECORDER.end_round()
     try:
-        assert harness.reader(f"{name}.{suffix}")(None) is None
+        assert round_detail.records() == []
+        assert harness.reader(f"{name}.{suffix}")(_run(round_detail.records())) is None
     finally:
         RECORDER.reset()
 
 
 def test_readers_read_the_programs_flight_records():
+    """The harness keeps the process's sampled ``round_detail`` records as
+    the run's ``round_details``; the readers read the run they are given."""
     from xgboost_tpu_torch.observability import RECORDER
 
     RECORDER.reset()
@@ -70,8 +78,11 @@ def test_readers_read_the_programs_flight_records():
             RECORDER.end_round()
         RECORDER.begin_round(11)  # an unsampled round between them
         RECORDER.end_round()
-        assert len(round_detail.records()) == 2
-        assert harness.reader("level_scan_ms.binary")(None) == pytest.approx(24.0)
-        assert harness.reader("eval_walk_ms.rank")(None) == pytest.approx(3.0)
+        run = _run(round_detail.records())
+        assert len(run.round_details) == 2
+        RECORDER.reset()  # the run keeps its own records
+        assert harness.reader("level_scan_ms.binary")(run) == pytest.approx(24.0)
+        assert harness.reader("eval_walk_ms.rank")(run) == pytest.approx(3.0)
+        assert harness.reader("eval_walk_ms.rank")(_run([])) is None
     finally:
         RECORDER.reset()

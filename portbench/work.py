@@ -15,10 +15,9 @@ bytes over the memory bandwidth and ops over the scalar peak.
 - ``split_search``: reads that histogram, scores ``2 * F * B`` candidate
   splits a node (missing left and right) at 10 operations each, writes a
   32-byte decision a node.
-- ``gradient``: ``binary:logistic`` reads a margin and a label and writes
-  (g, h), 16 bytes and 6 operations a row; ``rank:ndcg`` reads a row's
-  margin, label and query (12 bytes) and each drawn opponent's (12 bytes
-  a pair), writes (g, h), and does 10 operations a row and 30 a pair.
+- ``gradient``: the objective's own count, ``work(n, G)`` of its
+  reference file (``reference/objectives/<name>.py``); an objective
+  without one raises.
 - ``partition``: routes each row through the last level: one bin read, a
   position read and written, 1 operation.
 - ``leaf_delta``: adds each row's leaf value to its margin: a position
@@ -26,6 +25,10 @@ bytes over the memory bandwidth and ops over the scalar peak.
 - ``eval_walk``: walks ``m`` held-out rows through one tree of depth
   ``D``: one feature value read a level, the margin read and written, and
   the tree's nodes read once at 16 bytes; 3 operations a level.
+
+A round of an objective with ``G`` outputs takes one gradient of ``n``
+rows and ``G`` outputs, then grows ``G`` trees: each has its levels,
+split searches, partition, margin update and eval walk.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ import dataclasses
 import json
 import os
 from typing import Optional
+
+from . import lookup
 
 _PEAKS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "peaks.json")
 
@@ -65,10 +70,8 @@ def split_search(F: int, B: int, d: int) -> Work:
     return Work(F * K * B * 8 + 32 * K, 20 * F * K * B)
 
 
-def gradient(objective: str, n: int, n_pair: int = 1) -> Work:
-    if objective == "rank:ndcg":
-        return Work(n * (12 + 12 * n_pair + 8), n * (10 + 30 * n_pair))
-    return Work(16 * n, 6 * n)
+def gradient(objective: str, n: int, groups: int = 1) -> Work:
+    return lookup.objective(objective).work(n, groups)
 
 
 def partition(n: int, B: int) -> Work:
@@ -99,18 +102,23 @@ def least_s(w: Work, peak: dict) -> float:
     return max(w.bytes / peak["hbm_bytes_per_s"], w.ops / peak["scalar_ops_per_s"])
 
 
-def level_hist_least_s(n: int, F: int, B: int, depth: int, peak: dict) -> float:
-    """The least time of one tree's ``depth`` level histograms."""
-    return sum(least_s(level(n, F, B, d), peak) for d in range(depth))
+def level_hist_least_s(n: int, F: int, B: int, depth: int, peak: dict,
+                       groups: int = 1) -> float:
+    """The least time of a round's level histograms: ``depth`` levels
+    of each of its ``groups`` trees."""
+    return sum(least_s(level(n, F, B, d), peak)
+               for _ in range(groups) for d in range(depth))
 
 
 def round_least_s(objective: str, n: int, F: int, B: int, depth: int,
-                  m_eval: int, peak: dict) -> float:
-    """The least time of a round: the gradient, each level's histogram
-    and split search, the last partition, the margin update and one walk
-    of the held-out rows, each part at its own bound."""
-    parts = [gradient(objective, n), partition(n, B), leaf_delta(n),
-             eval_walk(m_eval, depth)]
-    for d in range(depth):
-        parts += [level(n, F, B, d), split_search(F, B, d)]
+                  m_eval: int, peak: dict, groups: int = 1) -> float:
+    """The least time of a round: the gradient, then for each of its
+    ``groups`` trees the last partition, the margin update, one walk of
+    the held-out rows and each level's histogram and split search, each
+    part at its own bound."""
+    parts = [gradient(objective, n, groups)]
+    for _ in range(groups):
+        parts += [partition(n, B), leaf_delta(n), eval_walk(m_eval, depth)]
+        for d in range(depth):
+            parts += [level(n, F, B, d), split_search(F, B, d)]
     return sum(least_s(w, peak) for w in parts)
